@@ -1,0 +1,175 @@
+// Kernel K2 `residual_chain`: forward DCT -> quant -> sign-bit hiding ->
+// dequant -> inverse DCT -> add prediction -> clip, plus the SSD of the
+// reconstruction, for K candidate predictions of each block.
+//
+// Replaces, from the JAX package: ops/transforms.py fwd_transform and
+// inv_transform (DCT 8/16/32), ops/quant.py quant and dequant, and
+// ops/sbh.py sbh_adjust, as chained in models/intra_tree.py
+// eval_intra_luma / eval_intra_chroma.
+//
+// Entry point (plain C, caller's stream, returns cudaGetLastError()):
+//   residual_chain(orig [B,n,n] i32, pred [B,K,n,n] i32, qp [B] i32, B, K,
+//                  n, sbh, levels [B,K,n,n] i16, recon [B,K,n,n] i32 or
+//                  NULL, ssd [B,K] i32)
+//
+// What bounds it on an H100: integer operations.  Per n x n block it reads
+// 2 n^2 ints and writes n^2 int16 (+ n^2 int32 recon) but does four n-point
+// matrix products (4 n^3 multiply-adds).  The JAX package splits 16-bit
+// operands into bytes to keep exact f32 MXU products; here one thread block
+// owns one candidate block, keeps every stage in shared memory and runs
+// exact int32 dot products (every partial sum stays below 2^31), with 64-bit
+// products only in quant/dequant.  No TF32 and no f32 anywhere.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+__constant__ int kC32[32] = {64, 90, 90, 90, 89, 88, 87, 85, 83, 82, 80,
+                             78, 75, 73, 70, 67, 64, 61, 57, 54, 50, 46,
+                             43, 38, 36, 31, 25, 22, 18, 13, 9, 4};
+__constant__ int kQuantScale[6] = {26214, 23302, 20560, 18396, 16384,
+                                   14564};
+__constant__ int kInvQuantScale[6] = {40, 45, 51, 57, 64, 72};
+// (y * 4 + x) -> position in the 4x4 up-right diagonal scan
+__constant__ int kDiagPos[16] = {0, 2, 5, 9, 1, 4, 8, 12,
+                                 3, 7, 11, 14, 6, 10, 13, 15};
+
+__device__ __forceinline__ int tuned_cos(int m) {
+  m &= 127;
+  if (m <= 32) return m < 32 ? kC32[m] : 0;
+  if (m <= 64) return (64 - m) < 32 ? -kC32[64 - m] : 0;
+  if (m <= 96) return (m - 64) < 32 ? -kC32[m - 64] : 0;
+  return kC32[128 - m];
+}
+
+__device__ __forceinline__ int round_shift(int x, int s) {
+  return (x + (1 << (s - 1))) >> s;
+}
+
+__device__ __forceinline__ int clip16(long long v) {
+  return v < -32768 ? -32768 : (v > 32767 ? 32767 : (int)v);
+}
+
+constexpr int kMaxN = 32;
+
+__global__ void chain_kernel(const int32_t* __restrict__ orig,
+                             const int32_t* __restrict__ pred,
+                             const int32_t* __restrict__ qp_arr, int K,
+                             int n, int sbh, int16_t* __restrict__ levels,
+                             int32_t* __restrict__ recon,
+                             int32_t* __restrict__ ssd) {
+  __shared__ int T[kMaxN * kMaxN];
+  __shared__ int A[kMaxN * kMaxN];
+  __shared__ int Bm[kMaxN * kMaxN];
+  __shared__ int ssd_sh;
+  const int bk = blockIdx.x;
+  const int b = bk / K;
+  const int nn = n * n;
+  const int log2n = 31 - __clz(n);
+  const int step = 32 / n;
+  const int32_t* o = orig + (size_t)b * nn;
+  const int32_t* p = pred + (size_t)bk * nn;
+  const int qp = qp_arr[b];
+  if (threadIdx.x == 0) ssd_sh = 0;
+  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+    const int k = i / n, j = i % n;
+    T[i] = tuned_cos((k * step) * (2 * j + 1));
+    A[i] = o[i] - p[i];
+  }
+  __syncthreads();
+  // forward stage 1: tmp[y][u] = rs(sum_x resi[y][x] * T[u][x], log2n - 1)
+  const int s1 = log2n + 8 - 9;
+  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+    const int y = i / n, u = i % n;
+    int acc = 0;
+    for (int x = 0; x < n; ++x) acc += A[y * n + x] * T[u * n + x];
+    Bm[i] = round_shift(acc, s1);
+  }
+  __syncthreads();
+  // forward stage 2: coeff[u][k] = rs(sum_y T[u][y] * tmp[y][k], log2n+6)
+  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+    const int u = i / n, k = i % n;
+    int acc = 0;
+    for (int y = 0; y < n; ++y) acc += T[u * n + y] * Bm[y * n + k];
+    const int c = round_shift(acc, log2n + 6);
+    // quant: offset 171 << (qbits - 9), flat scaling list
+    const int qbits = 14 + qp / 6 + 15 - 8 - log2n;
+    const long long mag =
+        ((long long)abs(c) * kQuantScale[qp % 6] +
+         ((long long)171 << (qbits - 9))) >> qbits;
+    A[i] = clip16(c < 0 ? -mag : (c > 0 ? mag : 0));
+  }
+  __syncthreads();
+  if (sbh) {
+    const int g4 = n / 4;
+    for (int g = threadIdx.x; g < g4 * g4; g += blockDim.x) {
+      const int gy = g / g4, gx = g % g4;
+      int first = 16, last = -1, first_v = 0, last_i = 0, sum = 0;
+      for (int q = 0; q < 16; ++q) {
+        const int idx = (gy * 4 + q / 4) * n + gx * 4 + q % 4;
+        const int v = A[idx];
+        if (v != 0) {
+          const int ps = kDiagPos[q];
+          if (ps < first) { first = ps; first_v = v; }
+          if (ps > last) { last = ps; last_i = idx; }
+          sum += abs(v);
+        }
+      }
+      if (last - first > 3 && (sum & 1) != (first_v < 0 ? 1 : 0)) {
+        const int v = A[last_i];
+        const int sg = v > 0 ? 1 : -1;
+        A[last_i] = v + (abs(v) >= 2 ? -sg : sg);
+      }
+    }
+    __syncthreads();
+  }
+  // levels out; dequant (spec 8.6.3, m = 16) into Bm
+  {
+    const int bd_shift = 8 + log2n - 5;
+    const long long scale = (long long)(kInvQuantScale[qp % 6] * 16)
+                            << (qp / 6);
+    for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+      levels[(size_t)bk * nn + i] = (int16_t)A[i];
+      Bm[i] = clip16(((long long)A[i] * scale + (1 << (bd_shift - 1))) >>
+                     bd_shift);
+    }
+  }
+  __syncthreads();
+  // inverse stage 1: g[y][x] = clip16(rs(sum_k T[k][y] * coeff[k][x], 7))
+  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+    const int y = i / n, x = i % n;
+    int acc = 0;
+    for (int k = 0; k < n; ++k) acc += T[k * n + y] * Bm[k * n + x];
+    A[i] = clip16(round_shift(acc, 7));
+  }
+  __syncthreads();
+  // inverse stage 2: r[y][x] = clip16(rs(sum_u g[y][u] * T[u][x], 12))
+  int local = 0;
+  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+    const int y = i / n, x = i % n;
+    int acc = 0;
+    for (int u = 0; u < n; ++u) acc += A[y * n + u] * T[u * n + x];
+    int rec = p[i] + clip16(round_shift(acc, 20 - 8));
+    rec = rec < 0 ? 0 : (rec > 255 ? 255 : rec);
+    if (recon) recon[(size_t)bk * nn + i] = rec;
+    const int d = rec - o[i];
+    local += d * d;
+  }
+  atomicAdd(&ssd_sh, local);
+  __syncthreads();
+  if (threadIdx.x == 0) ssd[bk] = ssd_sh;
+}
+
+}  // namespace
+
+extern "C" int residual_chain(const int32_t* orig, const int32_t* pred,
+                              const int32_t* qp, int B, int K, int n,
+                              int sbh, int16_t* levels, int32_t* recon,
+                              int32_t* ssd, cudaStream_t stream) {
+  if (n != 8 && n != 16 && n != 32) return (int)cudaErrorInvalidValue;
+  const int threads = n == 8 ? 64 : 256;
+  chain_kernel<<<B * K, threads, 0, stream>>>(orig, pred, qp, K, n, sbh,
+                                              levels, recon, ssd);
+  return (int)cudaGetLastError();
+}

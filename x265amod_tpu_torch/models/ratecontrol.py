@@ -1,0 +1,30 @@
+"""Rate control, CQP only (the slice's subset of the JAX package's
+`models/ratecontrol.py`): an I frame's QP is the configured QP less the
+offset of x265's ipFactor, 6 * log2(ip_factor)."""
+
+from __future__ import annotations
+
+import math
+
+from ..utils.params import Param
+
+
+class RateControl:
+    def __init__(self, param: Param):
+        if param.rc_mode != "cqp" or param.bitrate > 0:
+            raise ValueError("the port runs CQP rate control only")
+        self.mode = "cqp"
+        self.base_qp = float(param.qp)
+        self.ip_offset = 6.0 * math.log2(max(param.ip_factor, 1.01))
+        self.frames = 0
+        self.actual_bits = 0.0
+
+    def frame_qp(self, slice_type: str) -> int:
+        if slice_type != "I":
+            raise ValueError("the port codes I slices only")
+        qp = self.base_qp - self.ip_offset
+        return int(round(min(max(qp, 0.0), 51.0)))
+
+    def update(self, bits: int, slice_type: str, qp: int) -> None:
+        self.frames += 1
+        self.actual_bits += bits

@@ -1,0 +1,122 @@
+"""Builds, loads and counts the port's hand-written CUDA kernels.
+
+Each kernel is one `csrc/<name>.cu` with a plain C interface, compiled by
+`nvcc` for `sm_90a` into `build/x265amod_tpu_torch/lib<name>.so` at first use
+and loaded with ctypes.  Every C entry point takes PyTorch's current stream,
+launches, and returns `cudaGetLastError()`; the wrappers raise on a nonzero
+code.  Nothing here falls back to the plain PyTorch versions: a CUDA tensor
+either runs the kernel or raises.
+
+`LAUNCHES[name]` counts the wrapper calls that launched kernel `name`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+from ..utils.build import BUILD_DIR, PKG_DIR, build_library
+
+CSRC = os.path.join(PKG_DIR, "csrc")
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+# name -> extra nvcc flags.  tu_bits adds its f32 terms in a fixed order
+# that decides RD argmins, so it must not be contracted into FMAs.
+KERNELS = {
+    "intra_pred": [],
+    "residual_chain": [],
+    "tu_bits": ["--fmad=false"],
+    "deblock": [],
+}
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc_path() -> str:
+    cand = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(cand):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return cand
+
+
+def _cmd(name: str) -> list[str]:
+    return [nvcc_path()] + ARCH + BASE_FLAGS + KERNELS[name]
+
+
+def build_all() -> dict:
+    """Compile every kernel at once (one nvcc process per source, all
+    started together).  Returns {name: ptxas report}."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in KERNELS:
+        src = os.path.join(CSRC, f"{name}.cu")
+        out = os.path.join(BUILD_DIR, f"lib{name}.so")
+        tmp = f"{out}.tmp{os.getpid()}"
+        procs[name] = (subprocess.Popen(
+            _cmd(name) + ["-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, out)
+    reports = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{text}")
+            continue
+        os.replace(tmp, out)
+        reports[name] = text
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return reports
+
+
+def lib(name: str):
+    """The loaded ctypes library of kernel ``name`` (built at first use)."""
+    with _lock:
+        if name not in _libs:
+            path, _ = build_library(
+                [os.path.join(CSRC, f"{name}.cu")], f"lib{name}.so",
+                _cmd(name))
+            _libs[name] = ctypes.CDLL(path)
+        return _libs[name]
+
+
+def stream_handle(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def launched(name: str, rc: int) -> None:
+    """Count one launch of ``name`` and raise if the C entry reported a
+    CUDA error."""
+    LAUNCHES[name] += 1
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+                           f"(cudaError {rc})")
+
+
+def require_cuda(*tensors) -> None:
+    """Validate a kernel's tensor arguments: same CUDA device, contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError("kernel arguments must lie on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError("kernel arguments must be contiguous")

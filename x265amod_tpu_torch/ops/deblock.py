@@ -1,0 +1,279 @@
+"""Deblocking for the all-intra CTU32 tree (spec 8.7.2): the boundary
+strength and QP maps in plain PyTorch, and kernel K4 `deblock` (the luma bS
+filter and the chroma bS == 2 filter, vertical edges then horizontal) with
+its plain version.
+
+Counterparts in the JAX package's `ops/deblock.py`: `luma_params`,
+`intra_tree_bs_maps`, `effective_qp16_tree`, `edge_qp_maps`,
+`deblock_luma_bs` and `deblock_chroma_bs`.  Every function here takes a
+leading frame dimension F.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import cuda_lib
+from .quant import chroma_qp_t
+
+# spec Table 8-12
+BETA_TABLE = np.array([
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 6, 7, 8, 9, 10, 11,
+    12, 13, 14, 15, 16, 17, 18, 20, 22, 24, 26, 28, 30, 32, 34, 36, 38,
+    40, 42, 44, 46, 48, 50, 52, 54, 56, 58, 60, 62, 64], dtype=np.int32)
+TC_TABLE = np.array([
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1,
+    1, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 5, 5, 6, 6, 7, 8,
+    9, 10, 11, 13, 14, 16, 18, 20, 22, 24], dtype=np.int32)
+
+
+def luma_params(qp: int, beta_offset: int = 0, tc_offset: int = 0,
+                bs: int = 2):
+    beta_idx = int(np.clip(qp + beta_offset, 0, 51))
+    tc_idx = int(np.clip(qp + 2 * (bs - 1) + tc_offset, 0, 53))
+    return int(BETA_TABLE[beta_idx]), int(TC_TABLE[tc_idx])
+
+
+# ---- boundary strength and QP maps (plain torch on every device) ----------
+
+def intra_tree_bs_maps(split32, h16: int, w16: int):
+    """split32 [F, hc, wc] -> (bs_v [F, h16, w16-1], bs_h [F, h16-1, w16]):
+    bS 2 on every TU edge, 0 on the internal 16-edges of an unsplit CTU."""
+    dev = split32.device
+    s = split32.to(torch.int32)
+    jv = torch.arange(w16 - 1, device=dev)
+    rows32 = torch.arange(h16, device=dev) // 2
+    split_v = s[:, rows32[:, None], ((jv + 1) // 2)[None, :]]
+    bs_v = torch.where((jv % 2 == 0)[None, None, :], 2 * split_v, 2)
+    ji = torch.arange(h16 - 1, device=dev)
+    cols32 = torch.arange(w16, device=dev) // 2
+    split_h = s[:, ((ji + 1) // 2)[:, None], cols32[None, :]]
+    bs_h = torch.where((ji % 2 == 0)[None, :, None], 2 * split_h, 2)
+    return bs_v.to(torch.int32), bs_h.to(torch.int32)
+
+
+def effective_qp_map(qp_sig, coded, slice_qp: int):
+    """Decoded QpY per CTB (spec 8.6.1, QG == CTB): the signalled QP where
+    the CTB codes coefficients, else the previous CTB's in decode order,
+    starting from SliceQpY.  qp_sig [hc, wc], coded [F, hc, wc]."""
+    f, hc, wc = coded.shape
+    idx = torch.arange(hc * wc, device=coded.device).expand(f, -1)
+    marked = torch.where(coded.reshape(f, -1), idx, -1)
+    last = torch.cummax(marked, 1).values
+    eff = torch.where(last >= 0,
+                      qp_sig.reshape(-1)[torch.clamp(last, min=0)], slice_qp)
+    return eff.reshape(f, hc, wc).to(torch.int32)
+
+
+def effective_qp16_tree(qp32, split, coded16, slice_qp: int):
+    """Decoded per-16-cell QpY inside each CTB32 (the decoder's per-CU
+    assignment): CUs before the first coded CU in z-order keep the carry-in
+    qPY_PREV.  qp32 [hc, wc], split [F, hc, wc], coded16 [F, h16, w16]."""
+    f, hc, wc = split.shape
+    qp32 = qp32.to(torch.int32)
+    c = coded16.reshape(f, hc, 2, wc, 2).permute(0, 1, 3, 2, 4) \
+        .reshape(f, hc, wc, 4)
+    anyc = c.any(-1)
+    eff32 = effective_qp_map(qp32, anyc, slice_qp)
+    carry = torch.cat([torch.full((f, 1), slice_qp, dtype=torch.int32,
+                                  device=split.device),
+                       eff32.reshape(f, -1)[:, :-1]], 1).reshape(f, hc, wc)
+    firstz = torch.where(split.bool(), torch.argmax(c.to(torch.int32), -1),
+                         0)
+    firstz = torch.where(anyc, firstz, 4)
+    k = torch.arange(4, device=split.device)
+    cell = torch.where(k[None, None, None, :] < firstz[..., None],
+                       carry[..., None], qp32[None, :, :, None])
+    return cell.reshape(f, hc, wc, 2, 2).permute(0, 1, 3, 2, 4) \
+        .reshape(f, hc * 2, wc * 2).to(torch.int32)
+
+
+def edge_qp_maps(qp_eff):
+    """Per-edge luma QP, (QpQ + QpP + 1) >> 1, on the bS edge grids."""
+    qp_v = (qp_eff[:, :, :-1] + qp_eff[:, :, 1:] + 1) >> 1
+    qp_h = (qp_eff[:, :-1, :] + qp_eff[:, 1:, :] + 1) >> 1
+    return qp_v.to(torch.int32), qp_h.to(torch.int32)
+
+
+# ---- plain filters ----------------------------------------------------------
+
+def _filter_luma(p, q, beta, tc):
+    """Spec 8.7.2.5 luma edge filter over [..., 4 lines, 4 taps]; p taps
+    are p3, p2, p1, p0 and q taps q0..q3; beta/tc are [..., 1]."""
+    p0, p1, p2, p3 = p[..., 3], p[..., 2], p[..., 1], p[..., 0]
+    q0, q1, q2, q3 = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    beta_s, tc_s = beta[..., 0], tc[..., 0]
+    dp = (p2 - 2 * p1 + p0).abs()
+    dq = (q2 - 2 * q1 + q0).abs()
+    dp0, dp3, dq0, dq3 = dp[..., 0], dp[..., 3], dq[..., 0], dq[..., 3]
+    on = ((dp0 + dq0 + dp3 + dq3) < beta_s)[..., None]
+
+    def strong_at(i):
+        return ((2 * (dp[..., i] + dq[..., i]) < (beta_s >> 2))
+                & ((p3[..., i] - p0[..., i]).abs()
+                   + (q0[..., i] - q3[..., i]).abs() < (beta_s >> 3))
+                & ((p0[..., i] - q0[..., i]).abs() < ((5 * tc_s + 1) >> 1)))
+    strong = (strong_at(0) & strong_at(3))[..., None]
+
+    def c2(v, ref):
+        return torch.minimum(torch.maximum(v, ref - 2 * tc), ref + 2 * tc)
+    sp0 = c2((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3, p0)
+    sp1 = c2((p2 + p1 + p0 + q0 + 2) >> 2, p1)
+    sp2 = c2((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3, p2)
+    sq0 = c2((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3, q0)
+    sq1 = c2((p0 + q0 + q1 + q2 + 2) >> 2, q1)
+    sq2 = c2((p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3, q2)
+
+    delta0 = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4
+    wk_on = delta0.abs() < tc * 10
+    delta = torch.minimum(torch.maximum(delta0, -tc), tc)
+    wp0 = torch.clamp(p0 + delta, 0, 255)
+    wq0 = torch.clamp(q0 - delta, 0, 255)
+    side = (beta_s + (beta_s >> 1)) >> 3
+    dep = ((dp0 + dp3) < side)[..., None]
+    deq = ((dq0 + dq3) < side)[..., None]
+    half = tc >> 1
+    dpv = torch.minimum(torch.maximum(
+        (((p2 + p0 + 1) >> 1) - p1 + delta) >> 1, -half), half)
+    dqv = torch.minimum(torch.maximum(
+        (((q2 + q0 + 1) >> 1) - q1 - delta) >> 1, -half), half)
+    wp1 = torch.clamp(p1 + dpv, 0, 255)
+    wq1 = torch.clamp(q1 + dqv, 0, 255)
+
+    np0 = torch.where(strong, sp0, torch.where(wk_on, wp0, p0))
+    np1 = torch.where(strong, sp1, torch.where(wk_on & dep, wp1, p1))
+    np2 = torch.where(strong, sp2, p2)
+    nq0 = torch.where(strong, sq0, torch.where(wk_on, wq0, q0))
+    nq1 = torch.where(strong, sq1, torch.where(wk_on & deq, wq1, q1))
+    nq2 = torch.where(strong, sq2, q2)
+    fp = torch.stack([p3, torch.where(on, np2, p2), torch.where(on, np1, p1),
+                      torch.where(on, np0, p0)], -1)
+    fq = torch.stack([torch.where(on, nq0, q0), torch.where(on, nq1, q1),
+                      torch.where(on, nq2, q2), q3], -1)
+    return fp, fq
+
+
+def _luma_vertical_pass(x, bs, qp):
+    """x [F, H, W]; bs/qp [F, H/16, E] for the vertical edges at x = 16,
+    32, ...; filters in place and returns x."""
+    f, h, w = x.shape
+    xs = np.arange(16, w, 16)
+    if len(xs) == 0:
+        return x
+    cols = torch.as_tensor(np.concatenate([np.arange(x0 - 4, x0 + 4)
+                                           for x0 in xs]), device=x.device)
+    seg = x[:, :, cols].reshape(f, h, len(xs), 8).permute(0, 2, 1, 3) \
+        .reshape(f, len(xs), h // 4, 4, 8)
+    bs_e = bs.permute(0, 2, 1).repeat_interleave(4, 2)   # [F, E, H/4]
+    qp_e = qp.permute(0, 2, 1).repeat_interleave(4, 2)
+    beta_t = torch.as_tensor(BETA_TABLE, device=x.device)
+    tc_t = torch.as_tensor(TC_TABLE, device=x.device)
+    beta = torch.where(bs_e > 0, beta_t[torch.clamp(qp_e, 0, 51).long()], 0)
+    tc = torch.where(bs_e > 0, tc_t[torch.clamp(qp_e + 2 * (bs_e - 1), 0,
+                                                53).long()], 0)
+    fp, fq = _filter_luma(seg[..., :4], seg[..., 4:], beta[..., None],
+                          tc[..., None])
+    out = torch.cat([fp, fq], -1).reshape(f, len(xs), h, 8) \
+        .permute(0, 2, 1, 3).reshape(f, h, -1)
+    x[:, :, cols] = out.to(x.dtype)
+    return x
+
+
+def _chroma_vertical_pass(x, bs, qpc):
+    """x [F, Hc, Wc]; bs/qpc [F, Hc/8, E] (chroma-mapped QP) for the
+    vertical edges at x = 8, 16, ...; bS == 2 edges only."""
+    f, h, w = x.shape
+    xs = np.arange(8, w, 8)
+    if len(xs) == 0:
+        return x
+    cols = torch.as_tensor(np.concatenate([np.arange(x0 - 2, x0 + 2)
+                                           for x0 in xs]), device=x.device)
+    win = x[:, :, cols].reshape(f, h, len(xs), 4)
+    tc_t = torch.as_tensor(TC_TABLE, device=x.device)
+    tc = torch.where(bs == 2, tc_t[torch.clamp(qpc + 2, 0, 53).long()], 0)
+    tc = tc.repeat_interleave(8, 1)                      # [F, Hc, E]
+    p1, p0, q0, q1 = win[..., 0], win[..., 1], win[..., 2], win[..., 3]
+    delta = torch.minimum(torch.maximum(
+        (((q0 - p0) << 2) + p1 - q1 + 4) >> 3, -tc), tc)
+    out = torch.stack([p1, torch.clamp(p0 + delta, 0, 255),
+                       torch.clamp(q0 - delta, 0, 255), q1], -1)
+    x[:, :, cols] = out.reshape(f, h, -1).to(x.dtype)
+    return x
+
+
+def deblock_luma_plain(plane, bs_v, bs_h, qp_v, qp_h):
+    x = plane.to(torch.int32).clone()
+    x = _luma_vertical_pass(x, bs_v, qp_v)
+    xt = _luma_vertical_pass(x.transpose(1, 2).contiguous(),
+                             bs_h.transpose(1, 2), qp_h.transpose(1, 2))
+    return xt.transpose(1, 2).contiguous()
+
+
+def deblock_chroma_plain(plane, bs_v, bs_h, qpc_v, qpc_h):
+    x = plane.to(torch.int32).clone()
+    x = _chroma_vertical_pass(x, bs_v, qpc_v)
+    xt = _chroma_vertical_pass(x.transpose(1, 2).contiguous(),
+                               bs_h.transpose(1, 2), qpc_h.transpose(1, 2))
+    return xt.transpose(1, 2).contiguous()
+
+
+# ---- kernel K4 wrappers -----------------------------------------------------
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _k4():
+    lib = cuda_lib.lib("deblock")
+    if not getattr(lib, "_typed", False):
+        for fn in (lib.deblock_luma, lib.deblock_chroma):
+            fn.argtypes = [_VP] * 5 + [_I] * 3 + [_VP]
+            fn.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _deblock(entry, plain, plane, bs_v, bs_h, qv, qh):
+    if plane.device.type == "cpu":
+        return plain(plane, bs_v, bs_h, qv, qh)
+    x = plane.to(torch.int32).clone()
+    args = [t.to(torch.int32).contiguous() for t in (bs_v, bs_h, qv, qh)]
+    cuda_lib.require_cuda(x, *args)
+    f, h, w = x.shape
+    if f:
+        rc = getattr(_k4(), entry)(
+            cuda_lib.ptr(x), *(cuda_lib.ptr(t) for t in args), f, h, w,
+            _VP(cuda_lib.stream_handle(x)))
+        cuda_lib.launched("deblock", rc)
+    return x
+
+
+def deblock_luma(plane, bs_v, bs_h, qp_v, qp_h):
+    """plane [F, H, W] -> deblocked int32 copy (bS 1/2 luma filter)."""
+    return _deblock("deblock_luma", deblock_luma_plain, plane, bs_v, bs_h,
+                    qp_v, qp_h)
+
+
+def deblock_chroma(plane, bs_v, bs_h, qpc_v, qpc_h):
+    """plane [F, H/2, W/2] -> deblocked int32 copy (bS 2 chroma filter);
+    qpc_* are the chroma-mapped per-edge QPs."""
+    return _deblock("deblock_chroma", deblock_chroma_plain, plane, bs_v,
+                    bs_h, qpc_v, qpc_h)
+
+
+def deblock_frame_planes(rec_y, rec_cb, rec_cr, split32, coded16, qp32,
+                         slice_qp: int):
+    """The intra-tree loop filter over F frames (the tail of the JAX
+    `_encode_frame`): bS and QP maps, then luma and both chroma planes."""
+    f, h, w = rec_y.shape
+    h16, w16 = h // 16, w // 16
+    bs_v, bs_h = intra_tree_bs_maps(split32, h16, w16)
+    eff16 = effective_qp16_tree(qp32, split32, coded16, slice_qp)
+    qp_v, qp_h = edge_qp_maps(eff16)
+    qpc_v, qpc_h = chroma_qp_t(qp_v), chroma_qp_t(qp_h)
+    return (deblock_luma(rec_y, bs_v, bs_h, qp_v, qp_h),
+            deblock_chroma(rec_cb, bs_v, bs_h, qpc_v, qpc_h),
+            deblock_chroma(rec_cr, bs_v, bs_h, qpc_v, qpc_h))

@@ -1,0 +1,248 @@
+"""Encoder parameter system (the port's copy of x265amod_tpu/utils/params.py).
+
+The `Param` dataclass and the preset ladder are the JAX package's, field for
+field, so a test can build both encoders from one config through
+`param_from_dict`.  `check_params` here is the slice gate: it refuses every
+setting this port does not run yet (see `_SLICE_REFUSALS`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+QP_MAX_SPEC = 51
+
+PRESETS = ["ultrafast", "superfast", "veryfast", "faster", "fast",
+           "medium", "slow", "slower", "veryslow", "placebo"]
+TUNES = ["psnr", "ssim", "grain", "zerolatency", "fastdecode", "animation"]
+
+
+@dataclass
+class Param:
+    # --- input description ---
+    width: int = 0
+    height: int = 0
+    fps_num: int = 25
+    fps_den: int = 1
+    internal_bit_depth: int = 8
+    chroma_format: int = 1            # 1 = i420 (only format wired up yet)
+    total_frames: int = 0             # aMod XLENGTH support
+    # --- structure ---
+    ctu_size: int = 16                # 16/32/64; v1 pipeline uses 16
+    min_cu_size: int = 16
+    max_tu_size: int = 16
+    keyint: int = 250
+    min_keyint: int = 0
+    bframes: int = 0
+    bframe_bias: int = 0
+    b_adapt: int = 0
+    b_pyramid: bool = True
+    open_gop: bool = True
+    rc_lookahead: int = 20
+    lookahead_depth: int = 20
+    ref: int = 1
+    # --- analysis ---
+    rd_level: int = 2
+    me_method: str = "hex"            # dia/hex/umh/star/sea/full: all
+    me_range: int = 16                # dense-grid half-width (4..32)
+    subme: int = 2
+    max_merge: int = 2
+    rect: bool = False
+    amp: bool = False
+    early_skip: bool = True
+    fast_intra: bool = False
+    b_intra: bool = False
+    tu_intra_depth: int = 1
+    tu_inter_depth: int = 1
+    # --- quant / quality ---
+    qp: int = 32
+    crf: float = 28.0
+    bitrate: int = 0                  # kbps; 0 = CRF/CQP
+    rc_mode: str = "cqp"              # cqp / crf / abr
+    scenecut: int = 40                # adaptive I threshold (0 = off)
+    aq_mode: int = 0
+    aq_strength: float = 1.0
+    cutree: bool = False
+    qp_step: int = 4
+    ip_factor: float = 1.4
+    pb_factor: float = 1.3
+    rdoq_level: int = 0
+    psy_rd: float = 0.0
+    psy_rdoq: float = 0.0
+    sign_hide: bool = True    # x265 default: on
+    scaling_lists: str = "flat"       # flat quant matrices (m=16)
+    lossless: bool = False
+    vbv_maxrate: int = 0
+    vbv_bufsize: int = 0
+    vbv_init: float = 0.9
+    pass_num: int = 0                 # --pass 1/2 (2-pass rate control)
+    stats_file: str = ""              # --stats
+    analysis_save: str = ""           # --analysis-save <file>
+    analysis_load: str = ""           # --analysis-load <file>
+    analysis_reuse_level: int = 10    # --analysis-reuse-level
+    qpfile: str = ""                  # --qpfile (forced types/QPs)
+    # --- loop filters ---
+    deblock: bool = True              # on by default (x265 parity)
+    deblock_tc_offset: int = 0
+    deblock_beta_offset: int = 0
+    sao: bool = False
+    # --- parallelism ---
+    frame_parallelism: int = 1        # GOP/frame shards across devices
+    wpp: bool = False                 # WPP entry points (substreams)
+    devices: int = 1
+    # --- bitstream ---
+    repeat_headers: bool = False
+    annexb: bool = True
+    aud: bool = False
+    hrd: bool = False
+    info: bool = True
+    temporal_layers: int = 1
+    # --- SEI / metadata (reference x265.h masteringDisplayColorVolume,
+    # maxCLL/maxFALL, decodedPictureHashSEI, preferredTransferCharacteristics)
+    decoded_picture_hash: int = 0     # 0=off 1=md5 2=crc 3=checksum
+    master_display: str = ""          # G(x,y)B(x,y)R(x,y)WP(x,y)L(max,min)
+    max_cll: int = 0
+    max_fall: int = 0
+    atc_sei: int = -1                 # preferred transfer characteristics
+    # --- logging (aMod extended progress is in the CLI) ---
+    log_level: int = 2
+    csv: str = ""
+    csv_log_level: int = 0
+    # --- misc toggles (declared for surface parity; validated below) ---
+    preset: str = "medium"
+    tune: str = ""
+
+    def copy(self) -> "Param":
+        return dataclasses.replace(self)
+
+
+# Preset ladder: follows the documented reference ladder
+# (doc/reST/presets.rst:35-100) re-expressed over the knobs this build
+# actually wires — every value below changes pipeline behavior.  Knobs
+# the reference ladder sets but this build has not wired yet (ref>1,
+# rect/amp, rd levels) are deliberately NOT set here: check_params
+# rejects them loudly instead of silently ignoring them (VERDICT
+# round-1 weak #4).
+_PRESET_TABLE = {
+    # rc_lookahead, bframes, me_range (dense-grid half-width), subme
+    # (0 = integer-pel, >=1 = batched qpel refine), loop filters, AQ
+    "ultrafast": dict(rc_lookahead=5, bframes=3, me_range=8, subme=0,
+                      sao=False, aq_mode=0, cutree=False, deblock=True),
+    "superfast": dict(rc_lookahead=10, bframes=3, me_range=8, subme=1,
+                      sao=False, aq_mode=2, cutree=True, deblock=True),
+    "veryfast": dict(rc_lookahead=15, bframes=4, me_range=16, subme=1,
+                     sao=True, aq_mode=2, cutree=True, deblock=True),
+    "faster": dict(rc_lookahead=15, bframes=4, me_range=16, subme=1,
+                   sao=True, aq_mode=2, cutree=True, deblock=True),
+    "fast": dict(rc_lookahead=15, bframes=3, me_range=16, subme=2,
+                 sao=True, aq_mode=2, cutree=True, deblock=True),
+    "medium": dict(rc_lookahead=20, bframes=4, me_range=16, subme=2,
+                   sao=True, aq_mode=2, cutree=True, deblock=True),
+    "slow": dict(rc_lookahead=25, bframes=4, me_range=24, subme=3,
+                 sao=True, aq_mode=2, cutree=True, deblock=True),
+    "slower": dict(rc_lookahead=40, bframes=8, me_range=24, subme=3,
+                   sao=True, aq_mode=2, cutree=True, deblock=True),
+    "veryslow": dict(rc_lookahead=40, bframes=8, me_range=32, subme=4,
+                     sao=True, aq_mode=2, cutree=True, deblock=True),
+    "placebo": dict(rc_lookahead=60, bframes=8, me_range=32, subme=5,
+                    sao=True, aq_mode=2, cutree=True, deblock=True),
+}
+
+
+def param_default_preset(preset: str = "medium", tune: str = "") -> Param:
+    if preset not in PRESETS:
+        raise ValueError(f"unknown preset '{preset}'")
+    p = Param(preset=preset, tune=tune)
+    for k, v in _PRESET_TABLE[preset].items():
+        setattr(p, k, v)
+    if tune:
+        if tune not in TUNES:
+            raise ValueError(f"unknown tune '{tune}'")
+        if tune == "zerolatency":
+            p.bframes = 0
+            p.rc_lookahead = 0
+            p.frame_parallelism = 1
+        elif tune == "grain":
+            p.aq_mode = 0
+            p.cutree = False
+            p.ip_factor = 1.1
+            p.pb_factor = 1.1
+        elif tune in ("psnr", "ssim"):
+            p.psy_rd = 0.0
+            p.psy_rdoq = 0.0
+        elif tune == "fastdecode":
+            p.deblock = False
+            p.sao = False
+    return p
+
+
+def param_from_dict(d: dict) -> Param:
+    """The port's `Param` from a plain dict, e.g. `dataclasses.asdict` of
+    the JAX package's `Param`.  Unknown keys are refused."""
+    names = {f.name for f in dataclasses.fields(Param)}
+    unknown = sorted(set(d) - names)
+    if unknown:
+        raise ValueError(f"unknown Param fields: {unknown}")
+    return Param(**d)
+
+
+def check_params(p: Param) -> None:
+    """Validation (role of x265_check_params, param.cpp:1583), with the
+    slice gate of the port: every setting outside BASELINE config 1
+    (all-intra CTU32 CQP, 8-bit, deblock on, SAO/AQ/RDOQ off) is refused
+    loudly, never ignored."""
+    if p.width <= 0 or p.height <= 0:
+        raise ValueError("picture dimensions must be set")
+    if p.chroma_format != 1:
+        raise ValueError("only 4:2:0 is wired up in this build")
+    if not 0 <= p.qp <= QP_MAX_SPEC:
+        raise ValueError("qp out of range")
+    unwired = []
+    if p.keyint != 1:
+        unwired.append(f"keyint {p.keyint} (the port codes all-intra, "
+                       "--keyint 1)")
+    if p.ctu_size != 32:
+        unwired.append(f"ctu {p.ctu_size} (the port codes the CTU32 "
+                       "quadtree)")
+    if p.lossless:
+        unwired.append("--lossless")
+    if p.sao:
+        unwired.append("SAO")
+    if p.aq_mode > 0:
+        unwired.append(f"aq-mode {p.aq_mode}")
+    if p.cutree:
+        unwired.append("cutree")
+    if p.rdoq_level > 0:
+        unwired.append(f"rdoq-level {p.rdoq_level}")
+    if p.internal_bit_depth != 8:
+        unwired.append(f"internal-bit-depth {p.internal_bit_depth}")
+    if (p.rc_mode != "cqp" or p.bitrate > 0 or p.pass_num
+            or p.vbv_maxrate > 0 or p.vbv_bufsize > 0 or p.hrd):
+        unwired.append("rate control other than CQP (crf/abr/vbv/"
+                       "2-pass/hrd)")
+    if p.wpp:
+        unwired.append("--wpp")
+    if p.decoded_picture_hash:
+        unwired.append("decoded picture hash SEI")
+    if p.analysis_load or p.analysis_save:
+        unwired.append("analysis load/save")
+    if p.qpfile:
+        unwired.append("--qpfile")
+    if p.rect or p.amp:
+        unwired.append("rect/amp partitions")
+    if p.tu_intra_depth != 1 or p.tu_inter_depth != 1:
+        unwired.append("tu-intra/inter-depth > 1 (TU quadtree)")
+    if p.max_merge != 2:
+        unwired.append(f"max-merge {p.max_merge} (pipeline codes 2)")
+    if p.psy_rd or p.psy_rdoq:
+        unwired.append("psy-rd / psy-rdoq")
+    if p.scaling_lists != "flat":
+        unwired.append(f"scaling lists '{p.scaling_lists}'")
+    if p.temporal_layers > 1:
+        unwired.append("temporal sub-layers")
+    if p.deblock_tc_offset or p.deblock_beta_offset:
+        unwired.append("deblock tC/beta offsets")
+    if unwired:
+        raise ValueError("not wired in this port (refusing to ignore "
+                         "silently): " + "; ".join(unwired))
