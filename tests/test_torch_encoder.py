@@ -21,6 +21,10 @@ from x265amod_tpu_torch.utils.params import (check_params, param_from_dict,
                                              param_default_preset)
 from test_torch_slice import clip, config1
 
+# The port's CPU ops are small: one intra-op thread keeps torch's idle
+# threads from spinning on cores that parallel test workers need.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

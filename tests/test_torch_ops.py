@@ -28,6 +28,10 @@ from x265amod_tpu_torch.ops.sbh import sbh_adjust as t_sbh
 from x265amod_tpu_torch.ops.transforms import fwd_transform as t_fwd
 from x265amod_tpu_torch.ops.transforms import inv_transform as t_inv
 
+# The port's CPU ops are small: one intra-op thread keeps torch's idle
+# threads from spinning on cores that parallel test workers need.
+torch.set_num_threads(1)
+
 
 def T(a):
     return torch.from_numpy(np.ascontiguousarray(a))

@@ -8,6 +8,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from x265amod_tpu.models.encoder import Encoder as JaxEncoder
 from x265amod_tpu.models.intra_tree import IntraTreeEncoder as JaxTree
@@ -15,6 +16,10 @@ from x265amod_tpu.utils.params import param_default_preset
 from x265amod_tpu_torch.models.encoder import Encoder
 from x265amod_tpu_torch.models.intra_tree import IntraTreeEncoder
 from x265amod_tpu_torch.utils.params import param_from_dict
+
+# The port's CPU ops are small: one intra-op thread keeps torch's idle
+# threads from spinning on cores that parallel test workers need.
+torch.set_num_threads(1)
 
 
 def clip(w, h, n, seed=0):

@@ -9,8 +9,10 @@
 //
 // Entry point (plain C, caller's stream, returns cudaGetLastError()):
 //   residual_chain(orig [B,n,n] i32, pred [B,K,n,n] i32, qp [B] i32, B, K,
-//                  n, sbh, levels [B,K,n,n] i16, recon [B,K,n,n] i32 or
-//                  NULL, ssd [B,K] i32)
+//                  n, sbh, intra, levels [B,K,n,n] i16, recon [B,K,n,n] i32
+//                  or NULL, ssd [B,K] i32)
+// intra selects the quant rounding offset: 171 << (qbits - 9) for intra
+// blocks, 85 << (qbits - 9) for inter blocks (ops/quant.py:100).
 //
 // What bounds it on an H100: integer operations.  Per n x n block it reads
 // 2 n^2 ints and writes n^2 int16 (+ n^2 int32 recon) but does four n-point
@@ -56,7 +58,8 @@ constexpr int kMaxN = 32;
 __global__ void chain_kernel(const int32_t* __restrict__ orig,
                              const int32_t* __restrict__ pred,
                              const int32_t* __restrict__ qp_arr, int K,
-                             int n, int sbh, int16_t* __restrict__ levels,
+                             int n, int sbh, int intra,
+                             int16_t* __restrict__ levels,
                              int32_t* __restrict__ recon,
                              int32_t* __restrict__ ssd) {
   __shared__ int T[kMaxN * kMaxN];
@@ -93,11 +96,11 @@ __global__ void chain_kernel(const int32_t* __restrict__ orig,
     int acc = 0;
     for (int y = 0; y < n; ++y) acc += T[u * n + y] * Bm[y * n + k];
     const int c = round_shift(acc, log2n + 6);
-    // quant: offset 171 << (qbits - 9), flat scaling list
+    // quant: offset (171 intra, 85 inter) << (qbits - 9), flat scaling
     const int qbits = 14 + qp / 6 + 15 - 8 - log2n;
     const long long mag =
         ((long long)abs(c) * kQuantScale[qp % 6] +
-         ((long long)171 << (qbits - 9))) >> qbits;
+         ((long long)(intra ? 171 : 85) << (qbits - 9))) >> qbits;
     A[i] = clip16(c < 0 ? -mag : (c > 0 ? mag : 0));
   }
   __syncthreads();
@@ -165,11 +168,12 @@ __global__ void chain_kernel(const int32_t* __restrict__ orig,
 
 extern "C" int residual_chain(const int32_t* orig, const int32_t* pred,
                               const int32_t* qp, int B, int K, int n,
-                              int sbh, int16_t* levels, int32_t* recon,
-                              int32_t* ssd, cudaStream_t stream) {
+                              int sbh, int intra, int16_t* levels,
+                              int32_t* recon, int32_t* ssd,
+                              cudaStream_t stream) {
   if (n != 8 && n != 16 && n != 32) return (int)cudaErrorInvalidValue;
   const int threads = n == 8 ? 64 : 256;
   chain_kernel<<<B * K, threads, 0, stream>>>(orig, pred, qp, K, n, sbh,
-                                              levels, recon, ssd);
+                                              intra, levels, recon, ssd);
   return (int)cudaGetLastError();
 }

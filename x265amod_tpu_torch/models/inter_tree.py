@@ -1,0 +1,764 @@
+"""P-slice CTU32 quadtree encoder on the card, single reference: the port of
+the JAX package's `models/inter_tree.py:InterTreeEncoder` (R = 1).
+
+Four phases per P frame, as in the JAX `_encode` (:171):
+
+1. Parallel ME and trials (:219-297): the dense SSD grid of every 16x16 cell
+   and every CTU32 over +-sr (kernel K5 `me_ssd_grid`), the ME cost argmin,
+   the +-2 qpel refinement (K6 `subpel_refine`), and an inter trial at each
+   size (K7 `mc_qpel`, K2 `residual_chain` with inter rounding, K3 `tu_bits`
+   at P init states); the SSD grids over the half-pel plane (K8
+   `hpel_plane`) that price sub-pel merge candidates; the intra trial of
+   every cell on source references (`_intra_trial16`, :798: K1, K2, K3).
+2. Decide scan (:311-595): a Python loop over the anti-diagonals of the CTU32
+   grid.  Each CTU derives its merge and AMVP candidates from the motion
+   already decided (spec 8.5.3.2, z-scan availability) and picks skip,
+   AMVP inter or intra per CU, then split against no split.
+3. Final MC and residuals at the decided MVs (:597-687): K7, K2.
+4. Commit scan (:829-1044): intra cells re-coded from the true neighbouring
+   reconstruction at the mode the trial chose (K1, K2).  The inter
+   reconstruction of every cell is final after phase 3, so the state starts
+   from it and only the (diagonal, quadrant) steps that hold an intra cell
+   run, each on the CTUs that need it; a cell never reads a neighbour that
+   is not final, so the output is the JAX scan's.
+
+Then the loop filter with the inter bS maps (K4), SSE and SSIM.  Per-lane
+side data is permuted once per frame into scan-slot order (diagonal by
+diagonal), so each diagonal reads contiguous views.
+
+`encode_async_load` replays given decisions (split, kinds, merge indices,
+MVDs, MVP indices, intra modes) through the same candidate derivation, so
+the JAX encoder's decisions can drive the port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.deblock import deblock_frame_planes, inter_tree_bs_maps
+from ..ops.estbits import intra_hdr_bits, tu_bits
+from ..ops.me import (hpel_plane, mc_chroma_qpel, mc_luma_qpel, me_ssd_grid,
+                      mvd_bits, subpel_refine)
+from ..ops.metrics import plane_sse, ssim_plane
+from ..ops.quant import derive_qp_maps
+from ..ops.residual import residual_chain
+from .inter_frame import InterFrameResult
+from .intra_frame import _diag_schedule
+from .intra_tree import eval_luma, forced_chain, intra_mode_bits
+
+# header-bin cost of an intra CU inside a P slice, rounded to f32 as the
+# JAX weakly-typed scalar is
+_INTRA_HDR_BITS = float(np.float32(intra_hdr_bits("P")))
+# choice index (skip merge 0, skip merge 1, AMVP, intra) -> kind
+_KIND_OF_CHOICE = (0, 0, 1, 2)
+# merge pruning pairs over the candidates (A1, B1, B0, B2): B1 vs A1,
+# B0 vs B1, B2 vs A1, B2 vs B1
+_PRUNE_B = [1, 2, 3, 3]
+_PRUNE_A = [0, 1, 0, 1]
+
+
+def _blocks(plane, bn):
+    """[H, W] -> [H/bn, W/bn, bn, bn]."""
+    h, w = plane.shape
+    return plane.reshape(h // bn, bn, w // bn, bn).permute(0, 2, 1, 3)
+
+
+def _unblocks(blocks):
+    hb, wb, bn, _ = blocks.shape
+    return blocks.permute(0, 2, 1, 3).reshape(hb * bn, wb * bn)
+
+
+def _bc(flag, n):
+    return flag[:, None].expand(-1, n)
+
+
+class InterTreeEncoder:
+    """Per-resolution P-frame CTU32 quadtree encoder on one device."""
+
+    CTU = 32
+    ST = "P"
+
+    def __init__(self, width: int, height: int, deblock: bool = True,
+                 search_range: int = 16, subme: int = 2,
+                 sign_hide: bool = True, device="cuda"):
+        if width % 32 or height % 32:
+            raise ValueError("caller pads to a CTU32 multiple")
+        if not 4 <= search_range <= 32:
+            raise ValueError("dense-grid ME range must be 4..32")
+        self.device = torch.device(device)
+        self.width, self.height = width, height
+        self.deblock = deblock
+        self.sbh = sign_hide
+        self.sr = int(search_range)
+        self.subme = int(subme)
+        self.wc, self.hc = width // 32, height // 32
+        self.w16, self.h16 = width // 16, height // 16
+        self.diags = _diag_schedule(self.wc, self.hc)
+        self._maps_cache: dict = {}
+        self._build_lanes()
+        # constants the decide scan reads (made once: an upload per use
+        # would synchronise the stream)
+        dev = self.device
+        self._inf = torch.tensor(float("inf"), device=dev)
+        self._kind_of_choice = torch.tensor(_KIND_OF_CHOICE, device=dev)
+        self._one_two = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+        self._skip_bins = torch.tensor([2.0, 3.0], device=dev)
+        self._zero_mv = torch.zeros((1, 1, 2), dtype=torch.int32, device=dev)
+        self._no = torch.zeros(1, dtype=torch.bool, device=dev)
+
+    # ---- static schedule ---------------------------------------------------
+
+    def _build_lanes(self):
+        """Slot order (CTUs diagonal by diagonal) and, per diagonal, its
+        slot range and the neighbour positions its decide step reads."""
+        wc, w16, h16 = self.wc, self.w16, self.h16
+        dev = self.device
+        order = [c for cells in self.diags for c in cells]
+        cx = np.array([c[0] for c in order])
+        cy = np.array([c[1] for c in order])
+        self._perm32 = torch.as_tensor(cy * wc + cx, device=dev)
+        bx, by = 2 * cx, 2 * cy
+        cells = np.stack([by * w16 + bx, by * w16 + bx + 1,
+                          (by + 1) * w16 + bx, (by + 1) * w16 + bx + 1], 1)
+        self._perm16 = torch.as_tensor(cells, device=dev)       # [n32, 4]
+        top, left = cy > 0, cx > 0
+        tr = top & (cx < wc - 1)
+        # external neighbours: c32 A1 B1 B0 B2 | q0 A1 B1 B0 B2 |
+        # q1 B1 B0 B2 | q2 A1 B2
+        pos = [(bx - 1, by + 1, left), (bx + 1, by - 1, top),
+               (bx + 2, by - 1, tr), (bx - 1, by - 1, left & top),
+               (bx - 1, by, left), (bx, by - 1, top),
+               (bx + 1, by - 1, top), (bx - 1, by - 1, left & top),
+               (bx + 1, by - 1, top), (bx + 2, by - 1, tr),
+               (bx, by - 1, top),
+               (bx - 1, by + 1, left), (bx - 1, by, left)]
+        nx = np.clip(np.stack([p[0] for p in pos], 1), 0, w16 - 1)
+        ny = np.clip(np.stack([p[1] for p in pos], 1), 0, h16 - 1)
+        nok = np.stack([p[2] for p in pos], 1)
+        cys = np.stack([by, by, by + 1, by + 1], 1)
+        cxs = np.stack([bx, bx + 1, bx, bx + 1], 1)
+        self._lanes = []
+        off = 0
+        for cells_d in self.diags:
+            b = len(cells_d)
+            sl = slice(off, off + b)
+            t = {k: torch.as_tensor(v[sl], device=dev) for k, v in dict(
+                nx=nx, ny=ny, nok=nok, cys=cys, cxs=cxs).items()}
+            t["sl"] = sl
+            self._lanes.append(t)
+            off += b
+
+    # ---- maps ----------------------------------------------------------------
+
+    def _maps(self, qp: int):
+        """Raster per-cell and per-CTU QP/lambda maps (QG == CTB, CQP)."""
+        if qp not in self._maps_cache:
+            qp32, qc32, _, lam32 = derive_qp_maps(qp, self.hc, self.wc)
+
+            def rep(m):
+                return np.repeat(np.repeat(m, 2, 0), 2, 1)
+            dev = self.device
+            self._maps_cache[qp] = {
+                k: torch.as_tensor(v.reshape(-1), device=dev)
+                for k, v in dict(qp16=rep(qp32), qc16=rep(qc32),
+                                 lam16=rep(lam32), qp32=qp32, qc32=qc32,
+                                 lam32=lam32).items()}
+            self._maps_cache[qp]["qp32_map"] = torch.as_tensor(qp32,
+                                                               device=dev)
+        return self._maps_cache[qp]
+
+    # ---- phase 1: parallel ME, trials, grids -----------------------------
+
+    def _intra_trial16(self, oy, oy_flat, qp16, lam16):
+        """Intra estimate of every 16-cell on SOURCE references (JAX
+        `_intra_trial16` :798): frame-border availability, no below-left.
+        Returns (cost [n16] f32, best mode [n16] int32)."""
+        h16, w16 = self.h16, self.w16
+        dev = oy.device
+        i = torch.arange(h16 * w16, device=dev)
+        cy, cx = i // w16, i % w16
+        cyu = torch.clamp(cy - 1, min=0)
+        cxl = torch.clamp(cx - 1, min=0)
+        cxr = torch.clamp(cx + 1, max=w16 - 1)
+        top = torch.cat([oy[cyu, cx, 15, :], oy[cyu, cxr, 15, :]], 1)
+        left0 = oy[cy, cxl, :, 15]
+        refs = (top, torch.cat([left0, left0], 1), oy[cyu, cxl, 15, 15],
+                torch.cat([_bc(cy > 0, 16), _bc((cy > 0) & (cx < w16 - 1),
+                                               16)], 1),
+                torch.cat([_bc(cx > 0, 16), _bc(cx < 0, 16)], 1),
+                (cx > 0) & (cy > 0))
+        mb = intra_mode_bits(torch.ones(h16 * w16, dtype=torch.int32,
+                                        device=dev))
+        best, j = eval_luma(oy_flat, refs, 16, qp16, lam16, mb, st=self.ST)
+        return j, best
+
+    def _phase1(self, y, ref_y, maps):
+        """Stage-1 outputs in raster order: ME MVs, trial costs, intra trial
+        and the four SSD grids stacked [2 n16 + 2 n32, S, S]."""
+        st1 = self._motion_search(y, ref_y, maps)
+        st1.update(self._subpel(y, ref_y, maps, st1))
+        st1.update(self._trials(y, ref_y, maps, st1))
+        st1["di16"], st1["imode16"] = self._intra_trial16(
+            _blocks(y, 16), _blocks(y, 16).reshape(-1, 16, 16),
+            maps["qp16"], maps["lam16"])
+        return st1
+
+    def _motion_search(self, y, ref_y, maps):
+        """Integer ME (JAX `best_mv` :227 before the refinement): the SSD
+        grids at 16 and 32 over the reference (K5), their cost argmin, and
+        the grids over the half-pel plane (K8, K5) that price sub-pel
+        merge candidates."""
+        sr = self.sr
+        s = 2 * sr + 1
+        off = torch.arange(s, device=y.device, dtype=torch.int32) - sr
+        mvbits = mvd_bits(torch.stack(torch.meshgrid(off * 4, off * 4,
+                                                     indexing="xy"), -1))
+        out = {}
+        grids = []
+        rh = hpel_plane(ref_y)
+        for bn, lam in ((16, maps["lam16"]), (32, maps["lam32"])):
+            cur = _blocks(y, bn).reshape(-1, bn, bn)
+            g = me_ssd_grid(cur, ref_y, sr, bn)
+            cost = g + lam[:, None, None] * mvbits[None]
+            flat = torch.argmin(cost.reshape(cost.shape[0], -1), 1)
+            out[f"mvi{bn}"] = torch.stack([flat % s - sr, flat // s - sr],
+                                          1).to(torch.int32)
+            grids += [g, me_ssd_grid(cur, rh, sr, bn)]
+        out["grid"] = torch.cat(grids, 0)
+        return out
+
+    def _subpel(self, y, ref_y, maps, st1):
+        """The +-2 qpel refinement of the integer MVs (K6; subme 0 keeps
+        the integer MVs)."""
+        out = {}
+        for bn, lam in ((16, maps["lam16"]), (32, maps["lam32"])):
+            mvi = st1[f"mvi{bn}"]
+            out[f"mv{bn}"] = subpel_refine(
+                ref_y, _blocks(y, bn).reshape(-1, bn, bn), mvi, lam,
+                bn)[0] if self.subme >= 1 else mvi * 4
+        return out
+
+    def _trials(self, y, ref_y, maps, st1):
+        """The inter trial at each CU size (JAX `inter_trial` :239): MC
+        (K7), the residual chain with inter rounding and no SBH (K2), its
+        SSD and bits at P init states (K3)."""
+        out = {}
+        for bn, q in ((16, maps["qp16"]), (32, maps["qp32"])):
+            pred = mc_luma_qpel(ref_y, st1[f"mv{bn}"], bn)
+            lv, _, ssd = residual_chain(_blocks(y, bn).reshape(-1, bn, bn),
+                                        pred[:, None], q, False,
+                                        want_recon=False, intra=False)
+            out[f"d{bn}"] = ssd[:, 0].to(torch.float32)
+            out[f"rb{bn}"] = tu_bits(lv[:, 0], 0, q, self.ST)
+        return out
+
+    # ---- phase 2: decide scan ----------------------------------------------
+
+    def _decide_cu(self, av, mv, dd, rbd, mvme, lamv, di, row, ngrid,
+                   forced=None):
+        """One CU decision per lane from its candidates av/mv [L, 4(, 2)]
+        in the order A1, B1, B0, B2 (JAX `decide_cu` :363, R = 1: every
+        reference index is 0, so neighbour MVs need no scaling).  row is
+        the lane's integer-pel grid row; a sub-pel candidate reads
+        row + ngrid (the half-pel grid).  ``forced`` = (choice, mvd,
+        mvp_idx) replays a decision.  Returns (choice [L] int64, mv [L, 2],
+        mvd [L, 2], mvp_idx [L] bool, js [L, 4] or None)."""
+        sr, s = self.sr, 2 * self.sr + 1
+        # merge list (spec 8.5.3.2.3): B1 pruned against A1, B0 against B1,
+        # B2 against A1 and B1, each against the partner's availability
+        eq = (mv[:, _PRUNE_B] == mv[:, _PRUNE_A]).all(-1) & av[:, _PRUNE_A]
+        avs = av.clone()
+        avs[:, 1:3] &= ~eq[:, 0:2]
+        avs[:, 3] &= ~(eq[:, 2] | eq[:, 3])
+        pos = torch.cumsum(avs.to(torch.int32), 1)
+        sel = avs[:, :, None] & (pos[:, :, None] == self._one_two)
+        mrg = (mv[:, :, None, :] * sel[..., None]).sum(1, dtype=torch.int32)
+        # AMVP (8.5.3.2.6): A = A1, B = first of (B0, B1, B2), B pruned
+        # against A
+        a1, b1, b0 = av[:, 0], av[:, 1], av[:, 2]
+        ma1 = mv[:, 0]
+        avb = av[:, 1:].any(1)
+        mvb = torch.where(b0[:, None], mv[:, 2],
+                          torch.where(b1[:, None], mv[:, 1], mv[:, 3]))
+        amvp0 = torch.where(a1[:, None], ma1,
+                            torch.where(avb[:, None], mvb, 0))
+        amvp1 = torch.where((a1 & avb & ~(mvb == ma1).all(-1))[:, None],
+                            mvb, 0)
+        zero = self._zero_mv.expand(mv.shape[0], 1, 2)
+        if forced is not None:
+            choice, mvd, mvp_idx = forced
+            amvp = torch.where((mvp_idx == 1)[:, None], amvp1, amvp0)
+            cands = torch.cat([mrg, (amvp + mvd)[:, None], zero], 1)
+            mv_fin = torch.gather(cands, 1, choice[:, None, None]
+                                  .expand(-1, 1, 2))[:, 0]
+            return choice, mv_fin, mvd, mvp_idx == 1, None
+        mvds = mvme[:, None] - torch.stack([amvp0, amvp1], 1)   # [L, 2, 2]
+        bits = mvd_bits(mvds)
+        use1 = bits[:, 1] < bits[:, 0]
+        mvd = torch.where(use1[:, None], mvds[:, 1], mvds[:, 0])
+        j_inter = dd + lamv * ((rbd + bits.amin(1)) + 6.0)
+        # skip on merge candidate 0 / 1: the SSD grid at the candidate's
+        # integer part, the half-pel grid for a sub-pel one
+        sub = ((mrg & 3) != 0).any(-1)                           # [L, 2]
+        mi = mrg >> 2
+        inside = (mi.abs() <= sr).all(-1)
+        mi = torch.clamp(mi + sr, 0, s - 1).long()
+        val = self._grid[row[:, None] + sub * ngrid, mi[..., 1], mi[..., 0]]
+        skip = torch.where(inside, val, 1e18) + lamv[:, None] * \
+            self._skip_bins
+        js = torch.cat([skip, j_inter[:, None],
+                        (di + lamv * _INTRA_HDR_BITS)[:, None]], 1)
+        choice = torch.argmin(js, 1)
+        cands = torch.cat([mrg, mvme[:, None], zero], 1)
+        mv_fin = torch.gather(cands, 1, choice[:, None, None]
+                              .expand(-1, 1, 2))[:, 0]
+        return choice, mv_fin, mvd, use1, js
+
+    def _decide(self, st1, maps, forced=None, want_costs=False):
+        """The decide scan over the CTU32 diagonals.  Returns raster maps:
+        split [hc, wc] bool and per 16-cell choice, MV, MVD and MVP index
+        (plus, with want_costs, the per-cell cost rows and split costs).
+        The CU32 hypothesis and quadrant q0 read committed motion only, so
+        they share one call; their per-frame inputs are interleaved per CTU
+        ([n32, 2]) so that a diagonal's lanes are one contiguous view."""
+        dev = self.device
+        h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
+        n16, n32 = h16 * w16, hc * wc
+        p32, p16 = self._perm32, self._perm16
+
+        def pair(a, b):              # [n32, 2, ...]: (CU32, q0) per CTU
+            return torch.stack([a, b], 1)
+        row01 = pair(2 * n16 + p32, p16[:, 0])
+        ng01 = pair(torch.full_like(p32, n32), torch.full_like(p32, n16))
+        if forced is None:
+            self._grid = st1["grid"]
+            d16, rb16, mv16, di16, lam16 = (
+                t[p16] for t in (st1["d16"], st1["rb16"], st1["mv16"],
+                                 st1["di16"], maps["lam16"]))
+            x01 = [pair(st1[k][p32], c[:, 0]) for k, c in (
+                ("d32", d16), ("rb32", rb16), ("mv32", mv16))]
+            x01 += [pair(maps["lam32"][p32], lam16[:, 0]),
+                    pair(self._inf.expand(n32), di16[:, 0])]
+        else:
+            f01 = [pair(a, c[:, 0]) for a, c in zip(forced["c32"],
+                                                     forced["c16"])]
+        mv_map = torch.zeros((h16, w16, 2), dtype=torch.int32, device=dev)
+        inter_map = torch.zeros((h16, w16), dtype=torch.bool, device=dev)
+        outs = []
+        for lane in self._lanes:
+            sl = lane["sl"]
+            b = sl.stop - sl.start
+            ny, nx = lane["ny"], lane["nx"]
+            nav = lane["nok"] & inter_map[ny, nx]
+            nmv = torch.where(nav[..., None], mv_map[ny, nx], 0)
+            av01 = nav[:, 0:8].reshape(2 * b, 4)
+            mv01 = nmv[:, 0:8].reshape(2 * b, 4, 2)
+            row_ = row01[sl].reshape(-1)
+            ng_ = ng01[sl].reshape(-1, 1)
+            if forced is None:
+                r01 = self._decide_cu(
+                    av01, mv01, *(t[sl].reshape((2 * b,) + t.shape[2:])
+                                  for t in x01), row_, ng_)
+
+                def q_call(q, av, mv):
+                    return self._decide_cu(av, mv, d16[sl, q], rb16[sl, q],
+                                           mv16[sl, q], lam16[sl, q],
+                                           di16[sl, q], p16[sl, q], n16)
+            else:
+                r01 = self._decide_cu(
+                    av01, mv01, None, None, None, None, None, row_, ng_,
+                    forced=tuple(t[sl].reshape((2 * b,) + t.shape[2:])
+                                 for t in f01))
+
+                def q_call(q, av, mv):
+                    return self._decide_cu(
+                        av, mv, None, None, None, None, None, None, None,
+                        forced=tuple(c[sl, q] for c in forced["c16"]))
+            c32 = [t[0::2] if t is not None else None for t in r01]
+            q0 = [t[1::2] if t is not None else None for t in r01]
+            a0, m0 = q0[0] <= 2, q0[1]
+            q1 = q_call(1, torch.stack([a0, nav[:, 8], nav[:, 9],
+                                        nav[:, 10]], 1),
+                        torch.stack([m0, nmv[:, 8], nmv[:, 9], nmv[:, 10]],
+                                    1))
+            a1, m1 = q1[0] <= 2, q1[1]
+            q2 = q_call(2, torch.stack([nav[:, 11], a0, a1, nav[:, 12]], 1),
+                        torch.stack([nmv[:, 11], m0, m1, nmv[:, 12]], 1))
+            no = self._no.expand(b)
+            q3 = q_call(3, torch.stack([q2[0] <= 2, a1, no, a0], 1),
+                        torch.stack([q2[1], m1, self._zero_mv[0].expand(
+                            b, 2), m0], 1))
+            qs = (q0, q1, q2, q3)
+            if forced is None:
+                jq = [q[4].amin(1) for q in qs]
+                jsplit = ((jq[0] + jq[1]) + jq[2]) + jq[3]
+                j32 = c32[4].amin(1)
+                split = jsplit < j32
+            else:
+                split = forced["split"][sl]
+            chq = torch.stack([q[0] for q in qs], 1)
+            mvfq = torch.stack([q[1] for q in qs], 1)
+            cell_mv = torch.where(split[:, None, None], mvfq,
+                                  c32[1][:, None, :])
+            mv_map[lane["cys"], lane["cxs"]] = cell_mv
+            inter_map[lane["cys"], lane["cxs"]] = (chq <= 2) | \
+                ~split[:, None]
+            out = [split, c32[0], c32[2], c32[3], chq,
+                   torch.stack([q[2] for q in qs], 1),
+                   torch.stack([q[3] for q in qs], 1), cell_mv]
+            if want_costs:
+                out += [torch.stack([q[4] for q in qs], 1), c32[4],
+                        jsplit, j32]
+            outs.append(out)
+        cat = [torch.cat(o, 0) for o in zip(*outs)]
+
+        def to32(t):
+            r = torch.empty((n32,) + t.shape[1:], dtype=t.dtype, device=dev)
+            r[p32] = t
+            return r
+
+        def to16(t):
+            r = torch.empty((n16,) + t.shape[2:], dtype=t.dtype, device=dev)
+            r[p16.reshape(-1)] = t.reshape((-1,) + t.shape[2:])
+            return r
+        res = dict(split=to32(cat[0]).reshape(hc, wc), ch32=to32(cat[1]),
+                   mvd32=to32(cat[2]), mvp32=to32(cat[3]).to(torch.int32),
+                   chq=to16(cat[4]), mvdq=to16(cat[5]),
+                   mvpq=to16(cat[6]).to(torch.int32), mv=to16(cat[7]))
+        if want_costs:
+            res.update(jsq=to16(cat[8]), js32=to32(cat[9]),
+                       jsplit=to32(cat[10]), j32=to32(cat[11]))
+        self._grid = None
+        return res
+
+    def _cell_decisions(self, dec):
+        """Per 16-cell kinds, merge index, MVD and MVP index: the quadrant's
+        own where its CTU is split, the CU32's replicated otherwise."""
+        h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
+
+        def rep(t):
+            t = t.reshape((hc, wc) + t.shape[1:])
+            return t.repeat_interleave(2, 0).repeat_interleave(2, 1) \
+                .reshape((h16 * w16,) + t.shape[2:])
+        sp = rep(dec["split"].reshape(-1))
+        kind_tab = self._kind_of_choice
+        ch = torch.where(sp, dec["chq"], rep(dec["ch32"]))
+        return dict(
+            split_cell=sp, kinds=kind_tab[ch],
+            merge=torch.clamp(ch, max=1),
+            mvd=torch.where(sp[:, None], dec["mvdq"], rep(dec["mvd32"])),
+            mvp=torch.where(sp, dec["mvpq"], rep(dec["mvp32"])),
+            k32=kind_tab[dec["ch32"]])
+
+    # ---- phases 3 and 4 ------------------------------------------------------
+
+    def _coded(self, orig, pred, qpv):
+        """Inter residual chain with SBH: (levels int16, recon int32)."""
+        lv, rec, _ = residual_chain(orig, pred[:, None], qpv, self.sbh,
+                                    intra=False)
+        return lv[:, 0], rec[:, 0]
+
+    def _phase3(self, y, cb, cr, refs, maps, cell):
+        """Final MC and residuals at the decided MVs for both CU sizes;
+        returns the per-cell levels and recon of the chosen hypothesis
+        (raster cells [n16, ...])."""
+        h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
+        n16, n32 = h16 * w16, hc * wc
+        mv = cell["mv"]
+        py = mc_luma_qpel(refs[0], mv, 16)
+        pcb = mc_chroma_qpel(refs[1], mv, 8)
+        pcr = mc_chroma_qpel(refs[2], mv, 8)
+        oy = _blocks(y, 16).reshape(n16, 16, 16)
+        ocb = _blocks(cb, 8).reshape(n16, 8, 8)
+        ocr = _blocks(cr, 8).reshape(n16, 8, 8)
+        kinds, is_split = cell["kinds"], cell["split_cell"]
+        lv_y, rec_y = self._coded(oy, py, maps["qp16"])
+        lv_c, rec_c = self._coded(torch.cat([ocb, ocr]), torch.cat([pcb,
+                                                                   pcr]),
+                                  torch.cat([maps["qc16"], maps["qc16"]]))
+
+        def to32(t, bn):        # raster cells -> raster CTUs
+            return _blocks(_unblocks(t.reshape(h16, w16, bn, bn)),
+                           2 * bn).reshape(n32, 2 * bn, 2 * bn)
+
+        def to16(t, bn):        # raster CTUs -> raster cells
+            return _blocks(_unblocks(t.reshape(hc, wc, 2 * bn, 2 * bn)),
+                           bn).reshape(n16, bn, bn)
+        lv32_y, rec32_y = self._coded(_blocks(y, 32).reshape(n32, 32, 32),
+                                      to32(py, 16), maps["qp32"])
+        lv32_c, rec32_c = self._coded(
+            torch.cat([_blocks(cb, 16).reshape(n32, 16, 16),
+                       _blocks(cr, 16).reshape(n32, 16, 16)]),
+            torch.cat([to32(pcb, 8), to32(pcr, 8)]),
+            torch.cat([maps["qc32"], maps["qc32"]]))
+        skip16 = ((kinds == 0) | ~is_split)[:, None, None]
+        skip32 = (cell["k32"] == 0)[:, None, None]
+        sk16 = (kinds == 0)[:, None, None]
+        isn = is_split[:, None, None]
+        p2 = torch.cat([pcb, pcr])
+        out = []
+        for lv16, rec16, lv32, rec32, pred, bn in (
+                (lv_y, rec_y, lv32_y, rec32_y, py, 16),
+                (lv_c, rec_c, lv32_c, rec32_c, p2, 8)):
+            k = lv16.shape[0] // n16
+            lv16 = torch.where(skip16.repeat(k, 1, 1), 0, lv16)
+            rec16 = torch.where(sk16.repeat(k, 1, 1), pred, rec16)
+            pred32 = torch.cat([to32(pred[i * n16:(i + 1) * n16], bn)
+                                for i in range(k)])
+            lv32 = torch.where(skip32.repeat(k, 1, 1), 0, lv32)
+            rec32 = torch.where(skip32.repeat(k, 1, 1), pred32, rec32)
+            lv32c = torch.cat([to16(lv32[i * n32:(i + 1) * n32], bn)
+                               for i in range(k)])
+            rec32c = torch.cat([to16(rec32[i * n32:(i + 1) * n32], bn)
+                                for i in range(k)])
+            out.append((torch.where(isn.repeat(k, 1, 1), lv16, lv32c),
+                        torch.where(isn.repeat(k, 1, 1), rec16, rec32c)))
+        (fly, fry), (flc, frc) = out
+        return (fly, flc[:n16], flc[n16:]), (fry, frc[:n16], frc[n16:])
+
+    def _commit(self, y, cb, cr, maps, kinds, imode, lv, rec):
+        """Re-code the intra cells from true reconstruction (JAX
+        `_commit_scan`); lv/rec are the inter results per raster cell.
+        Returns recon planes, levels per cell and the mode map."""
+        h16, w16, wc = self.h16, self.w16, self.wc
+        n16 = h16 * w16
+        dev = y.device
+        yb = rec[0].reshape(h16, w16, 16, 16).clone()
+        cbb = rec[1].reshape(h16, w16, 8, 8).clone()
+        crb = rec[2].reshape(h16, w16, 8, 8).clone()
+        ly = lv[0].reshape(h16, w16, 16, 16).clone()
+        lcb = lv[1].reshape(h16, w16, 8, 8).clone()
+        lcr = lv[2].reshape(h16, w16, 8, 8).clone()
+        modes = torch.ones((h16, w16), dtype=torch.int32, device=dev)
+        # the one host sync of the frame: which (diagonal, quadrant) steps
+        # hold intra cells, and on which CTUs; their coordinates go up in
+        # one copy (a pageable upload per step would sync each time)
+        intra = (kinds == 2).reshape(h16, w16).cpu().numpy()
+        steps = []
+        for cells_d in self.diags:
+            cxd = np.array([c[0] for c in cells_d])
+            cyd = np.array([c[1] for c in cells_d])
+            for q in range(4):
+                hit = intra[2 * cyd + (q >> 1), 2 * cxd + (q & 1)]
+                if hit.any():
+                    steps.append((q, cxd[hit], cyd[hit]))
+        if steps:
+            oy, ocb, ocr = _blocks(y, 16), _blocks(cb, 8), _blocks(cr, 8)
+            qp16 = maps["qp16"].reshape(h16, w16)
+            qc16 = maps["qc16"].reshape(h16, w16)
+            im = imode.reshape(h16, w16)
+            xy = torch.as_tensor(np.concatenate(
+                [np.stack([sx, sy]) for _, sx, sy in steps], 1), device=dev)
+            off = 0
+            for q, sx, _ in steps:
+                k = len(sx)
+                self._commit_cells(xy[0, off:off + k], xy[1, off:off + k],
+                                   q, wc, (yb, cbb, crb), (ly, lcb, lcr),
+                                   modes, (oy, ocb, ocr), qp16, qc16, im)
+                off += k
+        return ((_unblocks(yb), _unblocks(cbb), _unblocks(crb)),
+                (ly.reshape(n16, 16, 16), lcb.reshape(n16, 8, 8),
+                 lcr.reshape(n16, 8, 8)), modes)
+
+    def _commit_cells(self, cx, cy, q, wc, state, levels, modes, orig,
+                      qp16, qc16, im):
+        """Intra chains of quadrant q of the CTUs (cx, cy), with z-scan
+        availability (spec 6.4.1) and references read from the committed
+        state; writes recon, levels and modes in place."""
+        h16, w16 = self.h16, self.w16
+        r, c = 2 * cy + (q >> 1), 2 * cx + (q & 1)
+        top, left = cy > 0, cx > 0
+        tr = top & (cx < wc - 1)
+        one = torch.ones_like(top)
+        no = ~one
+        avt0, avt1, avl0, avl1, avc = (
+            (top, top, left, left, top & left), (top, tr, one, no, top),
+            (one, one, left, no, left), (one, no, one, no, one))[q]
+        ru = torch.clamp(r - 1, min=0)
+        rd = torch.clamp(r + 1, max=h16 - 1)
+        cl = torch.clamp(c - 1, min=0)
+        cr1 = torch.clamp(c + 1, max=w16 - 1)
+
+        def refs(s, n):
+            e = n - 1
+            return (torch.cat([s[ru, c, e, :], s[ru, cr1, e, :]], 1),
+                    torch.cat([s[r, cl, :, e], s[rd, cl, :, e]], 1),
+                    s[ru, cl, e, e],
+                    torch.cat([_bc(avt0, n), _bc(avt1, n)], 1),
+                    torch.cat([_bc(avl0, n), _bc(avl1, n)], 1), avc)
+        yb, cbb, crb = state
+        ly, lcb, lcr = levels
+        oy, ocb, ocr = orig
+        mode = im[r, c]
+        lv_y, rc_y = forced_chain(oy[r, c], refs(yb, 16), 16, mode,
+                                  qp16[r, c], 0, self.sbh)
+        rcb, rcr = refs(cbb, 8), refs(crb, 8)
+        lv_c, rc_c = forced_chain(
+            torch.cat([ocb[r, c], ocr[r, c]]),
+            [torch.cat([a, b_]) for a, b_ in zip(rcb, rcr)], 8,
+            torch.cat([mode, mode]), torch.cat([qc16[r, c], qc16[r, c]]),
+            1, self.sbh)
+        k = cx.shape[0]
+        yb[r, c], ly[r, c] = rc_y, lv_y
+        cbb[r, c], crb[r, c] = rc_c[:k], rc_c[k:]
+        lcb[r, c], lcr[r, c] = lv_c[:k], lv_c[k:]
+        modes[r, c] = mode
+
+    # ---- loop filter and metrics ----------------------------------------------
+
+    def _filter_and_metrics(self, src, rec, levels, kinds, split, mv, maps,
+                            qp):
+        """The deblocking filter with the inter bS maps (JAX :709-746: TU
+        cbf per cell, a TU32's over its four cells; MVs; intra), then SSE
+        and SSIM (:762-767).  Returns (recon planes, sse [4])."""
+        h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
+        (y, cb, cr), (ry, rcb, rcr), (ly, lcb, lcr) = src, rec, levels
+        if self.deblock:
+            intra = (kinds == 2).reshape(h16, w16)
+            nz_y = (ly != 0).any(-1).any(-1).reshape(h16, w16)
+            cbf32 = nz_y.reshape(hc, 2, wc, 2).any(3).any(1)
+            sp_rep = split.repeat_interleave(2, 0).repeat_interleave(2, 1)
+            cbf = torch.where(sp_rep, nz_y, cbf32.repeat_interleave(2, 0)
+                              .repeat_interleave(2, 1))
+            mv0 = torch.where(intra[..., None], 0, mv.reshape(h16, w16, 2))
+            zeros = torch.zeros_like(intra, dtype=torch.int32)
+            bs = inter_tree_bs_maps(
+                intra[None], cbf[None], torch.where(intra, 0, 1)[None],
+                mv0[None], torch.zeros_like(mv0)[None], split[None],
+                zeros[None])
+            coded = (nz_y | (lcb != 0).any(-1).any(-1).reshape(h16, w16)
+                     | (lcr != 0).any(-1).any(-1).reshape(h16, w16))
+            ry, rcb, rcr = (t[0] for t in deblock_frame_planes(
+                ry[None], rcb[None], rcr[None], split[None], coded[None],
+                maps["qp32_map"], qp, bs=bs))
+        sse = torch.stack([plane_sse(y[None], ry[None])[0],
+                           plane_sse(cb[None], rcb[None])[0],
+                           plane_sse(cr[None], rcr[None])[0],
+                           ssim_plane(y[None], ry[None])[0]])
+        return (ry, rcb, rcr), sse
+
+    # ---- one P frame ---------------------------------------------------------
+
+    def _step(self, y, cb, cr, refs, qp: int, forced=None, want_recon=False,
+              want_costs=False):
+        """The four phases, loop filter and metrics for one frame on the
+        device.  Returns a dict of device tensors."""
+        maps = self._maps(qp)
+        y, cb, cr = (t.to(torch.int32) for t in (y, cb, cr))
+        refs = tuple(t.to(torch.int32) for t in refs)
+        h16, w16 = self.h16, self.w16
+        if forced is None:
+            st1 = self._phase1(y, refs[0], maps)
+            dec = self._decide(st1, maps, want_costs=want_costs)
+            imode = st1["imode16"]
+        else:
+            dec = self._decide(None, maps, forced=forced["scan"])
+            imode = forced["modes"]
+        cell = self._cell_decisions(dec)
+        cell["mv"] = dec["mv"]
+        lv, rec = self._phase3(y, cb, cr, refs, maps, cell)
+        kinds = cell["kinds"]
+        (ry, rcb, rcr), (ly, lcb, lcr), modes = self._commit(
+            y, cb, cr, maps, kinds, imode, lv, rec)
+        split = dec["split"]
+        (ry, rcb, rcr), sse = self._filter_and_metrics(
+            (y, cb, cr), (ry, rcb, rcr), (ly, lcb, lcr), kinds, split,
+            dec["mv"], maps, qp)
+        out = dict(split=split.to(torch.int8),
+                   kinds=kinds.reshape(h16, w16).to(torch.uint8),
+                   merge=cell["merge"].reshape(h16, w16).to(torch.uint8),
+                   mvd=cell["mvd"].reshape(h16, w16, 2).to(torch.int16),
+                   mvp=cell["mvp"].reshape(h16, w16).to(torch.uint8),
+                   modes=modes.to(torch.uint8),
+                   ly=ly.reshape(h16, w16, 16, 16),
+                   lcb=lcb.reshape(h16, w16, 8, 8),
+                   lcr=lcr.reshape(h16, w16, 8, 8), sse=sse)
+        rec8 = tuple(t.to(torch.uint8) for t in (ry, rcb, rcr))
+        if want_recon:
+            out.update(rec_y=rec8[0], rec_cb=rec8[1], rec_cr=rec8[2])
+        if want_costs:
+            out["costs"] = {k: dec[k] for k in ("jsq", "js32", "jsplit",
+                                               "j32")}
+        return out, rec8
+
+    # ---- host interface --------------------------------------------------
+
+    def _upload(self, a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def _to_host(self, dev: dict, recon_dev):
+        """Start the D2H copy of every output (pinned memory, non-blocking
+        on the card); the recon planes stay on the device as the next
+        reference."""
+        costs = dev.pop("costs", None)
+        if self.device.type != "cuda":
+            return dict(host=dev, event=None, recon_dev=recon_dev,
+                        costs=costs)
+        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                for k, v in dev.items()}
+        for k, v in dev.items():
+            host[k].copy_(v, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return dict(host=host, event=event, recon_dev=recon_dev, costs=costs)
+
+    def encode_async(self, y, cb, cr, ref_dev, qp: int, want_recon=False,
+                     want_costs=False):
+        """Dispatch one P frame (numpy uint8 planes) against ``ref_dev``, the
+        reference's device planes (y, cb, cr).  Returns a handle."""
+        out, rec = self._step(self._upload(y), self._upload(cb),
+                              self._upload(cr), ref_dev, qp,
+                              want_recon=want_recon, want_costs=want_costs)
+        return self._to_host(out, rec)
+
+    def encode_async_load(self, y, cb, cr, ref_dev, qp: int, split, kinds,
+                          merge_idx, mvd, mvp_idx, modes, want_recon=False):
+        """One P frame under given decisions, as `InterFrameResult` carries
+        them (split [hc, wc]; kinds, merge_idx, mvp_idx, modes [h16, w16];
+        mvd [h16, w16, 2]).  Phases 1 and 2 are skipped: each cell's MV is
+        rebuilt in z-order from the same merge/AMVP derivation."""
+        dev = self.device
+        kinds = torch.as_tensor(np.asarray(kinds, np.int64), device=dev)
+        merge = torch.as_tensor(np.asarray(merge_idx, np.int64), device=dev)
+        choice = torch.where(kinds == 0, merge, torch.where(kinds == 1, 2,
+                                                            3)).reshape(-1)
+        mvd_t = torch.as_tensor(np.asarray(mvd, np.int32),
+                                device=dev).reshape(-1, 2)
+        mvp_t = torch.as_tensor(np.asarray(mvp_idx, np.int32),
+                                device=dev).reshape(-1)
+        p16, p32 = self._perm16, self._perm32
+        q0 = p16[:, 0]
+        f16 = (choice[p16], mvd_t[p16], mvp_t[p16])
+        # a CU32's decision is replicated over its cells: read it at q0
+        f32 = (choice[q0], mvd_t[q0], mvp_t[q0])
+        sp = torch.as_tensor(np.asarray(split, bool), device=dev) \
+            .reshape(-1)[p32]
+        forced = dict(scan=dict(c32=f32, c16=f16, split=sp),
+                      modes=torch.as_tensor(np.asarray(modes, np.int32),
+                                            device=dev).reshape(-1))
+        out, rec = self._step(self._upload(y), self._upload(cb),
+                              self._upload(cr), ref_dev, qp, forced=forced,
+                              want_recon=want_recon)
+        return self._to_host(out, rec)
+
+    @staticmethod
+    def wait(handle) -> None:
+        if handle["event"] is not None:
+            handle["event"].synchronize()
+
+    def collect(self, handle) -> InterFrameResult:
+        self.wait(handle)
+        h = {k: v.numpy() for k, v in handle["host"].items()}
+        res = InterFrameResult(
+            h["kinds"].astype(np.int32), h["merge"].astype(np.int32),
+            h["mvd"].astype(np.int32), h["mvp"].astype(np.int32),
+            h["modes"].astype(np.int32), h["ly"].astype(np.int32),
+            h["lcb"].astype(np.int32), h["lcr"].astype(np.int32), h["sse"],
+            recon_dev=handle["recon_dev"],
+            split=h["split"].astype(np.int32),
+            ref0=np.zeros(h["kinds"].shape, np.int32))
+        if "rec_y" in h:
+            res.recon_y, res.recon_cb, res.recon_cr = (
+                h["rec_y"], h["rec_cb"], h["rec_cr"])
+        return res

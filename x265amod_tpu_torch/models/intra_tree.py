@@ -37,14 +37,52 @@ from .intra_frame import FrameResult, _diag_schedule
 RD_CANDS = 4
 
 
+def intra_mode_bits(left_mode):
+    """MPM-biased mode signalling cost [B, 35] f32 from the left
+    neighbour's mode [B] (JAX `models/intra_tree.py:88`)."""
+    small = left_mode < 2
+    mpm0 = torch.where(small, 0, left_mode)[:, None]
+    mpm2 = torch.where(small, 26, 0)[:, None]
+    m = torch.arange(35, device=left_mode.device)[None, :]
+    return torch.where(m == mpm0, 2.0, torch.where(
+        (m == 1) | (m == mpm2), 3.0, 6.0)).to(torch.float32)
+
+
 def intra_mode_bits_default() -> np.ndarray:
     """Mode signalling cost [35] with the left neighbour taken as DC (the
     estimate's MPM-biased proxy, JAX `intra_mode_bits(ones)`)."""
-    m = np.full(35, 6.0, np.float32)
-    m[0] = 2.0
-    m[1] = 3.0
-    m[26] = 3.0
-    return m
+    return intra_mode_bits(torch.ones(1, dtype=torch.int32))[0].numpy()
+
+
+def eval_luma(orig, refs, n, qpv, lamv, mbits, st: str = "I"):
+    """35-mode SATD scan, top-4 shortlist, RD on the shortlist (JAX
+    `eval_intra_luma` :101 without SBH; tu_bits at slice type ``st``).
+    refs = raw (top, left, corner) + availability (K1's arguments).
+    Returns (best mode [B] int32, min cost [B] f32)."""
+    sat = satd35(orig, *refs, n, 0)
+    # two separate rounded ops (no FMA), then a STABLE ascending sort:
+    # jax.lax.top_k breaks ties to the lowest index
+    scost = sat.to(torch.float32) + lamv[:, None] * mbits
+    cand = torch.sort(scost, dim=1, stable=True).indices[:, :RD_CANDS]
+    cpred = predict(*refs, cand, n, 0)
+    levels, _, ssd = residual_chain(orig, cpred, qpv, False,
+                                    want_recon=False)
+    rb = tu_bits(levels, 0, qpv[:, None], st)
+    mbk = torch.gather(mbits, 1, cand)
+    cost = ssd.to(torch.float32) + lamv[:, None] * (rb + mbk)
+    k = torch.argmin(cost, 1)
+    best = torch.gather(cand, 1, k[:, None])[:, 0]
+    return best.to(torch.int32), cost.amin(1)
+
+
+def forced_chain(orig, refs, n, modes, qpv, c_idx, sbh):
+    """Single-mode intra chain (JAX `eval_intra_luma`/`eval_intra_chroma`
+    with a forced mode): the prediction at ``modes`` [B], then the residual
+    chain with intra rounding.  Returns (levels [B,n,n] int16, recon
+    [B,n,n] int32)."""
+    pred = predict(*refs, modes[:, None], n, c_idx)
+    lv, rec, _ = residual_chain(orig, pred, qpv, sbh)
+    return lv[:, 0], rec[:, 0]
 
 
 def _blocks(plane, bn):
@@ -132,24 +170,6 @@ class IntraTreeEncoder:
                 cor.reshape(-1), at.repeat(rep), al.repeat(rep),
                 ac.repeat(f))
 
-    def _eval_luma(self, orig, refs, n, qpv, lamv, mbits):
-        """35-mode SATD scan, top-4 shortlist, RD on the shortlist (JAX
-        `eval_intra_luma` without SBH).  Returns (best mode, min cost)."""
-        sat = satd35(orig, *refs, n, 0)
-        # two separate rounded ops (no FMA), then a STABLE ascending sort:
-        # jax.lax.top_k breaks ties to the lowest index
-        scost = sat.to(torch.float32) + lamv[:, None] * mbits
-        cand = torch.sort(scost, dim=1, stable=True).indices[:, :RD_CANDS]
-        cpred = predict(*refs, cand, n, 0)
-        levels, _, ssd = residual_chain(orig, cpred, qpv, False,
-                                        want_recon=False)
-        rb = tu_bits(levels, 0, qpv[:, None])
-        mbk = torch.gather(mbits, 1, cand)
-        cost = ssd.to(torch.float32) + lamv[:, None] * (rb + mbk)
-        k = torch.argmin(cost, 1)
-        best = torch.gather(cand, 1, k[:, None])[:, 0]
-        return best.to(torch.int32), cost.amin(1)
-
     def _eval_chroma_est(self, ocb, ocr, refs_cb, refs_cr, n, qpv, best):
         """DM chroma chain for cb and cr stacked in one batch (c_idx 1 and
         2 are identical in every op).  Returns (ssd_cb, ssd_cr, bits_cb,
@@ -179,7 +199,7 @@ class IntraTreeEncoder:
         q16 = maps["qp16"].reshape(-1).repeat(f)
         qc16 = maps["qc16"].reshape(-1).repeat(f)
         lam16 = maps["lam16"].reshape(-1).repeat(f)
-        best16, j16y = self._eval_luma(oy.reshape(n16, 16, 16),
+        best16, j16y = eval_luma(oy.reshape(n16, 16, 16),
                                        self._src_refs(oy), 16, q16, lam16,
                                        mb16)
         ocb, ocr = _blocks(cb, 8), _blocks(cr, 8)
@@ -193,7 +213,7 @@ class IntraTreeEncoder:
         q32 = maps["qp32"].reshape(-1).repeat(f)
         qc32 = maps["qc32"].reshape(-1).repeat(f)
         lam32 = maps["lam32"].reshape(-1).repeat(f)
-        best32, jay = self._eval_luma(oy32.reshape(n32, 32, 32),
+        best32, jay = eval_luma(oy32.reshape(n32, 32, 32),
                                       self._src_refs(oy32), 32, q32, lam32,
                                       mb32)
         ocb16, ocr16 = _blocks(cb, 16), _blocks(cr, 16)
@@ -232,20 +252,12 @@ class IntraTreeEncoder:
             self._lanes[f] = lanes
         return self._lanes[f]
 
-    def _chain(self, orig, refs, n, modes, qpv, c_idx):
-        """Single-mode commit chain: prediction at the forced mode, then
-        the residual chain with SBH.  Returns (levels [B,n,n] int16,
-        recon [B,n,n] int32)."""
-        pred = predict(*refs, modes[:, None], n, c_idx)
-        lv, rec, _ = residual_chain(orig, pred, qpv, self.sbh)
-        return lv[:, 0], rec[:, 0]
-
     def _chroma_pair(self, ocb, ocr, refs_cb, refs_cr, n, mode, qpv):
         b = ocb.shape[0]
         refs = [torch.cat([a, c], 0) for a, c in zip(refs_cb, refs_cr)]
-        lv, rec = self._chain(torch.cat([ocb, ocr], 0), refs, n,
-                              torch.cat([mode, mode], 0),
-                              torch.cat([qpv, qpv], 0), 1)
+        lv, rec = forced_chain(torch.cat([ocb, ocr], 0), refs, n,
+                               torch.cat([mode, mode], 0),
+                               torch.cat([qpv, qpv], 0), 1, self.sbh)
         return lv[:b], rec[:b], lv[b:], rec[b:]
 
     def _commit(self, y, cb, cr, maps, f_split, f_modes):
@@ -300,8 +312,8 @@ class IntraTreeEncoder:
                       torch.cat([_bc(at_top, 32), _bc(at_tr, 32)], 1),
                       torch.cat([_bc(at_left, 32), _bc(zero, 32)], 1), ac_a)
             mode_a = f_modes[fi, by, bx]
-            lva_y, rca_y = self._chain(oy32[fi, cy, cx], refs_a, 32, mode_a,
-                                       qp32[cy, cx], 0)
+            lva_y, rca_y = forced_chain(oy32[fi, cy, cx], refs_a, 32,
+                                        mode_a, qp32[cy, cx], 0, self.sbh)
 
             def crefs_a(s):
                 return (torch.cat([bot(s, byu, bx), bot(s, byu, bx + 1),
@@ -322,9 +334,9 @@ class IntraTreeEncoder:
                 """top_c/left_c/cor_c: functions of the chroma state
                 (cb or cr) giving its raw refs."""
                 mode = f_modes[fi, r, c]
-                lv_y, rc_y = self._chain(
+                lv_y, rc_y = forced_chain(
                     oy[fi, r, c], (top_y, left_y, cor_y, avt, avl, avc), 16,
-                    mode, qp16[r, c], 0)
+                    mode, qp16[r, c], 0, self.sbh)
                 avt8, avl8 = avt[:, ::2], avl[:, ::2]
                 out_c = self._chroma_pair(
                     ocb[fi, r, c], ocr[fi, r, c],
@@ -458,10 +470,23 @@ class IntraTreeEncoder:
                                         self._upload(crs), qp,
                                         want_recon=want_recon))
 
-    def encode_async(self, y, cb, cr, qp: int, want_recon=False):
-        """One frame, estimate + commit."""
-        return self.encode_batch_async(y[None], cb[None], cr[None], qp,
-                                       want_recon)
+    def encode_async(self, y, cb, cr, qp: int, want_recon=False,
+                     keep_recon=False):
+        """One frame, estimate + commit.  ``keep_recon`` also leaves the
+        loop-filtered recon planes on the device, as handle["recon_dev"]
+        (uint8 [H, W], [H/2, W/2] x 2): the reference of the next P frame
+        (the JAX `_dispatch_entry` keeps `dev[4:7]`)."""
+        out = self._step(self._upload(y[None]), self._upload(cb[None]),
+                         self._upload(cr[None]), qp,
+                         want_recon=want_recon or keep_recon)
+        rec = tuple(out[k][0] for k in ("rec_y", "rec_cb", "rec_cr")) \
+            if keep_recon else None
+        if not want_recon:
+            for k in ("rec_y", "rec_cb", "rec_cr"):
+                out.pop(k, None)
+        handle = self._to_host(out)
+        handle["recon_dev"] = rec
+        return handle
 
     def encode_async_load(self, y, cb, cr, qp: int, split, modes,
                           want_recon=False):

@@ -1,6 +1,6 @@
 """Rate control, CQP only (the slice's subset of the JAX package's
-`models/ratecontrol.py`): an I frame's QP is the configured QP less the
-offset of x265's ipFactor, 6 * log2(ip_factor)."""
+`models/ratecontrol.py`): a P frame codes at the configured QP, an I frame
+at that QP less the offset of x265's ipFactor, 6 * log2(ip_factor)."""
 
 from __future__ import annotations
 
@@ -20,9 +20,9 @@ class RateControl:
         self.actual_bits = 0.0
 
     def frame_qp(self, slice_type: str) -> int:
-        if slice_type != "I":
-            raise ValueError("the port codes I slices only")
-        qp = self.base_qp - self.ip_offset
+        if slice_type not in ("I", "P"):
+            raise ValueError("the port codes I and P slices only")
+        qp = self.base_qp - (self.ip_offset if slice_type == "I" else 0.0)
         return int(round(min(max(qp, 0.0), 51.0)))
 
     def update(self, bits: int, slice_type: str, qp: int) -> None:

@@ -72,15 +72,23 @@ def get_cabac_lib():
 
 
 def encode_slice_native(slice_type: str, ctb_log2: int, hc: int, wc: int,
-                        qp: int, *, split=None, modes=None, levels_y=None,
+                        qp: int, *, split=None, kinds=None, modes=None,
+                        merge_idx=None, mvd0=None, mvp0=None, levels_y=None,
                         levels_cb=None, levels_cr=None, qp16=None,
                         qp32=None, max_merge: int = 2,
-                        sign_hide: bool = False):
-    """I-slice serializer for the CTU32 quadtree (the port's subset of the
-    JAX package's unified call: no inter fields, no SAO, no WPP).
-    Returns (payload, entry_sizes); raises when the serializer fails."""
-    if slice_type != "I":
-        raise ValueError("the port serializes I slices only")
+                        sign_hide: bool = False, ref0=None,
+                        num_ref0: int = 1):
+    """I- and P-slice serializer for the CTU32 quadtree (the port's subset of
+    the JAX package's unified call, `x265amod_tpu/native/__init__.py:115`:
+    no B fields, no SAO, no WPP).  P slices take the per-cell kinds, merge
+    indices, L0 MVDs and MVP indices.  Returns (payload, entry_sizes);
+    raises when the serializer fails."""
+    st = {"I": 0, "P": 1}.get(slice_type)
+    if st is None:
+        raise ValueError(f"the port serializes I and P slices, not "
+                         f"{slice_type!r}")
+    if st == 1 and kinds is None:
+        raise ValueError("a P slice needs kinds, merge_idx, mvd0 and mvp0")
     lib = get_cabac_lib()
     from ..cabac.tables import init_context_states
     states = np.ascontiguousarray(
@@ -100,12 +108,12 @@ def encode_slice_native(slice_type: str, ctb_log2: int, hc: int, wc: int,
     out = np.empty(cap, dtype=np.uint8)
     entry = np.zeros(max(hc, 1), dtype=np.int32)
     n = lib.hevc_encode_slice(
-        0, ctb_log2, hc, wc,
-        c(split), c(None), c(modes), c(None), c(None),
-        c(None), c(None), c(None), c(None),
+        st, ctb_log2, hc, wc,
+        c(split), c(kinds), c(modes), c(merge_idx), c(None),
+        c(mvd0), c(mvp0), c(None), c(None),
         c(levels_y), c(levels_cb), c(levels_cr), c(qp16), c(qp32),
         c(None), c(None),
-        c(None), 1,
+        c(ref0), num_ref0,
         qp, max_merge, 0, 1 if sign_hide else 0,
         states.ctypes.data_as(p), entry.ctypes.data_as(p),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap)

@@ -25,13 +25,17 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-# name -> extra nvcc flags.  tu_bits adds its f32 terms in a fixed order
-# that decides RD argmins, so it must not be contracted into FMAs.
+# name -> extra nvcc flags.  tu_bits and subpel form f32 costs in a fixed
+# order that decides RD argmins, so they must not be contracted into FMAs.
 KERNELS = {
     "intra_pred": [],
     "residual_chain": [],
     "tu_bits": ["--fmad=false"],
     "deblock": [],
+    "me_ssd": [],
+    "subpel": ["--fmad=false"],
+    "mc_qpel": [],
+    "hpel": [],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -1,11 +1,12 @@
-"""Deblocking for the all-intra CTU32 tree (spec 8.7.2): the boundary
-strength and QP maps in plain PyTorch, and kernel K4 `deblock` (the luma bS
-filter and the chroma bS == 2 filter, vertical edges then horizontal) with
-its plain version.
+"""Deblocking for the CTU32 tree (spec 8.7.2): the boundary strength and QP
+maps in plain PyTorch, and kernel K4 `deblock` (the luma bS 1/2 filter and
+the chroma bS == 2 filter, vertical edges then horizontal) with its plain
+version.
 
 Counterparts in the JAX package's `ops/deblock.py`: `luma_params`,
-`intra_tree_bs_maps`, `effective_qp16_tree`, `edge_qp_maps`,
-`deblock_luma_bs` and `deblock_chroma_bs`.  Every function here takes a
+`intra_tree_bs_maps`, `_bs_pair`, `bs_maps`, `inter_tree_bs_maps`,
+`effective_qp16_tree`, `edge_qp_maps`, `deblock_luma_bs` and
+`deblock_chroma_bs`.  Every function here takes a
 leading frame dimension F.
 """
 
@@ -53,6 +54,50 @@ def intra_tree_bs_maps(split32, h16: int, w16: int):
     split_h = s[:, ((ji + 1) // 2)[:, None], cols32[None, :]]
     bs_h = torch.where((ji % 2 == 0)[None, :, None], 2 * split_h, 2)
     return bs_v.to(torch.int32), bs_h.to(torch.int32)
+
+
+def _bs_pair(intra_a, intra_b, cbf_a, cbf_b, dir_a, dir_b, mv0_a, mv0_b,
+             mv1_a, mv1_b, ref_a, ref_b):
+    """Spec 8.7.2.4 bS of the edges between cells a and b (JAX
+    `ops/deblock.py:296`): 2 if either is intra; 1 if either codes luma
+    residual, the prediction directions or references differ, or a used
+    list's MVs differ by 4 qpel or more; else 0."""
+    big0 = ((mv0_a - mv0_b).abs() >= 4).any(-1)
+    big1 = ((mv1_a - mv1_b).abs() >= 4).any(-1)
+    use0 = (dir_a & 1) == 1
+    use1 = (dir_a & 2) == 2
+    mm = (dir_a != dir_b) | (use0 & big0) | (use1 & big1) | (ref_a != ref_b)
+    bs1 = cbf_a | cbf_b | mm
+    return torch.where(intra_a | intra_b, 2,
+                       torch.where(bs1, 1, 0)).to(torch.int32)
+
+
+def bs_maps(intra, cbf, dir_, mv0, mv1, ref0):
+    """Vertical and horizontal bS maps from per-cell coding state (JAX
+    `ops/deblock.py:310`), with a leading frame dimension: intra/cbf/dir_/
+    ref0 [F, h, w], mv0/mv1 [F, h, w, 2] -> ([F, h, w-1], [F, h-1, w])."""
+    def pair(a, b):
+        return _bs_pair(intra[a], intra[b], cbf[a], cbf[b], dir_[a],
+                        dir_[b], mv0[a], mv0[b], mv1[a], mv1[b], ref0[a],
+                        ref0[b])
+    all_ = slice(None)
+    return (pair((all_, all_, slice(None, -1)), (all_, all_, slice(1, None))),
+            pair((all_, slice(None, -1)), (all_, slice(1, None))))
+
+
+def inter_tree_bs_maps(intra16, cbf16, dir16, mv0, mv1, split32, ref0):
+    """bS maps of a P/B CTU32 quadtree frame (JAX `ops/deblock.py:356`):
+    `bs_maps` on the 16-cell grid with the internal 16-edges of an unsplit
+    CTU zeroed (a CU32 with a TU32 has no edge there).  cbf16 carries the
+    TU's luma cbf (a TU32's over its four cells)."""
+    bs_v, bs_h = bs_maps(intra16, cbf16, dir16, mv0, mv1, ref0)
+    split_v, split_h = (b // 2 for b in intra_tree_bs_maps(
+        split32, intra16.shape[1], intra16.shape[2]))
+    # intra_tree_bs_maps gives 2 * split on the CTU-internal edges and 2 on
+    # the CTU boundaries, so split_* is 0 exactly where an edge is internal
+    # to an unsplit CTU
+    return (torch.where(split_v == 0, 0, bs_v).to(torch.int32),
+            torch.where(split_h == 0, 0, bs_h).to(torch.int32))
 
 
 def effective_qp_map(qp_sig, coded, slice_qp: int):
@@ -265,12 +310,15 @@ def deblock_chroma(plane, bs_v, bs_h, qpc_v, qpc_h):
 
 
 def deblock_frame_planes(rec_y, rec_cb, rec_cr, split32, coded16, qp32,
-                         slice_qp: int):
-    """The intra-tree loop filter over F frames (the tail of the JAX
-    `_encode_frame`): bS and QP maps, then luma and both chroma planes."""
+                         slice_qp: int, bs=None):
+    """The CTU32-tree loop filter over F frames (the tail of the JAX
+    `_encode_frame` and of the P tree's `_encode`): the QP maps, then luma
+    and both chroma planes.  ``bs`` = (bs_v, bs_h); None takes the
+    all-intra maps of the split."""
     f, h, w = rec_y.shape
     h16, w16 = h // 16, w // 16
-    bs_v, bs_h = intra_tree_bs_maps(split32, h16, w16)
+    bs_v, bs_h = bs if bs is not None else intra_tree_bs_maps(split32, h16,
+                                                              w16)
     eff16 = effective_qp16_tree(qp32, split32, coded16, slice_qp)
     qp_v, qp_h = edge_qp_maps(eff16)
     qpc_v, qpc_h = chroma_qp_t(qp_v), chroma_qp_t(qp_h)

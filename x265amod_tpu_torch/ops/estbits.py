@@ -96,16 +96,16 @@ def _bitlen(x):
     return out + (x > 0).to(x.dtype)
 
 
-def tu_bits_plain(levels, c_idx: int, qp):
+def tu_bits_plain(levels, c_idx: int, qp, slice_type: str = "I"):
     """levels [..., n, n], qp int broadcastable to the lead shape ->
-    f32 bits [...] (JAX `tu_bits(levels, c_idx, "I", qp=qp)`: the slice
-    prices at I-slice init states)."""
+    f32 bits [...] (JAX `tu_bits(levels, c_idx, slice_type, qp=qp)`, priced
+    at the slice type's init states)."""
     n = levels.shape[-1]
     lead = levels.shape[:-2]
     dev = levels.device
     a = levels.reshape(-1, n, n).to(torch.int64).abs()
     nb = a.shape[0]
-    tab = torch.as_tensor(bit_consts_table("I", 1 if c_idx else 0),
+    tab = torch.as_tensor(bit_consts_table(slice_type, 1 if c_idx else 0),
                           device=dev)
     qpf = torch.clamp(torch.broadcast_to(qp, lead).reshape(-1), 0, 51)
     row = tab[qpf.long()]                                   # [nb, 13] f32
@@ -176,18 +176,19 @@ def _k3():
 _tables: dict = {}
 
 
-def tu_bits(levels, c_idx: int, qp):
-    """See tu_bits_plain; a CUDA tensor launches `csrc/tu_bits.cu`."""
+def tu_bits(levels, c_idx: int, qp, slice_type: str = "I"):
+    """See tu_bits_plain; a CUDA tensor launches `csrc/tu_bits.cu` with the
+    slice type's [52, 13] table."""
     if levels.device.type == "cpu":
-        return tu_bits_plain(levels, c_idx, qp)
+        return tu_bits_plain(levels, c_idx, qp, slice_type)
     n = levels.shape[-1]
     lead = levels.shape[:-2]
     lv = levels.to(torch.int16).reshape(-1, n, n).contiguous()
     q = torch.broadcast_to(qp, lead).reshape(-1).to(torch.int32) \
         .contiguous()
-    key = (1 if c_idx else 0, lv.device)
+    key = (slice_type, 1 if c_idx else 0, lv.device)
     if key not in _tables:
-        _tables[key] = torch.as_tensor(bit_consts_table("I", key[0]),
+        _tables[key] = torch.as_tensor(bit_consts_table(slice_type, key[1]),
                                        device=lv.device)
     tab = _tables[key]
     cuda_lib.require_cuda(lv, q, tab)
@@ -200,3 +201,10 @@ def tu_bits(levels, c_idx: int, qp):
                            lv.shape[0], n, _VP(cuda_lib.stream_handle(lv)))
         cuda_lib.launched("tu_bits", rc)
     return out.reshape(lead)
+
+
+def intra_hdr_bits(slice_type: str = "P") -> float:
+    """Header-bin cost of an intra CU inside an inter slice (pred_mode,
+    part_mode, MPM bins, chroma DM) at QP 30 init states (JAX
+    `ops/estbits.py:222`)."""
+    return bit_consts(slice_type, 30, 0)[12]

@@ -31,10 +31,15 @@ def chroma_qp_np(qp_y) -> np.ndarray:
     return out.astype(np.int32)
 
 
+_TABS: dict = {}
+
+
 def chroma_qp_t(qp_y):
     """Tensor twin of chroma_qp_np (per-edge chroma QP in deblocking)."""
     q = torch.clamp(qp_y.to(torch.int32), 0, 57)
-    tab = torch.as_tensor(CHROMA_QP_TAB, device=q.device)
+    if q.device not in _TABS:        # one upload per device, not per call
+        _TABS[q.device] = torch.as_tensor(CHROMA_QP_TAB, device=q.device)
+    tab = _TABS[q.device]
     return torch.where(q < 30, q, torch.where(
         q > 43, q - 6, tab[torch.clamp(q - 30, 0, 13).long()])) \
         .to(torch.int32)

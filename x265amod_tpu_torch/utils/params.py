@@ -189,9 +189,9 @@ def param_from_dict(d: dict) -> Param:
 
 def check_params(p: Param) -> None:
     """Validation (role of x265_check_params, param.cpp:1583), with the
-    slice gate of the port: every setting outside BASELINE config 1
-    (all-intra CTU32 CQP, 8-bit, deblock on, SAO/AQ/RDOQ off) is refused
-    loudly, never ignored."""
+    slice gate of the port: every setting outside BASELINE configs 1 and 2
+    (all-intra, or low-delay P with one reference and no B frames; CTU32,
+    CQP, 8-bit, SAO/AQ/RDOQ off) is refused loudly, never ignored."""
     if p.width <= 0 or p.height <= 0:
         raise ValueError("picture dimensions must be set")
     if p.chroma_format != 1:
@@ -200,8 +200,15 @@ def check_params(p: Param) -> None:
         raise ValueError("qp out of range")
     unwired = []
     if p.keyint != 1:
-        unwired.append(f"keyint {p.keyint} (the port codes all-intra, "
-                       "--keyint 1)")
+        # inter coding: the low-delay P tree with a single reference
+        if p.bframes > 0:
+            unwired.append(f"bframes {p.bframes} (the port codes low-delay "
+                           "P, --bframes 0)")
+        if p.ref != 1:
+            unwired.append(f"ref {p.ref} (the port codes one reference)")
+        if not 4 <= p.me_range <= 32:
+            unwired.append(f"merange {p.me_range} (dense-grid ME takes "
+                           "4..32)")
     if p.ctu_size != 32:
         unwired.append(f"ctu {p.ctu_size} (the port codes the CTU32 "
                        "quadtree)")
