@@ -5,27 +5,39 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build of the eight CUDA kernels
+  1. the card's name and power limit; build of the eleven CUDA kernels
      (nvcc for sm_90a, all started together) with their ptxas reports;
   2. each kernel against its plain PyTorch version on the card, with its
      time, bound and the plain version's time: K1-K4 at the shapes of
-     config 1's 16-frame batch, K5-K8 at config 2's per-frame shapes, plus
-     edge inputs (QP 0 and 51, flat 0/255 blocks, frame borders without
-     references, MVs at the search-range bound on border blocks), K2 with
-     inter rounding, K3 at P-slice init states and K4 on bS 1 edges; the
-     plain bS/QP maps and SSE/SSIM (rows 10-11) are timed too;
+     config 1's 16-frame batch, K5-K8 at config 2's per-frame shapes, K9-K11
+     at one config-3 B frame's shapes (1920x1088), and K1-K8 checked again
+     at that B frame's shapes (one 1920x1088 frame, sr 16), plus edge
+     inputs (QP 0 and 51, flat 0/255 blocks, frame borders without
+     references, MVs at the search-range or window bound on border blocks,
+     0/255 steps under the MC filters, rec == orig and lambda 0 for SAO),
+     K2 with inter rounding, K3 at P- and B-slice init states and K4 on
+     bS 1 edges; the plain bS/QP maps and SSE/SSIM (rows 10-11) are timed
+     too;
   3. BASELINE config 1 (640x360 all-intra ultrafast QP 30, CTU32) through
-     `Encoder(device="cuda")`, 40 frames with the first 8 as warm-up; fps,
+     `Encoder(device="cuda")`, 24 frames with the first 8 as warm-up; fps,
      PSNR-Y, kbps and the launch count of every kernel;
   4. config 1's bitstream on the card against the port's CPU bitstream
      (plain versions) on the first 2 frames;
   5. BASELINE config 2 (1280x720 low-delay P superfast QP 32, CTU32, one
      reference) through `Encoder(device="cuda")` and `encode_push`/`flush`,
-     24 frames with the first 4 as warm-up, as the repository's bench.py
+     12 frames with the first 4 as warm-up, as the repository's bench.py
      runs it; fps, PSNR-Y, kbps, seconds, and every kernel's launch count;
   6. config 2's bitstream on the card against the CPU's for its first 3
      frames (I, P, P); where they differ, the CPU's decisions replayed on
-     the card must give the CPU's stream.
+     the card must give the CPU's stream;
+  7. the config-3 slice (BASELINE config 3 at 1920x1080 as bench.py builds
+     it, AQ and CU-tree off: CQP 32, keyint 60, a B pyramid of 3, SAO on)
+     through `encode_push`/`flush`: 9 frames, the IDR and the first
+     mini-GOP as warm-up, the last mini-GOP (P + 3 B) timed; fps, PSNR-Y
+     (after SAO), kbps, the launches of K1-K11 per B frame and the share of
+     CTUs whose luma SAO is on;
+  8. the config-3 slice at 640x360 (IDR + one mini-GOP) on the card and on
+     the CPU: the streams must be identical byte for byte.
 
 Prints one JSON line of kernel figures, then the card's name and power
 limit, then `{"ok": true, "device": {...}}` as the last line.
@@ -45,8 +57,13 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 # int32 ALU peak: 132 SMs x 64 INT32 lanes x 1.98 GHz x 2 (a multiply-add
 # counts two operations) = half the data sheet's 67 TFLOP/s fp32 rate
 H100_INT32_OPS_PER_S = 33.5e12
-# the kernels config 1 (all-intra) runs; config 2 runs all eight
+# the kernels config 1 (all-intra) runs; config 2 runs K1-K8, the config-3
+# slice all eleven
 CONFIG1_KERNELS = ("intra_pred", "residual_chain", "tu_bits", "deblock")
+CONFIG3_KERNELS = ("mc_bi", "sao_analyse", "sao_apply")
+# phase 7: IDR + two mini-GOPs (P + 3 B) in display order; the IDR and the
+# first mini-GOP warm up
+CONFIG3_FRAMES, CONFIG3_WARM = 9, 5
 
 
 def synth_frames(w, h, n, seed=0):
@@ -227,7 +244,7 @@ def phase_kernels(f, h16, w16, iters, dev="cuda"):
         dense = torch.as_tensor(
             (rng.integers(-300, 301, (b, n, n)) *
              (rng.random((b, n, n)) < 0.6)).astype(np.int16), device=dev)
-        for st in ("I", "P"):                   # the slice type's table
+        for st in ("I", "P", "B"):              # the slice type's table
             got = estbits.tu_bits(levels, c_idx, qk, st)
             want = estbits.tu_bits_plain(levels, c_idx, qk, st)
             k3["err"] = max(k3["err"], check_equal(f"tu_bits n={n} {st}",
@@ -626,7 +643,8 @@ def phase_config2(frames, warm):
             raise AssertionError(f"config 2: {k} not finite")
     if not 30.0 < s["psnr_y"] < 60.0:
         raise AssertionError(f"config 2: PSNR-Y {s['psnr_y']} out of range")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items()
+               if v <= 0 and k not in CONFIG3_KERNELS]
     if missing:
         raise AssertionError(f"config 2 did not launch {missing}")
     p_stats = enc.frame_stats[warm:]
@@ -688,11 +706,251 @@ def phase_card_vs_cpu_p(frames):
     return out
 
 
+def sao_ops(npix, planes):
+    """Integer operations SAO analysis needs per sample of ``planes``
+    planes: the difference, 4 edge classes (2 subtractions, 2 signs, the
+    category map and a count/sum update: 8 each) and the band (shift and
+    update: 3)."""
+    return npix * planes * (1 + 4 * 8 + 3)
+
+
+def phase_kernels_b(iters, dev="cuda", w=1920, h=1088, sr=16):
+    """K9-K11 at one config-3 B frame's shapes (1920x1080 padded to 1088
+    rows, sr 16): K9 at the trials' luma calls (bn 16 and 32) and the final
+    MC's luma (16) and chroma (8) calls, with MVs at the window bound on
+    the border blocks over references with 0/255 steps; K10 on luma (CTU
+    32) and on cb + cr jointly (CTU 16), with flat, exact and noisy
+    regions and lambda 0 on some CTUs; K11 on the three planes."""
+    import torch
+    from x265amod_tpu_torch.ops import me, sao
+    dev = torch.device(dev)
+    rng = np.random.default_rng(3)
+    rows = []
+
+    def plane(hh, ww):
+        xx, yy = np.meshgrid(np.arange(ww), np.arange(hh))
+        p = np.clip(128 + 80 * np.sin(xx / 11.0) * np.cos(yy / 7.0)
+                    + rng.normal(0, 4, (hh, ww)), 0, 255).astype(np.int32)
+        p[: hh // 8, : ww // 8] = 0
+        p[: hh // 8, ww // 8: ww // 4] = 255      # a 0/255 step
+        p[-hh // 8:, -ww // 8:] = 255
+        return torch.as_tensor(p, device=dev)
+    ry0, ry1 = plane(h, w), plane(h, w)
+    rc0, rc1 = plane(h // 2, w // 2), plane(h // 2, w // 2)
+
+    # K9 mc_bi: the trials at 16 and 32, the final luma 16 and chroma 8 x 2
+    d = dict(err=0.0, ms=0.0, plain_ms=0.0, launches_per_b_frame=5)
+    nbytes_, ops = 0, 0
+    for r0, r1, n, chroma in ((ry0, ry1, 16, False), (ry0, ry1, 32, False),
+                              (ry0, ry1, 16, False), (rc0, rc1, 8, True),
+                              (rc0, rc1, 8, True)):
+        ph, pw = r0.shape
+        nb = (ph // n) * (pw // n)
+        mm = sr // 2 + 2 if chroma else sr + 2
+        unit = 8 if chroma else 4
+        mvs = []
+        for _ in range(2):
+            mv = rng.integers(-unit * mm, unit * mm + unit, (nb, 2)) \
+                .astype(np.int32)
+            wb = pw // n
+            mv[:wb] = (-unit * mm, -unit * mm)
+            mv[-wb:] = (unit * mm + unit - 1, unit * mm + unit - 1)
+            mv[::wb] = (-unit * mm, unit * mm)
+            mvs.append(torch.as_tensor(mv, device=dev))
+        d["err"] = max(d["err"], check_equal(
+            f"mc_bi n={n} chroma={chroma}",
+            me.mc_bi(r0, r1, *mvs, n, chroma, mm),
+            me.mc_bi_plain(r0, r1, *mvs, n, chroma)))
+        excess = []             # the kernel's window check: one sample out
+        me.mc_bi(r0, r1, mvs[0], mvs[1] + unit, n, chroma, mm, excess)
+        if int(excess[0]) != 1:
+            raise AssertionError(f"mc_bi n={n}: window excess "
+                                 f"{int(excess[0])}, expected 1")
+        d["ms"] += time_ms(lambda: me.mc_bi(r0, r1, *mvs, n, chroma, mm),
+                           iters)
+        d["plain_ms"] += time_ms(
+            lambda: me.mc_bi_plain(r0, r1, *mvs, n, chroma), 2)
+        t = 4 if chroma else 8
+        nbytes_ += nbytes(r0, r1, *mvs) + nb * n * n * 4
+        ops += 2 * nb * ((n + t - 1) * n * 2 * t + n * n * (2 * t + 2)) \
+            + nb * n * n * 4
+    d["bound_ms"], d["bound_by"] = bound_ms(nbytes_, ops)
+    d["library_ms"] = None
+    d["library_note"] = ("none: two per-block-MV interpolations and a "
+                         "rounding average, no single call")
+    rows.append(("mc_bi", "x265amod_tpu_torch/csrc/mc_bi.cu",
+                 "x265amod_tpu/ops/me.py:323 bi_combine (+ :262 "
+                 "mc_luma_qpel14, :331 mc_chroma_qpel14, :180 "
+                 "_block_windows)", d))
+
+    def sao_pair(ref):
+        orig = ref
+        rec = torch.clamp(ref + torch.as_tensor(
+            rng.integers(-5, 6, ref.shape).astype(np.int32), device=dev),
+            0, 255)
+        hh, ww = ref.shape
+        rec[: hh // 4, ww // 2:] = orig[: hh // 4, ww // 2:]   # rec == orig
+        return orig.contiguous(), rec.contiguous()
+    oy, ry = sao_pair(ry0)
+    ocb, rcb = sao_pair(rc0)
+    ocr, rcr = sao_pair(rc1)
+    n32 = (h // 32) * (w // 32)
+    lam = torch.as_tensor(rng.uniform(0, 600, n32).astype(np.float32),
+                          device=dev)
+    lam[::7] = 0.0
+
+    # K10 sao_analyse: luma and joint chroma
+    d = dict(err=0.0, launches_per_b_frame=2)
+    for g, p_ in zip(sao.sao_analyse(oy, ry, lam, 32),
+                     sao.sao_analyse_plain(oy, ry, lam, 32)):
+        d["err"] = max(d["err"], check_equal("sao_analyse luma", g, p_))
+    for g, p_ in zip(sao.sao_analyse_chroma(ocb, rcb, ocr, rcr, lam, 16),
+                     sao.sao_analyse_chroma_plain(ocb, rcb, ocr, rcr, lam,
+                                                  16)):
+        d["err"] = max(d["err"], check_equal("sao_analyse chroma", g, p_))
+    d["ms"] = time_ms(lambda: sao.sao_analyse(oy, ry, lam, 32), iters) \
+        + time_ms(lambda: sao.sao_analyse_chroma(ocb, rcb, ocr, rcr, lam,
+                                                 16), iters)
+    d["plain_ms"] = time_ms(lambda: sao.sao_analyse_plain(oy, ry, lam, 32),
+                            2) + time_ms(
+        lambda: sao.sao_analyse_chroma_plain(ocb, rcb, ocr, rcr, lam, 16), 2)
+    d["bound_ms"], d["bound_by"] = bound_ms(
+        nbytes(oy, ry, ocb, rcb, ocr, rcr) + 2 * nbytes(lam) + 2 * n32 * 52,
+        sao_ops(h * w, 1) + sao_ops(h * w // 4, 2))
+    d["library_ms"] = None
+    d["library_note"] = "none: no call classifies edges and picks offsets"
+    rows.append(("sao_analyse", "x265amod_tpu_torch/csrc/sao_analyse.cu",
+                 "x265amod_tpu/ops/sao.py:75 sao_analyse (+ :257 "
+                 "sao_analyse_chroma)", d))
+
+    # K11 sao_apply: the three planes with their chosen parameters
+    d = dict(err=0.0, ms=0.0, plain_ms=0.0, launches_per_b_frame=3)
+    ly = sao.sao_analyse(oy, ry, lam, 32)
+    lc = sao.sao_analyse_chroma(ocb, rcb, ocr, rcr, lam, 16)
+    nbytes_ = 0
+    for name, r, par, ctu in (("y", ry, ly[:4], 32),
+                              ("cb", rcb, lc[:4], 16),
+                              ("cr", rcr, (lc[0], lc[1], lc[4], lc[5]), 16)):
+        d["err"] = max(d["err"], check_equal(
+            f"sao_apply {name}", sao.sao_apply(r, *par, ctu),
+            sao.sao_apply_plain(r, *par, ctu)))
+        d["ms"] += time_ms(lambda: sao.sao_apply(r, *par, ctu), iters)
+        d["plain_ms"] += time_ms(lambda: sao.sao_apply_plain(r, *par, ctu),
+                                 2)
+        nbytes_ += 2 * nbytes(r) + nbytes(*par)
+    d["bound_ms"], d["bound_by"] = bound_ms(
+        nbytes_, (h * w + h * w // 2) * 12)
+    d["library_ms"] = None
+    d["library_note"] = "none: per-CTU lookup tables need a gather"
+    rows.append(("sao_apply", "x265amod_tpu_torch/csrc/sao_apply.cu",
+                 "x265amod_tpu/ops/sao.py:168 sao_apply", d))
+    return rows
+
+
+def config3(w=1920, h=1080):
+    """BASELINE config 3 as the repository's bench.py builds it
+    (`bench.py:114`), with AQ and CU-tree off so that no lookahead runs.
+    Its crf is not read: rc_mode stays "cqp", so frames code at QP 32 (I
+    29, referenced B 33, b 34)."""
+    from x265amod_tpu_torch.utils.params import Param
+    return Param(width=w, height=h, keyint=60, bframes=3, ctu_size=32,
+                 sao=True, aq_mode=0, cutree=False, rc_lookahead=4)
+
+
+def phase_config3(frames, warm):
+    """The config-3 slice through `encode_push` and `flush`; the clock and
+    the launch counts start after the warm-up frames (the IDR and the first
+    mini-GOP).  Launches per B frame are read around each B frame's
+    dispatch, where all of its kernels launch."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from x265amod_tpu_torch.ops import cuda_lib
+    enc = Encoder(config3(), device="cuda")
+    per_b, sao_on, sao_n = [], [], [0, 0]
+    inner = enc.b_encoder.encode_async
+
+    def counted(*a, **k):
+        before = dict(cuda_lib.LAUNCHES)
+        out = inner(*a, **k)
+        per_b.append({n: cuda_lib.LAUNCHES[n] - before[n] for n in before})
+        return out
+    enc.b_encoder.encode_async = counted
+    for tree in (enc.frame_encoder, enc.inter_encoder, enc.b_encoder):
+        def wrap(tree=tree, inner=tree.collect):
+            def collect(*a, **k):
+                r = inner(*a, **k)
+                sao_n[0] += int((np.asarray(r.sao[0]) != 0).sum())
+                sao_n[1] += int(np.asarray(r.sao[0]).size)
+                return r
+            tree.collect = collect
+        wrap()
+    n_done, t0 = 0, None
+    for i, fr in enumerate(frames):
+        outs = enc.encode_push(*fr)
+        if i == warm - 1:
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            per_b.clear()
+            t0 = time.time()
+        elif i >= warm:
+            n_done += len(outs)
+    n_done += len(enc.flush())
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    s = enc.summary()
+    types = [st.slice_type for st in enc.frame_stats]
+    n = len(frames) - warm
+    if n_done != n or types != ["I"] + ["P", "B", "B", "B"] * 2:
+        raise AssertionError(f"config 3: {n_done} of {n} frames, types "
+                             f"{types}")
+    for k in ("psnr_y", "bitrate_kbps"):
+        if not np.isfinite(s[k]):
+            raise AssertionError(f"config 3: {k} not finite")
+    if not 30.0 < s["psnr_y"] < 60.0:
+        raise AssertionError(f"config 3: PSNR-Y {s['psnr_y']} out of range")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"config 3 did not launch {missing}")
+    if sao_n[0] == 0:
+        raise AssertionError("config 3: SAO is off on every CTU")
+    timed = enc.frame_stats[warm:]
+    b_mean = {k: float(np.mean([b[k] for b in per_b])) for k in launches}
+    return dict(frames=n, seconds=dt, fps=n / dt, psnr_y=s["psnr_y"],
+                kbps=s["bitrate_kbps"], ssim_y=s["ssim_y"],
+                timed_psnr_y=float(np.mean([x.psnr_y for x in timed])),
+                timed_kbps=float(sum(x.bits for x in timed) * 25.0 / n
+                                 / 1000.0),
+                qps=[x.qp for x in enc.frame_stats],
+                sao_luma_on_share=sao_n[0] / max(sao_n[1], 1),
+                launches_per_b_frame=b_mean), launches
+
+
+def phase_card_vs_cpu_b(frames):
+    """The config-3 slice at 640x360, IDR + one mini-GOP, on the card and
+    on the CPU: the streams must be identical."""
+    from x265amod_tpu_torch.models.encoder import Encoder
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        p = config3(640, 360)
+        p.info = False
+        e = Encoder(p, device=dev)
+        streams[dev] = [o.nals for o in e.encode_pipelined(frames)]
+    same = streams["cuda"] == streams["cpu"]
+    if not same:
+        bad = [i for i, (a, b) in enumerate(zip(streams["cuda"],
+                                                streams["cpu"])) if a != b]
+        raise AssertionError(f"config 3 at 640x360: card and CPU streams "
+                             f"differ in frames {bad} (decode order)")
+    return dict(bitstreams_identical=True, frames=len(frames),
+                bytes=sum(len(x) for x in streams["cuda"]))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--frames", type=int, default=40)
+    ap.add_argument("--frames", type=int, default=24)
     ap.add_argument("--warm", type=int, default=8)
-    ap.add_argument("--p-frames", type=int, default=24)
+    ap.add_argument("--p-frames", type=int, default=12)
     ap.add_argument("--p-warm", type=int, default=4)
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
@@ -724,6 +982,16 @@ def main():
     h16, w16 = -(-h // 32) * 2, w // 16
     rows = phase_kernels(16, h16, w16, args.iters)
     rows += phase_kernels_p(args.iters)
+    rows += phase_kernels_b(args.iters)
+    # K1-K8 again at the config-3 slice's shapes (one B frame at 1920x1088,
+    # sr 16): checked only, the rows keep config 1's and config 2's times
+    by_name = {name: d for name, _, _, d in rows}
+    for name, _, _, d in phase_kernels(1, 68, 120, 1) + phase_kernels_p(
+            1, w=1920, h=1088, sr=16):
+        by_name[name]["err"] = max(by_name[name]["err"], d["err"])
+        by_name[name]["checked_at_config3_shapes"] = True
+        log(f"phase 2: {name} equal to plain at 1920x1088 (max abs err "
+            f"{d['err']})")
     for name, _, _, d in rows:
         log(f"phase 2: {name} equal to plain (max abs err {d['err']}); "
             f"{d['ms']:.4f} ms vs plain {d['plain_ms']:.4f} ms, bound "
@@ -751,16 +1019,32 @@ def main():
     t0 = time.time()
     log("phase 6: " + json.dumps(phase_card_vs_cpu_p(pframes)))
     seconds["6_config2_card_vs_cpu"] = time.time() - t0
+
+    t0 = time.time()
+    bframes = synth_frames(1920, 1080, CONFIG3_FRAMES, seed=4)
+    b_stats, launches3 = phase_config3(bframes, CONFIG3_WARM)
+    log("phase 7: " + json.dumps(dict(b_stats, card=card,
+                                      launches=launches3)))
+    seconds["7_config3"] = time.time() - t0
+    del bframes
+    t0 = time.time()
+    log("phase 8: " + json.dumps(phase_card_vs_cpu_b(
+        synth_frames(640, 360, 5, seed=4))))
+    seconds["8_config3_card_vs_cpu"] = time.time() - t0
     log("seconds per phase: " + json.dumps(seconds))
 
     kernels = []
     for name, src, replaces, d in rows:
         config1_kernel = name in CONFIG1_KERNELS
+        config3_kernel = name in CONFIG3_KERNELS
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches1[name] if config1_kernel else launches2[name],
+            launches=launches1[name] if config1_kernel else (
+                launches3[name] if config3_kernel else launches2[name]),
             launches_config1=launches1[name],
             launches_config2=launches2[name],
+            launches_config3=launches3[name],
+            launches_per_b_frame=b_stats["launches_per_b_frame"][name],
             max_abs_err=d["err"], ms=d["ms"],
             plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
             bound_by=d["bound_by"], library_ms=d.get("library_ms"),
@@ -769,7 +1053,11 @@ def main():
                                "function"),
             shapes=(f"16-frame batch at {w}x{h} (padded {16 * w16}x"
                     f"{16 * h16})" if config1_kernel else
-                    "one P frame at 1280x720 (padded 1280x736), sr 8")))
+                    "one B frame at 1920x1080 (padded 1920x1088), sr 16"
+                    if config3_kernel else
+                    "one P frame at 1280x720 (padded 1280x736), sr 8")
+            + ("; also checked at one B frame's shapes (1920x1088, sr 16)"
+               if d.get("checked_at_config3_shapes") else "")))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

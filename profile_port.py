@@ -1,10 +1,11 @@
-"""Where the time goes in the PyTorch/CUDA port's two paths on one GPU:
-BASELINE config 1 (640x360 all-intra QP 30, CTU32, 16-frame batches) and
-config 2 (1280x720 low-delay P QP 32, CTU32, one reference).
+"""Where the time goes in the PyTorch/CUDA port's three paths on one GPU:
+BASELINE config 1 (640x360 all-intra QP 30, CTU32, 16-frame batches),
+config 2 (1280x720 low-delay P QP 32, CTU32, one reference) and the
+config-3 slice (1920x1080 B pyramid with SAO, CQP 32, AQ and CU-tree off).
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 profile_port.py [--batches 2] [--p-frames 4]
+    python3 profile_port.py [--configs 1,2,3] [--batches 2] [--p-frames 4]
 
 Prints JSON lines:
   - "stages": host wall time of each stage of a config 1 16-frame batch,
@@ -20,6 +21,12 @@ Prints JSON lines:
     --p-frames P frames;
   - "p_profile": torch.profiler over --p-frames P frames of config 2
     through encode_push;
+  - "b_stages": the breakdown of a config-3 B frame (upload, ME, trials,
+    intra trial, decide scan, final MC and residuals, commit scan, deblock
+    + metrics, SAO, D2H, CABAC), averaged over the 3 B frames coded
+    between the IDR and the P anchor of the first mini-GOP;
+  - "b_profile": torch.profiler over one mini-GOP (P + 3 B) of config 3
+    through encode_push;
   - the card's name and power limit.
 """
 
@@ -32,7 +39,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from chip_smoke import card_line, config1, config2, synth_frames
+from chip_smoke import card_line, config1, config2, config3, synth_frames
 
 
 def stage_breakdown(enc, frames, batches):
@@ -127,14 +134,18 @@ def p_stage_breakdown(enc, frames):
         t = mark("decide_scan", t)
         cell = fe._cell_decisions(dec)
         cell["mv"] = dec["mv"]
-        lv, rec = fe._phase3(y, cb, cr, refs, maps, cell)
+        lv, rec = fe._phase3(y, cb, cr, fe._final_mc(refs, cell), maps,
+                             cell)
         t = mark("final_mc_residuals", t)
         rec, lv, modes = fe._commit(y, cb, cr, maps, cell["kinds"],
                                     st1["imode16"], lv, rec)
         t = mark("commit_scan", t)
-        rec, sse = fe._filter_and_metrics((y, cb, cr), rec, lv,
-                                          cell["kinds"], dec["split"],
-                                          dec["mv"], maps, qp)
+        intra = (cell["kinds"] == 2).reshape(fe.h16, fe.w16)
+        mv0 = torch.where(intra[..., None], 0,
+                          dec["mv"].reshape(fe.h16, fe.w16, 2))
+        rec, sse, _ = fe._filter_and_metrics(
+            (y, cb, cr), rec, lv, cell["kinds"], dec["split"],
+            (torch.where(intra, 0, 1), mv0, torch.zeros_like(mv0)), maps, qp)
         t = mark("loop_filter_and_metrics", t)
         h16, w16 = fe.h16, fe.w16
         handle = fe._to_host(dict(
@@ -153,6 +164,94 @@ def p_stage_breakdown(enc, frames):
         enc._cabac_inter_tree(res, qp)
         mark("cabac", t)
         ref = handle["recon_dev"]
+    acc["total"] = sum(acc.values())
+    return acc
+
+
+def b_stage_breakdown(enc, frames):
+    """Stages of config-3 B frames: frames[0] is coded as the IDR and
+    frames[-1] as the P anchor against it; each frame between is coded as
+    a referenced B between the two."""
+    import torch
+    from x265amod_tpu_torch.models.mvpred import dist_scale_factor
+    from x265amod_tpu_torch.ops.sao import sao_filter_frame
+    enc.encode_push(*frames[0])
+    ref0 = enc._dpb[0]
+    pad = [[np.pad(a, ((0, (-a.shape[0]) % s), (0, 0)), mode="edge")
+            for a, s in zip(f, (32, 16, 16))] for f in frames]
+    anchor = len(frames) - 1
+    ref1 = enc.inter_encoder.encode_async(*pad[anchor], ref0,
+                                          enc.rc.frame_qp("P"))["recon_dev"]
+    fe = enc.b_encoder
+    qp = enc.rc.frame_qp("B")
+    maps = fe._maps(qp)
+    n = anchor - 1
+    acc = {}
+
+    def mark(name, t0):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        acc[name] = acc.get(name, 0.0) + (t1 - t0) * 1e3 / n
+        return t1
+
+    for poc in range(1, anchor):
+        dsf = (dist_scale_factor(poc, 0, anchor),
+               dist_scale_factor(poc, anchor, 0))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y, cb, cr = (fe._upload(a).to(torch.int32) for a in pad[poc])
+        r0 = tuple(r.to(torch.int32) for r in ref0)
+        r1 = tuple(r.to(torch.int32) for r in ref1)
+        t = mark("upload", t)
+        st1 = fe._motion_b(y, (r0[0], r1[0]), maps)
+        t = mark("me_both_lists", t)
+        excess = []
+        st1.update(fe._trials_b(y, (r0[0], r1[0]), maps, st1, excess))
+        t = mark("trials_l0_l1_bi", t)
+        oy = y.reshape(fe.h16, 16, fe.w16, 16).permute(0, 2, 1, 3)
+        st1["di16"], st1["imode16"] = fe._intra_trial16(
+            oy, oy.reshape(-1, 16, 16), maps["qp16"], maps["lam16"])
+        t = mark("intra_trial", t)
+        dec = fe._decide_b(st1, maps, dsf)
+        t = mark("decide_scan", t)
+        cell = fe._cell_decisions_b(dec)
+        lv, rec = fe._phase3(y, cb, cr, fe._final_mc_b(r0, r1, cell, excess),
+                             maps, cell)
+        t = mark("final_mc_residuals", t)
+        rec, lv, modes = fe._commit(y, cb, cr, maps, cell["kinds"],
+                                    st1["imode16"], lv, rec)
+        t = mark("commit_scan", t)
+        h16, w16 = fe.h16, fe.w16
+        motion = (cell["dir"].reshape(h16, w16),
+                  cell["mv0"].reshape(h16, w16, 2),
+                  cell["mv1"].reshape(h16, w16, 2))
+        fe.sao = False
+        rec, sse, _ = fe._filter_and_metrics((y, cb, cr), rec, lv,
+                                             cell["kinds"], dec["split"],
+                                             motion, maps, qp)
+        fe.sao = True
+        t = mark("deblock_and_metrics", t)
+        rec, par = sao_filter_frame(y, cb, cr, *rec, maps["lam32"])
+        t = mark("sao", t)
+        out = dict(split=dec["split"].to(torch.int8),
+                   kinds=cell["kinds"].reshape(h16, w16).to(torch.uint8),
+                   merge=cell["merge"].reshape(h16, w16).to(torch.uint8),
+                   dir=cell["dir"].reshape(h16, w16).to(torch.uint8),
+                   mvd0=cell["mvd0"].reshape(h16, w16, 2).to(torch.int16),
+                   mvp0=cell["mvp0"].reshape(h16, w16).to(torch.uint8),
+                   mvd1=cell["mvd1"].reshape(h16, w16, 2).to(torch.int16),
+                   mvp1=cell["mvp1"].reshape(h16, w16).to(torch.uint8),
+                   modes=modes.to(torch.uint8),
+                   ly=lv[0].reshape(h16, w16, 16, 16),
+                   lcb=lv[1].reshape(h16, w16, 8, 8),
+                   lcr=lv[2].reshape(h16, w16, 8, 8), sse=sse,
+                   window_excess=torch.stack(excess).amax(),
+                   **{f"sao{k}": v for k, v in enumerate(par)})
+        res = fe.collect(fe._to_host(out, tuple(r.to(torch.uint8)
+                                                for r in rec)))
+        t = mark("d2h", t)
+        enc._cabac_b_tree(res, qp)
+        mark("cabac", t)
     acc["total"] = sum(acc.values())
     return acc
 
@@ -189,32 +288,47 @@ def device_profile(run, n_frames):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--configs", default="1,2,3")
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--p-frames", type=int, default=4)
     args = ap.parse_args()
+    configs = {int(c) for c in args.configs.split(",")}
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: no CUDA device")
     from x265amod_tpu_torch.models.encoder import Encoder
     from x265amod_tpu_torch.ops import cuda_lib
     cuda_lib.build_all()
-    frames = synth_frames(640, 360, 16 * max(args.batches, 2))
-    enc = Encoder(config1(), device="cuda")
-    for _ in enc.encode_pipelined(frames[:16]):
-        pass
-    print(json.dumps({"stages": stage_breakdown(enc, frames, args.batches)}))
-    print(json.dumps({"profile": device_profile(
-        lambda: [None for _ in enc.encode_pipelined(frames[:32])], 32)}))
-    pframes = synth_frames(1280, 720, 2 * args.p_frames + 2, seed=2)
-    penc = Encoder(config2(), device="cuda")
-    print(json.dumps({"p_stages": p_stage_breakdown(
-        penc, pframes[:args.p_frames + 1])}))
-    penc = Encoder(config2(), device="cuda")
-    penc.encode_push(*pframes[0])
-    penc.encode_push(*pframes[1])
-    rest = pframes[2:2 + args.p_frames]
-    print(json.dumps({"p_profile": device_profile(
-        lambda: [penc.encode_push(*f) for f in rest], len(rest))}))
+    if 1 in configs:
+        frames = synth_frames(640, 360, 16 * max(args.batches, 2))
+        enc = Encoder(config1(), device="cuda")
+        for _ in enc.encode_pipelined(frames[:16]):
+            pass
+        print(json.dumps({"stages": stage_breakdown(enc, frames,
+                                                    args.batches)}))
+        print(json.dumps({"profile": device_profile(
+            lambda: [None for _ in enc.encode_pipelined(frames[:32])], 32)}))
+    if 2 in configs:
+        pframes = synth_frames(1280, 720, 2 * args.p_frames + 2, seed=2)
+        penc = Encoder(config2(), device="cuda")
+        print(json.dumps({"p_stages": p_stage_breakdown(
+            penc, pframes[:args.p_frames + 1])}))
+        penc = Encoder(config2(), device="cuda")
+        penc.encode_push(*pframes[0])
+        penc.encode_push(*pframes[1])
+        rest = pframes[2:2 + args.p_frames]
+        print(json.dumps({"p_profile": device_profile(
+            lambda: [penc.encode_push(*f) for f in rest], len(rest))}))
+    if 3 in configs:
+        bframes = synth_frames(1920, 1080, 9, seed=4)
+        benc = Encoder(config3(), device="cuda")
+        print(json.dumps({"b_stages": b_stage_breakdown(
+            benc, bframes[:5])}))
+        benc = Encoder(config3(), device="cuda")
+        for f in bframes[:5]:          # the IDR and a warm-up mini-GOP
+            benc.encode_push(*f)
+        print(json.dumps({"b_profile": device_profile(
+            lambda: [benc.encode_push(*f) for f in bframes[5:9]], 4)}))
     print(card_line())
 
 

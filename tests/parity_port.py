@@ -1,18 +1,22 @@
 """Stream parity of the PyTorch port against the JAX package, on the CPU.
 
 Encodes the bench clip (bench.py's `synth_frames`) with both encoders at the
-settings of BASELINE config 1 (ultrafast, QP 30, keyint 1, CTU32) or config
-2 (superfast, QP 32, keyint 250, no B frames, CTU32, one reference), info
-SEI off (its text names each encoder), and compares the streams frame by
-frame.  The port runs its plain PyTorch versions (device="cpu").
+settings of BASELINE config 1 (ultrafast, QP 30, keyint 1, CTU32), config
+2 (superfast, QP 32, keyint 250, no B frames, CTU32, one reference) or the
+config-3 slice (bench.py's config 3 with AQ and CU-tree off: CQP 32, keyint
+60, a B pyramid of 3, SAO on, CTU32), info SEI off (its text names each
+encoder), and compares the streams frame by frame (decode order).  The port
+runs its plain PyTorch versions (device="cpu").
 
-    JAX_PLATFORMS=cpu python -m tests.parity_port [--config 1|2
+    JAX_PLATFORMS=cpu python -m tests.parity_port [--config 1|2|3
         --width W --height H --frames N --batch 2]     (from the repo root)
 
 A test tool, not a test: config 1 takes about a minute per 40 frames at
-640x360 and config 2 a few seconds per frame at 320x192, too long for the
-tier-1 suite, which runs the same comparisons at 96x64
-(tests/test_torch_encoder.py, tests/test_torch_inter.py).
+640x360, config 2 a few seconds per frame at 320x192 and config 3 (320x192,
+9 frames by default) a few minutes with JAX's compiles, too long for the
+tier-1 suite, which runs the same comparisons at 96x64 and 64x64
+(tests/test_torch_encoder.py, tests/test_torch_inter.py,
+tests/test_torch_b.py).
 
 Prints one JSON line: frames, identical frames, and each encoder's PSNR-Y
 and kbps.  Exits non-zero unless every frame is byte-identical.
@@ -30,7 +34,7 @@ from chip_smoke import synth_frames
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", type=int, choices=(1, 2), default=1)
+    ap.add_argument("--config", type=int, choices=(1, 2, 3), default=1)
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--frames", type=int, default=None)
@@ -39,7 +43,7 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
     from x265amod_tpu.models.encoder import Encoder as JaxEncoder
-    from x265amod_tpu.utils.params import param_default_preset
+    from x265amod_tpu.utils.params import Param, param_default_preset
     from x265amod_tpu_torch.models.encoder import Encoder
     from x265amod_tpu_torch.utils.params import param_from_dict
 
@@ -48,12 +52,17 @@ def main():
             args.frames or 40, 0
         p = param_default_preset("ultrafast")
         p.qp, p.keyint = 30, 1
-    else:
+    elif args.config == 2:
         w, h, n, seed = args.width or 320, args.height or 192, \
             args.frames or 8, 2
         p = param_default_preset("superfast")
         p.qp, p.keyint, p.bframes = 32, 250, 0
         p.aq_mode, p.cutree = 0, False
+    else:
+        w, h, n, seed = args.width or 320, args.height or 192, \
+            args.frames or 9, 4
+        p = Param(keyint=60, bframes=3, sao=True, aq_mode=0, cutree=False,
+                  rc_lookahead=4)
     p.width, p.height, p.ctu_size, p.info = w, h, 32, False
     frames = synth_frames(w, h, n, seed=seed)
     jenc = JaxEncoder(p.copy())

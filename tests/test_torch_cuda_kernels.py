@@ -188,3 +188,104 @@ def test_kernels_count_their_launches(cuda_dev):
     lv = torch.zeros((3, 8, 8), dtype=torch.int16, device=cuda_dev)
     estbits.tu_bits(lv, 0, torch.full((3,), 30, device=cuda_dev))
     assert cuda_lib.LAUNCHES["tu_bits"] == 1
+
+
+def test_tu_bits_kernel_b_table(cuda_dev):
+    """K3 priced at B-slice init states (initType 2)."""
+    from x265amod_tpu_torch.ops import estbits
+    rng = np.random.default_rng(21)
+    for n in (8, 16, 32):
+        lv = torch.as_tensor((rng.integers(-40, 41, (6, n, n))
+                              * (rng.random((6, n, n)) < 0.3)).astype(
+                                  np.int16), device=cuda_dev)
+        qp = torch.as_tensor(np.array([0, 22, 30, 33, 34, 51], np.int32),
+                             device=cuda_dev)
+        for c_idx in (0, 1):
+            got = estbits.tu_bits(lv, c_idx, qp, "B")
+            assert torch.equal(got, estbits.tu_bits_plain(lv, c_idx, qp, "B"))
+            assert not torch.equal(got, estbits.tu_bits(lv, c_idx, qp, "P"))
+
+
+def _step_plane(rng, h, w, dev):
+    """Random content with a 0/255 step (negative 14-bit lobes)."""
+    p = rng.integers(0, 256, (h, w)).astype(np.int32)
+    p[:, : w // 3] = 0
+    p[:, w // 3: w // 2] = 255
+    return torch.as_tensor(p, device=dev)
+
+
+@pytest.mark.parametrize("n,chroma", [(16, False), (32, False), (8, True)])
+def test_mc_bi_kernel(cuda_dev, n, chroma):
+    """K9 at MVs up to the window contract's bound on border blocks."""
+    from x265amod_tpu_torch.ops import me
+    rng = np.random.default_rng(40 + n + chroma)
+    h, w = (32, 48) if chroma else (64, 96)
+    sr = 8
+    mm = sr // 2 + 2 if chroma else sr + 2
+    r0, r1 = _step_plane(rng, h, w, cuda_dev), _step_plane(rng, h, w,
+                                                            cuda_dev)
+    nb = (h // n) * (w // n)
+    unit = 8 if chroma else 4
+    lim = unit * mm + unit - 1
+    mvs = []
+    for _ in range(2):
+        mv = rng.integers(-unit * mm, lim + 1, (nb, 2)).astype(np.int32)
+        mv[0] = (-unit * mm, -unit * mm)
+        mv[-1] = (lim, lim)
+        mvs.append(torch.as_tensor(mv, device=cuda_dev))
+    got = me.mc_bi(r0, r1, *mvs, n, chroma, mm)
+    assert torch.equal(got, me.mc_bi_plain(r0, r1, *mvs, n, chroma))
+    with pytest.raises(ValueError, match="window contract"):
+        me.mc_bi(r0, r1, mvs[0] + unit, mvs[1], n, chroma, mm)
+    excess = []                 # the kernel's own measure, read later
+    me.mc_bi(r0, r1, mvs[0], mvs[1] + unit, n, chroma, mm, excess)
+    assert int(excess[0]) == 1
+
+
+def _sao_planes(rng, h, w, dev):
+    orig = rng.integers(0, 256, (h, w)).astype(np.int32)
+    rec = np.clip(orig + rng.integers(-6, 7, (h, w)), 0, 255).astype(np.int32)
+    rec[: h // 2, : w // 3] = 0             # flat 0
+    orig[: h // 2, : w // 3] = 3
+    rec[h // 2:, w // 3: w // 2] = 255      # flat 255
+    rec[:, w // 2: w // 2 + 16] = orig[:, w // 2: w // 2 + 16]  # rec == orig
+    return (torch.as_tensor(orig, device=dev),
+            torch.as_tensor(rec, device=dev))
+
+
+@pytest.mark.parametrize("lam_kind", ["random", "zero", "large"])
+def test_sao_analyse_kernel(cuda_dev, lam_kind):
+    """K10, luma (CTU 32) and joint chroma (CTU 16)."""
+    from x265amod_tpu_torch.ops import sao
+    rng = np.random.default_rng(50 + len(lam_kind))
+    h, w = 96, 160
+    n = (h // 32) * (w // 32)
+    lam = {"random": rng.uniform(0, 300, n), "zero": np.zeros(n),
+           "large": np.full(n, 1e6)}[lam_kind].astype(np.float32)
+    lam = torch.as_tensor(lam, device=cuda_dev)
+    o, r = _sao_planes(rng, h, w, cuda_dev)
+    for g, p in zip(sao.sao_analyse(o, r, lam, 32),
+                    sao.sao_analyse_plain(o, r, lam, 32)):
+        assert torch.equal(g, p)
+    ocb, rcb = _sao_planes(rng, h // 2, w // 2, cuda_dev)
+    ocr, rcr = _sao_planes(rng, h // 2, w // 2, cuda_dev)
+    for g, p in zip(sao.sao_analyse_chroma(ocb, rcb, ocr, rcr, lam, 16),
+                    sao.sao_analyse_chroma_plain(ocb, rcb, ocr, rcr, lam,
+                                                 16)):
+        assert torch.equal(g, p)
+
+
+def test_sao_apply_kernel(cuda_dev):
+    from x265amod_tpu_torch.ops import sao
+    rng = np.random.default_rng(60)
+    for h, w, ctu in ((96, 160, 32), (48, 80, 16)):
+        _, r = _sao_planes(rng, h, w, cuda_dev)
+        n = (h // ctu) * (w // ctu)
+
+        def t(a):
+            return torch.as_tensor(a.astype(np.int32), device=cuda_dev)
+        ty, cls, bp = (t(rng.integers(0, 3, n)), t(rng.integers(0, 4, n)),
+                       t(rng.integers(0, 29, n)))
+        off = t(rng.integers(-7, 8, (n, 4)))
+        assert torch.equal(sao.sao_apply(r, ty, cls, bp, off, ctu),
+                           sao.sao_apply_plain(r, ty, cls, bp, off, ctu))

@@ -19,7 +19,7 @@ from x265amod_tpu_torch.models.encoder import Encoder
 from x265amod_tpu_torch.models.intra_tree import IntraTreeEncoder
 from x265amod_tpu_torch.utils.params import (check_params, param_from_dict,
                                              param_default_preset)
-from test_torch_slice import clip, config1
+from test_torch_slice import clip, config1, yield_cpu  # noqa: F401 (autouse)
 
 # The port's CPU ops are small: one intra-op thread keeps torch's idle
 # threads from spinning on cores that parallel test workers need.
@@ -101,7 +101,7 @@ def test_encoder_needs_a_card_unless_asked_for_the_cpu():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("keyint", 250), ("ctu_size", 16), ("lossless", True), ("sao", True),
+    ("ref", 2), ("ctu_size", 16), ("lossless", True), ("bframes", 17),
     ("aq_mode", 2), ("cutree", True), ("rdoq_level", 1),
     ("internal_bit_depth", 10), ("rc_mode", "crf"), ("bitrate", 1000),
     ("vbv_maxrate", 1000), ("pass_num", 2), ("wpp", True),

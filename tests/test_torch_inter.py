@@ -32,7 +32,7 @@ from x265amod_tpu.verify.decoder import decode_stream
 from x265amod_tpu_torch.models.encoder import Encoder
 from x265amod_tpu_torch.models.inter_tree import InterTreeEncoder
 from x265amod_tpu_torch.utils.params import check_params, param_from_dict
-from test_torch_slice import clip
+from test_torch_slice import clip, yield_cpu  # noqa: F401 (autouse)
 
 # The port's CPU ops are small: one intra-op thread keeps torch's idle
 # threads from spinning on cores that parallel test workers need.
@@ -178,7 +178,7 @@ def test_encode_frame_and_push_match_the_pipeline():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("bframes", 3), ("ref", 2), ("me_range", 2), ("sao", True),
+    ("bframes", 17), ("ref", 2), ("me_range", 2), ("b_adapt", 1),
     ("aq_mode", 2), ("cutree", True), ("rdoq_level", 1),
     ("internal_bit_depth", 10), ("rc_mode", "crf"), ("wpp", True),
     ("qpfile", "q.txt"), ("analysis_load", "a.dat"),

@@ -24,6 +24,7 @@ from x265amod_tpu_torch.ops import deblock as tdb
 from x265amod_tpu_torch.ops import estbits as teb
 from x265amod_tpu_torch.ops import me as tme
 from x265amod_tpu_torch.ops.residual import residual_chain
+from test_torch_slice import yield_cpu  # noqa: F401 (autouse)
 
 # The port's CPU ops are small: one intra-op thread keeps torch's idle
 # threads from spinning on cores that parallel test workers need.

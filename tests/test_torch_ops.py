@@ -27,6 +27,7 @@ from x265amod_tpu_torch.ops.residual import residual_chain
 from x265amod_tpu_torch.ops.sbh import sbh_adjust as t_sbh
 from x265amod_tpu_torch.ops.transforms import fwd_transform as t_fwd
 from x265amod_tpu_torch.ops.transforms import inv_transform as t_inv
+from test_torch_slice import yield_cpu  # noqa: F401 (autouse)
 
 # The port's CPU ops are small: one intra-op thread keeps torch's idle
 # threads from spinning on cores that parallel test workers need.

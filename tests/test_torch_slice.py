@@ -4,7 +4,10 @@ on the CPU, for the all-intra CTU32 tree (BASELINE config 1) at 96x64 and
 byte-identical levels, modes and recon, and the same NAL bytes (info SEI
 off on both sides, since its text names each encoder)."""
 
+import contextlib
 import dataclasses
+import os
+import resource
 
 import numpy as np
 import pytest
@@ -20,6 +23,40 @@ from x265amod_tpu_torch.utils.params import param_from_dict
 # The port's CPU ops are small: one intra-op thread keeps torch's idle
 # threads from spinning on cores that parallel test workers need.
 torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def lowest_cpu_priority():
+    """Run the block with every thread of this process at nice 19 (threads
+    started inside inherit it), then restore the process's priority.  Where
+    the system would not let the priority be restored, nothing is changed."""
+    tasks = "/proc/self/task"
+    before = os.getpriority(os.PRIO_PROCESS, 0)
+    limit = resource.getrlimit(resource.RLIMIT_NICE)[0]
+    if not os.path.isdir(tasks) or not (
+            os.geteuid() == 0 or limit == resource.RLIM_INFINITY
+            or 20 - limit <= before):
+        yield
+        return
+
+    def renice(value):
+        for tid in os.listdir(tasks):
+            with contextlib.suppress(OSError):      # a thread that ended
+                os.setpriority(os.PRIO_PROCESS, int(tid), value)
+    renice(19)
+    try:
+        yield
+    finally:
+        renice(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def yield_cpu():
+    """The port's CPU test modules (which import this fixture) run at the
+    lowest priority: in a parallel test run their JAX compiles take only
+    the cores that the JAX package's own, longer test files leave idle."""
+    with lowest_cpu_priority():
+        yield
 
 
 def clip(w, h, n, seed=0):

@@ -30,4 +30,6 @@ class InterFrameResult:
     recon_cr: np.ndarray | None = None
     split: np.ndarray | None = None      # [hc32, wc32]
     ref0: np.ndarray | None = None       # [h16, w16] L0 ref_idx (all 0)
+    # SAO parameters per CTU32 (`ops.sao.sao_filter_frame` order), or None
+    sao: tuple | None = None
 

@@ -38,11 +38,13 @@ import torch
 
 from ..ops.deblock import deblock_frame_planes, inter_tree_bs_maps
 from ..ops.estbits import intra_hdr_bits, tu_bits
-from ..ops.me import (hpel_plane, mc_chroma_qpel, mc_luma_qpel, me_ssd_grid,
-                      mvd_bits, subpel_refine)
+from ..ops.me import (check_window, hpel_plane, mc_bi, mc_chroma_qpel,
+                      mc_luma_qpel, me_ssd_grid, mvd_bits, subpel_refine)
 from ..ops.metrics import plane_sse, ssim_plane
 from ..ops.quant import derive_qp_maps
 from ..ops.residual import residual_chain
+from ..ops.sao import sao_filter_frame
+from .b_frame import BFrameResult
 from .inter_frame import InterFrameResult
 from .intra_frame import _diag_schedule
 from .intra_tree import eval_luma, forced_chain, intra_mode_bits
@@ -73,6 +75,12 @@ def _bc(flag, n):
     return flag[:, None].expand(-1, n)
 
 
+def _sao_of(host):
+    """The ten SAO parameter arrays of a collected frame, or None."""
+    return tuple(host[f"sao{k}"] for k in range(10)) if "sao0" in host \
+        else None
+
+
 class InterTreeEncoder:
     """Per-resolution P-frame CTU32 quadtree encoder on one device."""
 
@@ -81,7 +89,7 @@ class InterTreeEncoder:
 
     def __init__(self, width: int, height: int, deblock: bool = True,
                  search_range: int = 16, subme: int = 2,
-                 sign_hide: bool = True, device="cuda"):
+                 sign_hide: bool = True, sao: bool = False, device="cuda"):
         if width % 32 or height % 32:
             raise ValueError("caller pads to a CTU32 multiple")
         if not 4 <= search_range <= 32:
@@ -89,6 +97,7 @@ class InterTreeEncoder:
         self.device = torch.device(device)
         self.width, self.height = width, height
         self.deblock = deblock
+        self.sao = sao
         self.sbh = sign_hide
         self.sr = int(search_range)
         self.subme = int(subme)
@@ -103,6 +112,11 @@ class InterTreeEncoder:
         self._inf = torch.tensor(float("inf"), device=dev)
         self._kind_of_choice = torch.tensor(_KIND_OF_CHOICE, device=dev)
         self._one_two = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+        # index tensors on the device: indexing a CUDA tensor with a Python
+        # list copies the list to the card from pageable memory, which
+        # stalls the host until the stream reaches the copy
+        self._prune_a = torch.tensor(_PRUNE_A, device=dev)
+        self._prune_b = torch.tensor(_PRUNE_B, device=dev)
         self._skip_bins = torch.tensor([2.0, 3.0], device=dev)
         self._zero_mv = torch.zeros((1, 1, 2), dtype=torch.int32, device=dev)
         self._no = torch.zeros(1, dtype=torch.bool, device=dev)
@@ -267,7 +281,8 @@ class InterTreeEncoder:
         sr, s = self.sr, 2 * self.sr + 1
         # merge list (spec 8.5.3.2.3): B1 pruned against A1, B0 against B1,
         # B2 against A1 and B1, each against the partner's availability
-        eq = (mv[:, _PRUNE_B] == mv[:, _PRUNE_A]).all(-1) & av[:, _PRUNE_A]
+        pa, pb = self._prune_a, self._prune_b
+        eq = (mv[:, pb] == mv[:, pa]).all(-1) & av[:, pa]
         avs = av.clone()
         avs[:, 1:3] &= ~eq[:, 0:2]
         avs[:, 3] &= ~(eq[:, 2] | eq[:, 3])
@@ -459,16 +474,20 @@ class InterTreeEncoder:
                                     intra=False)
         return lv[:, 0], rec[:, 0]
 
-    def _phase3(self, y, cb, cr, refs, maps, cell):
-        """Final MC and residuals at the decided MVs for both CU sizes;
+    def _final_mc(self, refs, cell):
+        """Final uni MC of every cell at its decided MV (K7): luma, cb, cr
+        predictions [n16, n, n]."""
+        mv = cell["mv"]
+        return (mc_luma_qpel(refs[0], mv, 16), mc_chroma_qpel(refs[1], mv, 8),
+                mc_chroma_qpel(refs[2], mv, 8))
+
+    def _phase3(self, y, cb, cr, preds, maps, cell):
+        """Residuals of the final predictions for both CU sizes (K2);
         returns the per-cell levels and recon of the chosen hypothesis
         (raster cells [n16, ...])."""
         h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
         n16, n32 = h16 * w16, hc * wc
-        mv = cell["mv"]
-        py = mc_luma_qpel(refs[0], mv, 16)
-        pcb = mc_chroma_qpel(refs[1], mv, 8)
-        pcr = mc_chroma_qpel(refs[2], mv, 8)
+        py, pcb, pcr = preds
         oy = _blocks(y, 16).reshape(n16, 16, 16)
         ocb = _blocks(cb, 8).reshape(n16, 8, 8)
         ocr = _blocks(cr, 8).reshape(n16, 8, 8)
@@ -607,11 +626,14 @@ class InterTreeEncoder:
 
     # ---- loop filter and metrics ----------------------------------------------
 
-    def _filter_and_metrics(self, src, rec, levels, kinds, split, mv, maps,
-                            qp):
+    def _filter_and_metrics(self, src, rec, levels, kinds, split, motion,
+                            maps, qp):
         """The deblocking filter with the inter bS maps (JAX :709-746: TU
-        cbf per cell, a TU32's over its four cells; MVs; intra), then SSE
-        and SSIM (:762-767).  Returns (recon planes, sse [4])."""
+        cbf per cell, a TU32's over its four cells; prediction directions
+        and MVs [h16, w16(, 2)] in ``motion`` = (dir, mv0, mv1), 0 on intra
+        cells), SAO when enabled (:747-760), then SSE and SSIM (:762-767)
+        on the final recon.  Returns (recon planes, sse [4], SAO outputs
+        {"sao0".."sao9": tensor})."""
         h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
         (y, cb, cr), (ry, rcb, rcr), (ly, lcb, lcr) = src, rec, levels
         if self.deblock:
@@ -621,22 +643,25 @@ class InterTreeEncoder:
             sp_rep = split.repeat_interleave(2, 0).repeat_interleave(2, 1)
             cbf = torch.where(sp_rep, nz_y, cbf32.repeat_interleave(2, 0)
                               .repeat_interleave(2, 1))
-            mv0 = torch.where(intra[..., None], 0, mv.reshape(h16, w16, 2))
             zeros = torch.zeros_like(intra, dtype=torch.int32)
-            bs = inter_tree_bs_maps(
-                intra[None], cbf[None], torch.where(intra, 0, 1)[None],
-                mv0[None], torch.zeros_like(mv0)[None], split[None],
-                zeros[None])
+            bs = inter_tree_bs_maps(intra[None], cbf[None],
+                                    *(t[None] for t in motion), split[None],
+                                    zeros[None])
             coded = (nz_y | (lcb != 0).any(-1).any(-1).reshape(h16, w16)
                      | (lcr != 0).any(-1).any(-1).reshape(h16, w16))
             ry, rcb, rcr = (t[0] for t in deblock_frame_planes(
                 ry[None], rcb[None], rcr[None], split[None], coded[None],
                 maps["qp32_map"], qp, bs=bs))
+        sao = {}
+        if self.sao:
+            (ry, rcb, rcr), par = sao_filter_frame(y, cb, cr, ry, rcb, rcr,
+                                                   maps["lam32"])
+            sao = {f"sao{k}": t for k, t in enumerate(par)}
         sse = torch.stack([plane_sse(y[None], ry[None])[0],
                            plane_sse(cb[None], rcb[None])[0],
                            plane_sse(cr[None], rcr[None])[0],
                            ssim_plane(y[None], ry[None])[0]])
-        return (ry, rcb, rcr), sse
+        return (ry, rcb, rcr), sse, sao
 
     # ---- one P frame ---------------------------------------------------------
 
@@ -657,14 +682,17 @@ class InterTreeEncoder:
             imode = forced["modes"]
         cell = self._cell_decisions(dec)
         cell["mv"] = dec["mv"]
-        lv, rec = self._phase3(y, cb, cr, refs, maps, cell)
+        lv, rec = self._phase3(y, cb, cr, self._final_mc(refs, cell), maps,
+                               cell)
         kinds = cell["kinds"]
         (ry, rcb, rcr), (ly, lcb, lcr), modes = self._commit(
             y, cb, cr, maps, kinds, imode, lv, rec)
         split = dec["split"]
-        (ry, rcb, rcr), sse = self._filter_and_metrics(
+        intra = (kinds == 2).reshape(h16, w16)
+        mv0 = torch.where(intra[..., None], 0, dec["mv"].reshape(h16, w16, 2))
+        (ry, rcb, rcr), sse, sao = self._filter_and_metrics(
             (y, cb, cr), (ry, rcb, rcr), (ly, lcb, lcr), kinds, split,
-            dec["mv"], maps, qp)
+            (torch.where(intra, 0, 1), mv0, torch.zeros_like(mv0)), maps, qp)
         out = dict(split=split.to(torch.int8),
                    kinds=kinds.reshape(h16, w16).to(torch.uint8),
                    merge=cell["merge"].reshape(h16, w16).to(torch.uint8),
@@ -673,7 +701,7 @@ class InterTreeEncoder:
                    modes=modes.to(torch.uint8),
                    ly=ly.reshape(h16, w16, 16, 16),
                    lcb=lcb.reshape(h16, w16, 8, 8),
-                   lcr=lcr.reshape(h16, w16, 8, 8), sse=sse)
+                   lcr=lcr.reshape(h16, w16, 8, 8), sse=sse, **sao)
         rec8 = tuple(t.to(torch.uint8) for t in (ry, rcb, rcr))
         if want_recon:
             out.update(rec_y=rec8[0], rec_cb=rec8[1], rec_cr=rec8[2])
@@ -757,7 +785,497 @@ class InterTreeEncoder:
             h["lcb"].astype(np.int32), h["lcr"].astype(np.int32), h["sse"],
             recon_dev=handle["recon_dev"],
             split=h["split"].astype(np.int32),
-            ref0=np.zeros(h["kinds"].shape, np.int32))
+            ref0=np.zeros(h["kinds"].shape, np.int32), sao=_sao_of(h))
+        if "rec_y" in h:
+            res.recon_y, res.recon_cb, res.recon_cr = (
+                h["rec_y"], h["rec_cb"], h["rec_cr"])
+        return res
+
+
+# ---------------------------------------------------------------------------
+# B slices
+# ---------------------------------------------------------------------------
+
+# B choice index (skip merge 0, skip merge 1, AMVP L0, AMVP L1, AMVP bi,
+# intra) -> kind and prediction direction (the merge choices take their
+# candidate's direction)
+_KIND_OF_CHOICE_B = (0, 0, 1, 1, 1, 2)
+_DIR_OF_CHOICE_B = (0, 0, 1, 2, 3, 0)
+# the AMVP B candidates in spec order (B0, B1, B2) among (A1, B1, B0, B2)
+_B_ORDER = [2, 1, 3]
+
+
+def _scale_mv_vec(mv, dsf: int):
+    """Spec 8.5.3.2.8 MV scaling (JAX `inter_tree.py:_scale_mv_vec`
+    :1175): ``sign(x) ((|x| + 127) >> 8)`` of x = dsf mv, clipped to 16
+    bits; mv [..., 2] int32 qpel."""
+    x = mv.to(torch.int32) * int(dsf)
+    mag = (x.abs() + 127) >> 8
+    return torch.clamp(torch.sign(x) * mag, -32768, 32767).to(torch.int32)
+
+
+class BTreeEncoder(InterTreeEncoder):
+    """B-slice CTU32 quadtree encoder, one reference per list: the port of
+    the JAX package's `models/inter_tree.py:BTreeEncoder` (:1186-1818).
+
+    The P tree's phases with two reference lists:
+
+    1. ME at CU16 and CU32 on both references (K5, K6) and the half-pel
+       grids (K8, K5); the L0, L1 and bi trials (K7 twice, K9, K2, K3 at
+       B init states) and the intra trial (K1-K3).
+    2. The decide scan (JAX :1317-1570), a Python loop over the CTU32
+       anti-diagonals with the CU32 and q0 decisions of a diagonal in one
+       call: merge-B candidates with pruning and zero-bi fill, AMVP per
+       list with cross-list scaling, skip priced on the SSD grids (the
+       mean of both lists' for a bi candidate).
+    3. Final MC (`mc_select` :1610-1624: K7 per list, K9 where both lists
+       are used) and residuals (K2), then the shared commit scan of intra
+       cells.
+    4. Deblock with both lists' motion (K4), SAO (K10, K11), metrics.
+
+    `encode_async_load` replays given B decisions through the same
+    candidate derivation."""
+
+    ST = "B"
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        dev = self.device
+        self._kind_of_choice_b = torch.tensor(_KIND_OF_CHOICE_B, device=dev)
+        self._dir_of_choice_b = torch.tensor(_DIR_OF_CHOICE_B,
+                                             dtype=torch.int32, device=dev)
+        self._b_order = torch.tensor(_B_ORDER, device=dev)
+
+    # ---- phase 1 -------------------------------------------------------------
+
+    def _phase1_b(self, y, refs, maps, excess):
+        """ME on both lists, the trials and the intra trial.  Returns
+        raster-order tensors: mv{l}_{bn} [nb, 2], d{bn} and rb{bn} [nb, 3]
+        (L0, L1, bi), grid{l} (the stacked SSD grids of list l), di16 and
+        imode16."""
+        st = self._motion_b(y, refs, maps)
+        st.update(self._trials_b(y, refs, maps, st, excess))
+        st["di16"], st["imode16"] = self._intra_trial16(
+            _blocks(y, 16), _blocks(y, 16).reshape(-1, 16, 16),
+            maps["qp16"], maps["lam16"])
+        return st
+
+    def _motion_b(self, y, refs, maps):
+        """ME on both lists (JAX :1233-1260): the P tree's integer search,
+        refinement and half-pel grids per reference (K5, K6, K8), keyed
+        mv{l}_{bn} and grid{l}."""
+        st = {}
+        for li, ref in enumerate(refs):
+            m = self._motion_search(y, ref, maps)
+            m.update(self._subpel(y, ref, maps, m))
+            st.update({f"mv{li}_16": m["mv16"], f"mv{li}_32": m["mv32"],
+                       f"grid{li}": m["grid"]})
+        return st
+
+    def _trials_b(self, y, refs, maps, st1, excess):
+        """The L0, L1 and bi trials at each CU size (JAX :1265-1285): the
+        uni predictions (K7), the bi-prediction (K9, its window check
+        appended to ``excess``), the residual chain with inter rounding and
+        no SBH (K2), its SSD and bits at B init states (K3)."""
+        sr = self.sr
+        st = {}
+        for bn, q in ((16, maps["qp16"]), (32, maps["qp32"])):
+            mv0, mv1 = st1[f"mv0_{bn}"], st1[f"mv1_{bn}"]
+            pred = torch.stack([
+                mc_luma_qpel(refs[0], mv0, bn), mc_luma_qpel(refs[1], mv1, bn),
+                mc_bi(refs[0], refs[1], mv0, mv1, bn, False, sr + 2,
+                      excess)], 1)
+            lv, _, ssd = residual_chain(_blocks(y, bn).reshape(-1, bn, bn),
+                                        pred, q, False, want_recon=False,
+                                        intra=False)
+            st[f"d{bn}"] = ssd.to(torch.float32)
+            st[f"rb{bn}"] = tu_bits(lv, 0, q[:, None].expand(-1, 3), self.ST)
+        return st
+
+    # ---- phase 2: decide scan --------------------------------------------------
+
+    def _amvp_b(self, av, dirs, own, other, li: int, dsf: int):
+        """AMVP pair of list ``li`` (JAX `amvp` :1370): A from A1 (its own
+        MV, or its other list's scaled by dsf), B the first of B0, B1, B2
+        holding list li unscaled, else the first available scaled; pruned
+        and zero-filled."""
+        has = ((dirs >> li) & 1) == 1                         # [L, 4]
+        mvp = torch.where(has[..., None], own, _scale_mv_vec(other, dsf))
+        a1v = av[:, 0]
+        order = self._b_order
+        bav, bhas = av[:, order], has[:, order]
+        hasx = bav & bhas
+        ownx, mvpx = own[:, order], mvp[:, order]
+        bp1_v = hasx.any(1)
+        bp1 = torch.where(hasx[:, 0, None], ownx[:, 0], torch.where(
+            hasx[:, 1, None], ownx[:, 1], ownx[:, 2]))
+        bs_v = bav.any(1)
+        bs = torch.where(bav[:, 0, None], mvpx[:, 0], torch.where(
+            bav[:, 1, None], mvpx[:, 1], mvpx[:, 2]))
+        c0 = torch.where(a1v[:, None], mvp[:, 0], torch.where(
+            bp1_v[:, None], bp1, torch.where(bs_v[:, None], bs, 0)))
+        c1raw = torch.where(a1v[:, None],
+                            torch.where(bp1_v[:, None], bp1, 0),
+                            torch.where((bp1_v & bs_v)[:, None], bs, 0))
+        c1_v = torch.where(a1v, bp1_v, bp1_v & bs_v)
+        dup = c1_v & (c1raw == c0).all(-1)
+        return c0, torch.where((c1_v & ~dup)[:, None], c1raw, 0)
+
+    def _decide_cu_b(self, av, dirs, mv0s, mv1s, x, row, ngrid, dsf,
+                     forced=None):
+        """One B CU decision per lane (JAX `decide_cu` :1336) from its
+        candidates av, dirs [L, 4], mv0s, mv1s [L, 4, 2] in the order A1,
+        B1, B0, B2.  x = (d [L, 3], rb [L, 3], mv0me, mv1me [L, 2], lam [L],
+        di [L], inf where the CU has no intra option); row is the lane's
+        grid row, ngrid the offset of the half-pel grids.  ``forced`` =
+        (choice, mvd0, mvp0, mvd1, mvp1) replays a decision.  Returns
+        (choice [L], dir, mv0, mv1, mvd0, mvp0, mvd1, mvp1, js [L, 6] or
+        None)."""
+        sr, s = self.sr, 2 * self.sr + 1
+        pa, pb = self._prune_a, self._prune_b
+        eq = ((dirs[:, pb] == dirs[:, pa])
+              & (mv0s[:, pb] == mv0s[:, pa]).all(-1)
+              & (mv1s[:, pb] == mv1s[:, pa]).all(-1) & av[:, pa])
+        avs = av.clone()
+        avs[:, 1:3] &= ~eq[:, 0:2]
+        avs[:, 3] &= ~(eq[:, 2] | eq[:, 3])
+        pos = torch.cumsum(avs.to(torch.int32), 1)
+        sel = avs[:, :, None] & (pos[:, :, None] == self._one_two)  # [L,4,2]
+        mrg_d = torch.where(sel.any(1), (dirs[:, :, None] * sel).sum(
+            1, dtype=torch.int32), 3)                                 # [L,2]
+        mrg_v0 = (mv0s[:, :, None, :] * sel[..., None]).sum(
+            1, dtype=torch.int32)                                     # [L,2,2]
+        mrg_v1 = (mv1s[:, :, None, :] * sel[..., None]).sum(
+            1, dtype=torch.int32)
+        a0 = self._amvp_b(av, dirs, mv0s, mv1s, 0, dsf[0])
+        a1 = self._amvp_b(av, dirs, mv1s, mv0s, 1, dsf[1])
+        if forced is not None:
+            choice, mvd0, mvp0, mvd1, mvp1 = forced
+            mv0me = torch.where((mvp0 == 1)[:, None], a0[1], a0[0]) + mvd0
+            mv1me = torch.where((mvp1 == 1)[:, None], a1[1], a1[0]) + mvd1
+            js = None
+        else:
+            d, rb, mv0me, mv1me, lamv, di = x
+
+            def pick_mvp(mvq, amvp):
+                mvds = mvq[:, None] - torch.stack(amvp, 1)       # [L, 2, 2]
+                bits = mvd_bits(mvds)
+                use_b = bits[:, 1] < bits[:, 0]
+                return (torch.where(use_b[:, None], mvds[:, 1], mvds[:, 0]),
+                        use_b.to(torch.int32), bits.amin(1))
+            mvd0, mvp0, bits0 = pick_mvp(mv0me, a0)
+            mvd1, mvp1, bits1 = pick_mvp(mv1me, a1)
+
+            def lookup(grid, v):
+                sub = ((v & 3) != 0).any(-1)
+                mi = v >> 2
+                inside = (mi.abs() <= sr).all(-1)
+                mi = torch.clamp(mi + sr, 0, s - 1).long()
+                val = grid[row[:, None] + sub * ngrid, mi[..., 1], mi[..., 0]]
+                return torch.where(inside, val, 1e18)
+            l0 = lookup(self._grid0, mrg_v0)                          # [L, 2]
+            l1 = lookup(self._grid1, mrg_v1)
+            skip = torch.where(mrg_d == 3, 0.5 * (l0 + l1),
+                               torch.where(mrg_d == 1, l0, l1)) \
+                + lamv[:, None] * self._skip_bins
+            j_l0 = d[:, 0] + lamv * ((rb[:, 0] + bits0) + 8.0)
+            j_l1 = d[:, 1] + lamv * ((rb[:, 1] + bits1) + 8.0)
+            j_bi = d[:, 2] + lamv * (((rb[:, 2] + bits0) + bits1) + 10.0)
+            js = torch.cat([skip, torch.stack([j_l0, j_l1, j_bi, di + lamv *
+                                               _INTRA_HDR_BITS], 1)], 1)
+            choice = torch.argmin(js, 1)
+        dir_fin = torch.where(choice <= 1, torch.gather(
+            mrg_d, 1, torch.clamp(choice, max=1)[:, None])[:, 0],
+            self._dir_of_choice_b[choice])
+
+        def fin(mrg, me, bit):
+            v = torch.where((choice == 0)[:, None], mrg[:, 0], torch.where(
+                (choice == 1)[:, None], mrg[:, 1], me))
+            return torch.where(((dir_fin & bit) == bit)[:, None], v, 0)
+        return (choice, dir_fin, fin(mrg_v0, mv0me, 1), fin(mrg_v1, mv1me, 2),
+                mvd0, mvp0, mvd1, mvp1, js)
+
+    def _decide_b(self, st1, maps, dsf, forced=None, want_costs=False):
+        """The B decide scan over the CTU32 diagonals (JAX :1317-1570; the
+        lane layout of the P scan).  Returns raster maps: split [hc, wc],
+        per CTU the CU32 choice, MVDs and MVP indices, per 16-cell the
+        quadrant's, and the cells' final direction and MVs."""
+        dev = self.device
+        h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
+        n16, n32 = h16 * w16, hc * wc
+        p32, p16 = self._perm32, self._perm16
+
+        def pair(a, b):
+            return torch.stack([a, b], 1)
+        row01 = pair(2 * n16 + p32, p16[:, 0])
+        ng01 = pair(torch.full_like(p32, n32), torch.full_like(p32, n16))
+        if forced is None:
+            self._grid0, self._grid1 = st1["grid0"], st1["grid1"]
+            q16 = [t[p16] for t in (st1["d16"], st1["rb16"], st1["mv0_16"],
+                                    st1["mv1_16"], maps["lam16"],
+                                    st1["di16"])]
+            x01 = [pair(st1[k][p32], c[:, 0]) for k, c in zip(
+                ("d32", "rb32", "mv0_32", "mv1_32"), q16)]
+            x01 += [pair(maps["lam32"][p32], q16[4][:, 0]),
+                    pair(self._inf.expand(n32), q16[5][:, 0])]
+        else:
+            f01 = [pair(a, c[:, 0]) for a, c in zip(forced["c32"],
+                                                     forced["c16"])]
+        dir_map = torch.zeros((h16, w16), dtype=torch.int32, device=dev)
+        mv0_map = torch.zeros((h16, w16, 2), dtype=torch.int32, device=dev)
+        mv1_map = torch.zeros((h16, w16, 2), dtype=torch.int32, device=dev)
+        zero_mv = self._zero_mv[0]
+        outs = []
+        for lane in self._lanes:
+            sl = lane["sl"]
+            b = sl.stop - sl.start
+            ny, nx = lane["ny"], lane["nx"]
+            ndir = dir_map[ny, nx]
+            nav = lane["nok"] & (ndir > 0)
+            nm0 = mv0_map[ny, nx]
+            nm1 = mv1_map[ny, nx]
+            row_ = row01[sl].reshape(-1)
+            ng_ = ng01[sl].reshape(-1, 1)
+
+            def flat(t):
+                return t[sl].reshape((2 * b,) + t.shape[2:])
+            args01 = (nav[:, 0:8].reshape(2 * b, 4),
+                      ndir[:, 0:8].reshape(2 * b, 4),
+                      nm0[:, 0:8].reshape(2 * b, 4, 2),
+                      nm1[:, 0:8].reshape(2 * b, 4, 2))
+            if forced is None:
+                r01 = self._decide_cu_b(*args01, [flat(t) for t in x01],
+                                        row_, ng_, dsf)
+
+                def q_call(q, cand):
+                    return self._decide_cu_b(
+                        *cand, [t[sl, q] for t in q16], p16[sl, q], n16, dsf)
+            else:
+                r01 = self._decide_cu_b(*args01, None, row_, ng_, dsf,
+                                        forced=[flat(t) for t in f01])
+
+                def q_call(q, cand):
+                    return self._decide_cu_b(
+                        *cand, None, None, None, dsf,
+                        forced=[c[sl, q] for c in forced["c16"]])
+            c32 = [t[0::2] if t is not None else None for t in r01]
+            q0 = [t[1::2] if t is not None else None for t in r01]
+
+            def loc(r):               # (available, dir, mv0, mv1)
+                return r[0] <= 4, r[1], r[2], r[3]
+
+            def ext(k):
+                return nav[:, k], ndir[:, k], nm0[:, k], nm1[:, k]
+
+            def cands(*cs):
+                return [torch.stack([c[i] for c in cs], 1) for i in range(4)]
+            none = (self._no.expand(b), torch.zeros_like(q0[1]),
+                    zero_mv.expand(b, 2), zero_mv.expand(b, 2))
+            q1 = q_call(1, cands(loc(q0), ext(8), ext(9), ext(10)))
+            q2 = q_call(2, cands(ext(11), loc(q0), loc(q1), ext(12)))
+            q3 = q_call(3, cands(loc(q2), loc(q1), none, loc(q0)))
+            qs = (q0, q1, q2, q3)
+            if forced is None:
+                jq = [q[8].amin(1) for q in qs]
+                jsplit = ((jq[0] + jq[1]) + jq[2]) + jq[3]
+                j32 = c32[8].amin(1)
+                split = jsplit < j32
+            else:
+                split = forced["split"][sl]
+
+            def qst(i):
+                return torch.stack([q[i] for q in qs], 1)
+            sp = split[:, None]
+            cell_dir = torch.where(sp, qst(1), c32[1][:, None])
+            cell_v0 = torch.where(sp[..., None], qst(2), c32[2][:, None])
+            cell_v1 = torch.where(sp[..., None], qst(3), c32[3][:, None])
+            dir_map[lane["cys"], lane["cxs"]] = cell_dir
+            mv0_map[lane["cys"], lane["cxs"]] = cell_v0
+            mv1_map[lane["cys"], lane["cxs"]] = cell_v1
+            out = [split, c32[0], c32[4], c32[5], c32[6], c32[7], qst(0),
+                   qst(4), qst(5), qst(6), qst(7), cell_dir, cell_v0,
+                   cell_v1]
+            if want_costs:
+                out += [qst(8), c32[8], jsplit, j32]
+            outs.append(out)
+        cat = [torch.cat(o, 0) for o in zip(*outs)]
+
+        def to32(t):
+            r = torch.empty((n32,) + t.shape[1:], dtype=t.dtype, device=dev)
+            r[p32] = t
+            return r
+
+        def to16(t):
+            r = torch.empty((n16,) + t.shape[2:], dtype=t.dtype, device=dev)
+            r[p16.reshape(-1)] = t.reshape((-1,) + t.shape[2:])
+            return r
+        names32 = ("ch32", "mvd0_32", "mvp0_32", "mvd1_32", "mvp1_32")
+        names16 = ("chq", "mvd0q", "mvp0q", "mvd1q", "mvp1q", "dir", "mv0",
+                   "mv1")
+        res = dict(split=to32(cat[0]).reshape(hc, wc))
+        res.update({k: to32(t) for k, t in zip(names32, cat[1:6])})
+        res.update({k: to16(t) for k, t in zip(names16, cat[6:14])})
+        if want_costs:
+            res.update(jsq=to16(cat[14]), js32=to32(cat[15]),
+                       jsplit=to32(cat[16]), j32=to32(cat[17]))
+        self._grid0 = self._grid1 = None
+        return res
+
+    def _cell_decisions_b(self, dec):
+        """Per 16-cell kinds, merge index, MVDs and MVP indices of both
+        lists (the quadrant's where its CTU is split, else the CU32's) and
+        the final direction and MVs."""
+        h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
+
+        def rep(t):
+            t = t.reshape((hc, wc) + t.shape[1:])
+            return t.repeat_interleave(2, 0).repeat_interleave(2, 1) \
+                .reshape((h16 * w16,) + t.shape[2:])
+        sp = rep(dec["split"].reshape(-1))
+        kind_tab = self._kind_of_choice_b
+        ch = torch.where(sp, dec["chq"], rep(dec["ch32"]))
+        out = dict(split_cell=sp, kinds=kind_tab[ch],
+                   merge=torch.clamp(ch, max=1), k32=kind_tab[dec["ch32"]],
+                   dir=dec["dir"], mv0=dec["mv0"], mv1=dec["mv1"])
+        for k in ("mvd0", "mvp0", "mvd1", "mvp1"):
+            q, c = dec[k + "q"], rep(dec[k + "_32"])
+            out[k] = torch.where(sp[:, None] if q.dim() == 2 else sp, q, c)
+        return out
+
+    # ---- phase 3 ---------------------------------------------------------------
+
+    def _final_mc_b(self, refs0, refs1, cell, excess):
+        """`mc_select` (JAX :1610-1624): each list's uni prediction (K7) and
+        the bi-prediction (K9, where both lists are used, its window check
+        appended to ``excess``), per plane."""
+        d = cell["dir"]
+        use0, use1 = (d & 1) == 1, (d & 2) == 2
+        both = (use0 & use1)[:, None, None]
+        u0 = use0[:, None, None]
+        out = []
+        for r0, r1, n, chroma in ((refs0[0], refs1[0], 16, False),
+                                  (refs0[1], refs1[1], 8, True),
+                                  (refs0[2], refs1[2], 8, True)):
+            mc = mc_chroma_qpel if chroma else mc_luma_qpel
+            mm = self.sr // 2 + 2 if chroma else self.sr + 2
+            bi = mc_bi(r0, r1, cell["mv0"], cell["mv1"], n, chroma, mm,
+                       excess)
+            out.append(torch.where(both, bi, torch.where(
+                u0, mc(r0, cell["mv0"], n), mc(r1, cell["mv1"], n))))
+        return tuple(out)
+
+    # ---- one B frame -------------------------------------------------------------
+
+    def _step_b(self, y, cb, cr, refs0, refs1, qp: int, dsf, forced=None,
+                want_recon=False, want_costs=False):
+        maps = self._maps(qp)
+        y, cb, cr = (t.to(torch.int32) for t in (y, cb, cr))
+        refs0 = tuple(t.to(torch.int32) for t in refs0)
+        refs1 = tuple(t.to(torch.int32) for t in refs1)
+        h16, w16 = self.h16, self.w16
+        excess = []             # K9's window checks, read in collect
+        if forced is None:
+            st1 = self._phase1_b(y, (refs0[0], refs1[0]), maps, excess)
+            dec = self._decide_b(st1, maps, dsf, want_costs=want_costs)
+            imode = st1["imode16"]
+        else:
+            dec = self._decide_b(None, maps, dsf, forced=forced["scan"])
+            imode = forced["modes"]
+        cell = self._cell_decisions_b(dec)
+        lv, rec = self._phase3(y, cb, cr, self._final_mc_b(
+            refs0, refs1, cell, excess), maps, cell)
+        kinds = cell["kinds"]
+        (ry, rcb, rcr), (ly, lcb, lcr), modes = self._commit(
+            y, cb, cr, maps, kinds, imode, lv, rec)
+        split = dec["split"]
+        motion = (cell["dir"].reshape(h16, w16),
+                  cell["mv0"].reshape(h16, w16, 2),
+                  cell["mv1"].reshape(h16, w16, 2))
+        (ry, rcb, rcr), sse, sao = self._filter_and_metrics(
+            (y, cb, cr), (ry, rcb, rcr), (ly, lcb, lcr), kinds, split,
+            motion, maps, qp)
+
+        def cells(t, dt, *shape):
+            return t.reshape((h16, w16) + shape).to(dt)
+        out = dict(split=split.to(torch.int8),
+                   kinds=cells(kinds, torch.uint8),
+                   merge=cells(cell["merge"], torch.uint8),
+                   dir=cells(cell["dir"], torch.uint8),
+                   mvd0=cells(cell["mvd0"], torch.int16, 2),
+                   mvp0=cells(cell["mvp0"], torch.uint8),
+                   mvd1=cells(cell["mvd1"], torch.int16, 2),
+                   mvp1=cells(cell["mvp1"], torch.uint8),
+                   modes=modes.to(torch.uint8),
+                   ly=ly.reshape(h16, w16, 16, 16),
+                   lcb=lcb.reshape(h16, w16, 8, 8),
+                   lcr=lcr.reshape(h16, w16, 8, 8), sse=sse,
+                   window_excess=torch.stack(excess).amax(), **sao)
+        rec8 = tuple(t.to(torch.uint8) for t in (ry, rcb, rcr))
+        if want_recon:
+            out.update(rec_y=rec8[0], rec_cb=rec8[1], rec_cr=rec8[2])
+        if want_costs:
+            out["costs"] = {k: dec[k] for k in ("jsq", "js32", "jsplit",
+                                               "j32")}
+        return out, rec8
+
+    # ---- host interface ------------------------------------------------------
+
+    def encode_async(self, y, cb, cr, ref0_dev, ref1_dev, qp: int,
+                     dsf0: int, dsf1: int, want_recon=False,
+                     want_costs=False):
+        """Dispatch one B frame (numpy uint8 planes) between the reference
+        device planes ``ref0_dev`` (L0) and ``ref1_dev`` (L1); dsf0 / dsf1
+        scale a neighbour's other-list MV to list 0 / 1 (`mvpred.
+        dist_scale_factor`).  Returns a handle."""
+        out, rec = self._step_b(
+            self._upload(y), self._upload(cb), self._upload(cr), ref0_dev,
+            ref1_dev, qp, (dsf0, dsf1), want_recon=want_recon,
+            want_costs=want_costs)
+        return self._to_host(out, rec)
+
+    def encode_async_load(self, y, cb, cr, ref0_dev, ref1_dev, qp: int,
+                          dsf0: int, dsf1: int, split, kinds, merge_idx,
+                          inter_dir, mvd0, mvp0, mvd1, mvp1, modes,
+                          want_recon=False):
+        """One B frame under given decisions, as `BFrameResult` carries
+        them; each cell's MVs are rebuilt in z-order from the same
+        merge/AMVP derivation."""
+        dev = self.device
+
+        def t(a, dt=np.int64):
+            return torch.as_tensor(np.asarray(a, dt), device=dev)
+        kinds, merge, idir = t(kinds), t(merge_idx), t(inter_dir)
+        choice = torch.where(kinds == 0, merge, torch.where(
+            kinds == 1, 1 + idir, 5)).reshape(-1)
+        vals = (choice, t(mvd0, np.int32).reshape(-1, 2),
+                t(mvp0, np.int32).reshape(-1),
+                t(mvd1, np.int32).reshape(-1, 2),
+                t(mvp1, np.int32).reshape(-1))
+        p16, p32 = self._perm16, self._perm32
+        q0 = p16[:, 0]
+        forced = dict(scan=dict(c32=[v[q0] for v in vals],
+                                c16=[v[p16] for v in vals],
+                                split=t(split, bool).reshape(-1)[p32]),
+                      modes=t(modes, np.int32).reshape(-1))
+        out, rec = self._step_b(
+            self._upload(y), self._upload(cb), self._upload(cr), ref0_dev,
+            ref1_dev, qp, (dsf0, dsf1), forced=forced, want_recon=want_recon)
+        return self._to_host(out, rec)
+
+    def collect(self, handle) -> BFrameResult:
+        """The frame's result; raises if an MV given to K9 broke the window
+        contract (`ops.me.check_window`)."""
+        self.wait(handle)
+        h = {k: v.numpy() for k, v in handle["host"].items()}
+        check_window(h["window_excess"])
+
+        def i32(k):
+            return h[k].astype(np.int32)
+        res = BFrameResult(
+            i32("kinds"), i32("merge"), i32("dir"), i32("mvd0"), i32("mvp0"),
+            i32("mvd1"), i32("mvp1"), i32("modes"), i32("ly"), i32("lcb"),
+            i32("lcr"), h["sse"], recon_dev=handle["recon_dev"],
+            split=i32("split"), sao=_sao_of(h))
         if "rec_y" in h:
             res.recon_y, res.recon_cb, res.recon_cr = (
                 h["rec_y"], h["rec_cb"], h["rec_cr"])

@@ -36,3 +36,5 @@ class FrameResult:
     # CU-quadtree split map [hc32, wc32]; unsplit CTUs replicate their
     # mode over their four 16-cells and store TU32 coefficient quadrants
     split: np.ndarray | None = None
+    # SAO parameters per CTU32 (`ops.sao.sao_filter_frame` order), or None
+    sao: tuple | None = None

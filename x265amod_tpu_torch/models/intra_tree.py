@@ -14,7 +14,8 @@ A batch of F frames goes through two device phases:
    the CU32 chain, then the quadrants q0 -> q1 -> q2 -> q3, each on the
    earlier quadrants' reconstruction.  Both hypotheses are computed and the
    forced split selects, as in the JAX package, so the outputs are the
-   same.  The loop filter (K4 `deblock`) and SSE/SSIM follow.
+   same.  The loop filter (K4 `deblock`), SAO when enabled (K10
+   `sao_analyse`, K11 `sao_apply`, JAX `:638-650`) and SSE/SSIM follow.
 
 The JAX `vmap` over frames is the leading frame dimension here, and each
 diagonal's lanes are (frame, CTU) pairs, so no dummy lanes are needed.
@@ -31,6 +32,7 @@ from ..ops.intra import predict, satd35
 from ..ops.metrics import plane_sse, ssim_plane
 from ..ops.quant import derive_qp_maps
 from ..ops.residual import residual_chain
+from ..ops.sao import sao_filter_frame
 from .intra_frame import FrameResult, _diag_schedule
 
 # SATD-scan shortlist size for the full RD stage (JAX RD_CANDS)
@@ -106,12 +108,13 @@ class IntraTreeEncoder:
     CTU = 32
 
     def __init__(self, width: int, height: int, deblock: bool = True,
-                 sign_hide: bool = True, device="cuda"):
+                 sign_hide: bool = True, sao: bool = False, device="cuda"):
         if width % 32 or height % 32:
             raise ValueError("caller pads to a CTU32 multiple")
         self.device = torch.device(device)
         self.width, self.height = width, height
         self.deblock = deblock
+        self.sao = sao
         self.sbh = sign_hide
         self.wc, self.hc = width // 32, height // 32
         self.w16, self.h16 = width // 16, height // 16
@@ -436,11 +439,22 @@ class IntraTreeEncoder:
                        | (lcr != 0).any(-1).any(-1))
             rec_y, rec_cb, rec_cr = deblock_frame_planes(
                 rec_y, rec_cb, rec_cr, split, coded16, maps["qp32"], qp)
+        sao = {}
+        if self.sao:
+            # per frame, on the deblocked recon; the filtered planes are the
+            # frame's recon from here on (reference, metrics, output)
+            res = [sao_filter_frame(y[i], cb[i], cr[i], rec_y[i], rec_cb[i],
+                                    rec_cr[i], maps["lam32"])
+                   for i in range(y.shape[0])]
+            rec_y, rec_cb, rec_cr = (torch.stack([r[0][k] for r in res])
+                                     for k in range(3))
+            sao = {f"sao{k}": torch.stack([r[1][k] for r in res])
+                   for k in range(10)}
         sse = torch.stack([plane_sse(y, rec_y), plane_sse(cb, rec_cb),
                            plane_sse(cr, rec_cr), ssim_plane(y, rec_y)], 1)
         out = dict(split=split.to(torch.int8),
                    modes=modes_out.to(torch.uint8), ly=ly, lcb=lcb, lcr=lcr,
-                   sse=sse)
+                   sse=sse, **sao)
         if want_recon:
             out.update(rec_y=rec_y.to(torch.uint8),
                        rec_cb=rec_cb.to(torch.uint8),
@@ -514,6 +528,8 @@ class IntraTreeEncoder:
                               h["lcb"][i].astype(np.int32),
                               h["lcr"][i].astype(np.int32), h["sse"][i])
             res.split = h["split"][i].astype(np.int32)
+            if "sao0" in h:
+                res.sao = tuple(h[f"sao{k}"][i] for k in range(10))
             if "rec_y" in h:
                 res.recon_y, res.recon_cb, res.recon_cr = (
                     h["rec_y"][i], h["rec_cb"][i], h["rec_cr"][i])

@@ -1,6 +1,9 @@
-"""Rate control, CQP only (the slice's subset of the JAX package's
+"""Rate control, CQP only (the slices' subset of the JAX package's
 `models/ratecontrol.py`): a P frame codes at the configured QP, an I frame
-at that QP less the offset of x265's ipFactor, 6 * log2(ip_factor)."""
+at that QP less the offset of x265's ipFactor, 6 log2(ip_factor), and a B
+frame at that QP plus the pbFactor offset 6 log2(pb_factor), half of it for
+a referenced B (the pyramid's middle) and all of it for a non-referenced b
+(the leaves), as the JAX `frame_qp` does (:232-237)."""
 
 from __future__ import annotations
 
@@ -16,14 +19,17 @@ class RateControl:
         self.mode = "cqp"
         self.base_qp = float(param.qp)
         self.ip_offset = 6.0 * math.log2(max(param.ip_factor, 1.01))
+        self.pb_offset = 6.0 * math.log2(max(param.pb_factor, 1.01))
         self.frames = 0
         self.actual_bits = 0.0
 
     def frame_qp(self, slice_type: str) -> int:
-        if slice_type not in ("I", "P"):
-            raise ValueError("the port codes I and P slices only")
-        qp = self.base_qp - (self.ip_offset if slice_type == "I" else 0.0)
-        return int(round(min(max(qp, 0.0), 51.0)))
+        """QP of a frame of type "I", "P", "B" (referenced) or "b"."""
+        offset = {"I": -self.ip_offset, "P": 0.0, "B": 0.5 * self.pb_offset,
+                  "b": self.pb_offset}.get(slice_type)
+        if offset is None:
+            raise ValueError(f"unknown slice type {slice_type!r}")
+        return int(round(min(max(self.base_qp + offset, 0.0), 51.0)))
 
     def update(self, bits: int, slice_type: str, qp: int) -> None:
         self.frames += 1

@@ -73,22 +73,27 @@ def get_cabac_lib():
 
 def encode_slice_native(slice_type: str, ctb_log2: int, hc: int, wc: int,
                         qp: int, *, split=None, kinds=None, modes=None,
-                        merge_idx=None, mvd0=None, mvp0=None, levels_y=None,
-                        levels_cb=None, levels_cr=None, qp16=None,
-                        qp32=None, max_merge: int = 2,
+                        merge_idx=None, inter_dir=None, mvd0=None, mvp0=None,
+                        mvd1=None, mvp1=None, levels_y=None, levels_cb=None,
+                        levels_cr=None, qp16=None, qp32=None, sao_luma=None,
+                        sao_chroma=None, max_merge: int = 2,
                         sign_hide: bool = False, ref0=None,
                         num_ref0: int = 1):
-    """I- and P-slice serializer for the CTU32 quadtree (the port's subset of
-    the JAX package's unified call, `x265amod_tpu/native/__init__.py:115`:
-    no B fields, no SAO, no WPP).  P slices take the per-cell kinds, merge
-    indices, L0 MVDs and MVP indices.  Returns (payload, entry_sizes);
-    raises when the serializer fails."""
-    st = {"I": 0, "P": 1}.get(slice_type)
+    """I-, P- and B-slice serializer for the CTU32 quadtree (the port's
+    subset of the JAX package's unified call,
+    `x265amod_tpu/native/__init__.py:115`: no WPP).  P slices take the
+    per-cell kinds, merge indices, L0 MVDs and MVP indices; B slices also
+    the inter directions and the L1 MVDs and MVP indices.  sao_luma
+    [n_ctu, 7] and sao_chroma [n_ctu, 14] are `ops.sao.sao_pack`'s rows.
+    Returns (payload, entry_sizes); raises when the serializer fails."""
+    st = {"I": 0, "P": 1, "B": 2}.get(slice_type)
     if st is None:
-        raise ValueError(f"the port serializes I and P slices, not "
-                         f"{slice_type!r}")
-    if st == 1 and kinds is None:
-        raise ValueError("a P slice needs kinds, merge_idx, mvd0 and mvp0")
+        raise ValueError(f"unknown slice type {slice_type!r}")
+    if st >= 1 and kinds is None:
+        raise ValueError("an inter slice needs kinds, merge_idx, mvd0 and "
+                         "mvp0")
+    if st == 2 and (inter_dir is None or mvd1 is None or mvp1 is None):
+        raise ValueError("a B slice needs inter_dir, mvd1 and mvp1")
     lib = get_cabac_lib()
     from ..cabac.tables import init_context_states
     states = np.ascontiguousarray(
@@ -109,10 +114,10 @@ def encode_slice_native(slice_type: str, ctb_log2: int, hc: int, wc: int,
     entry = np.zeros(max(hc, 1), dtype=np.int32)
     n = lib.hevc_encode_slice(
         st, ctb_log2, hc, wc,
-        c(split), c(kinds), c(modes), c(merge_idx), c(None),
-        c(mvd0), c(mvp0), c(None), c(None),
+        c(split), c(kinds), c(modes), c(merge_idx), c(inter_dir),
+        c(mvd0), c(mvp0), c(mvd1), c(mvp1),
         c(levels_y), c(levels_cb), c(levels_cr), c(qp16), c(qp32),
-        c(None), c(None),
+        c(sao_luma), c(sao_chroma),
         c(ref0), num_ref0,
         qp, max_merge, 0, 1 if sign_hide else 0,
         states.ctypes.data_as(p), entry.ctypes.data_as(p),

@@ -25,8 +25,9 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-# name -> extra nvcc flags.  tu_bits and subpel form f32 costs in a fixed
-# order that decides RD argmins, so they must not be contracted into FMAs.
+# name -> extra nvcc flags.  tu_bits, subpel and sao_analyse form f32 costs
+# in a fixed order that decides RD argmins, so the compiler must not contract
+# them into FMAs (sao_analyse writes the one FMA the JAX order has itself).
 KERNELS = {
     "intra_pred": [],
     "residual_chain": [],
@@ -36,6 +37,9 @@ KERNELS = {
     "subpel": ["--fmad=false"],
     "mc_qpel": [],
     "hpel": [],
+    "mc_bi": [],
+    "sao_analyse": ["--fmad=false"],
+    "sao_apply": [],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -1,11 +1,11 @@
-"""Motion estimation and motion compensation for the P tree: kernels K5
-`me_ssd_grid`, K6 `subpel_refine`, K7 `mc_qpel` and K8 `hpel_plane`, each
-beside its plain PyTorch version.
+"""Motion estimation and motion compensation for the P and B trees: kernels
+K5 `me_ssd_grid`, K6 `subpel_refine`, K7 `mc_qpel`, K8 `hpel_plane` and K9
+`mc_bi` (bi-prediction), each beside its plain PyTorch version.
 
 Counterparts in the JAX package: `ops/me.py` (`me_ssd_grid` :33,
 `subpel_refine` :385, `mc_luma_qpel` :315 / `mc_luma_qpel14` :262,
-`mc_chroma_qpel` :377 / `mc_chroma_qpel14` :331, `LUMA_FILTERS` and
-`CHROMA_FILTERS` :230-247, `_mvd_bits_f` :450) and
+`mc_chroma_qpel` :377 / `mc_chroma_qpel14` :331, `bi_combine` :323,
+`LUMA_FILTERS` and `CHROMA_FILTERS` :230-247, `_mvd_bits_f` :450) and
 `models/inter_tree.py:_hpel_plane` (:51).
 
 The JAX package fetches each block's reference window with one-hot f32
@@ -105,7 +105,7 @@ def me_ssd_grid_plain(cur, ref, sr: int, bn: int = 16):
     return out
 
 
-def _mc14(plane, mv, n, chroma):
+def mc14(plane, mv, n, chroma):
     """14-bit intermediate uni prediction [nb, n, n] int32 of the raster
     blocks of ``plane`` at qpel luma MVs mv [nb, 2] (chroma: the same value
     in eighth-pel chroma units).  Phase 0 of each filter table is a single
@@ -135,12 +135,39 @@ def _uni(pred14):
 
 def mc_luma_qpel_plain(plane, mv, n: int = 16):
     """Quarter-pel luma uni MC (JAX `mc_luma_qpel`): [nb, n, n] int32."""
-    return _uni(_mc14(plane, mv, n, False))
+    return _uni(mc14(plane, mv, n, False))
 
 
 def mc_chroma_qpel_plain(plane, mv, n: int = 8):
     """Eighth-pel chroma uni MC (JAX `mc_chroma_qpel`) at luma qpel MVs."""
-    return _uni(_mc14(plane, mv, n, True))
+    return _uni(mc14(plane, mv, n, True))
+
+
+def mc_luma_qpel14(plane, mv, n: int = 16):
+    """The 14-bit luma prediction before uni rounding (JAX
+    `mc_luma_qpel14`)."""
+    return mc14(plane, mv, n, False)
+
+
+def mc_chroma_qpel14(plane, mv, n: int = 8):
+    """The 14-bit chroma prediction before uni rounding (JAX
+    `mc_chroma_qpel14`)."""
+    return mc14(plane, mv, n, True)
+
+
+def bi_combine(pred14_a, pred14_b):
+    """Default bi-prediction (spec 8.5.3.3.4.3, 8-bit): Clip((a + b + 64)
+    >> 7) on the two 14-bit predictions; the shift is arithmetic, so a
+    negative sum rounds toward minus infinity as in JAX."""
+    return torch.clamp((pred14_a + pred14_b + 64) >> 7, 0, 255) \
+        .to(torch.int32)
+
+
+def mc_bi_plain(ref0, ref1, mv0, mv1, n: int = 16, chroma: bool = False):
+    """Bi-prediction of every n x n raster block from ref0 at mv0 and ref1
+    at mv1 (JAX `bi_combine(mc_*_qpel14(ref0, mv0), mc_*_qpel14(ref1,
+    mv1))`): [nb, n, n] int32."""
+    return bi_combine(mc14(ref0, mv0, n, chroma), mc14(ref1, mv1, n, chroma))
 
 
 # candidate order of the JAX subpel_refine: dy outer, dx inner, -2..2 each
@@ -284,6 +311,61 @@ def mc_luma_qpel(plane, mv, n: int = 16):
 def mc_chroma_qpel(plane, mv, n: int = 8):
     """See mc_chroma_qpel_plain; a CUDA tensor launches `csrc/mc_qpel.cu`."""
     return _mc(plane, mv, n, True)
+
+
+def window_excess(mv, max_mv: int, chroma: bool):
+    """How far the largest integer MV part lies beyond +-max_mv (0 inside),
+    as a scalar tensor: the JAX window fetch reads zeros beyond it, so a
+    clamped read would differ (K9 measures the same on the card)."""
+    mvi = (mv.to(torch.int32) >> (3 if chroma else 2)).abs()
+    top = mvi.amax() if mvi.numel() else mvi.new_zeros(())
+    return torch.clamp(top - max_mv, min=0)
+
+
+def check_window(excess) -> None:
+    """Raise if a window excess (or the maximum of several) is not 0."""
+    if int(excess) > 0:
+        raise ValueError(f"MV outside the window contract (by {int(excess)}"
+                         " integer samples)")
+
+
+def mc_bi(ref0, ref1, mv0, mv1, n: int, chroma: bool, max_mv: int,
+          excess=None):
+    """See mc_bi_plain; a CUDA tensor launches `csrc/mc_bi.cu`.  Every MV's
+    integer part must lie within +-max_mv.  The kernel (on the CPU,
+    `window_excess`) measures how far the MVs lie beyond it; the wrapper
+    raises at once, or, given a list ``excess``, appends that scalar for
+    the caller to read with its own device-to-host copy and pass to
+    `check_window`, so that the card's queue is not drained here."""
+    if ref0.device.type == "cpu":
+        out = mc_bi_plain(ref0, ref1, mv0, mv1, n, chroma)
+        ex = torch.maximum(window_excess(mv0, max_mv, chroma),
+                           window_excess(mv1, max_mv, chroma))
+    else:
+        r0, r1 = _plane_arg(ref0), _plane_arg(ref1)
+        m0 = mv0.to(torch.int32).contiguous()
+        m1 = mv1.to(torch.int32).contiguous()
+        cuda_lib.require_cuda(r0, r1, m0, m1)
+        h, w = r0.shape
+        nb = (h // n) * (w // n)
+        if r1.shape != r0.shape or m0.shape != (nb, 2) or \
+                m1.shape != (nb, 2) or n not in (8, 16, 32):
+            raise ValueError("mc_bi: bad shapes")
+        out = torch.empty((nb, n, n), dtype=torch.int32, device=r0.device)
+        ex = torch.zeros((), dtype=torch.int32, device=r0.device)
+        if nb:
+            rc = _lib("mc_bi", "mc_bi", [_VP, _VP, _I, _I, _VP, _VP, _I, _I,
+                                         _I, _I, _VP, _VP, _VP]).mc_bi(
+                cuda_lib.ptr(r0), cuda_lib.ptr(r1), h, w, cuda_lib.ptr(m0),
+                cuda_lib.ptr(m1), nb, n, int(chroma), int(max_mv),
+                cuda_lib.ptr(out), cuda_lib.ptr(ex),
+                _VP(cuda_lib.stream_handle(r0)))
+            cuda_lib.launched("mc_bi", rc)
+    if excess is None:
+        check_window(ex)
+    else:
+        excess.append(ex)
+    return out
 
 
 def hpel_plane(ref):

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
+MAX_BFRAMES = 16
 QP_MAX_SPEC = 51
 
 PRESETS = ["ultrafast", "superfast", "veryfast", "faster", "fast",
@@ -190,8 +191,10 @@ def param_from_dict(d: dict) -> Param:
 def check_params(p: Param) -> None:
     """Validation (role of x265_check_params, param.cpp:1583), with the
     slice gate of the port: every setting outside BASELINE configs 1 and 2
-    (all-intra, or low-delay P with one reference and no B frames; CTU32,
-    CQP, 8-bit, SAO/AQ/RDOQ off) is refused loudly, never ignored."""
+    and the config-3 slice (all-intra; low-delay P with one reference; a B
+    pyramid with one reference per list, b-adapt 0; CTU32, CQP, 8-bit, AQ,
+    CU-tree and RDOQ off, SAO on or off) is refused loudly, never
+    ignored."""
     if p.width <= 0 or p.height <= 0:
         raise ValueError("picture dimensions must be set")
     if p.chroma_format != 1:
@@ -199,23 +202,23 @@ def check_params(p: Param) -> None:
     if not 0 <= p.qp <= QP_MAX_SPEC:
         raise ValueError("qp out of range")
     unwired = []
-    if p.keyint != 1:
-        # inter coding: the low-delay P tree with a single reference
-        if p.bframes > 0:
-            unwired.append(f"bframes {p.bframes} (the port codes low-delay "
-                           "P, --bframes 0)")
-        if p.ref != 1:
-            unwired.append(f"ref {p.ref} (the port codes one reference)")
-        if not 4 <= p.me_range <= 32:
-            unwired.append(f"merange {p.me_range} (dense-grid ME takes "
-                           "4..32)")
+    if not 0 <= p.bframes <= MAX_BFRAMES:
+        unwired.append(f"bframes {p.bframes} (0..{MAX_BFRAMES})")
+    if p.b_adapt != 0:
+        unwired.append(f"b-adapt {p.b_adapt} (it needs the lookahead; "
+                       "the port plans fixed mini-GOPs, --b-adapt 0)")
+    if p.bframes > 1 and not p.b_pyramid:
+        unwired.append("--no-b-pyramid (the port codes the B pyramid)")
+    if p.ref != 1:
+        unwired.append(f"ref {p.ref} (the port codes one reference per "
+                       "list)")
+    if p.keyint != 1 and not 4 <= p.me_range <= 32:
+        unwired.append(f"merange {p.me_range} (dense-grid ME takes 4..32)")
     if p.ctu_size != 32:
         unwired.append(f"ctu {p.ctu_size} (the port codes the CTU32 "
                        "quadtree)")
     if p.lossless:
         unwired.append("--lossless")
-    if p.sao:
-        unwired.append("SAO")
     if p.aq_mode > 0:
         unwired.append(f"aq-mode {p.aq_mode}")
     if p.cutree:
