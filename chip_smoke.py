@@ -5,19 +5,23 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build of the eleven CUDA kernels
+  1. the card's name and power limit; build of the fourteen CUDA kernels
      (nvcc for sm_90a, all started together) with their ptxas reports;
   2. each kernel against its plain PyTorch version on the card, with its
      time, bound and the plain version's time: K1-K4 at the shapes of
      config 1's 16-frame batch, K5-K8 at config 2's per-frame shapes, K9-K11
-     at one config-3 B frame's shapes (1920x1088), and K1-K8 checked again
-     at that B frame's shapes (one 1920x1088 frame, sr 16), plus edge
-     inputs (QP 0 and 51, flat 0/255 blocks, frame borders without
-     references, MVs at the search-range or window bound on border blocks,
-     0/255 steps under the MC filters, rec == orig and lambda 0 for SAO),
-     K2 with inter rounding, K3 at P- and B-slice init states and K4 on
-     bS 1 edges; the plain bS/QP maps and SSE/SSIM (rows 10-11) are timed
-     too;
+     at one config-3 B frame's shapes (1920x1088), K12-K14 and K1 on the
+     lowres blocks at one config-3 frame's lookahead shapes (1920x1088
+     planes, 960x544 lowres, 120x68 blocks; K14 also run twice, bit-equal),
+     and K1-K8 checked again at the B frame's shapes (one 1920x1088 frame,
+     sr 16), plus edge inputs (QP 0 and 51, flat 0/255 blocks, frame
+     borders without references, MVs at the search-range or window bound
+     on border blocks, 0/255 steps under the MC filters, rec == orig and
+     lambda 0 for SAO, flat lowres planes whose candidates all tie, a
+     CU-tree pile-up on the border blocks), K2 with inter rounding, K3 at
+     P- and B-slice init states and K4 on bS 1 edges; the plain bS/QP maps
+     and SSE/SSIM (rows 10-11, also at 1920x1088) are timed too, and the
+     decide and commit scans' bounds are worked out from their shapes;
   3. BASELINE config 1 (640x360 all-intra ultrafast QP 30, CTU32) through
      `Encoder(device="cuda")`, 24 frames with the first 8 as warm-up; fps,
      PSNR-Y, kbps and the launch count of every kernel;
@@ -30,14 +34,21 @@ Phases (any failure exits non-zero):
   6. config 2's bitstream on the card against the CPU's for its first 3
      frames (I, P, P); where they differ, the CPU's decisions replayed on
      the card must give the CPU's stream;
-  7. the config-3 slice (BASELINE config 3 at 1920x1080 as bench.py builds
-     it, AQ and CU-tree off: CQP 32, keyint 60, a B pyramid of 3, SAO on)
-     through `encode_push`/`flush`: 9 frames, the IDR and the first
-     mini-GOP as warm-up, the last mini-GOP (P + 3 B) timed; fps, PSNR-Y
-     (after SAO), kbps, the launches of K1-K11 per B frame and the share of
-     CTUs whose luma SAO is on;
+  7. the config-3 slice (BASELINE config 3 at 1920x1080 with AQ and
+     CU-tree off: CQP 32, keyint 60, a B pyramid of 3, SAO on) through
+     `encode_push`/`flush`: 5 frames, the IDR as warm-up, the mini-GOP (P +
+     3 B) timed; fps, PSNR-Y (after SAO), kbps, the launches of K1-K11 per
+     B frame and the share of CTUs whose luma SAO is on;
   8. the config-3 slice at 640x360 (IDR + one mini-GOP) on the card and on
-     the CPU: the streams must be identical byte for byte.
+     the CPU: the streams must be identical byte for byte;
+  9. BASELINE config 3 exactly as bench.py builds it (`aq_mode=2,
+     cutree=True, rc_lookahead=4`: the lookahead, AQ and CU-tree QP offsets,
+     cu_qp_delta) at 1920x1080, 9 frames through `encode_push`/`flush`,
+     all timed; fps, PSNR-Y, kbps, the share of CTUs whose QP differs from
+     the slice QP and the range of the deltas, the scene cuts, and the
+     launches per frame of K1 (lowres), K12, K13 and K14;
+  10. config 3 with AQ and CU-tree at 640x360 (IDR + one mini-GOP) on the
+     card and on the CPU: the streams must be identical byte for byte.
 
 Prints one JSON line of kernel figures, then the card's name and power
 limit, then `{"ok": true, "device": {...}}` as the last line.
@@ -58,12 +69,16 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 # counts two operations) = half the data sheet's 67 TFLOP/s fp32 rate
 H100_INT32_OPS_PER_S = 33.5e12
 # the kernels config 1 (all-intra) runs; config 2 runs K1-K8, the config-3
-# slice all eleven
+# slice K1-K11, config 3 with AQ and CU-tree also the lookahead's (K12-K14
+# and K1 on the lowres blocks, counted apart)
 CONFIG1_KERNELS = ("intra_pred", "residual_chain", "tu_bits", "deblock")
 CONFIG3_KERNELS = ("mc_bi", "sao_analyse", "sao_apply")
-# phase 7: IDR + two mini-GOPs (P + 3 B) in display order; the IDR and the
-# first mini-GOP warm up
-CONFIG3_FRAMES, CONFIG3_WARM = 9, 5
+LOOKAHEAD_KERNELS = ("lowres_aq", "lowres_me", "cutree_prop",
+                     "intra_pred_lowres")
+# phase 7: IDR + one mini-GOP (P + 3 B) in display order; the IDR warms up
+CONFIG3_FRAMES, CONFIG3_WARM = 5, 1
+# phase 9: IDR + two mini-GOPs, every frame timed
+CONFIG3_AQ_FRAMES = 9
 
 
 def synth_frames(w, h, n, seed=0):
@@ -474,33 +489,40 @@ def phase_kernels_p(iters, dev="cuda", w=1280, h=736, sr=8):
 
 def phase_plain_rows(iters, dev="cuda"):
     """Rows 10-11 of the kernel table (plain PyTorch on the card): the bS
-    and QP maps and SSE/SSIM, for config 1's 16-frame batch and one
-    config 2 frame."""
+    and QP maps and SSE/SSIM, for config 1's 16-frame batch, one config 2
+    frame and one config-3 B frame (two lists, per-CTU QPs)."""
     import torch
     from x265amod_tpu_torch.ops import deblock, metrics
     dev = torch.device(dev)
     rng = np.random.default_rng(5)
     out = {}
     for name, f, h, w in (("config1_batch", 16, 384, 640),
-                          ("config2_frame", 1, 736, 1280)):
+                          ("config2_frame", 1, 736, 1280),
+                          ("config3_frame", 1, 1088, 1920)):
         h16, w16 = h // 16, w // 16
         split = torch.as_tensor(rng.integers(0, 2, (f, h16 // 2, w16 // 2)),
                                 device=dev)
         coded = torch.as_tensor(rng.random((f, h16, w16)) < 0.5, device=dev)
         qp32 = torch.full((h16 // 2, w16 // 2), 30, dtype=torch.int32,
                           device=dev)
+        if name == "config3_frame":          # AQ and CU-tree QPs
+            qp32 = qp32 + torch.as_tensor(rng.integers(
+                -6, 3, qp32.shape).astype(np.int32), device=dev)
         intra = torch.as_tensor(rng.random((f, h16, w16)) < 0.1, device=dev)
         mv = torch.as_tensor(rng.integers(-40, 41, (f, h16, w16, 2)),
                              device=dev)
+        two = name == "config3_frame"
+        dirs = torch.as_tensor(rng.integers(1, 4 if two else 2,
+                                            (f, h16, w16)), device=dev)
+        mv1 = torch.flip(mv, (2,)) if two else torch.zeros_like(mv)
 
         def maps():
             if name == "config1_batch":
                 bs = deblock.intra_tree_bs_maps(split, h16, w16)
             else:
                 bs = deblock.inter_tree_bs_maps(
-                    intra, coded, torch.where(intra, 0, 1), mv,
-                    torch.zeros_like(mv), split, torch.zeros_like(coded,
-                                                                  dtype=torch.int32))
+                    intra, coded, torch.where(intra, 0, dirs), mv, mv1,
+                    split, torch.zeros_like(coded, dtype=torch.int32))
             eff = deblock.effective_qp16_tree(qp32, split, coded, 30)
             return bs, deblock.edge_qp_maps(eff)
         a = torch.as_tensor(rng.integers(0, 256, (f, h, w)), device=dev) \
@@ -643,8 +665,8 @@ def phase_config2(frames, warm):
             raise AssertionError(f"config 2: {k} not finite")
     if not 30.0 < s["psnr_y"] < 60.0:
         raise AssertionError(f"config 2: PSNR-Y {s['psnr_y']} out of range")
-    missing = [k for k, v in launches.items()
-               if v <= 0 and k not in CONFIG3_KERNELS]
+    missing = [k for k, v in launches.items() if v <= 0
+               and k not in CONFIG3_KERNELS + LOOKAHEAD_KERNELS]
     if missing:
         raise AssertionError(f"config 2 did not launch {missing}")
     p_stats = enc.frame_stats[warm:]
@@ -847,14 +869,155 @@ def phase_kernels_b(iters, dev="cuda", w=1920, h=1088, sr=16):
     return rows
 
 
-def config3(w=1920, h=1080):
+def phase_kernels_la(iters, dev="cuda", w=1920, h=1088):
+    """K12-K14 and K1 on the lowres blocks at one config-3 frame's
+    lookahead shapes (1920x1088 planes, a 960x544 lowres plane, 120x68
+    lowres blocks): K12 on the bench picture with flat 0/255 regions and a
+    0/255 step; K13 against the previous frame's lowres plane (content
+    moving) and on flat planes (every candidate ties: MV (-8, -8)); K14 on
+    K13's MVs and on a pile-up of sources clipped onto the border blocks
+    with amounts 10^-5 to 10^7 apart, run twice to show it bit-identical;
+    K1 (`lowres_intra_cost`) on the lowres plane."""
+    import torch
+    from x265amod_tpu_torch.models import lookahead as la
+    from x265amod_tpu_torch.ops import intra
+    dev = torch.device(dev)
+    rng = np.random.default_rng(6)
+    rows = []
+    f0, f1 = synth_frames(w, h, 2, seed=6)
+    y, cb, cr = (torch.as_tensor(a, device=dev) for a in f0)
+    y[: h // 8, : w // 8] = 0
+    y[: h // 8, w // 8: w // 4] = 255                  # a 0/255 step
+    cb[-h // 16:, -w // 16:] = 255
+
+    # K12 lowres_aq
+    d = dict(err=0.0)
+    for strength in (1.0, 0.5):
+        got = la.lowres_aq(y, cb, cr, strength)
+        want = la.lowres_aq_plain(y, cb, cr, strength)
+        d["err"] = max(d["err"], check_equal("lowres_aq lowres", got[0],
+                                             want[0]),
+                       check_equal("lowres_aq offsets", got[1], want[1]))
+    d["ms"] = time_ms(lambda: la.lowres_aq(y, cb, cr), iters)
+    d["plain_ms"] = time_ms(lambda: la.lowres_aq_plain(y, cb, cr), 2)
+    npix = h * w
+    d["bound_ms"], d["bound_by"] = bound_ms(
+        nbytes(y, cb, cr) + npix // 4 + 4 * (npix // 256),
+        npix * 4 + (npix // 2) * 3)
+    d["library_ms"] = None
+    d["library_note"] = ("none: no call forms the 8x8 variances, their "
+                         "log2 and the frame mean")
+    rows.append(("lowres_aq", "x265amod_tpu_torch/csrc/lowres_aq.cu",
+                 "x265amod_tpu/models/lookahead.py:64 aq_offsets (+ :39 "
+                 "lowres_half)", d))
+
+    # K13 lowres_me
+    lr = la.lowres_half(y)
+    prev = la.lowres_half(torch.as_tensor(f1[0], device=dev))
+    d = dict(err=0.0)
+    flat = torch.full_like(lr, 77)
+    for a, b in ((lr, prev), (flat, flat)):
+        got = la.lowres_inter_cost(a, b)
+        want = la.lowres_inter_cost_plain(a, b)
+        d["err"] = max(d["err"], check_equal("lowres_me cost", got[0],
+                                             want[0]),
+                       check_equal("lowres_me mv", got[1], want[1]))
+    if not bool((la.lowres_inter_cost(flat, flat)[1] == -8).all()):
+        raise AssertionError("lowres_me: a flat plane must give MV (-8, -8)")
+    d["ms"] = time_ms(lambda: la.lowres_inter_cost(lr, prev), iters)
+    d["plain_ms"] = time_ms(lambda: la.lowres_inter_cost_plain(lr, prev), 2)
+    hb, wb = lr.shape[0] // 8, lr.shape[1] // 8
+    s_ = 2 * la.LOWRES_ME_RANGE + 1
+    d["bound_ms"], d["bound_by"] = bound_ms(
+        nbytes(lr, prev) + hb * wb * 12, hb * wb * s_ * s_ * 64 * 3)
+    d["library_ms"] = None
+    d["library_note"] = ("none: the SSD grid is two grouped convolutions "
+                         "and an add, then an argmin; no single call")
+    rows.append(("lowres_me", "x265amod_tpu_torch/csrc/lowres_me.cu",
+                 "x265amod_tpu/models/lookahead.py:90 lowres_inter_cost",
+                 d))
+
+    # K14 cutree_prop, on K13's MVs and on a border pile-up
+    icost = la.lowres_intra_cost(lr)
+    pcost, pmv = la.lowres_inter_cost(lr, prev)
+    prop = torch.as_tensor((rng.random((hb, wb)) * 10.0 ** rng.integers(
+        -5, 8, (hb, wb))).astype(np.float32), device=dev)
+    pile = pmv.clone()
+    pile[:2, :, 1], pile[:, :2, 0], pile[-2:, :, 1] = -8, -8, 8
+    d = dict(err=0.0)
+    for mv in (pmv, pile):
+        args = (prop, icost, pcost, mv)
+        got = la.cutree_propagate_step(*args)
+        d["err"] = max(d["err"], check_equal(
+            "cutree_prop", got, la.cutree_propagate_step_plain(*args)))
+        if not torch.equal(got, la.cutree_propagate_step(*args)):
+            raise AssertionError("cutree_prop differs from run to run")
+    d["deterministic"] = True
+    d["ms"] = time_ms(lambda: la.cutree_propagate_step(prop, icost, pcost,
+                                                       pmv), iters)
+    d["plain_ms"] = time_ms(lambda: la.cutree_propagate_step_plain(
+        prop, icost, pcost, pmv), 2)
+    # the function's own work: each source's amount and four weighted adds
+    d["bound_ms"], d["bound_by"] = bound_ms(
+        nbytes(prop, icost, pcost, pmv) + hb * wb * 4, hb * wb * 24)
+    d["library_ms"] = None
+    d["library_note"] = ("none: index_put_ with accumulate adds in no "
+                         "fixed order")
+    rows.append(("cutree_prop", "x265amod_tpu_torch/csrc/cutree_prop.cu",
+                 "x265amod_tpu/models/lookahead.py:160 "
+                 "cutree_propagate_step", d))
+
+    # K1 on the lowres blocks
+    d = dict(err=0.0)
+    orig, refs = la.lowres_intra_refs(lr)
+    d["err"] = check_equal("lowres_intra_cost", la.lowres_intra_cost(lr),
+                           intra.satd35_plain(orig, *refs, 8, 0).amin(1)
+                           .float().reshape(hb, wb))
+    d["ms"] = time_ms(lambda: la.lowres_intra_cost(lr), iters)
+    d["plain_ms"] = time_ms(lambda: intra.satd35_plain(orig, *refs, 8, 0)
+                            .amin(1), 2)
+    nb = hb * wb
+    d["bound_ms"], d["bound_by"] = bound_ms(
+        nbytes(lr) + nbytes(*refs) + nb * 4, nb * 35 * 64 * 16)
+    d["library_ms"] = None
+    d["library_note"] = "none: no call predicts intra modes"
+    rows.append(("intra_pred_lowres", "x265amod_tpu_torch/csrc/intra_pred.cu",
+                 "x265amod_tpu/models/lookahead.py:131 lowres_intra_cost "
+                 "(+ :56 satd8, ops/intra.py:379 substitute_refs, :133 "
+                 "predict_all_modes_batch)", d))
+    return rows
+
+
+def scan_bounds():
+    """Least times of the wavefront scans (rows 16b and 16c), from their
+    shapes: each reads the phase-1 outputs once (the SSD grids at bn 16
+    and 32 over the reference and the half-pel plane, per list, f32
+    [S, S] per block; the trial costs and MVs) and writes the decisions;
+    the commit scan reads the source planes and writes recon and levels.
+    Their arithmetic (a few candidates per CU) is far below the bytes."""
+    out = {}
+    for name, w, h, sr, lists in (("p_decide_720p", 1280, 736, 8, 1),
+                                  ("b_decide_1080p", 1920, 1088, 16, 2)):
+        n16, n32 = (h // 16) * (w // 16), (h // 32) * (w // 32)
+        s_ = 2 * sr + 1
+        grids = lists * 2 * (n16 + n32) * s_ * s_ * 4
+        per_cell = lists * (n16 + n32) * (2 * 4 + 2 * 4 + 4 * 2)
+        out[name] = bound_ms(grids + per_cell + n16 * 16, 0)[0]
+    npix = 1280 * 736
+    out["p_commit_720p"] = bound_ms(npix * 1.5 * (1 + 4 + 2), 0)[0]
+    return out
+
+
+def config3(w=1920, h=1080, aq=False):
     """BASELINE config 3 as the repository's bench.py builds it
-    (`bench.py:114`), with AQ and CU-tree off so that no lookahead runs.
-    Its crf is not read: rc_mode stays "cqp", so frames code at QP 32 (I
-    29, referenced B 33, b 34)."""
+    (`bench.py:114`, aq=True), or with AQ and CU-tree off so that no
+    lookahead runs.  Its crf is not read: rc_mode stays "cqp", so frames
+    code at QP 32 (I 29, referenced B 33, b 34) plus the AQ and CU-tree
+    offsets."""
     from x265amod_tpu_torch.utils.params import Param
     return Param(width=w, height=h, keyint=60, bframes=3, ctu_size=32,
-                 sao=True, aq_mode=0, cutree=False, rc_lookahead=4)
+                 sao=True, aq_mode=2 if aq else 0, cutree=aq,
+                 rc_lookahead=4)
 
 
 def phase_config3(frames, warm):
@@ -901,7 +1064,7 @@ def phase_config3(frames, warm):
     s = enc.summary()
     types = [st.slice_type for st in enc.frame_stats]
     n = len(frames) - warm
-    if n_done != n or types != ["I"] + ["P", "B", "B", "B"] * 2:
+    if n_done != n or types != ["I", "P", "B", "B", "B"]:
         raise AssertionError(f"config 3: {n_done} of {n} frames, types "
                              f"{types}")
     for k in ("psnr_y", "bitrate_kbps"):
@@ -909,7 +1072,8 @@ def phase_config3(frames, warm):
             raise AssertionError(f"config 3: {k} not finite")
     if not 30.0 < s["psnr_y"] < 60.0:
         raise AssertionError(f"config 3: PSNR-Y {s['psnr_y']} out of range")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items()
+               if v <= 0 and k not in LOOKAHEAD_KERNELS]
     if missing:
         raise AssertionError(f"config 3 did not launch {missing}")
     if sao_n[0] == 0:
@@ -926,13 +1090,74 @@ def phase_config3(frames, warm):
                 launches_per_b_frame=b_mean), launches
 
 
-def phase_card_vs_cpu_b(frames):
-    """The config-3 slice at 640x360, IDR + one mini-GOP, on the card and
-    on the CPU: the streams must be identical."""
+def phase_config3_aq(frames):
+    """Config 3 exactly as bench.py builds it (AQ mode 2, CU-tree,
+    rc-lookahead 4) through `encode_push` and `flush`, every frame timed
+    (the kernels are loaded and the card warm from the phases before).
+    The launch counts start at 0 before the first push and are read after
+    the flush; the QP maps are the ones each frame signals."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from x265amod_tpu_torch.models.intra_tree import qp32_of
+    from x265amod_tpu_torch.ops import cuda_lib
+    enc = Encoder(config3(aq=True), device="cuda")
+    qp_maps, cuts = [], []
+    inner_dispatch, inner_la = enc._dispatch_entry, enc._la_frame
+
+    def dispatch(e, *a, **k):
+        pending = inner_dispatch(e, *a, **k)
+        qp_maps.append((pending["qp"], e["qp_map"]))
+        return pending
+
+    def la_frame(fa):
+        cuts.append(bool(fa.is_scenecut))
+        return inner_la(fa)
+    enc._dispatch_entry, enc._la_frame = dispatch, la_frame
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    n_done = sum(len(enc.encode_push(*fr)) for fr in frames)
+    n_done += len(enc.flush())
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    s = enc.summary()
+    n = len(frames)
+    types = [st.slice_type for st in enc.frame_stats]
+    if n_done != n or types != ["I"] + ["P", "B", "B", "B"] * 2:
+        raise AssertionError(f"config 3 with AQ: {n_done} of {n} frames, "
+                             f"types {types}")
+    for k in ("psnr_y", "bitrate_kbps"):
+        if not np.isfinite(s[k]):
+            raise AssertionError(f"config 3 with AQ: {k} not finite")
+    if not 30.0 < s["psnr_y"] < 60.0:
+        raise AssertionError(f"config 3 with AQ: PSNR-Y {s['psnr_y']} out "
+                             "of range")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"config 3 with AQ did not launch {missing}")
+    deltas = np.concatenate([(qp32_of(m) - qp).ravel() for qp, m in qp_maps])
+    off_share = float(np.mean(deltas != 0))
+    if off_share <= 0.0:
+        raise AssertionError("config 3 with AQ: every CTU at the slice QP")
+    return dict(frames=n, seconds=dt, fps=n / dt, psnr_y=s["psnr_y"],
+                kbps=s["bitrate_kbps"], ssim_y=s["ssim_y"],
+                qps=[x.qp for x in enc.frame_stats],
+                ctu_qp_off_slice_share=off_share,
+                ctu_qp_delta_range=[int(deltas.min()), int(deltas.max())],
+                scene_cuts=[i for i, c in enumerate(cuts) if c],
+                launches_per_frame={k: launches[k] / n
+                                    for k in LOOKAHEAD_KERNELS}), launches
+
+
+def phase_card_vs_cpu_b(frames, aq=False):
+    """Config 3 at 640x360, IDR + one mini-GOP, on the card and on the CPU
+    (the slice without the lookahead, or with AQ and CU-tree): the streams
+    must be identical."""
     from x265amod_tpu_torch.models.encoder import Encoder
     streams = {}
     for dev in ("cuda", "cpu"):
-        p = config3(640, 360)
+        p = config3(640, 360, aq=aq)
         p.info = False
         e = Encoder(p, device=dev)
         streams[dev] = [o.nals for o in e.encode_pipelined(frames)]
@@ -983,6 +1208,7 @@ def main():
     rows = phase_kernels(16, h16, w16, args.iters)
     rows += phase_kernels_p(args.iters)
     rows += phase_kernels_b(args.iters)
+    rows += phase_kernels_la(args.iters)
     # K1-K8 again at the config-3 slice's shapes (one B frame at 1920x1088,
     # sr 16): checked only, the rows keep config 1's and config 2's times
     by_name = {name: d for name, _, _, d in rows}
@@ -997,7 +1223,8 @@ def main():
             f"{d['ms']:.4f} ms vs plain {d['plain_ms']:.4f} ms, bound "
             f"{d['bound_ms']:.4f} ms ({d['bound_by']}) [{card}]")
     log("phase 2: plain rows 10-11 " + json.dumps(phase_plain_rows(
-        args.iters)))
+        args.iters)) + f" [{card}]")
+    log("phase 2: scan bounds, ms " + json.dumps(scan_bounds()))
     cuda_lib.reset_launches()
     seconds["2_kernels"] = time.time() - t0
 
@@ -1031,19 +1258,35 @@ def main():
     log("phase 8: " + json.dumps(phase_card_vs_cpu_b(
         synth_frames(640, 360, 5, seed=4))))
     seconds["8_config3_card_vs_cpu"] = time.time() - t0
+
+    t0 = time.time()
+    aqframes = synth_frames(1920, 1080, CONFIG3_AQ_FRAMES, seed=4)
+    aq_stats, launches9 = phase_config3_aq(aqframes)
+    log("phase 9: " + json.dumps(dict(aq_stats, card=card,
+                                      launches=launches9)))
+    seconds["9_config3_aq"] = time.time() - t0
+    del aqframes
+    t0 = time.time()
+    log("phase 10: " + json.dumps(phase_card_vs_cpu_b(
+        synth_frames(640, 360, 5, seed=4), aq=True)))
+    seconds["10_config3_aq_card_vs_cpu"] = time.time() - t0
     log("seconds per phase: " + json.dumps(seconds))
 
     kernels = []
     for name, src, replaces, d in rows:
         config1_kernel = name in CONFIG1_KERNELS
         config3_kernel = name in CONFIG3_KERNELS
+        la_kernel = name in LOOKAHEAD_KERNELS
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches1[name] if config1_kernel else (
-                launches3[name] if config3_kernel else launches2[name]),
+                launches3[name] if config3_kernel else (
+                    launches9[name] if la_kernel else launches2[name])),
             launches_config1=launches1[name],
             launches_config2=launches2[name],
             launches_config3=launches3[name],
+            launches_config3_aq=launches9[name],
+            launches_per_frame_config3_aq=launches9[name] / CONFIG3_AQ_FRAMES,
             launches_per_b_frame=b_stats["launches_per_b_frame"][name],
             max_abs_err=d["err"], ms=d["ms"],
             plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
@@ -1051,10 +1294,14 @@ def main():
             library_note=d.get("library_note",
                                "no single PyTorch call computes this "
                                "function"),
+            **({"deterministic_run_to_run": True}
+               if d.get("deterministic") else {}),
             shapes=(f"16-frame batch at {w}x{h} (padded {16 * w16}x"
                     f"{16 * h16})" if config1_kernel else
                     "one B frame at 1920x1080 (padded 1920x1088), sr 16"
                     if config3_kernel else
+                    "one frame's lookahead at 1920x1080 (padded 1920x1088,"
+                    " lowres 960x544, 120x68 blocks)" if la_kernel else
                     "one P frame at 1280x720 (padded 1280x736), sr 8")
             + ("; also checked at one B frame's shapes (1920x1088, sr 16)"
                if d.get("checked_at_config3_shapes") else "")))

@@ -1,11 +1,12 @@
-"""Where the time goes in the PyTorch/CUDA port's three paths on one GPU:
+"""Where the time goes in the PyTorch/CUDA port's paths on one GPU:
 BASELINE config 1 (640x360 all-intra QP 30, CTU32, 16-frame batches),
-config 2 (1280x720 low-delay P QP 32, CTU32, one reference) and the
-config-3 slice (1920x1080 B pyramid with SAO, CQP 32, AQ and CU-tree off).
+config 2 (1280x720 low-delay P QP 32, CTU32, one reference), the config-3
+slice (1920x1080 B pyramid with SAO, CQP 32, AQ and CU-tree off) and config
+3 as bench.py builds it (the same with the lookahead, AQ and CU-tree: "4").
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 profile_port.py [--configs 1,2,3] [--batches 2] [--p-frames 4]
+    python3 profile_port.py [--configs 1,2,3,4] [--batches 2] [--p-frames 4]
 
 Prints JSON lines:
   - "stages": host wall time of each stage of a config 1 16-frame batch,
@@ -27,6 +28,12 @@ Prints JSON lines:
     between the IDR and the P anchor of the first mini-GOP;
   - "b_profile": torch.profiler over one mini-GOP (P + 3 B) of config 3
     through encode_push;
+  - "la_stages": the lookahead of config 3 per pushed frame (upload, K12
+    lowres plane + AQ, K1 lowres intra cost, K13 lowres motion search, the
+    host copies of the small maps, scene-cut decision, CU-tree over the
+    queue with K14), averaged over 9 frames;
+  - "aq_profile": torch.profiler over the pushes that code one mini-GOP of
+    config 3 with AQ and CU-tree (after the IDR and a warm-up mini-GOP);
   - the card's name and power limit.
 """
 
@@ -256,6 +263,58 @@ def b_stage_breakdown(enc, frames):
     return acc
 
 
+def la_stage_breakdown(frames):
+    """The lookahead's stages per pushed frame (`Lookahead.push` taken
+    apart, with a device synchronize after each stage)."""
+    import torch
+    from x265amod_tpu_torch.models import lookahead as la
+    pad = [[np.pad(a, ((0, (-a.shape[0]) % s), (0, 0)), mode="edge")
+            for a, s in zip(f, (32, 16, 16))] for f in frames]
+    h, w = pad[0][0].shape
+    look = la.Lookahead(w, h, depth=4, device="cuda")
+    acc = {}
+    n = len(frames)
+
+    def mark(name, t0):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        acc[name] = acc.get(name, 0.0) + (t1 - t0) * 1e3 / n
+        return t1
+
+    prev = None
+    for y, cb, cr in pad:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        planes = [look._upload(a) for a in (y, cb, cr)]
+        t = mark("upload", t)
+        lr, aq = la.lowres_aq(*planes, look.strength)
+        t = mark("lowres_aq", t)
+        icost = la.lowres_intra_cost(lr)
+        t = mark("lowres_intra", t)
+        inter = mv = None
+        if prev is not None:
+            inter, mv = la.lowres_inter_cost(lr, prev)
+        prev = lr
+        t = mark("lowres_me", t)
+        fa = la.FrameAnalysis(
+            display=look._disp, aq=aq.cpu().numpy(),
+            intra_cost=icost.cpu().numpy(),
+            inter_cost=None if inter is None else inter.cpu().numpy(),
+            mv=None if mv is None else mv.cpu().numpy(), lowres=lr,
+            dev=(icost, inter, mv))
+        look._disp += 1
+        t = mark("d2h_maps", t)
+        fa.is_scenecut = look._decide_scenecut(fa)
+        look._queue.append(fa)
+        t = mark("scenecut", t)
+        if len(look._queue) >= look.depth:
+            look._run_cutree()
+            look._queue = look._queue[1:]
+        mark("cutree", t)
+    acc["total"] = sum(acc.values())
+    return acc
+
+
 def device_profile(run, n_frames):
     """torch.profiler over ``run()``: wall time, device kernel time, the
     device busy share and the kernels with the most device time."""
@@ -288,7 +347,7 @@ def device_profile(run, n_frames):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--configs", default="1,2,3")
+    ap.add_argument("--configs", default="1,2,3,4")
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--p-frames", type=int, default=4)
     args = ap.parse_args()
@@ -329,6 +388,16 @@ def main():
             benc.encode_push(*f)
         print(json.dumps({"b_profile": device_profile(
             lambda: [benc.encode_push(*f) for f in bframes[5:9]], 4)}))
+    if 4 in configs:
+        aframes = synth_frames(1920, 1080, 13, seed=4)
+        print(json.dumps({"la_stages": la_stage_breakdown(aframes[:9])}))
+        aenc = Encoder(config3(aq=True), device="cuda")
+        # the lookahead holds 3 frames back: 8 pushes code the IDR and the
+        # first mini-GOP, the next 4 the second
+        for f in aframes[:8]:
+            aenc.encode_push(*f)
+        print(json.dumps({"aq_profile": device_profile(
+            lambda: [aenc.encode_push(*f) for f in aframes[8:12]], 4)}))
     print(card_line())
 
 

@@ -17,12 +17,20 @@ CPU:
   for NAL (a frame may differ only on an f32 near-tie of the B costs,
   whose relative gap the test reports) and decodes bit-exactly with the
   JAX package's conformance decoder;
+- config 3 as bench.py builds it (`aq_mode=2, cutree=True,
+  rc_lookahead=4`: the lookahead, AQ and CU-tree QP offsets, `cu_qp_delta`)
+  on a clip with a scene cut at frame 6 (a new IDR, then short mini-GOPs):
+  the JAX run's I, P and B decisions replayed with its per-16-cell QP
+  offsets give byte-identical levels, recon, SAO parameters and payloads,
+  and the free-running port stream equals the JAX `Encoder`'s NAL for NAL,
+  with equal per-CTU QP maps, and decodes bit-exactly;
 - the slice gate and the device rule.
 
 One JAX `Encoder` run per QP (IDR + two mini-GOPs at 64x64, its trees
-shared, so JAX compiles them once) serves the replay and free-running
-tests.  Its three compiles take most of this file's time (the module runs
-at the lowest CPU priority, `test_torch_slice.yield_cpu`).
+shared, so JAX compiles them once), and one of config 3 with AQ and
+CU-tree on the same trees, serve the replay and free-running tests.  Its
+three compiles take most of this file's time (the module runs at the lowest
+CPU priority, `test_torch_slice.yield_cpu`).
 """
 
 import dataclasses
@@ -42,7 +50,10 @@ from x265amod_tpu.utils.params import Param as JaxParam
 from x265amod_tpu.verify.decoder import decode_stream
 from x265amod_tpu_torch.models import mvpred
 from x265amod_tpu_torch.models.encoder import Encoder
-from x265amod_tpu_torch.models.inter_tree import BTreeEncoder, _scale_mv_vec
+from x265amod_tpu_torch.models.intra_tree import IntraTreeEncoder
+from x265amod_tpu_torch.models.inter_tree import (BTreeEncoder,
+                                                  InterTreeEncoder,
+                                                  _scale_mv_vec)
 from x265amod_tpu_torch.models.ratecontrol import RateControl
 from x265amod_tpu_torch.ops import me
 from x265amod_tpu_torch.utils.params import Param, check_params
@@ -54,6 +65,7 @@ torch.set_num_threads(1)
 
 W, H, NF = 64, 64, 9
 SR = 16
+CUT = 6             # the scene cut of the AQ run's clip
 
 
 def config3(w=W, h=H, qp=32, **kw):
@@ -66,14 +78,38 @@ def config3(w=W, h=H, qp=32, **kw):
     return Param(**d)
 
 
+def cut_clip(w, h, n, cut, seed):
+    """The bench clip with a different scene from frame ``cut`` on."""
+    rng = np.random.default_rng(seed + 1)
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+    second = []
+    for t in range(n - cut):
+        y = (128 + 100 * np.cos((xx - 2 * t) / 5.0) * np.sin((yy + t) / 3.0)
+             + rng.normal(0, 12, (h, w))).clip(0, 255).astype(np.uint8)
+        c = rng.integers(40, 216, (h // 2, w // 2)).astype(np.uint8)
+        second.append((y, c, 255 - c))
+    return clip(w, h, cut, seed=seed) + second
+
+
+def config3_aq(**kw):
+    """bench.py's config 3 exactly as it builds it: AQ mode 2, CU-tree,
+    rc-lookahead 4."""
+    return config3(**dict(dict(aq_mode=2, cutree=True), **kw))
+
+
 @pytest.fixture(scope="module")
 def jax_runs():
-    """{qp: (frames, outputs, results in decode order, JAX encoder)}: each
-    tree's collect is wrapped to keep the results it returns."""
-    frames = clip(W, H, NF, seed=5)
+    """{qp: (frames, outputs, results in decode order, JAX encoder,
+    dispatched plan entries)}, and under "aq" the same for config 3 with AQ
+    and CU-tree at QP 32: each tree's collect is wrapped to keep the
+    results it returns, the encoder's dispatch to keep its entries (with
+    their QP offsets and signalled QP maps)."""
     runs, trees = {}, None
-    for qp in (32, 40):
-        jenc = JaxEncoder(JaxParam(**dataclasses.asdict(config3(qp=qp))))
+    for qp in (32, 40, "aq"):
+        p = config3_aq() if qp == "aq" else config3(qp=qp)
+        frames = cut_clip(W, H, NF, CUT, 5) if qp == "aq" else \
+            clip(W, H, NF, seed=5)
+        jenc = JaxEncoder(JaxParam(**dataclasses.asdict(p)))
         if trees is None:
             trees = (jenc.frame_encoder, jenc.inter_encoder, jenc.b_encoder)
         else:
@@ -87,6 +123,13 @@ def jax_runs():
             return collect
         for t in trees:
             t.collect = keep(type(t).collect.__get__(t))
+        entries = []
+        inner = jenc._dispatch_entry
+
+        def dispatch(e, *a, **k):
+            entries.append(e)
+            return inner(e, *a, **k)
+        jenc._dispatch_entry = dispatch
         try:
             outs = [o for f in frames
                     for o in jenc.encode_push(*f, return_recon=True)]
@@ -94,7 +137,7 @@ def jax_runs():
         finally:
             for t in trees:
                 del t.collect
-        runs[qp] = (frames, outs, results, jenc)
+        runs[qp] = (frames, outs, results, jenc, entries)
     return runs
 
 
@@ -212,7 +255,7 @@ def _refs_of(outs, results):
 
 @pytest.mark.parametrize("qp", [32, 40])
 def test_forced_b_decisions_byte_identical(jax_runs, qp):
-    frames, outs, results, jenc = jax_runs[qp]
+    frames, outs, results, jenc, _ = jax_runs[qp]
     plan = {e[0]: e for e in _plan(Encoder(config3(), device="cpu"), NF)
             if e[1] == "B"}
     recon = _refs_of(outs, results)
@@ -286,7 +329,7 @@ def _final_mvs(ttree, args, dec):
 
 @pytest.mark.parametrize("qp", [32, 40])
 def test_free_running_stream_equals_jax_and_decodes(jax_runs, qp):
-    frames, jouts, jresults, _ = jax_runs[qp]
+    frames, jouts, jresults, _, _ = jax_runs[qp]
     tenc = Encoder(config3(qp=qp), device="cpu")
     touts = list(tenc.encode_pipelined(frames, return_recon=True))
     assert [(o.stats.poc, o.stats.slice_type, o.stats.qp) for o in touts] \
@@ -342,17 +385,123 @@ def _b_cost_gap(tenc, frames, touts, jresults, i):
     return max(gaps) if gaps else 0.0
 
 
+# ---- config 3 with AQ and CU-tree ------------------------------------------
+
+
+def test_config3_aq_forced_decisions_byte_identical(jax_runs):
+    """The JAX run's decisions and per-16-cell QP offsets replayed through
+    the port's I, P and B trees: the same levels, recon, SAO parameters
+    and payloads (with cu_qp_delta from the same QP maps)."""
+    frames, outs, results, jenc, entries = jax_runs["aq"]
+    tenc = Encoder(config3_aq(), device="cpu")
+    kw = dict(deblock=True, sign_hide=True, sao=True, device="cpu")
+    trees = {"I": IntraTreeEncoder(W, H, **kw),
+             "P": InterTreeEncoder(W, H, search_range=SR, subme=2, **kw),
+             "B": BTreeEncoder(W, H, search_range=SR, subme=2, **kw)}
+    off_qp, recon = 0, {}
+    assert [e["poc"] for e in entries] == [o.stats.poc for o in outs]
+    for o, jres, e in zip(outs, results, entries):
+        st, qp, poc = e["stype"], o.stats.qp, e["poc"]
+        if st == "I":
+            recon = {}            # a new CVS: POCs restart
+        planes = frames[e["display"]]
+        qp_off, qp_map = e["qp_off"], e["qp_map"]
+        assert qp_off is not None and qp_map.shape == (H // 16, W // 16)
+        off_qp += int((qp_map != qp).sum())
+
+        def ref(p):
+            return tuple(torch.as_tensor(a) for a in recon[p])
+        if st == "I":
+            tres = trees["I"].collect(trees["I"].encode_async_load(
+                *planes, qp, jres.split, jres.modes, want_recon=True,
+                qp_offsets=qp_off))
+            pay = (tenc._cabac_intra_tree(tres, qp, qp_map),
+                   jenc._cabac_intra_tree(jres, qp, qp_map))
+        elif st == "P":
+            tres = trees["P"].collect(trees["P"].encode_async_load(
+                *planes, ref(e["ref0"]), qp, jres.split, jres.kinds,
+                jres.merge_idx, jres.mvd, jres.mvp_idx, jres.modes,
+                want_recon=True, qp_offsets=qp_off))
+            pay = (tenc._cabac_inter_tree(tres, qp, qp_map),
+                   jenc._cabac_inter_tree(jres, qp, qp_map))
+        else:
+            tres = trees["B"].collect(trees["B"].encode_async_load(
+                *planes, ref(e["ref0"]), ref(e["ref1"]), qp,
+                mvpred.dist_scale_factor(poc, e["ref0"], e["ref1"]),
+                mvpred.dist_scale_factor(poc, e["ref1"], e["ref0"]),
+                jres.split, jres.kinds, jres.merge_idx, jres.inter_dir,
+                jres.mvd0, jres.mvp0, jres.mvd1, jres.mvp1, jres.modes,
+                want_recon=True, qp_offsets=qp_off))
+            pay = (tenc._cabac_b_tree(tres, qp, qp_map),
+                   jenc._cabac_b_tree(jres, qp, qp_map))
+        for name in ("levels_y", "levels_cb", "levels_cr", "recon_y",
+                     "recon_cb", "recon_cr"):
+            np.testing.assert_array_equal(getattr(tres, name),
+                                          getattr(jres, name),
+                                          f"{st} poc {poc} {name}")
+        np.testing.assert_array_equal(tres.sse[:3], jres.sse[:3])
+        jsao = (jres.sao_type, jres.sao_eo_class, jres.sao_band_pos,
+                jres.sao_offsets) + tuple(jres.sao_c)
+        for i, (g, w) in enumerate(zip(tres.sao, jsao)):
+            np.testing.assert_array_equal(g, w, f"{st} poc {poc} sao{i}")
+        assert pay[0] == pay[1], f"{st} poc {poc}"
+        recon[poc] = (jres.recon_y, jres.recon_cb, jres.recon_cr)
+    # the cut at frame 6 starts a new IDR; frame 5 closes the first CVS as
+    # a P, and frames 7-8 make a short mini-GOP (P 8, B 7)
+    assert [(o.stats.slice_type, o.stats.display_order) for o in outs] == \
+        [("I", 0), ("P", 4), ("B", 2), ("B", 1), ("B", 3), ("P", 5),
+         ("I", CUT), ("P", 8), ("B", 7)]
+    assert off_qp > 0           # the offsets moved some CTUs off the QP
+
+
+def test_config3_aq_free_running_stream_equals_jax_and_decodes(jax_runs):
+    """The port's `Encoder` on config 3 as bench builds it: the same NAL
+    units as the JAX `Encoder`'s, the same signalled QP map for every
+    frame, and a stream the conformance decoder reconstructs bit-exactly."""
+    frames, jouts, _, _, jentries = jax_runs["aq"]
+    tenc = Encoder(config3_aq(), device="cpu")
+    assert tenc.pps.cu_qp_delta_enabled and tenc.lookahead is not None
+    assert tenc.lookahead.depth == 4 and tenc.lookahead.cutree
+    tentries = []
+    inner = tenc._dispatch_entry
+
+    def dispatch(e, *a, **k):
+        tentries.append(e)
+        return inner(e, *a, **k)
+    tenc._dispatch_entry = dispatch
+    touts = list(tenc.encode_pipelined(frames, return_recon=True))
+    assert [(o.stats.poc, o.stats.slice_type, o.stats.qp) for o in touts] \
+        == [(o.stats.poc, o.stats.slice_type, o.stats.qp) for o in jouts]
+    assert [a.nals for a in touts] == [b.nals for b in jouts]
+    assert len(tentries) == len(jentries) == NF
+    for a, b in zip(tentries, jentries):
+        np.testing.assert_array_equal(a["qp_map"], b["qp_map"])
+        np.testing.assert_allclose(a["qp_off"], b["qp_off"], rtol=0,
+                                   atol=1e-5)
+    decoded = decode_stream(b"".join(o.nals for o in touts))
+    by_display = sorted(touts, key=lambda o: o.stats.display_order)
+    assert len(decoded) == NF
+    for fr, out in zip(decoded, by_display):
+        assert fr.poc == out.stats.poc
+        np.testing.assert_array_equal(fr.y, out.recon[0])
+        np.testing.assert_array_equal(fr.cb, out.recon[1])
+        np.testing.assert_array_equal(fr.cr, out.recon[2])
+
+
 # ---- the slice gate and the device rule ------------------------------------------
 
 
 def test_check_params_admits_the_config3_slice():
     check_params(config3(1920, 1080))
+    check_params(config3_aq(w=1920, h=1080))      # as bench.py builds it
     for bf in (1, 2, 16):
         check_params(config3(bframes=bf))
+        check_params(config3_aq(bframes=bf, aq_mode=1))
+    check_params(config3(cutree=True))            # CU-tree on its own
 
 
 @pytest.mark.parametrize("field,value", [
-    ("aq_mode", 2), ("cutree", True), ("ref", 2), ("rdoq_level", 1),
+    ("aq_mode", 3), ("wpp", True), ("ref", 2), ("rdoq_level", 1),
     ("b_adapt", 1), ("bframes", 17), ("rc_mode", "crf"),
     ("vbv_maxrate", 1000)])
 def test_check_params_refuses_what_the_b_slice_does_not_run(field, value):
@@ -362,10 +511,23 @@ def test_check_params_refuses_what_the_b_slice_does_not_run(field, value):
         check_params(p)
 
 
+@pytest.mark.parametrize("kw", [dict(keyint=1, bframes=0),
+                                dict(bframes=0), dict(bframes=0, aq_mode=0)])
+def test_check_params_refuses_the_lookahead_without_b_frames(kw):
+    """All-intra and low-delay P would run a depth-1 lookahead, which the
+    port leaves refused (ROADMAP queue 1)."""
+    with pytest.raises(ValueError, match="without B frames"):
+        check_params(config3_aq(**kw))
+
+
 def test_b_encoder_needs_a_card_unless_asked_for_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without a CUDA card")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        Encoder(config3())
+    for p in (config3(), config3_aq()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Encoder(p)
     enc = Encoder(config3(), device="cpu")
     assert enc.b_encoder.device.type == "cpu" and enc.b_encoder.sao
+    assert enc.lookahead is None
+    enc = Encoder(config3_aq(), device="cpu")
+    assert enc.lookahead.device.type == "cpu"

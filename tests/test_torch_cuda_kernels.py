@@ -289,3 +289,96 @@ def test_sao_apply_kernel(cuda_dev):
         off = t(rng.integers(-7, 8, (n, 4)))
         assert torch.equal(sao.sao_apply(r, ty, cls, bp, off, ctu),
                            sao.sao_apply_plain(r, ty, cls, bp, off, ctu))
+
+
+@pytest.mark.parametrize("w,h", [(128, 64), (1920, 1088)])
+def test_lowres_aq_kernel(cuda_dev, w, h):
+    from x265amod_tpu_torch.models import lookahead as la
+    rng = np.random.default_rng(w)
+    planes = [rng.integers(0, 256, s).astype(np.uint8)
+              for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    planes[0][: h // 4, : w // 4] = 0             # flat and stepped regions
+    planes[0][: h // 4, w // 4: w // 2] = 255
+    planes[1][h // 4:] = 128
+    y, cb, cr = (torch.as_tensor(a, device=cuda_dev) for a in planes)
+    for strength in (1.0, 0.5):
+        lr, off = la.lowres_aq(y, cb, cr, strength)
+        plr, poff = la.lowres_aq_plain(y, cb, cr, strength)
+        assert torch.equal(lr, plr)
+        assert torch.equal(off, poff)
+
+
+@pytest.mark.parametrize("kind", ["random", "flat", "shifted"])
+def test_lowres_me_kernel(cuda_dev, kind):
+    from x265amod_tpu_torch.models import lookahead as la
+    rng = np.random.default_rng(len(kind))
+    cur = rng.integers(0, 256, (544, 960)).astype(np.uint8)
+    ref = rng.integers(0, 256, (544, 960)).astype(np.uint8)
+    if kind == "flat":
+        cur[:], ref[:] = 77, 77
+    elif kind == "shifted":
+        ref = np.roll(cur, (5, -7), (0, 1))
+    cur, ref = (torch.as_tensor(a, device=cuda_dev) for a in (cur, ref))
+    cost, mv = la.lowres_inter_cost(cur, ref)
+    pcost, pmv = la.lowres_inter_cost_plain(cur, ref)
+    assert torch.equal(cost, pcost) and torch.equal(mv, pmv)
+    if kind == "flat":
+        assert bool((mv == -8).all())
+
+
+@pytest.mark.parametrize("kind", ["random", "pileup"])
+def test_cutree_prop_kernel_is_deterministic(cuda_dev, kind):
+    from x265amod_tpu_torch.models import lookahead as la
+    rng = np.random.default_rng(7 + len(kind))
+    hb, wb = 68, 120
+    prop = (rng.random((hb, wb)) * 10.0 ** rng.integers(-3, 7, (hb, wb))) \
+        .astype(np.float32)
+    intra = (rng.random((hb, wb)) * 3000).astype(np.float32)
+    intra[::5, ::3] = 0.0
+    inter = (rng.random((hb, wb)) * 3500).astype(np.float32)
+    mv = rng.integers(-8, 9, (hb, wb, 2)).astype(np.int32)
+    if kind == "pileup":
+        mv[:2, :, 1], mv[:, :2, 0], mv[-2:, :, 1] = -8, -8, 8
+    args = [torch.as_tensor(a, device=cuda_dev)
+            for a in (prop, intra, inter, mv)]
+    got = la.cutree_propagate_step(*args)
+    assert torch.equal(got, la.cutree_propagate_step_plain(*args))
+    assert torch.equal(got, la.cutree_propagate_step(*args))
+
+
+def test_lowres_intra_cost_kernel(cuda_dev):
+    from x265amod_tpu_torch.models import lookahead as la
+    from x265amod_tpu_torch.ops import cuda_lib, intra
+    rng = np.random.default_rng(5)
+    lr = torch.as_tensor(rng.integers(0, 256, (64, 96)).astype(np.uint8),
+                         device=cuda_dev)
+    before = dict(cuda_lib.LAUNCHES)
+    got = la.lowres_intra_cost(lr)
+    assert cuda_lib.LAUNCHES["intra_pred_lowres"] == \
+        before["intra_pred_lowres"] + 1
+    assert cuda_lib.LAUNCHES["intra_pred"] == before["intra_pred"]
+    orig, refs = la.lowres_intra_refs(lr)
+    want = intra.satd35_plain(orig, *refs, 8, 0).amin(1).float()
+    assert torch.equal(got, want.reshape(8, 12))
+
+
+def test_lookahead_on_the_card_equals_the_cpu(cuda_dev):
+    from x265amod_tpu_torch.models import lookahead as la
+    rng = np.random.default_rng(9)
+    w, h = 256, 128
+    base = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    frames = []
+    for t in range(7):
+        y = np.roll(base, (t, 2 * t), (0, 1)) if t < 5 else \
+            rng.integers(0, 256, (h, w)).astype(np.uint8)
+        c = rng.integers(60, 200, (h // 2, w // 2)).astype(np.uint8)
+        frames.append((y, c, 255 - c))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        look = la.Lookahead(w, h, depth=4, device=dev)
+        fas = [fa for f in frames for fa in look.push(*f)] + look.flush()
+        outs[dev] = [(fa.display, fa.is_scenecut, fa.pred_ratio,
+                      look.ctu_qp_offsets(fa)) for fa in fas]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert a[:3] == b[:3]
+        np.testing.assert_array_equal(a[3], b[3])

@@ -162,7 +162,7 @@ def test_constant_tables_equal_the_jax_packages():
     for qp in range(52):
         for bs in (1, 2):
             assert tdb.luma_params(qp, bs=bs) == jdb.luma_params(qp, bs=bs)
-        for m_t, m_j in zip(tq.derive_qp_maps(qp, 2, 3),
+        for m_t, m_j in zip(tq.derive_qp_maps(qp, None, 2, 3),
                             jq.derive_qp_maps(qp, None, 2, 3)):
             np.testing.assert_array_equal(m_t, m_j)
     for name in ("RANGE_TAB_LPS", "TRANS_IDX_LPS", "TRANS_IDX_MPS",

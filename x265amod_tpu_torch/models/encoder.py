@@ -1,8 +1,8 @@
 """Top-level encoder of the port (role of reference `encoder/encoder.cpp` +
-`encoder/api.cpp`), cut down to BASELINE configs 1 and 2 and the config-3
-slice: the CTU32 tree, CQP, deblock on, SAO on or off, AQ off, sign-bit
-hiding on; all-intra, low-delay P with one reference, or a B pyramid with
-one reference per list.
+`encoder/api.cpp`), cut down to BASELINE configs 1, 2 and 3: the CTU32 tree,
+CQP, deblock on, SAO on or off, sign-bit hiding on; all-intra, low-delay P
+with one reference, or a B pyramid with one reference per list, the last
+with or without the lookahead (AQ, CU-tree and scene cuts).
 
 All-intra `encode_pipelined` runs the batched path of the JAX package's
 `models/encoder.py:_encode_intra_batched`: BATCH_FRAMES frames per device
@@ -18,6 +18,12 @@ referenced B at each middle, non-referenced b at the leaves) between the
 pictures around it.  `encode_pipelined` codes frames through `encode_push`
 and `flush`.  The host waits on a CUDA event and reads dense levels from
 pinned memory (no level packing).
+
+With AQ or CU-tree on (B pyramid only), display frames pass through the
+`models/lookahead.Lookahead` first (JAX `_push_display_frame` -> `_la_frame`
+-> `_admit`): a scene cut starts a new IDR, and each frame's per-16-cell QP
+offsets reach its tree (per-CTU QP, chroma QP and lambda maps) and the
+serializer (`cu_qp_delta`, QG == CTB32).
 """
 
 from __future__ import annotations
@@ -39,11 +45,13 @@ from ..bitstream.headers import (PpsInfo, SpsInfo, determine_level,
 from ..bitstream.nal import (NAL_AUD, NAL_IDR_W_RADL, NAL_PPS, NAL_SPS,
                              NAL_TRAIL_N, NAL_TRAIL_R, NAL_VPS, wrap_nal)
 from ..native import encode_slice_native
+from ..ops.quant import derive_qp_maps
 from ..ops.sao import sao_pack
 from ..utils.params import Param, check_params
 from .inter_frame import MAX_MERGE
 from .inter_tree import BTreeEncoder, InterTreeEncoder
-from .intra_tree import IntraTreeEncoder
+from .intra_tree import IntraTreeEncoder, qp32_of
+from .lookahead import Lookahead
 from .mvpred import dist_scale_factor
 from .ratecontrol import RateControl
 
@@ -124,14 +132,30 @@ class Encoder:
             depth = max(1, math.ceil(math.log2(self.bframes + 1)))
             self.sps.max_num_reorder = depth
             self.sps.max_dec_buffering = depth + 2
+        # AQ/CU-tree offsets ride the lookahead (JAX :117-124, where VBV
+        # also runs it; the port runs no VBV and gates AQ to the B pyramid)
+        self.use_aq = (param.aq_mode > 0 or param.cutree) and \
+            self.inter_enabled or (param.aq_mode > 0 and
+                                   not self.inter_enabled)
+        # QG == CTB: one cu_qp_delta per coded CTB (JAX :142-158)
         self.pps = PpsInfo(init_qp=26, sign_data_hiding=param.sign_hide,
                            deblocking_disabled=not param.deblock,
                            beta_offset_div2=param.deblock_beta_offset,
                            tc_offset_div2=param.deblock_tc_offset,
-                           cu_qp_delta_enabled=False,
+                           cu_qp_delta_enabled=self.use_aq,
                            diff_cu_qp_delta_depth=0,
                            entropy_coding_sync=False,
                            transquant_bypass=False)
+        # zero-latency configs (all-intra, or bframes 0) would run a depth-1
+        # lookahead without CU-tree (JAX :163-180)
+        zero_latency = not self.inter_enabled or param.bframes == 0
+        self.lookahead = Lookahead(
+            self.pad_w, self.pad_h, strength=param.aq_strength,
+            depth=1 if zero_latency else max(2, min(param.rc_lookahead, 24)),
+            scenecut_bias=param.scenecut / 100.0,
+            cutree=param.cutree and self.inter_enabled and not zero_latency,
+            min_keyint=max(param.min_keyint, 2), device=self.device) \
+            if self.use_aq else None
         self.frame_encoder = IntraTreeEncoder(
             self.pad_w, self.pad_h, deblock=param.deblock,
             sign_hide=self.pps.sign_data_hiding, sao=param.sao,
@@ -156,6 +180,12 @@ class Encoder:
         self._prev_anchor = None
         self._gop_buf: list = []
         self._dpb: dict = {}
+        # lookahead state (JAX :252-256): display index -> padded planes
+        # waiting in the lookahead, per-16-cell QP offsets, SATD sum
+        self._la_store: dict = {}
+        self._la_next = 0
+        self._qp_off: dict = {}
+        self._satd_of: dict = {}
 
     def headers(self) -> bytes:
         out = (wrap_nal(NAL_VPS, write_vps(self.sps))
@@ -351,26 +381,49 @@ class Encoder:
             e.update(arrays=frames[p], last_in_gop=i == len(plan) - 1,
                      anchor_poc=anchor, display=self._last_idr + p,
                      first_in_stream=not self._emitted_headers)
+            e["qp_off"] = self._qp_off.pop(e["display"], None)
             self._emitted_headers = True
         self._prev_anchor = anchor
         return plan
 
     def _push_display_frame(self, y, cb, cr) -> list[dict]:
-        """Pad one display-order frame and admit it (no lookahead: the
-        port's configs run without AQ, CU-tree or VBV)."""
-        return self._admit(_pad_to_ctu(np.asarray(y), 32),
-                           _pad_to_ctu(np.asarray(cb), 16),
-                           _pad_to_ctu(np.asarray(cr), 16))
+        """Pad one display-order frame and admit it, through the lookahead
+        when AQ or CU-tree is on (JAX `_push_display_frame` :374)."""
+        yp = _pad_to_ctu(np.asarray(y), 32)
+        cbp = _pad_to_ctu(np.asarray(cb), 16)
+        crp = _pad_to_ctu(np.asarray(cr), 16)
+        if self.lookahead is None:
+            return self._admit(yp, cbp, crp, False, None)
+        self._la_store[self._la_next] = (yp, cbp, crp)
+        self._la_next += 1
+        entries = []
+        for fa in self.lookahead.push(yp, cbp, crp):
+            entries += self._admit(*self._la_frame(fa))
+        return entries
 
-    def _admit(self, yp, cbp, crp) -> list[dict]:
+    def _la_frame(self, fa):
+        """A released analysis -> _admit's arguments (JAX `_la_frame`
+        :397): its planes, scene-cut flag and per-16-cell QP offsets; the
+        SATD sum is kept for the rate control."""
+        yp, cbp, crp = self._la_store.pop(fa.display)
+        ic = np.asarray(fa.intra_cost, np.float64)
+        cost = ic if fa.inter_cost is None else \
+            np.minimum(ic, np.asarray(fa.inter_cost, np.float64))
+        self._satd_of[fa.display] = float(cost.sum())
+        qp_off = self.lookahead.ctu_qp_offsets(fa) if self.use_aq else None
+        return yp, cbp, crp, fa.is_scenecut, qp_off
+
+    def _admit(self, yp, cbp, crp, scenecut: bool, qp_off) -> list[dict]:
         """GOP admission of one display frame (JAX `_admit` :415): an IDR
-        every keyint frames (planning any buffered mini-GOP first), else
-        the frame joins the mini-GOP buffer, which is planned once it holds
-        bframes + 1 frames."""
+        every keyint frames or at a scene cut (planning any buffered
+        mini-GOP first), else the frame joins the mini-GOP buffer, which is
+        planned once it holds bframes + 1 frames."""
         d = self._disp_idx
         self._disp_idx += 1
+        self._qp_off[d] = qp_off
         entries = []
-        if d % max(self.param.keyint, 1) == 0 or not self.inter_enabled:
+        if d % max(self.param.keyint, 1) == 0 or scenecut or \
+                not self.inter_enabled:
             if self._gop_buf:
                 entries += self._plan_minigop(self._gop_buf, False)
                 self._gop_buf = []
@@ -384,11 +437,15 @@ class Encoder:
         return entries
 
     def _flush_gop(self) -> list[dict]:
-        """Plan what waits in the mini-GOP buffer at the end of the stream
-        (JAX `_flush_gop` :452): its last frame becomes the P anchor."""
+        """At the end of the stream, release what waits in the lookahead,
+        then plan what waits in the mini-GOP buffer (JAX `_flush_gop`
+        :452): its last frame becomes the P anchor."""
         entries = []
+        if self.lookahead is not None:
+            for fa in self.lookahead.flush():
+                entries += self._admit(*self._la_frame(fa))
         if self._gop_buf:
-            entries = self._plan_minigop(self._gop_buf, False)
+            entries += self._plan_minigop(self._gop_buf, False)
             self._gop_buf = []
         return entries
 
@@ -405,24 +462,34 @@ class Encoder:
         t0 = time.time()
         yp, cbp, crp = e["arrays"]
         st, poc = e["stype"], e["poc"]
+        qp_off = e["qp_off"]
+        satd = self._satd_of.pop(e["display"], None)
+        if satd is not None:
+            self.rc.set_complexity(satd)
         if st == "I":
             self._dpb = {}            # new CVS: POC numbering restarts
             qp = self.rc.frame_qp("I")
             handle = self.frame_encoder.encode_async(
                 yp, cbp, crp, qp, want_recon=return_recon,
-                keep_recon=self.inter_enabled)
+                keep_recon=self.inter_enabled, qp_offsets=qp_off)
         elif st == "P":
             qp = self.rc.frame_qp("P")
             handle = self.inter_encoder.encode_async(
                 yp, cbp, crp, self._dpb[e["ref0"]], qp,
-                want_recon=return_recon)
+                want_recon=return_recon, qp_offsets=qp_off)
         else:
             qp = self.rc.frame_qp("B" if e["is_ref"] else "b")
             handle = self.b_encoder.encode_async(
                 yp, cbp, crp, self._dpb[e["ref0"]], self._dpb[e["ref1"]], qp,
                 dist_scale_factor(poc, e["ref0"], e["ref1"]),
                 dist_scale_factor(poc, e["ref1"], e["ref0"]),
-                want_recon=return_recon)
+                want_recon=return_recon, qp_offsets=qp_off)
+        if self.pps.cu_qp_delta_enabled:
+            # the signalled per-16-cell map: the 2x2 replication of the
+            # per-CTB32 QPs the tree coded with (JAX :528-537)
+            qp16 = derive_qp_maps(qp, qp_off, self.pad_h // 16,
+                                  self.pad_w // 16)[0]
+            e["qp_map"] = np.repeat(np.repeat(qp32_of(qp16), 2, 0), 2, 1)
         if self.inter_enabled and e["is_ref"]:
             self._dpb[poc] = handle["recon_dev"]
         if self.inter_enabled and e["last_in_gop"]:
@@ -439,17 +506,18 @@ class Encoder:
         non-referenced b is a TRAIL_N picture."""
         e, qp, t0 = pending["entry"], pending["qp"], pending["t0"]
         st = e["stype"]
+        qp_map = e.get("qp_map")
         if st == "I":
             res = self.frame_encoder.collect(pending["handle"])
-            payload, entry_offs = self._cabac_intra_tree(res, qp)
+            payload, entry_offs = self._cabac_intra_tree(res, qp, qp_map)
             nal_type = NAL_IDR_W_RADL
         elif st == "P":
             res = self.inter_encoder.collect(pending["handle"])
-            payload, entry_offs = self._cabac_inter_tree(res, qp)
+            payload, entry_offs = self._cabac_inter_tree(res, qp, qp_map)
             nal_type = NAL_TRAIL_R
         else:
             res = self.b_encoder.collect(pending["handle"])
-            payload, entry_offs = self._cabac_b_tree(res, qp)
+            payload, entry_offs = self._cabac_b_tree(res, qp, qp_map)
             nal_type = NAL_TRAIL_R if e["is_ref"] else NAL_TRAIL_N
         bw = write_slice_header(
             self.sps, self.pps, st, qp, nal_type, poc=e["poc"],
@@ -502,7 +570,15 @@ class Encoder:
 
     # -- host side -------------------------------------------------------------
 
-    def _cabac_intra_tree(self, res, qp):
+    @staticmethod
+    def _qp_args(qp_map) -> dict:
+        """The serializer's per-16-cell and per-CTB32 QP maps when
+        cu_qp_delta is on (JAX `_native_slice` :1055-1058)."""
+        if qp_map is None:
+            return {}
+        return dict(qp16=qp_map, qp32=qp32_of(qp_map))
+
+    def _cabac_intra_tree(self, res, qp, qp_map=None):
         """Slice payload of one CTU32-tree intra frame (native serializer;
         a failure raises)."""
         sl, sc = sao_pack(res.sao)
@@ -510,9 +586,10 @@ class Encoder:
             "I", 5, res.split.shape[0], res.split.shape[1], qp,
             split=res.split, modes=res.modes, levels_y=res.levels_y,
             levels_cb=res.levels_cb, levels_cr=res.levels_cr,
-            sao_luma=sl, sao_chroma=sc, sign_hide=self.pps.sign_data_hiding)
+            sao_luma=sl, sao_chroma=sc, sign_hide=self.pps.sign_data_hiding,
+            **self._qp_args(qp_map))
 
-    def _cabac_inter_tree(self, res, qp):
+    def _cabac_inter_tree(self, res, qp, qp_map=None):
         """Slice payload of one CTU32-tree P frame (JAX `_cabac_inter_tree`
         :1141 through `_native_slice` :1043; a failure raises)."""
         sl, sc = sao_pack(res.sao)
@@ -523,9 +600,9 @@ class Encoder:
             levels_y=res.levels_y, levels_cb=res.levels_cb,
             levels_cr=res.levels_cr, sao_luma=sl, sao_chroma=sc,
             max_merge=MAX_MERGE, sign_hide=self.pps.sign_data_hiding,
-            ref0=res.ref0, num_ref0=1)
+            ref0=res.ref0, num_ref0=1, **self._qp_args(qp_map))
 
-    def _cabac_b_tree(self, res, qp):
+    def _cabac_b_tree(self, res, qp, qp_map=None):
         """Slice payload of one CTU32-tree B frame (JAX `_cabac_b_tree`
         :1247; a failure raises)."""
         sl, sc = sao_pack(res.sao)
@@ -536,7 +613,8 @@ class Encoder:
             mvp0=res.mvp0, mvd1=res.mvd1, mvp1=res.mvp1,
             levels_y=res.levels_y, levels_cb=res.levels_cb,
             levels_cr=res.levels_cr, sao_luma=sl, sao_chroma=sc,
-            max_merge=MAX_MERGE, sign_hide=self.pps.sign_data_hiding)
+            max_merge=MAX_MERGE, sign_hide=self.pps.sign_data_hiding,
+            **self._qp_args(qp_map))
 
     def summary(self) -> dict:
         n = len(self.frame_stats)

@@ -41,13 +41,12 @@ from ..ops.estbits import intra_hdr_bits, tu_bits
 from ..ops.me import (check_window, hpel_plane, mc_bi, mc_chroma_qpel,
                       mc_luma_qpel, me_ssd_grid, mvd_bits, subpel_refine)
 from ..ops.metrics import plane_sse, ssim_plane
-from ..ops.quant import derive_qp_maps
 from ..ops.residual import residual_chain
 from ..ops.sao import sao_filter_frame
 from .b_frame import BFrameResult
 from .inter_frame import InterFrameResult
 from .intra_frame import _diag_schedule
-from .intra_tree import eval_luma, forced_chain, intra_mode_bits
+from .intra_tree import ctu_maps, eval_luma, forced_chain, intra_mode_bits
 
 # header-bin cost of an intra CU inside a P slice, rounded to f32 as the
 # JAX weakly-typed scalar is
@@ -165,22 +164,21 @@ class InterTreeEncoder:
 
     # ---- maps ----------------------------------------------------------------
 
-    def _maps(self, qp: int):
-        """Raster per-cell and per-CTU QP/lambda maps (QG == CTB, CQP)."""
-        if qp not in self._maps_cache:
-            qp32, qc32, _, lam32 = derive_qp_maps(qp, self.hc, self.wc)
-
-            def rep(m):
-                return np.repeat(np.repeat(m, 2, 0), 2, 1)
-            dev = self.device
-            self._maps_cache[qp] = {
-                k: torch.as_tensor(v.reshape(-1), device=dev)
-                for k, v in dict(qp16=rep(qp32), qc16=rep(qc32),
-                                 lam16=rep(lam32), qp32=qp32, qc32=qc32,
-                                 lam32=lam32).items()}
-            self._maps_cache[qp]["qp32_map"] = torch.as_tensor(qp32,
-                                                               device=dev)
-        return self._maps_cache[qp]
+    def _maps(self, qp: int, qp_offsets=None):
+        """Raster per-cell and per-CTU QP/lambda maps on the device (JAX
+        `_maps` :1047; QG == CTB), flattened, plus the [hc, wc] CTU QP map
+        of the deblocking QP chain.  Without offsets (CQP, no AQ) every
+        map is uniform and kept per QP."""
+        if qp_offsets is None and qp in self._maps_cache:
+            return self._maps_cache[qp]
+        host = ctu_maps(qp, qp_offsets, self.h16, self.w16)
+        dev = self.device
+        maps = {k: torch.as_tensor(v.reshape(-1), device=dev)
+                for k, v in host.items()}
+        maps["qp32_map"] = torch.as_tensor(host["qp32"], device=dev)
+        if qp_offsets is None:
+            self._maps_cache[qp] = maps
+        return maps
 
     # ---- phase 1: parallel ME, trials, grids -----------------------------
 
@@ -666,10 +664,11 @@ class InterTreeEncoder:
     # ---- one P frame ---------------------------------------------------------
 
     def _step(self, y, cb, cr, refs, qp: int, forced=None, want_recon=False,
-              want_costs=False):
+              want_costs=False, qp_offsets=None):
         """The four phases, loop filter and metrics for one frame on the
-        device.  Returns a dict of device tensors."""
-        maps = self._maps(qp)
+        device, with the per-16-cell QP offsets [h16, w16] of AQ and
+        CU-tree when given.  Returns a dict of device tensors."""
+        maps = self._maps(qp, qp_offsets)
         y, cb, cr = (t.to(torch.int32) for t in (y, cb, cr))
         refs = tuple(t.to(torch.int32) for t in refs)
         h16, w16 = self.h16, self.w16
@@ -732,16 +731,19 @@ class InterTreeEncoder:
         return dict(host=host, event=event, recon_dev=recon_dev, costs=costs)
 
     def encode_async(self, y, cb, cr, ref_dev, qp: int, want_recon=False,
-                     want_costs=False):
+                     want_costs=False, qp_offsets=None):
         """Dispatch one P frame (numpy uint8 planes) against ``ref_dev``, the
-        reference's device planes (y, cb, cr).  Returns a handle."""
+        reference's device planes (y, cb, cr), with optional per-16-cell
+        QP offsets.  Returns a handle."""
         out, rec = self._step(self._upload(y), self._upload(cb),
                               self._upload(cr), ref_dev, qp,
-                              want_recon=want_recon, want_costs=want_costs)
+                              want_recon=want_recon, want_costs=want_costs,
+                              qp_offsets=qp_offsets)
         return self._to_host(out, rec)
 
     def encode_async_load(self, y, cb, cr, ref_dev, qp: int, split, kinds,
-                          merge_idx, mvd, mvp_idx, modes, want_recon=False):
+                          merge_idx, mvd, mvp_idx, modes, want_recon=False,
+                          qp_offsets=None):
         """One P frame under given decisions, as `InterFrameResult` carries
         them (split [hc, wc]; kinds, merge_idx, mvp_idx, modes [h16, w16];
         mvd [h16, w16, 2]).  Phases 1 and 2 are skipped: each cell's MV is
@@ -767,7 +769,7 @@ class InterTreeEncoder:
                                             device=dev).reshape(-1))
         out, rec = self._step(self._upload(y), self._upload(cb),
                               self._upload(cr), ref_dev, qp, forced=forced,
-                              want_recon=want_recon)
+                              want_recon=want_recon, qp_offsets=qp_offsets)
         return self._to_host(out, rec)
 
     @staticmethod
@@ -1167,8 +1169,8 @@ class BTreeEncoder(InterTreeEncoder):
     # ---- one B frame -------------------------------------------------------------
 
     def _step_b(self, y, cb, cr, refs0, refs1, qp: int, dsf, forced=None,
-                want_recon=False, want_costs=False):
-        maps = self._maps(qp)
+                want_recon=False, want_costs=False, qp_offsets=None):
+        maps = self._maps(qp, qp_offsets)
         y, cb, cr = (t.to(torch.int32) for t in (y, cb, cr))
         refs0 = tuple(t.to(torch.int32) for t in refs0)
         refs1 = tuple(t.to(torch.int32) for t in refs1)
@@ -1222,21 +1224,22 @@ class BTreeEncoder(InterTreeEncoder):
 
     def encode_async(self, y, cb, cr, ref0_dev, ref1_dev, qp: int,
                      dsf0: int, dsf1: int, want_recon=False,
-                     want_costs=False):
+                     want_costs=False, qp_offsets=None):
         """Dispatch one B frame (numpy uint8 planes) between the reference
         device planes ``ref0_dev`` (L0) and ``ref1_dev`` (L1); dsf0 / dsf1
         scale a neighbour's other-list MV to list 0 / 1 (`mvpred.
-        dist_scale_factor`).  Returns a handle."""
+        dist_scale_factor`); optional per-16-cell QP offsets.  Returns a
+        handle."""
         out, rec = self._step_b(
             self._upload(y), self._upload(cb), self._upload(cr), ref0_dev,
             ref1_dev, qp, (dsf0, dsf1), want_recon=want_recon,
-            want_costs=want_costs)
+            want_costs=want_costs, qp_offsets=qp_offsets)
         return self._to_host(out, rec)
 
     def encode_async_load(self, y, cb, cr, ref0_dev, ref1_dev, qp: int,
                           dsf0: int, dsf1: int, split, kinds, merge_idx,
                           inter_dir, mvd0, mvp0, mvd1, mvp1, modes,
-                          want_recon=False):
+                          want_recon=False, qp_offsets=None):
         """One B frame under given decisions, as `BFrameResult` carries
         them; each cell's MVs are rebuilt in z-order from the same
         merge/AMVP derivation."""
@@ -1259,7 +1262,8 @@ class BTreeEncoder(InterTreeEncoder):
                       modes=t(modes, np.int32).reshape(-1))
         out, rec = self._step_b(
             self._upload(y), self._upload(cb), self._upload(cr), ref0_dev,
-            ref1_dev, qp, (dsf0, dsf1), forced=forced, want_recon=want_recon)
+            ref1_dev, qp, (dsf0, dsf1), forced=forced, want_recon=want_recon,
+            qp_offsets=qp_offsets)
         return self._to_host(out, rec)
 
     def collect(self, handle) -> BFrameResult:

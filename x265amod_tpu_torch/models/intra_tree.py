@@ -30,9 +30,10 @@ from ..ops.deblock import deblock_frame_planes
 from ..ops.estbits import tu_bits
 from ..ops.intra import predict, satd35
 from ..ops.metrics import plane_sse, ssim_plane
-from ..ops.quant import derive_qp_maps
+from ..ops.quant import chroma_qp_np, derive_qp_maps
 from ..ops.residual import residual_chain
 from ..ops.sao import sao_filter_frame
+from ..utils.lambdas import lambda2_of
 from .intra_frame import FrameResult, _diag_schedule
 
 # SATD-scan shortlist size for the full RD stage (JAX RD_CANDS)
@@ -87,6 +88,33 @@ def forced_chain(orig, refs, n, modes, qpv, c_idx, sbh):
     return lv[:, 0], rec[:, 0]
 
 
+def qp32_of(qp16: np.ndarray) -> np.ndarray:
+    """CU32 QP from the four 16-cell QPs [h16, w16] -> [h16/2, w16/2] (JAX
+    `qp32_of` :177): their mean rounded half to even by np.round (a mean
+    of four integers can end in .5)."""
+    h16, w16 = qp16.shape
+    q = np.asarray(qp16).reshape(h16 // 2, 2, w16 // 2, 2) \
+        .transpose(0, 2, 1, 3).reshape(h16 // 2, w16 // 2, 4)
+    return np.round(q.mean(-1)).astype(np.int32)
+
+
+def ctu_maps(qp: int, qp_offsets, h16: int, w16: int) -> dict:
+    """Host QP/lambda maps of a CTU32-tree frame (JAX `_maps` of the intra
+    and inter trees): the 16-cell QPs from `derive_qp_maps`, the CTU32 QP
+    their `qp32_of`, its chroma QP and lambda, and the 16-cell maps as 2x2
+    replications of the CTU32 ones (QG == CTB).  numpy, keys qp16, qc16,
+    lam16 [h16, w16] and qp32, qc32, lam32 [h16/2, w16/2]."""
+    qp16_raw = derive_qp_maps(qp, qp_offsets, h16, w16)[0]
+    qp32 = qp32_of(qp16_raw)
+    qc32 = chroma_qp_np(qp32)
+    lam32 = lambda2_of(qp32).astype(np.float32)
+
+    def rep(m):
+        return np.repeat(np.repeat(m, 2, 0), 2, 1)
+    return dict(qp16=rep(qp32), qc16=rep(qc32), lam16=rep(lam32), qp32=qp32,
+                qc32=qc32, lam32=lam32)
+
+
 def _blocks(plane, bn):
     """[F, H, W] -> [F, H/bn, W/bn, bn, bn]."""
     f, h, w = plane.shape
@@ -126,21 +154,18 @@ class IntraTreeEncoder:
 
     # ---- maps -------------------------------------------------------------
 
-    def _maps(self, qp: int):
-        """Per-16-cell and per-CTU32 QP/lambda maps (QG == CTB, CQP without
-        AQ, so every map is uniform): the 16-cell maps are 2x2
-        replications of the CTU32 maps."""
-        if qp not in self._maps_cache:
-            qp32, qc32, _, lam32 = derive_qp_maps(qp, self.hc, self.wc)
-
-            def rep(m):
-                return np.repeat(np.repeat(m, 2, 0), 2, 1)
-            dev = self.device
-            self._maps_cache[qp] = {
-                k: torch.as_tensor(v, device=dev) for k, v in dict(
-                    qp16=rep(qp32), qc16=rep(qc32), lam16=rep(lam32),
-                    qp32=qp32, qc32=qc32, lam32=lam32).items()}
-        return self._maps_cache[qp]
+    def _maps(self, qp: int, qp_offsets=None):
+        """Per-16-cell and per-CTU32 QP/lambda maps on the device (JAX
+        `_maps` :804): QG == CTB, so the 16-cell maps are 2x2 replications
+        of the CTU32 maps.  Without offsets (CQP, no AQ) every map is
+        uniform and kept per QP."""
+        if qp_offsets is None and qp in self._maps_cache:
+            return self._maps_cache[qp]
+        maps = {k: torch.as_tensor(v, device=self.device) for k, v in
+                ctu_maps(qp, qp_offsets, self.h16, self.w16).items()}
+        if qp_offsets is None:
+            self._maps_cache[qp] = maps
+        return maps
 
     # ---- phase 1: parallel estimate ---------------------------------------
 
@@ -424,11 +449,12 @@ class IntraTreeEncoder:
     # ---- one device step -----------------------------------------------------
 
     def _step(self, y, cb, cr, qp: int, split=None, modes=None,
-              want_recon=False):
+              want_recon=False, qp_offsets=None):
         """Estimate (unless split/modes are given) + commit + loop filter +
-        metrics for y [F, H, W], cb/cr [F, H/2, W/2] on the device.
-        Returns a dict of device tensors."""
-        maps = self._maps(qp)
+        metrics for y [F, H, W], cb/cr [F, H/2, W/2] on the device, with
+        the per-16-cell QP offsets [h16, w16] of AQ and CU-tree when given
+        (one frame).  Returns a dict of device tensors."""
+        maps = self._maps(qp, qp_offsets)
         y, cb, cr = (t.to(torch.int32) for t in (y, cb, cr))
         if split is None:
             split, modes = self._estimate(y, cb, cr, maps)
@@ -485,14 +511,15 @@ class IntraTreeEncoder:
                                         want_recon=want_recon))
 
     def encode_async(self, y, cb, cr, qp: int, want_recon=False,
-                     keep_recon=False):
+                     keep_recon=False, qp_offsets=None):
         """One frame, estimate + commit.  ``keep_recon`` also leaves the
         loop-filtered recon planes on the device, as handle["recon_dev"]
         (uint8 [H, W], [H/2, W/2] x 2): the reference of the next P frame
         (the JAX `_dispatch_entry` keeps `dev[4:7]`)."""
         out = self._step(self._upload(y[None]), self._upload(cb[None]),
                          self._upload(cr[None]), qp,
-                         want_recon=want_recon or keep_recon)
+                         want_recon=want_recon or keep_recon,
+                         qp_offsets=qp_offsets)
         rec = tuple(out[k][0] for k in ("rec_y", "rec_cb", "rec_cr")) \
             if keep_recon else None
         if not want_recon:
@@ -503,7 +530,7 @@ class IntraTreeEncoder:
         return handle
 
     def encode_async_load(self, y, cb, cr, qp: int, split, modes,
-                          want_recon=False):
+                          want_recon=False, qp_offsets=None):
         """One frame's commit with the given split [hc, wc] and modes
         [h16, w16] (the estimate is skipped)."""
         s = self._upload(np.asarray(split, np.int32))[None]
@@ -511,7 +538,7 @@ class IntraTreeEncoder:
         return self._to_host(self._step(
             self._upload(y[None]), self._upload(cb[None]),
             self._upload(cr[None]), qp, split=s, modes=m,
-            want_recon=want_recon))
+            want_recon=want_recon, qp_offsets=qp_offsets))
 
     @staticmethod
     def wait(handle) -> None:

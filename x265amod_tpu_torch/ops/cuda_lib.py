@@ -7,7 +7,9 @@ launches, and returns `cudaGetLastError()`; the wrappers raise on a nonzero
 code.  Nothing here falls back to the plain PyTorch versions: a CUDA tensor
 either runs the kernel or raises.
 
-`LAUNCHES[name]` counts the wrapper calls that launched kernel `name`.
+`LAUNCHES[name]` counts the wrapper calls that launched kernel `name`;
+`LAUNCHES["intra_pred_lowres"]` counts K1's launches by the lookahead apart
+from the trees'.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 # name -> extra nvcc flags.  tu_bits, subpel and sao_analyse form f32 costs
 # in a fixed order that decides RD argmins, so the compiler must not contract
-# them into FMAs (sao_analyse writes the one FMA the JAX order has itself).
+# them into FMAs (sao_analyse writes the one FMA the JAX order has itself);
+# lowres_aq and cutree_prop repeat the JAX f32 operations one by one.
 KERNELS = {
     "intra_pred": [],
     "residual_chain": [],
@@ -40,9 +43,13 @@ KERNELS = {
     "mc_bi": [],
     "sao_analyse": ["--fmad=false"],
     "sao_apply": [],
+    "lowres_aq": ["--fmad=false"],
+    "lowres_me": [],
+    "cutree_prop": ["--fmad=false"],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES["intra_pred_lowres"] = 0
 
 _libs: dict = {}
 _lock = threading.Lock()

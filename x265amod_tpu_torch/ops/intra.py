@@ -222,8 +222,10 @@ def _ref_args(top_raw, left_raw, corner_raw, avail_top, avail_left,
 
 
 def satd35(orig, top_raw, left_raw, corner_raw, avail_top, avail_left,
-           avail_corner, n: int, c_idx: int = 0):
-    """[B, 35] int32 SATD of every intra mode against orig [B, n, n]."""
+           avail_corner, n: int, c_idx: int = 0, counter: str = "intra_pred"):
+    """[B, 35] int32 SATD of every intra mode against orig [B, n, n].  A
+    launch counts in `cuda_lib.LAUNCHES[counter]` (the lookahead counts
+    its own)."""
     if orig.device.type == "cpu":
         return satd35_plain(orig, top_raw, left_raw, corner_raw, avail_top,
                             avail_left, avail_corner, n, c_idx)
@@ -239,7 +241,7 @@ def satd35(orig, top_raw, left_raw, corner_raw, avail_top, avail_left,
         rc = _k1().intra_satd35(*(cuda_lib.ptr(t) for t in (o, *refs, out)),
                                 bsz, n, c_idx,
                                 _VP(cuda_lib.stream_handle(o)))
-        cuda_lib.launched("intra_pred", rc)
+        cuda_lib.launched(counter, rc)
     return out
 
 

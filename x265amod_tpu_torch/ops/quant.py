@@ -72,11 +72,20 @@ def dequant(level, qp, bit_depth: int = 8):
     return torch.clamp(d, -32768, 32767).to(torch.int32)
 
 
-def derive_qp_maps(qp: int, hc: int, wc: int):
-    """Per-CTU maps (qp, qp_cb, qp_cr, lambda), each [hc, wc], for a frame
-    QP under CQP without AQ offsets (the JAX `derive_qp_maps` with
-    offsets=None); lambda is the x265 SSE lambda2 in f32."""
+def derive_qp_maps(qp: int, offsets, hc: int, wc: int):
+    """Per-CTU maps (qp, qp_cb, qp_cr, lambda), each [hc, wc] numpy, for a
+    frame QP and an AQ/CU-tree offset map (None: uniform), as the JAX
+    `derive_qp_maps` (:149) builds them: qp + rint(offsets) clipped to
+    0..51 (rint rounds half to even); lambda is the x265 SSE lambda2 in
+    f32."""
     from ..utils.lambdas import lambda2_of
-    qp_map = np.full((hc, wc), int(qp), np.int32)
+    if offsets is None:
+        qp_map = np.full((hc, wc), int(qp), np.int32)
+    else:
+        qp_map = np.clip(int(qp) + np.rint(np.asarray(offsets)),
+                         0, 51).astype(np.int32)
+        if qp_map.shape != (hc, wc):
+            raise ValueError(f"QP offsets of shape {qp_map.shape}, expected "
+                             f"{(hc, wc)}")
     lam = lambda2_of(qp_map).astype(np.float32)
     return qp_map, chroma_qp_np(qp_map), chroma_qp_np(qp_map), lam

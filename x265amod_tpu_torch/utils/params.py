@@ -190,11 +190,11 @@ def param_from_dict(d: dict) -> Param:
 
 def check_params(p: Param) -> None:
     """Validation (role of x265_check_params, param.cpp:1583), with the
-    slice gate of the port: every setting outside BASELINE configs 1 and 2
-    and the config-3 slice (all-intra; low-delay P with one reference; a B
-    pyramid with one reference per list, b-adapt 0; CTU32, CQP, 8-bit, AQ,
-    CU-tree and RDOQ off, SAO on or off) is refused loudly, never
-    ignored."""
+    slice gate of the port: every setting outside BASELINE configs 1, 2
+    and 3 (all-intra or low-delay P with one reference, AQ and CU-tree off;
+    a B pyramid with one reference per list, b-adapt 0, AQ and CU-tree on
+    or off; CTU32, CQP, 8-bit, RDOQ off, SAO on or off) is refused loudly,
+    never ignored."""
     if p.width <= 0 or p.height <= 0:
         raise ValueError("picture dimensions must be set")
     if p.chroma_format != 1:
@@ -219,10 +219,13 @@ def check_params(p: Param) -> None:
                        "quadtree)")
     if p.lossless:
         unwired.append("--lossless")
-    if p.aq_mode > 0:
-        unwired.append(f"aq-mode {p.aq_mode}")
-    if p.cutree:
-        unwired.append("cutree")
+    if p.aq_mode not in (0, 1, 2):
+        unwired.append(f"aq-mode {p.aq_mode} (variance modes 0-2 only)")
+    if (p.aq_mode > 0 or p.cutree) and (p.keyint == 1 or p.bframes == 0):
+        # all-intra and low-delay P would run a depth-1 lookahead (AQ and
+        # scene cuts, no CU-tree), which no test of the port covers yet
+        unwired.append("aq-mode/cutree without B frames (the port runs the "
+                       "lookahead in the B pyramid only)")
     if p.rdoq_level > 0:
         unwired.append(f"rdoq-level {p.rdoq_level}")
     if p.internal_bit_depth != 8:
