@@ -14,7 +14,12 @@ Phases (any failure exits non-zero):
      lowres blocks at one config-3 frame's lookahead shapes (1920x1088
      planes, 960x544 lowres, 120x68 blocks; K14 also run twice, bit-equal),
      and K1-K8 checked again at the B frame's shapes (one 1920x1088 frame,
-     sr 16), plus edge inputs (QP 0 and 51, flat 0/255 blocks, frame
+     sr 16); K2 with its RDOQ stage (row 21) at one diagonal of config 1's
+     commit and at one 1920x1088 B and P frame's final coding, timed with
+     and without the stage, with lambdas within 4 ulps of hi/lo and
+     group-kill ties and levels at +-32767; K1-K3 at bit depth 10 at the
+     Main10 path's 16-frame batch of 1920x1088 with flat 0 / 1023 blocks;
+     plus edge inputs (QP 0 and 51, flat 0/255 blocks, frame
      borders without references, MVs at the search-range or window bound
      on border blocks, 0/255 steps under the MC filters, rec == orig and
      lambda 0 for SAO, flat lowres planes whose candidates all tie, a
@@ -48,7 +53,16 @@ Phases (any failure exits non-zero):
      the slice QP and the range of the deltas, the scene cuts, and the
      launches per frame of K1 (lowres), K12, K13 and K14;
   10. config 3 with AQ and CU-tree at 640x360 (IDR + one mini-GOP) on the
-     card and on the CPU: the streams must be identical byte for byte.
+     card and on the CPU: the streams must be identical byte for byte;
+  11. config 3 as in phase 9 plus `rdoq_level=2` on the same 9 frames: fps,
+     PSNR-Y, kbps and K2's RDOQ launches per frame; it must code fewer bits
+     than phase 9 and lose at most 0.6 dB PSNR-Y;
+  12. Main10 all-intra at 1920x1080 (QP 30, CTU32, no loop filters) through
+     `encode_pipelined`, 32 frames of a 10-bit clip with the first 16 as
+     warm-up: fps, PSNR-Y at the 10-bit peak, kbps, launches; the recon
+     must exceed 255 and the SPS carry profile 2 and bit depth 10;
+  13. card against CPU, byte for byte: config 3 + RDOQ at 320x192 (IDR +
+     one mini-GOP) and Main10 all-intra at 640x360 (2 frames).
 
 Prints one JSON line of kernel figures, then the card's name and power
 limit, then `{"ok": true, "device": {...}}` as the last line.
@@ -68,6 +82,7 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 # int32 ALU peak: 132 SMs x 64 INT32 lanes x 1.98 GHz x 2 (a multiply-add
 # counts two operations) = half the data sheet's 67 TFLOP/s fp32 rate
 H100_INT32_OPS_PER_S = 33.5e12
+H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 # the kernels config 1 (all-intra) runs; config 2 runs K1-K8, the config-3
 # slice K1-K11, config 3 with AQ and CU-tree also the lookahead's (K12-K14
 # and K1 on the lowres blocks, counted apart)
@@ -77,8 +92,15 @@ LOOKAHEAD_KERNELS = ("lowres_aq", "lowres_me", "cutree_prop",
                      "intra_pred_lowres")
 # phase 7: IDR + one mini-GOP (P + 3 B) in display order; the IDR warms up
 CONFIG3_FRAMES, CONFIG3_WARM = 5, 1
-# phase 9: IDR + two mini-GOPs, every frame timed
+# phase 9: IDR + two mini-GOPs, every frame timed (phase 11 too)
 CONFIG3_AQ_FRAMES = 9
+# K2's launches with its RDOQ stage, counted apart (phase 11)
+RDOQ_KERNELS = ("residual_chain_rdoq",)
+# phase 12: Main10 all-intra, two 16-frame batches timed after one warm-up
+MAIN10_FRAMES, MAIN10_WARM = 32, 16
+# RDOQ may cost this much PSNR-Y against the same run without it (the JAX
+# package's tests/test_rdoq.py bound)
+RDOQ_MAX_PSNR_LOSS = 0.6
 
 
 def synth_frames(w, h, n, seed=0):
@@ -94,6 +116,24 @@ def synth_frames(w, h, n, seed=0):
             .clip(0, 255).astype(np.uint8)
         cr = (128 - 30 * np.cos((yy[::2, ::2] + t) / 23.0)) \
             .clip(0, 255).astype(np.uint8)
+        frames.append((y, cb, cr))
+    return frames
+
+
+def synth_frames10(w, h, n, seed=7):
+    """The 10-bit clip of the repository's Main10 tests (a copy): the bench
+    pattern at 4x the amplitude around 512, uint16."""
+    rng = np.random.default_rng(seed)
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+    frames = []
+    for t in range(n):
+        y = (512 + 320 * np.sin((xx + 3 * t) / 11.0) *
+             np.cos((yy - 2 * t) / 7.0) +
+             rng.normal(0, 12, (h, w))).clip(0, 1023).astype(np.uint16)
+        cb = (512 + 120 * np.sin((xx[::2, ::2] + t) / 19.0)) \
+            .clip(0, 1023).astype(np.uint16)
+        cr = (512 - 120 * np.cos((yy[::2, ::2] + t) / 23.0)) \
+            .clip(0, 1023).astype(np.uint16)
         frames.append((y, cb, cr))
     return frames
 
@@ -136,13 +176,13 @@ def nbytes(*ts):
 
 # ---- phase 2: kernels against their plain versions --------------------------
 
-def ref_inputs(rng, b, n, dev):
+def ref_inputs(rng, b, n, dev, maxv=255):
     """Raw refs with availability patterns, including blocks with no
-    references at all (frame corner) and flat 0 / 255 content."""
+    references at all (frame corner) and flat 0 / maxv content."""
     import torch
-    top = rng.integers(0, 256, (b, 2 * n)).astype(np.int32)
-    left = rng.integers(0, 256, (b, 2 * n)).astype(np.int32)
-    cor = rng.integers(0, 256, b).astype(np.int32)
+    top = rng.integers(0, maxv + 1, (b, 2 * n)).astype(np.int32)
+    left = rng.integers(0, maxv + 1, (b, 2 * n)).astype(np.int32)
+    cor = rng.integers(0, maxv + 1, b).astype(np.int32)
     at = rng.random((b, 2 * n)) < 0.8
     al = rng.random((b, 2 * n)) < 0.8
     ac = rng.random(b) < 0.8
@@ -154,9 +194,9 @@ def ref_inputs(rng, b, n, dev):
     top[2::7] = 0
     left[2::7] = 0
     cor[2::7] = 0
-    top[3::7] = 255
-    left[3::7] = 255
-    cor[3::7] = 255
+    top[3::7] = maxv
+    left[3::7] = maxv
+    cor[3::7] = maxv
     return [torch.as_tensor(a, device=dev) for a in (top, left, cor, at, al,
                                                      ac)]
 
@@ -173,9 +213,11 @@ def check_equal(name, got, want, tol=0.0):
     return err
 
 
-def phase_kernels(f, h16, w16, iters, dev="cuda"):
+def phase_kernels(f, h16, w16, iters, dev="cuda", bd=8):
     """Each kernel at the main path's batch shapes: the estimate's calls for
-    F frames (K1-K3) and the loop filter of F frames (K4)."""
+    F frames (K1-K3) and the loop filter of F frames (K4).  At bd 10 (the
+    Main10 path, no loop filter): K1-K3 on 10-bit samples, rows named
+    `<kernel>_main10`."""
     import torch
     from x265amod_tpu_torch.ops import cuda_lib, deblock, estbits, intra, \
         residual
@@ -183,38 +225,46 @@ def phase_kernels(f, h16, w16, iters, dev="cuda"):
     rng = np.random.default_rng(1)
     b16, b32 = f * h16 * w16, f * h16 * w16 // 4
     qps = np.array([0, 22, 27, 30, 51], np.int32)
+    maxv = (1 << bd) - 1
+    tag = "_main10" if bd == 10 else ""
     rows = []
 
     # K1 intra_pred: satd35 at B16/B32 and predict of the top-4 shortlist
     k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0, ops=0, err=0.0)
     for n, b in ((16, b16), (32, b32)):
-        refs = ref_inputs(rng, b, n, dev)
-        orig = rng.integers(0, 256, (b, n, n)).astype(np.int32)
+        refs = ref_inputs(rng, b, n, dev, maxv)
+        orig = rng.integers(0, maxv + 1, (b, n, n)).astype(np.int32)
         orig[2::7] = 0
-        orig[3::7] = 255
+        orig[3::7] = maxv
         orig = torch.as_tensor(orig, device=dev)
-        got = intra.satd35(orig, *refs, n, 0)
-        want = intra.satd35_plain(orig, *refs, n, 0)
-        k1["err"] = max(k1["err"], check_equal(f"satd35 n={n}", got, want))
+        got = intra.satd35(orig, *refs, n, 0, bit_depth=bd)
+        want = intra.satd35_plain(orig, *refs, n, 0, bd)
+        k1["err"] = max(k1["err"], check_equal(f"satd35 n={n} bd={bd}", got,
+                                               want))
+        del got, want
         modes = torch.as_tensor(rng.integers(0, 35, (b, 4)).astype(np.int32),
                                 device=dev)
+        modes[:, 1], modes[:, 2] = 10, 26        # the clipped edge filters
         for c_idx in (0, 1):
-            got = intra.predict(*refs, modes, n, c_idx)
-            want = intra.predict_plain(*refs, modes, n, c_idx)
+            got = intra.predict(*refs, modes, n, c_idx, bit_depth=bd)
+            want = intra.predict_plain(*refs, modes, n, c_idx, bd)
             k1["err"] = max(k1["err"], check_equal(
-                f"predict n={n} c={c_idx}", got, want))
-        k1["ms"] += time_ms(lambda: intra.satd35(orig, *refs, n, 0), iters)
-        k1["ms"] += time_ms(lambda: intra.predict(*refs, modes, n, 0), iters)
+                f"predict n={n} c={c_idx} bd={bd}", got, want))
+        del got, want
+        k1["ms"] += time_ms(lambda: intra.satd35(orig, *refs, n, 0,
+                                                 bit_depth=bd), iters)
+        k1["ms"] += time_ms(lambda: intra.predict(*refs, modes, n, 0,
+                                                  bit_depth=bd), iters)
         k1["plain_ms"] += time_ms(
-            lambda: intra.satd35_plain(orig, *refs, n, 0), 2)
+            lambda: intra.satd35_plain(orig, *refs, n, 0, bd), 2)
         k1["plain_ms"] += time_ms(
-            lambda: intra.predict_plain(*refs, modes, n, 0), 2)
+            lambda: intra.predict_plain(*refs, modes, n, 0, bd), 2)
         io = nbytes(orig, *refs) + b * 35 * 4 + nbytes(*refs, modes) \
             + b * 4 * n * n * 4
         ops = b * 35 * n * n * 16 + b * 4 * n * n * 8
         k1["bytes"] += io
         k1["ops"] += ops
-    rows.append(("intra_pred", "x265amod_tpu_torch/csrc/intra_pred.cu",
+    rows.append(("intra_pred" + tag, "x265amod_tpu_torch/csrc/intra_pred.cu",
                  "x265amod_tpu/ops/intra.py:133 predict_all_modes_batch "
                  "(+ :250 predict_modes_batch, :340 substitute_refs_general,"
                  " models/intra_tree.py:68 _satd_modes)", k1))
@@ -224,34 +274,39 @@ def phase_kernels(f, h16, w16, iters, dev="cuda"):
     k3 = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, err=0.0)
     for n, b, k, c_idx in ((16, b16, 4, 0), (8, 2 * b16, 1, 1),
                            (32, b32, 4, 0), (16, 2 * b32, 1, 1)):
-        orig = rng.integers(0, 256, (b, n, n)).astype(np.int32)
-        pred = np.clip(orig[:, None] + rng.integers(-40, 41, (b, k, n, n)),
-                       0, 255).astype(np.int32)
-        pred[::5] = rng.integers(0, 256, (n, n))      # far predictions
+        spread = 40 << (bd - 8)
+        orig = rng.integers(0, maxv + 1, (b, n, n)).astype(np.int32)
+        pred = np.clip(orig[:, None] + rng.integers(-spread, spread + 1,
+                                                    (b, k, n, n)),
+                       0, maxv).astype(np.int32)
+        pred[::5] = rng.integers(0, maxv + 1, (n, n))  # far predictions
         orig[1::5] = 0
-        pred[1::5] = 255                              # flat 0 vs flat 255
-        orig[2::5] = 255
-        pred[2::5] = 255                              # zero residual
+        pred[1::5] = maxv                             # flat 0 vs flat max
+        orig[2::5] = maxv
+        pred[2::5] = maxv                             # zero residual
         qp = qps[rng.integers(0, len(qps), b)]
         orig, pred, qp = (torch.as_tensor(a, device=dev)
                           for a in (orig, pred, qp))
         for sbh in (False, True):
             for intra in (True, False):         # intra / inter rounding
                 got = residual.residual_chain(orig, pred, qp, sbh,
-                                              intra=intra)
+                                              intra=intra, bit_depth=bd)
                 want = residual.residual_chain_plain(orig, pred, qp, sbh,
-                                                     intra=intra)
+                                                     intra=intra,
+                                                     bit_depth=bd)
                 for part, g, w_ in zip(("levels", "recon", "ssd"), got,
                                        want):
                     k2["err"] = max(k2["err"], check_equal(
                         f"residual_chain n={n} sbh={sbh} intra={intra} "
-                        f"{part}", g, w_))
+                        f"bd={bd} {part}", g, w_))
         levels = got[0]
+        del got, want
         want_recon = k == 1
         k2["ms"] += time_ms(lambda: residual.residual_chain(
-            orig, pred, qp, False, want_recon=want_recon), iters)
+            orig, pred, qp, False, want_recon=want_recon, bit_depth=bd),
+            iters)
         k2["plain_ms"] += time_ms(lambda: residual.residual_chain_plain(
-            orig, pred, qp, False, want_recon=want_recon), 2)
+            orig, pred, qp, False, want_recon=want_recon, bit_depth=bd), 2)
         k2["bytes"] += nbytes(orig, pred, qp) + b * k * n * n * 2 \
             + (b * k * n * n * 4 if want_recon else 0) + b * k * 4
         k2["ops"] += b * k * 8 * n ** 3
@@ -276,12 +331,18 @@ def phase_kernels(f, h16, w16, iters, dev="cuda"):
         k3["ops"] += b * k * n * n * 12
     for d in (k2, k3):
         d["bound_ms"], d["bound_by"] = bound_ms(d["bytes"], d["ops"])
-    rows.append(("residual_chain", "x265amod_tpu_torch/csrc/residual_chain.cu",
+    rows.append(("residual_chain" + tag,
+                 "x265amod_tpu_torch/csrc/residual_chain.cu",
                  "x265amod_tpu/ops/transforms.py:133 fwd_transform "
                  "(+ :151 inv_transform, ops/quant.py:100,136, "
                  "ops/sbh.py:45)", k2))
-    rows.append(("tu_bits", "x265amod_tpu_torch/csrc/tu_bits.cu",
+    rows.append(("tu_bits" + tag, "x265amod_tpu_torch/csrc/tu_bits.cu",
                  "x265amod_tpu/ops/estbits.py:114 tu_bits", k3))
+    if bd == 10:          # the Main10 path runs no loop filter
+        for _, _, _, d in rows:
+            d["bound_ms"], d["bound_by"] = bound_ms(d["bytes"], d["ops"])
+        cuda_lib.reset_launches()
+        return rows
 
     # K4 deblock: F frames, luma + both chroma planes
     k4 = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, err=0.0)
@@ -333,6 +394,174 @@ def phase_kernels(f, h16, w16, iters, dev="cuda"):
         d["bound_ms"], d["bound_by"] = bound_ms(d["bytes"], d["ops"])
     cuda_lib.reset_launches()
     return rows
+
+
+def rdoq_tie_lambdas(orig, pred, qp, lam, n, st, c_idx, intra):
+    """Per-block lambdas (f32, on the CPU) within a few ulps of an RDOQ tie:
+    even blocks at the hi/lo tie of their largest coefficient, odd blocks
+    at the kill tie of their first 4x4 group, so that the kernel's choice
+    turns on the last bit of its f32 costs.  Blocks without a tie keep
+    ``lam``."""
+    import torch
+    from x265amod_tpu_torch.ops import rdoq
+    from x265amod_tpu_torch.ops.quant import quant
+    from x265amod_tpu_torch.ops.transforms import fwd_transform
+    o, p_, q = orig.cpu(), pred[:, 0].cpu(), qp.cpu().long()
+    co = fwd_transform(o - p_)
+    lv = quant(co, q[:, None, None], intra=intra)
+    a = lv.abs().long()
+    b = a.shape[0]
+    qb = 14 + q // 6 + 7 - (n.bit_length() - 1)
+    sc = torch.as_tensor(rdoq.QUANT_SCALES_F32)[q % 6]
+    qf = ((co.abs().float() * sc[:, None, None])
+          / torch.bitwise_left_shift(torch.ones_like(qb), qb).float()
+          [:, None, None]).double()
+    step = torch.as_tensor(rdoq.pixel_step_sse(n)).double()[q]
+    rtab = torch.as_tensor(rdoq.rate_consts(st, c_idx))
+    csb0, csb1 = (float(x) for x in rdoq.group_csb(st, c_idx))
+    out = lam.cpu().clone()
+    flat = a.reshape(b, -1)
+    pos = flat.argmax(1)
+    hi = flat.gather(1, pos[:, None])[:, 0]
+    qv = qf.reshape(b, -1).gather(1, pos[:, None])[:, 0]
+    rr = rdoq.level_rate(torch.stack([hi, (hi - 1).clamp(min=0)], 1),
+                         q[:, None].expand(b, 2), rtab).double()
+    den = rr[:, 0] - rr[:, 1]
+    t_hilo = step * ((qv - hi + 1) ** 2 - (qv - hi) ** 2) / den
+    ok_hilo = (hi > 0) & (den > 0) & (t_hilo > 0) & (t_hilo < 1e7)
+    t_grp = out.double()
+    ok_grp = torch.zeros(b, dtype=torch.bool)
+    for _ in range(3):
+        l1 = rdoq.rdoq_adjust_plain(co, lv, q, t_grp.float(), c_idx, st,
+                                    cg_pass=False).abs().long()[:, :4, :4]
+        g = qf[:, :4, :4]
+        r = rdoq.level_rate(l1, q[:, None, None].expand_as(l1), rtab)
+        den = r.double().sum((1, 2)) + csb1 - csb0
+        t = step * (g ** 2 - (g - l1) ** 2).sum((1, 2)) / den
+        ok_grp = (l1.sum((1, 2)) > 0) & (den > 0) & (t > 1e-3) & (t < 1e7)
+        t_grp = torch.where(ok_grp, t, t_grp)
+    even = torch.arange(b) % 2 == 0
+    tie = torch.where(even, t_hilo, t_grp).float()
+    use = torch.where(even, ok_hilo, ok_grp)
+    # a few ulps either side of the tie
+    k = torch.arange(b) % 9 - 4
+    for _ in range(4):
+        tie = torch.where(k > 0, torch.nextafter(tie, tie * 2), tie)
+        tie = torch.where(k < 0, torch.nextafter(tie, tie * 0), tie)
+        k = k - k.sign()
+    return torch.where(use, tie, out).to(lam.device), int(use.sum())
+
+
+def phase_kernels_rdoq(iters, dev="cuda"):
+    """K2 with its RDOQ stage (row 21) against the plain chain with
+    `rdoq_adjust_plain`, timed with and without the stage at the same
+    shapes: one diagonal's luma commit chains of config 1's 16-frame batch
+    (st I, intra rounding: 16 frames x 6 CTUs at n 32, 96 cells at n 16)
+    and one 1920x1088 frame's final coding (inter rounding): a B frame's
+    luma (st B, 8160 cells at n 16, 2040 CTUs at n 32), a P frame's luma
+    and stacked chroma (st P: also 16320 blocks at n 8, 4080 at n 16).
+    Edge inputs: QP 0 and 51, lambda 0 and 1e6, all-zero blocks, flat
+    0 / 1023 blocks at bit depth 10 (levels at the 16-bit clip), and
+    lambdas within 4 ulps of a hi/lo or a group-kill tie."""
+    import torch
+    from x265amod_tpu_torch.ops import residual
+    dev = torch.device(dev)
+    rng = np.random.default_rng(8)
+    shapes = {"config1_diagonal": [(32, 96, "I", 0, True),
+                                   (16, 96, "I", 0, True)],
+              "b_frame_final": [(16, 8160, "B", 0, False),
+                                (32, 2040, "B", 0, False)],
+              "p_frame_final": [(16, 8160, "P", 0, False),
+                                (8, 16320, "P", 1, False),
+                                (32, 2040, "P", 0, False),
+                                (16, 4080, "P", 1, False)]}
+    d = dict(err=0.0, ties=0)
+    for key, calls in shapes.items():
+        ms = ms_off = plain = 0.0
+        nbytes_ = int_ops = f32_ops = 0
+        for n, b, st, c_idx, intra in calls:
+            orig = rng.integers(0, 256, (b, n, n)).astype(np.int32)
+            pred = np.clip(orig[:, None] + rng.integers(-30, 31,
+                                                        (b, 1, n, n)),
+                           0, 255).astype(np.int32)
+            orig[1::11], pred[1::11] = 0, 255          # flat 0 vs 255
+            orig[2::11], pred[2::11] = 100, 100        # all-zero levels
+            qp = rng.choice(np.array([0, 22, 27, 30, 32, 37, 51], np.int32),
+                            b)
+            lam = (10.0 ** rng.uniform(-1, 4, b)).astype(np.float32)
+            lam[3::11], lam[4::11] = 0.0, 1e6
+            orig, pred, qp, lam = (torch.as_tensor(a, device=dev)
+                                   for a in (orig, pred, qp, lam))
+            lam_t, nt = rdoq_tie_lambdas(orig, pred, qp, lam, n, st, c_idx,
+                                         intra)
+            d["ties"] += nt
+            for lm in (lam, lam_t):
+                got = residual.residual_chain(orig, pred, qp, True,
+                                              intra=intra, rdoq=True,
+                                              lam=lm, st=st, c_idx=c_idx)
+                want = residual.residual_chain_plain(
+                    orig, pred, qp, True, intra=intra, rdoq=True, lam=lm,
+                    st=st, c_idx=c_idx)
+                for part, g, w_ in zip(("levels", "recon", "ssd"), got,
+                                       want):
+                    d["err"] = max(d["err"], check_equal(
+                        f"residual_chain rdoq {key} n={n} {st} {part}", g,
+                        w_))
+
+            def run(rd=True, fn=residual.residual_chain):
+                return fn(orig, pred, qp, True, intra=intra, rdoq=rd,
+                          lam=lam, st=st, c_idx=c_idx)
+            ms += time_ms(run, iters)
+            ms_off += time_ms(lambda: run(False), iters)
+            plain += time_ms(lambda: run(fn=residual.residual_chain_plain),
+                             2)
+            nbytes_ += nbytes(orig, pred, qp, lam) + b * n * n * (2 + 4) \
+                + b * 4
+            int_ops += b * 8 * n ** 3
+            # per coefficient: two costs (sub, mul, rate add, mul, fma) and
+            # its share of the group pass (3 products, the rate, two lane
+            # sums, the zero chain's fma)
+            f32_ops += b * n * n * 24
+        d[f"ms_{key}"], d[f"ms_without_stage_{key}"] = ms, ms_off
+        d[f"plain_ms_{key}"] = plain
+        t_int = int_ops / H100_INT32_OPS_PER_S * 1e3
+        t_f32 = f32_ops / H100_F32_FLOPS * 1e3
+        d[f"bound_ms_{key}"], d[f"bound_by_{key}"] = max(
+            (nbytes_ / H100_BYTES_PER_S * 1e3, "bytes"),
+            (t_int + t_f32, "operations"))
+    # bit depth 10 (the kernel runs it, the encoder refuses it): flat 0
+    # against 1023 at QP 0 quantizes to the 16-bit clip (-32768)
+    n, b = 32, 8
+    orig = torch.zeros((b, n, n), dtype=torch.int32, device=dev)
+    pred = torch.full((b, 1, n, n), 1023, dtype=torch.int32, device=dev)
+    pred[1::2, :, :, : n // 2] = 0
+    qp = torch.zeros(b, dtype=torch.int32, device=dev)
+    lam = torch.as_tensor(np.float32([0, 1, 10, 100, 1e3, 1e4, 1e5, 1e6]),
+                          device=dev)
+    got = residual.residual_chain(orig, pred, qp, True, bit_depth=10,
+                                  rdoq=True, lam=lam, st="I")
+    want = residual.residual_chain_plain(orig, pred, qp, True, bit_depth=10,
+                                         rdoq=True, lam=lam, st="I")
+    for g, w_ in zip(got, want):
+        d["err"] = max(d["err"], check_equal("residual_chain rdoq bd 10",
+                                             g, w_))
+    d["level_bound_reached"] = bool(
+        (residual.residual_chain_plain(orig, pred, qp, False, bit_depth=10)
+         [0].long().abs() >= 32767).any())
+    if not d["level_bound_reached"] or d["ties"] < 1000:
+        raise AssertionError("residual_chain rdoq: edge inputs missing "
+                             f"(ties {d['ties']})")
+    # the row: a B frame's final coding, the call phase 11 makes most
+    d["ms"], d["plain_ms"] = d["ms_b_frame_final"], d["plain_ms_b_frame_final"]
+    d["bound_ms"], d["bound_by"] = d["bound_ms_b_frame_final"], \
+        d["bound_by_b_frame_final"]
+    d["library_ms"] = None
+    d["library_note"] = ("none: no PyTorch call makes a rate-distortion "
+                         "choice per coefficient")
+    return [("residual_chain_rdoq",
+             "x265amod_tpu_torch/csrc/residual_chain.cu",
+             "x265amod_tpu/ops/rdoq.py:87 rdoq_adjust (a stage of K2 "
+             "between quant and sign-bit hiding)", d)]
 
 
 def subpel_ops(n):
@@ -666,7 +895,8 @@ def phase_config2(frames, warm):
     if not 30.0 < s["psnr_y"] < 60.0:
         raise AssertionError(f"config 2: PSNR-Y {s['psnr_y']} out of range")
     missing = [k for k, v in launches.items() if v <= 0
-               and k not in CONFIG3_KERNELS + LOOKAHEAD_KERNELS]
+               and k not in CONFIG3_KERNELS + LOOKAHEAD_KERNELS
+               + RDOQ_KERNELS]
     if missing:
         raise AssertionError(f"config 2 did not launch {missing}")
     p_stats = enc.frame_stats[warm:]
@@ -1008,16 +1238,16 @@ def scan_bounds():
     return out
 
 
-def config3(w=1920, h=1080, aq=False):
+def config3(w=1920, h=1080, aq=False, rdoq=0):
     """BASELINE config 3 as the repository's bench.py builds it
     (`bench.py:114`, aq=True), or with AQ and CU-tree off so that no
-    lookahead runs.  Its crf is not read: rc_mode stays "cqp", so frames
-    code at QP 32 (I 29, referenced B 33, b 34) plus the AQ and CU-tree
-    offsets."""
+    lookahead runs; ``rdoq`` sets the RDOQ level.  Its crf is not read:
+    rc_mode stays "cqp", so frames code at QP 32 (I 29, referenced B 33, b
+    34) plus the AQ and CU-tree offsets."""
     from x265amod_tpu_torch.utils.params import Param
     return Param(width=w, height=h, keyint=60, bframes=3, ctu_size=32,
                  sao=True, aq_mode=2 if aq else 0, cutree=aq,
-                 rc_lookahead=4)
+                 rc_lookahead=4, rdoq_level=rdoq)
 
 
 def phase_config3(frames, warm):
@@ -1073,7 +1303,7 @@ def phase_config3(frames, warm):
     if not 30.0 < s["psnr_y"] < 60.0:
         raise AssertionError(f"config 3: PSNR-Y {s['psnr_y']} out of range")
     missing = [k for k, v in launches.items()
-               if v <= 0 and k not in LOOKAHEAD_KERNELS]
+               if v <= 0 and k not in LOOKAHEAD_KERNELS + RDOQ_KERNELS]
     if missing:
         raise AssertionError(f"config 3 did not launch {missing}")
     if sao_n[0] == 0:
@@ -1090,17 +1320,18 @@ def phase_config3(frames, warm):
                 launches_per_b_frame=b_mean), launches
 
 
-def phase_config3_aq(frames):
+def phase_config3_aq(frames, rdoq=0):
     """Config 3 exactly as bench.py builds it (AQ mode 2, CU-tree,
-    rc-lookahead 4) through `encode_push` and `flush`, every frame timed
-    (the kernels are loaded and the card warm from the phases before).
-    The launch counts start at 0 before the first push and are read after
-    the flush; the QP maps are the ones each frame signals."""
+    rc-lookahead 4), with RDOQ at level ``rdoq``, through `encode_push` and
+    `flush`, every frame timed (the kernels are loaded and the card warm
+    from the phases before).  The launch counts start at 0 before the first
+    push and are read after the flush; the QP maps are the ones each frame
+    signals."""
     import torch
     from x265amod_tpu_torch.models.encoder import Encoder
     from x265amod_tpu_torch.models.intra_tree import qp32_of
     from x265amod_tpu_torch.ops import cuda_lib
-    enc = Encoder(config3(aq=True), device="cuda")
+    enc = Encoder(config3(aq=True, rdoq=rdoq), device="cuda")
     qp_maps, cuts = [], []
     inner_dispatch, inner_la = enc._dispatch_entry, enc._la_frame
 
@@ -1133,7 +1364,8 @@ def phase_config3_aq(frames):
     if not 30.0 < s["psnr_y"] < 60.0:
         raise AssertionError(f"config 3 with AQ: PSNR-Y {s['psnr_y']} out "
                              "of range")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items() if v <= 0 and
+               (rdoq or k not in RDOQ_KERNELS)]
     if missing:
         raise AssertionError(f"config 3 with AQ did not launch {missing}")
     deltas = np.concatenate([(qp32_of(m) - qp).ravel() for qp, m in qp_maps])
@@ -1146,18 +1378,20 @@ def phase_config3_aq(frames):
                 ctu_qp_off_slice_share=off_share,
                 ctu_qp_delta_range=[int(deltas.min()), int(deltas.max())],
                 scene_cuts=[i for i, c in enumerate(cuts) if c],
-                launches_per_frame={k: launches[k] / n
-                                    for k in LOOKAHEAD_KERNELS}), launches
+                bits=int(sum(x.bits for x in enc.frame_stats)),
+                launches_per_frame={k: launches[k] / n for k in
+                                    LOOKAHEAD_KERNELS + RDOQ_KERNELS}), \
+        launches
 
 
-def phase_card_vs_cpu_b(frames, aq=False):
-    """Config 3 at 640x360, IDR + one mini-GOP, on the card and on the CPU
-    (the slice without the lookahead, or with AQ and CU-tree): the streams
-    must be identical."""
+def phase_card_vs_cpu_b(frames, aq=False, rdoq=0, w=640, h=360):
+    """Config 3 at w x h, IDR + one mini-GOP, on the card and on the CPU
+    (the slice without the lookahead, or with AQ and CU-tree, with or
+    without RDOQ): the streams must be identical."""
     from x265amod_tpu_torch.models.encoder import Encoder
     streams = {}
     for dev in ("cuda", "cpu"):
-        p = config3(640, 360, aq=aq)
+        p = config3(w, h, aq=aq, rdoq=rdoq)
         p.info = False
         e = Encoder(p, device=dev)
         streams[dev] = [o.nals for o in e.encode_pipelined(frames)]
@@ -1165,10 +1399,103 @@ def phase_card_vs_cpu_b(frames, aq=False):
     if not same:
         bad = [i for i, (a, b) in enumerate(zip(streams["cuda"],
                                                 streams["cpu"])) if a != b]
-        raise AssertionError(f"config 3 at 640x360: card and CPU streams "
+        raise AssertionError(f"config 3 at {w}x{h}: card and CPU streams "
                              f"differ in frames {bad} (decode order)")
     return dict(bitstreams_identical=True, frames=len(frames),
                 bytes=sum(len(x) for x in streams["cuda"]))
+
+
+def config_main10(w=1920, h=1080):
+    """Main10 all-intra as far as the reference reaches (BASELINE config 4's
+    resolution and bit depth): QP 30, CTU32, keyint 1, deblocking and SAO
+    off (the reference's gate), no RDOQ."""
+    from x265amod_tpu_torch.utils.params import Param
+    return Param(width=w, height=h, qp=30, keyint=1, ctu_size=32,
+                 internal_bit_depth=10, deblock=False, sao=False)
+
+
+def sps_profile_idc(headers: bytes) -> int:
+    """general_profile_idc of the SPS in an Annex-B header blob: the low 5
+    bits of the byte after sps_video_parameter_set_id, max_sub_layers and
+    the nesting flag (the SPS payload's first byte)."""
+    nals = headers.split(b"\x00\x00\x01")
+    for nal in nals:
+        if len(nal) > 3 and (nal[0] >> 1) & 63 == 33:
+            return nal[3] & 31
+    raise AssertionError("no SPS in the headers")
+
+
+def phase_main10(frames, warm):
+    """Main10 all-intra at 1920x1080 through `encode_pipelined` (16-frame
+    batches); the clock and the launch counts start after the warm-up
+    batch.  Then one frame with its recon, which must use the 10-bit
+    range, and the SPS, which must carry profile 2 and bit depth 10."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from x265amod_tpu_torch.ops import cuda_lib
+    enc = Encoder(config_main10(), device="cuda")
+    for _ in enc.encode_pipelined(frames[:warm]):
+        pass
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    n_warm_stats = len(enc.frame_stats)
+    t0 = time.time()
+    outs = list(enc.encode_pipelined(frames[warm:]))
+    dt = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    n = len(frames) - warm
+    timed = enc.frame_stats[n_warm_stats:]
+    if len(outs) != n or not all(o.nals for o in outs):
+        raise AssertionError("Main10: missing encoded frames")
+    psnr = float(np.mean([x.psnr_y for x in timed]))
+    kbps = float(sum(x.bits for x in timed) * 25.0 / n / 1000.0)
+    if not (np.isfinite(psnr) and np.isfinite(kbps) and 30.0 < psnr < 70.0):
+        raise AssertionError(f"Main10: PSNR-Y {psnr}, kbps {kbps}")
+    missing = [k for k in ("intra_pred", "residual_chain", "tu_bits")
+               if launches[k] <= 0]
+    unexpected = [k for k in ("deblock", "sao_analyse", "sao_apply",
+                              "residual_chain_rdoq") if launches[k] > 0]
+    if missing or unexpected:
+        raise AssertionError(f"Main10: launched none of {missing}, "
+                             f"launched {unexpected}")
+    one = Encoder(config_main10(), device="cuda")
+    rec = one.encode_frame(*frames[0], return_recon=True).recon
+    rmax = int(rec[0].max())
+    if rec[0].dtype != np.uint16 or rmax <= 255:
+        raise AssertionError(f"Main10 recon: dtype {rec[0].dtype}, max "
+                             f"{rmax}")
+    profile = sps_profile_idc(enc.headers())
+    if profile != 2 or enc.sps.bit_depth != 10:
+        raise AssertionError(f"Main10 SPS: profile {profile}, bit depth "
+                             f"{enc.sps.bit_depth}")
+    return dict(frames=n, seconds=dt, fps=n / dt, psnr_y=psnr, kbps=kbps,
+                batches=-(-n // enc.BATCH_FRAMES), recon_max=rmax,
+                sps_profile_idc=profile, sps_bit_depth=enc.sps.bit_depth,
+                launches_per_batch={k: launches[k] / -(-n // enc.BATCH_FRAMES)
+                                    for k in ("intra_pred", "residual_chain",
+                                              "tu_bits")}), launches
+
+
+def phase_card_vs_cpu_main10(frames):
+    """Main10 all-intra at 640x360, 2 frames, on the card and on the CPU:
+    the streams and the recon must be identical."""
+    from x265amod_tpu_torch.models.encoder import Encoder
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = config_main10(640, 360)
+        p.info = False
+        e = Encoder(p, device=dev)
+        res = [e.encode_frame(*f, return_recon=True) for f in frames]
+        out[dev] = ([r.nals for r in res], [r.recon for r in res])
+    if out["cuda"][0] != out["cpu"][0]:
+        raise AssertionError("Main10 at 640x360: card and CPU streams "
+                             "differ")
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        for pa, pb in zip(a, b):
+            if not np.array_equal(pa, pb):
+                raise AssertionError("Main10 at 640x360: recon differs")
+    return dict(bitstreams_identical=True, recon_identical=True,
+                frames=len(frames), bytes=sum(len(x) for x in out["cuda"][0]))
 
 
 def main():
@@ -1209,6 +1536,10 @@ def main():
     rows += phase_kernels_p(args.iters)
     rows += phase_kernels_b(args.iters)
     rows += phase_kernels_la(args.iters)
+    rows += phase_kernels_rdoq(args.iters)
+    # K1-K3 at bit depth 10, at the Main10 path's 16-frame batch of
+    # 1920x1088 (phase 12)
+    rows += phase_kernels(16, 68, 120, args.iters, bd=10)
     # K1-K8 again at the config-3 slice's shapes (one B frame at 1920x1088,
     # sr 16): checked only, the rows keep config 1's and config 2's times
     by_name = {name: d for name, _, _, d in rows}
@@ -1222,6 +1553,10 @@ def main():
         log(f"phase 2: {name} equal to plain (max abs err {d['err']}); "
             f"{d['ms']:.4f} ms vs plain {d['plain_ms']:.4f} ms, bound "
             f"{d['bound_ms']:.4f} ms ({d['bound_by']}) [{card}]")
+    rd = by_name["residual_chain_rdoq"]
+    log("phase 2: residual_chain_rdoq " + json.dumps(
+        {k: v for k, v in rd.items() if k.startswith(("ms_", "ties"))})
+        + f" [{card}]")
     log("phase 2: plain rows 10-11 " + json.dumps(phase_plain_rows(
         args.iters)) + f" [{card}]")
     log("phase 2: scan bounds, ms " + json.dumps(scan_bounds()))
@@ -1270,24 +1605,86 @@ def main():
     log("phase 10: " + json.dumps(phase_card_vs_cpu_b(
         synth_frames(640, 360, 5, seed=4), aq=True)))
     seconds["10_config3_aq_card_vs_cpu"] = time.time() - t0
+
+    t0 = time.time()
+    aqframes = synth_frames(1920, 1080, CONFIG3_AQ_FRAMES, seed=4)
+    rdoq_stats, launches11 = phase_config3_aq(aqframes, rdoq=2)
+    del aqframes
+    loss = aq_stats["psnr_y"] - rdoq_stats["psnr_y"]
+    if rdoq_stats["bits"] >= aq_stats["bits"] or loss > RDOQ_MAX_PSNR_LOSS:
+        raise AssertionError(
+            f"config 3 with RDOQ: {rdoq_stats['bits']} bits against "
+            f"{aq_stats['bits']} without, PSNR-Y {loss:.4f} dB lower")
+    rdoq_stats.update(bits_saved_share=1.0 - rdoq_stats["bits"]
+                      / aq_stats["bits"], psnr_y_loss_db=loss)
+    log("phase 11: " + json.dumps(dict(rdoq_stats, card=card,
+                                       launches=launches11)))
+    seconds["11_config3_rdoq"] = time.time() - t0
+
+    t0 = time.time()
+    m10frames = synth_frames10(1920, 1080, MAIN10_FRAMES)
+    m10_stats, launches12 = phase_main10(m10frames, MAIN10_WARM)
+    del m10frames
+    log("phase 12: " + json.dumps(dict(m10_stats, card=card,
+                                       launches=launches12)))
+    seconds["12_main10"] = time.time() - t0
+
+    t0 = time.time()
+    log("phase 13: config 3 + RDOQ " + json.dumps(phase_card_vs_cpu_b(
+        synth_frames(320, 192, 5, seed=4), aq=True, rdoq=2, w=320, h=192)))
+    log("phase 13: Main10 " + json.dumps(phase_card_vs_cpu_main10(
+        synth_frames10(640, 360, 2))))
+    seconds["13_card_vs_cpu"] = time.time() - t0
     log("seconds per phase: " + json.dumps(seconds))
 
     kernels = []
     for name, src, replaces, d in rows:
+        base = name.replace("_main10", "")
         config1_kernel = name in CONFIG1_KERNELS
         config3_kernel = name in CONFIG3_KERNELS
         la_kernel = name in LOOKAHEAD_KERNELS
+        main10_kernel = name != base
+        if main10_kernel:
+            launches, shapes = launches12[base], (
+                "16-frame Main10 batch at 1920x1080 (padded 1920x1088), "
+                "bit depth 10")
+        elif name in RDOQ_KERNELS:
+            launches, shapes = launches11[name], (
+                "one B frame's final coding at 1920x1088 (luma, st B); "
+                "also a P frame's (luma and chroma, st P) and one "
+                "diagonal of config 1's commit (st I)")
+        elif config1_kernel:
+            launches, shapes = launches1[name], (
+                f"16-frame batch at {w}x{h} (padded {16 * w16}x{16 * h16})")
+        elif config3_kernel:
+            launches, shapes = launches3[name], (
+                "one B frame at 1920x1080 (padded 1920x1088), sr 16")
+        elif la_kernel:
+            launches, shapes = launches9[name], (
+                "one frame's lookahead at 1920x1080 (padded 1920x1088, "
+                "lowres 960x544, 120x68 blocks)")
+        else:
+            launches, shapes = launches2[name], (
+                "one P frame at 1280x720 (padded 1280x736), sr 8")
+        if d.get("checked_at_config3_shapes"):
+            shapes += "; also checked at one B frame's shapes (1920x1088, " \
+                "sr 16)"
+        extra = {k: v for k, v in d.items() if k.startswith(
+            ("ms_", "plain_ms_", "bound_ms_", "bound_by_"))
+            or k in ("ties", "level_bound_reached")}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches1[name] if config1_kernel else (
-                launches3[name] if config3_kernel else (
-                    launches9[name] if la_kernel else launches2[name])),
-            launches_config1=launches1[name],
-            launches_config2=launches2[name],
-            launches_config3=launches3[name],
-            launches_config3_aq=launches9[name],
-            launches_per_frame_config3_aq=launches9[name] / CONFIG3_AQ_FRAMES,
-            launches_per_b_frame=b_stats["launches_per_b_frame"][name],
+            launches=launches,
+            launches_config1=launches1[base],
+            launches_config2=launches2[base],
+            launches_config3=launches3[base],
+            launches_config3_aq=launches9[base],
+            launches_config3_rdoq=launches11[base],
+            launches_main10=launches12[base],
+            launches_per_frame_config3_aq=launches9[base] / CONFIG3_AQ_FRAMES,
+            launches_per_frame_config3_rdoq=launches11[base]
+            / CONFIG3_AQ_FRAMES,
+            launches_per_b_frame=b_stats["launches_per_b_frame"][base],
             max_abs_err=d["err"], ms=d["ms"],
             plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
             bound_by=d["bound_by"], library_ms=d.get("library_ms"),
@@ -1296,15 +1693,7 @@ def main():
                                "function"),
             **({"deterministic_run_to_run": True}
                if d.get("deterministic") else {}),
-            shapes=(f"16-frame batch at {w}x{h} (padded {16 * w16}x"
-                    f"{16 * h16})" if config1_kernel else
-                    "one B frame at 1920x1080 (padded 1920x1088), sr 16"
-                    if config3_kernel else
-                    "one frame's lookahead at 1920x1080 (padded 1920x1088,"
-                    " lowres 960x544, 120x68 blocks)" if la_kernel else
-                    "one P frame at 1280x720 (padded 1280x736), sr 8")
-            + ("; also checked at one B frame's shapes (1920x1088, sr 16)"
-               if d.get("checked_at_config3_shapes") else "")))
+            **extra, shapes=shapes))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -501,7 +501,7 @@ def test_check_params_admits_the_config3_slice():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("aq_mode", 3), ("wpp", True), ("ref", 2), ("rdoq_level", 1),
+    ("aq_mode", 3), ("wpp", True), ("ref", 2), ("rdoq_level", 3),
     ("b_adapt", 1), ("bframes", 17), ("rc_mode", "crf"),
     ("vbv_maxrate", 1000)])
 def test_check_params_refuses_what_the_b_slice_does_not_run(field, value):

@@ -382,3 +382,69 @@ def test_lookahead_on_the_card_equals_the_cpu(cuda_dev):
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert a[:3] == b[:3]
         np.testing.assert_array_equal(a[3], b[3])
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_residual_chain_rdoq_stage(cuda_dev, n):
+    """K2's RDOQ stage against the plain `rdoq_adjust` chain: QP 0 and 51,
+    lambda 0 and 1e6, all-zero blocks, levels at +-32767 (a flat 0 block
+    against a flat 255 prediction at QP 0), every slice type and plane,
+    intra and inter rounding; its launches count apart."""
+    from x265amod_tpu_torch.ops import cuda_lib, residual
+    rng = np.random.default_rng(200 + n)
+    b, k = 9, 2
+    orig = rng.integers(0, 256, (b, n, n)).astype(np.int32)
+    pred = np.clip(orig[:, None] + rng.integers(-40, 41, (b, k, n, n)), 0,
+                   255).astype(np.int32)
+    orig[0], pred[0] = 0, 255
+    orig[1], pred[1] = 128, 128                   # all-zero levels
+    qp = np.array([0, 51, 0, 22, 27, 30, 37, 45, 51], np.int32)
+    lam = (10.0 ** rng.uniform(-1, 4, b)).astype(np.float32)
+    lam[2], lam[3] = 0.0, 1e6
+    orig, pred, qp, lam = (torch.as_tensor(a, device=cuda_dev)
+                           for a in (orig, pred, qp, lam))
+    before = dict(cuda_lib.LAUNCHES)
+    for st, c_idx, intra in (("I", 0, True), ("P", 1, False),
+                             ("B", 0, False), ("P", 0, True)):
+        got = residual.residual_chain(orig, pred, qp, True, intra=intra,
+                                      rdoq=True, lam=lam, st=st, c_idx=c_idx)
+        want = residual.residual_chain_plain(orig, pred, qp, True,
+                                             intra=intra, rdoq=True, lam=lam,
+                                             st=st, c_idx=c_idx)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert cuda_lib.LAUNCHES["residual_chain_rdoq"] == \
+        before["residual_chain_rdoq"] + 4
+    assert cuda_lib.LAUNCHES["residual_chain"] == before["residual_chain"]
+
+
+@pytest.mark.parametrize("n,c_idx", [(8, 1), (16, 0), (32, 0)])
+def test_intra_pred_and_residual_chain_at_bit_depth_10(cuda_dev, n, c_idx):
+    """K1 and K2 at bit depth 10 against their plain versions, with flat 0
+    and 1023 blocks and QP 0 and 51."""
+    from x265amod_tpu_torch.ops import intra, residual
+    rng = np.random.default_rng(300 + n)
+    b = 9
+    refs = _refs(rng, b, n, cuda_dev)
+    refs[:3] = [r * 4 + 3 for r in refs[:3]]          # 10-bit samples
+    refs[0][1], refs[1][1], refs[2][1] = 0, 0, 0
+    refs[0][2], refs[1][2], refs[2][2] = 1023, 1023, 1023
+    orig = rng.integers(0, 1024, (b, n, n)).astype(np.int32)
+    orig[1], orig[2] = 0, 1023
+    orig = torch.as_tensor(orig, device=cuda_dev)
+    assert torch.equal(intra.satd35(orig, *refs, n, c_idx, bit_depth=10),
+                       intra.satd35_plain(orig, *refs, n, c_idx, 10))
+    modes = torch.as_tensor(rng.integers(0, 35, (b, 3)).astype(np.int32),
+                            device=cuda_dev)
+    modes[:, 1], modes[:, 2] = 10, 26
+    pred = intra.predict(*refs, modes, n, c_idx, bit_depth=10)
+    assert torch.equal(pred, intra.predict_plain(*refs, modes, n, c_idx, 10))
+    qp = torch.as_tensor(np.array([0, 51, 0, 22, 27, 30, 37, 45, 51],
+                                  np.int32), device=cuda_dev)
+    for sbh in (False, True):
+        got = residual.residual_chain(orig, pred, qp, sbh, bit_depth=10)
+        want = residual.residual_chain_plain(orig, pred, qp, sbh,
+                                             bit_depth=10)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert int(got[1].max()) > 255

@@ -179,7 +179,7 @@ def test_encode_frame_and_push_match_the_pipeline():
 
 @pytest.mark.parametrize("field,value", [
     ("bframes", 17), ("ref", 2), ("me_range", 2), ("b_adapt", 1),
-    ("aq_mode", 2), ("cutree", True), ("rdoq_level", 1),
+    ("aq_mode", 2), ("cutree", True), ("rdoq_level", 3),
     ("internal_bit_depth", 10), ("rc_mode", "crf"), ("wpp", True),
     ("qpfile", "q.txt"), ("analysis_load", "a.dat"),
     ("decoded_picture_hash", 1)])

@@ -8,6 +8,10 @@
 // cudaGetLastError()):
 //   intra_satd35  raw refs + availability + source block -> [B, 35] SATD
 //   intra_predict raw refs + availability + modes [B, K] -> [B, K, n, n]
+// Both take the bit depth (8 or 10), a template parameter of the kernels:
+// the mid-grey fill of a block without references is 1 << (bd - 1), the
+// mode 10/26 edge filters clip to (1 << bd) - 1 (JAX ops/intra.py:141,
+// 262, 356, 390).
 //
 // What bounds it on an H100: integer work, not bytes.  satd35 reads one
 // n x n source block and 8n+1 reference samples per block and writes 35
@@ -64,6 +68,7 @@ __device__ __forceinline__ bool filter_flag(int mode, int n, int c_idx) {
 
 // Load raw refs of block b, substitute unavailable samples (one thread,
 // sequential scan exactly as the spec), then smooth (all threads).
+template <int BD>
 __device__ void load_refs(const int32_t* top_raw, const int32_t* left_raw,
                           const int32_t* corner_raw, const uint8_t* av_top,
                           const uint8_t* av_left, const uint8_t* av_corner,
@@ -93,7 +98,7 @@ __device__ void load_refs(const int32_t* top_raw, const int32_t* left_raw,
       if (a && first < 0) first = i;
     }
     if (first < 0) {
-      for (int i = 0; i < m; ++i) s[i] = 128;
+      for (int i = 0; i < m; ++i) s[i] = 1 << (BD - 1);
     } else {
       int prev = s[first];   // a leading run takes the first sample
       for (int i = 0; i < m; ++i) {
@@ -112,6 +117,7 @@ __device__ void load_refs(const int32_t* top_raw, const int32_t* left_raw,
 }
 
 // Sample (y, x) of mode `mode`; dc is the DC value of the unfiltered refs.
+template <int BD>
 __device__ __forceinline__ int pred_sample(const RefView& r, int mode,
                                            int c_idx, int log2n, int dc,
                                            int y, int x) {
@@ -135,11 +141,11 @@ __device__ __forceinline__ int pred_sample(const RefView& r, int mode,
   }
   if (edge && mode == 26 && x == 0) {
     int v = top_at(u, n, 0) + ((left_at(u, n, y) - u[2 * n]) >> 1);
-    return v < 0 ? 0 : (v > 255 ? 255 : v);
+    return v < 0 ? 0 : (v > (1 << BD) - 1 ? (1 << BD) - 1 : v);
   }
   if (edge && mode == 10 && y == 0) {
     int v = left_at(u, n, 0) + ((top_at(u, n, x) - u[2 * n]) >> 1);
-    return v < 0 ? 0 : (v > 255 ? 255 : v);
+    return v < 0 ? 0 : (v > (1 << BD) - 1 ? (1 << BD) - 1 : v);
   }
   const bool vertical = mode >= 18;
   const int angle = kAngle[mode];
@@ -186,6 +192,7 @@ __device__ __forceinline__ void fwht8(int* v) {
   }
 }
 
+template <int BD>
 __global__ void satd35_kernel(const int32_t* __restrict__ orig,
                               const int32_t* top_raw,
                               const int32_t* left_raw,
@@ -203,8 +210,8 @@ __global__ void satd35_kernel(const int32_t* __restrict__ orig,
   for (int i = threadIdx.x; i < n * n; i += blockDim.x)
     src[i] = orig[(size_t)b * n * n + i];
   if (threadIdx.x < 35) sat[threadIdx.x] = 0;
-  load_refs(top_raw, left_raw, corner_raw, av_top, av_left, av_corner, b,
-            n, s, f);
+  load_refs<BD>(top_raw, left_raw, corner_raw, av_top, av_left, av_corner,
+                b, n, s, f);
   if (threadIdx.x == 0) dc_sh = dc_value(s, n, log2n);
   __syncthreads();
   const RefView r{s, f, n};
@@ -221,7 +228,8 @@ __global__ void satd35_kernel(const int32_t* __restrict__ orig,
 #pragma unroll
       for (int xx = 0; xx < 8; ++xx) {
         d[yy][xx] = src[(y0 + yy) * n + x0 + xx] -
-                    pred_sample(r, mode, c_idx, log2n, dc, y0 + yy, x0 + xx);
+                    pred_sample<BD>(r, mode, c_idx, log2n, dc, y0 + yy,
+                                    x0 + xx);
       }
       fwht8(d[yy]);
     }
@@ -241,6 +249,7 @@ __global__ void satd35_kernel(const int32_t* __restrict__ orig,
   if (threadIdx.x < 35) out[(size_t)b * 35 + threadIdx.x] = sat[threadIdx.x];
 }
 
+template <int BD>
 __global__ void predict_kernel(const int32_t* top_raw,
                                const int32_t* left_raw,
                                const int32_t* corner_raw,
@@ -256,15 +265,15 @@ __global__ void predict_kernel(const int32_t* top_raw,
   const int bk = blockIdx.x;
   const int b = bk / K;
   const int log2n = 31 - __clz(n);
-  load_refs(top_raw, left_raw, corner_raw, av_top, av_left, av_corner, b,
-            n, s, f);
+  load_refs<BD>(top_raw, left_raw, corner_raw, av_top, av_left, av_corner,
+                b, n, s, f);
   if (threadIdx.x == 0) dc_sh = dc_value(s, n, log2n);
   __syncthreads();
   const RefView r{s, f, n};
   const int mode = modes[bk];
   for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
     out[(size_t)bk * n * n + i] =
-        pred_sample(r, mode, c_idx, log2n, dc_sh, i / n, i % n);
+        pred_sample<BD>(r, mode, c_idx, log2n, dc_sh, i / n, i % n);
   }
 }
 
@@ -275,11 +284,17 @@ extern "C" int intra_satd35(const int32_t* orig, const int32_t* top_raw,
                             const int32_t* corner_raw, const uint8_t* av_top,
                             const uint8_t* av_left,
                             const uint8_t* av_corner, int32_t* out, int B,
-                            int n, int c_idx, cudaStream_t stream) {
+                            int n, int c_idx, int bd, cudaStream_t stream) {
   if (n != 8 && n != 16 && n != 32) return (int)cudaErrorInvalidValue;
-  satd35_kernel<<<B, 128, 0, stream>>>(orig, top_raw, left_raw, corner_raw,
-                                       av_top, av_left, av_corner, out, n,
-                                       c_idx);
+  if (bd != 8 && bd != 10) return (int)cudaErrorInvalidValue;
+  if (bd == 8)
+    satd35_kernel<8><<<B, 128, 0, stream>>>(orig, top_raw, left_raw,
+                                            corner_raw, av_top, av_left,
+                                            av_corner, out, n, c_idx);
+  else
+    satd35_kernel<10><<<B, 128, 0, stream>>>(orig, top_raw, left_raw,
+                                             corner_raw, av_top, av_left,
+                                             av_corner, out, n, c_idx);
   return (int)cudaGetLastError();
 }
 
@@ -288,10 +303,18 @@ extern "C" int intra_predict(const int32_t* top_raw, const int32_t* left_raw,
                              const uint8_t* av_top, const uint8_t* av_left,
                              const uint8_t* av_corner, const int32_t* modes,
                              int32_t* out, int B, int K, int n, int c_idx,
-                             cudaStream_t stream) {
+                             int bd, cudaStream_t stream) {
   if (n != 8 && n != 16 && n != 32) return (int)cudaErrorInvalidValue;
-  predict_kernel<<<B * K, 256, 0, stream>>>(top_raw, left_raw, corner_raw,
-                                            av_top, av_left, av_corner,
-                                            modes, out, K, n, c_idx);
+  if (bd != 8 && bd != 10) return (int)cudaErrorInvalidValue;
+  if (bd == 8)
+    predict_kernel<8><<<B * K, 256, 0, stream>>>(top_raw, left_raw,
+                                                 corner_raw, av_top, av_left,
+                                                 av_corner, modes, out, K, n,
+                                                 c_idx);
+  else
+    predict_kernel<10><<<B * K, 256, 0, stream>>>(top_raw, left_raw,
+                                                  corner_raw, av_top,
+                                                  av_left, av_corner, modes,
+                                                  out, K, n, c_idx);
   return (int)cudaGetLastError();
 }

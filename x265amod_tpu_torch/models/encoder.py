@@ -1,8 +1,11 @@
 """Top-level encoder of the port (role of reference `encoder/encoder.cpp` +
 `encoder/api.cpp`), cut down to BASELINE configs 1, 2 and 3: the CTU32 tree,
-CQP, deblock on, SAO on or off, sign-bit hiding on; all-intra, low-delay P
-with one reference, or a B pyramid with one reference per list, the last
-with or without the lookahead (AQ, CU-tree and scene cuts).
+CQP, deblock on, SAO on or off, sign-bit hiding on, RDOQ off or on (levels 1
+and 2 run the same pass); all-intra, low-delay P with one reference, or a B
+pyramid with one reference per list, the last with or without the lookahead
+(AQ, CU-tree and scene cuts).  And Main10 all-intra: 10-bit uint16 planes in
+and out, profile 2 in the SPS, PSNR at the 10-bit peak, no loop filters and
+no RDOQ (the reference's gate).
 
 All-intra `encode_pipelined` runs the batched path of the JAX package's
 `models/encoder.py:_encode_intra_batched`: BATCH_FRAMES frames per device
@@ -100,8 +103,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Encoder:
-    """x265_encoder_open/encode/close analog for BASELINE configs 1 and 2
-    and the config-3 slice."""
+    """x265_encoder_open/encode/close analog for BASELINE configs 1, 2 and 3
+    (RDOQ off or on) and Main10 all-intra."""
 
     BATCH_FRAMES = 16
 
@@ -115,8 +118,11 @@ class Encoder:
         self.pad_w = -(-w // 32) * 32
         self.pad_h = -(-h // 32) * 32
         fps = param.fps_num / max(param.fps_den, 1)
+        self.bit_depth = param.internal_bit_depth
         self.sps = SpsInfo(
-            bit_depth=8, profile_idc=1, width=self.pad_w, height=self.pad_h,
+            bit_depth=self.bit_depth,
+            profile_idc=2 if self.bit_depth == 10 else 1,
+            width=self.pad_w, height=self.pad_h,
             conf_win_right=(self.pad_w - w) // 2,
             conf_win_bottom=(self.pad_h - h) // 2,
             fps_num=param.fps_num, fps_den=param.fps_den,
@@ -156,13 +162,14 @@ class Encoder:
             cutree=param.cutree and self.inter_enabled and not zero_latency,
             min_keyint=max(param.min_keyint, 2), device=self.device) \
             if self.use_aq else None
+        rdoq = param.rdoq_level > 0
         self.frame_encoder = IntraTreeEncoder(
             self.pad_w, self.pad_h, deblock=param.deblock,
             sign_hide=self.pps.sign_data_hiding, sao=param.sao,
-            device=self.device)
+            device=self.device, bit_depth=self.bit_depth, rdoq=rdoq)
         tree = dict(deblock=param.deblock, search_range=param.me_range,
                     subme=param.subme, sign_hide=self.pps.sign_data_hiding,
-                    sao=param.sao, device=self.device)
+                    sao=param.sao, device=self.device, rdoq=rdoq)
         self.inter_encoder = InterTreeEncoder(self.pad_w, self.pad_h, **tree) \
             if self.inter_enabled else None
         self.b_encoder = BTreeEncoder(self.pad_w, self.pad_h, **tree) \
@@ -312,10 +319,12 @@ class Encoder:
 
     def _record(self, nal, res, poc, slice_type, qp, t0, display):
         """Frame statistics, totals and the rate-control update."""
+        peak = float((1 << self.bit_depth) - 1)
+
         def sse_psnr(sse, npix):
             mse = sse / max(npix, 1)
             return 99.99 if mse <= 0 else float(
-                10.0 * np.log10(255.0 * 255.0 / mse))
+                10.0 * np.log10(peak * peak / mse))
         npix_y = self.pad_w * self.pad_h
         stats = FrameStats(
             poc=poc, slice_type=slice_type, qp=qp, bits=len(nal) * 8,

@@ -22,6 +22,11 @@ Four phases per P frame, as in the JAX `_encode` (:171):
    run, each on the CTUs that need it; a cell never reads a neighbour that
    is not final, so the output is the JAX scan's.
 
+With RDOQ on, K2 runs its RDOQ stage in phase 3 (luma, and in the P tree
+also cb and cr with the luma lambda; the B tree's chroma runs none, as in
+JAX :1626-1638) and on the luma and chroma of the intra cells in phase 4;
+the trials of phase 1 and the decide scan run none, so no decision moves.
+
 Then the loop filter with the inter bS maps (K4), SSE and SSIM.  Per-lane
 side data is permuted once per frame into scan-slot order (diagonal by
 diagonal), so each diagonal reads contiguous views.
@@ -88,7 +93,8 @@ class InterTreeEncoder:
 
     def __init__(self, width: int, height: int, deblock: bool = True,
                  search_range: int = 16, subme: int = 2,
-                 sign_hide: bool = True, sao: bool = False, device="cuda"):
+                 sign_hide: bool = True, sao: bool = False, device="cuda",
+                 rdoq: bool = False):
         if width % 32 or height % 32:
             raise ValueError("caller pads to a CTU32 multiple")
         if not 4 <= search_range <= 32:
@@ -98,6 +104,7 @@ class InterTreeEncoder:
         self.deblock = deblock
         self.sao = sao
         self.sbh = sign_hide
+        self.rdoq = rdoq
         self.sr = int(search_range)
         self.subme = int(subme)
         self.wc, self.hc = width // 32, height // 32
@@ -466,11 +473,24 @@ class InterTreeEncoder:
 
     # ---- phases 3 and 4 ------------------------------------------------------
 
-    def _coded(self, orig, pred, qpv):
-        """Inter residual chain with SBH: (levels int16, recon int32)."""
+    def _coded(self, orig, pred, qpv, lam=None, c_idx=0):
+        """Inter residual chain with SBH, and RDOQ at the slice type's
+        tables with the per-block lambdas ``lam`` when given: (levels int16,
+        recon int32)."""
         lv, rec, _ = residual_chain(orig, pred[:, None], qpv, self.sbh,
-                                    intra=False)
+                                    intra=False, rdoq=lam is not None,
+                                    lam=lam, st=self.ST, c_idx=c_idx)
         return lv[:, 0], rec[:, 0]
+
+    def _rdoq_lams(self, maps, key):
+        """(luma, stacked cb+cr) lambdas of the final coding's RDOQ from
+        the lambda map ``key``, or None where it runs none: the P tree
+        prices its chroma with the luma lambda (JAX :633-637), the B tree
+        runs RDOQ on luma only (its cb/cr calls pass no lambda, :1629)."""
+        if not self.rdoq:
+            return None, None
+        lam = maps[key]
+        return lam, (torch.cat([lam, lam]) if self.ST == "P" else None)
 
     def _final_mc(self, refs, cell):
         """Final uni MC of every cell at its decided MV (K7): luma, cb, cr
@@ -490,10 +510,12 @@ class InterTreeEncoder:
         ocb = _blocks(cb, 8).reshape(n16, 8, 8)
         ocr = _blocks(cr, 8).reshape(n16, 8, 8)
         kinds, is_split = cell["kinds"], cell["split_cell"]
-        lv_y, rec_y = self._coded(oy, py, maps["qp16"])
+        lam_y, lam_c = self._rdoq_lams(maps, "lam16")
+        lv_y, rec_y = self._coded(oy, py, maps["qp16"], lam_y)
         lv_c, rec_c = self._coded(torch.cat([ocb, ocr]), torch.cat([pcb,
                                                                    pcr]),
-                                  torch.cat([maps["qc16"], maps["qc16"]]))
+                                  torch.cat([maps["qc16"], maps["qc16"]]),
+                                  lam_c, 1)
 
         def to32(t, bn):        # raster cells -> raster CTUs
             return _blocks(_unblocks(t.reshape(h16, w16, bn, bn)),
@@ -502,13 +524,14 @@ class InterTreeEncoder:
         def to16(t, bn):        # raster CTUs -> raster cells
             return _blocks(_unblocks(t.reshape(hc, wc, 2 * bn, 2 * bn)),
                            bn).reshape(n16, bn, bn)
+        lam_y, lam_c = self._rdoq_lams(maps, "lam32")
         lv32_y, rec32_y = self._coded(_blocks(y, 32).reshape(n32, 32, 32),
-                                      to32(py, 16), maps["qp32"])
+                                      to32(py, 16), maps["qp32"], lam_y)
         lv32_c, rec32_c = self._coded(
             torch.cat([_blocks(cb, 16).reshape(n32, 16, 16),
                        _blocks(cr, 16).reshape(n32, 16, 16)]),
             torch.cat([to32(pcb, 8), to32(pcr, 8)]),
-            torch.cat([maps["qc32"], maps["qc32"]]))
+            torch.cat([maps["qc32"], maps["qc32"]]), lam_c, 1)
         skip16 = ((kinds == 0) | ~is_split)[:, None, None]
         skip32 = (cell["k32"] == 0)[:, None, None]
         sk16 = (kinds == 0)[:, None, None]
@@ -564,6 +587,7 @@ class InterTreeEncoder:
             oy, ocb, ocr = _blocks(y, 16), _blocks(cb, 8), _blocks(cr, 8)
             qp16 = maps["qp16"].reshape(h16, w16)
             qc16 = maps["qc16"].reshape(h16, w16)
+            lam16 = maps["lam16"].reshape(h16, w16) if self.rdoq else None
             im = imode.reshape(h16, w16)
             xy = torch.as_tensor(np.concatenate(
                 [np.stack([sx, sy]) for _, sx, sy in steps], 1), device=dev)
@@ -572,17 +596,20 @@ class InterTreeEncoder:
                 k = len(sx)
                 self._commit_cells(xy[0, off:off + k], xy[1, off:off + k],
                                    q, wc, (yb, cbb, crb), (ly, lcb, lcr),
-                                   modes, (oy, ocb, ocr), qp16, qc16, im)
+                                   modes, (oy, ocb, ocr), qp16, qc16, im,
+                                   lam16)
                 off += k
         return ((_unblocks(yb), _unblocks(cbb), _unblocks(crb)),
                 (ly.reshape(n16, 16, 16), lcb.reshape(n16, 8, 8),
                  lcr.reshape(n16, 8, 8)), modes)
 
     def _commit_cells(self, cx, cy, q, wc, state, levels, modes, orig,
-                      qp16, qc16, im):
+                      qp16, qc16, im, lam16=None):
         """Intra chains of quadrant q of the CTUs (cx, cy), with z-scan
         availability (spec 6.4.1) and references read from the committed
-        state; writes recon, levels and modes in place."""
+        state, with RDOQ on luma and chroma (the luma lambda, JAX
+        :883-906) when lam16 is given; writes recon, levels and modes in
+        place."""
         h16, w16 = self.h16, self.w16
         r, c = 2 * cy + (q >> 1), 2 * cx + (q & 1)
         top, left = cy > 0, cx > 0
@@ -608,14 +635,17 @@ class InterTreeEncoder:
         ly, lcb, lcr = levels
         oy, ocb, ocr = orig
         mode = im[r, c]
+        lam = None if lam16 is None else lam16[r, c]
         lv_y, rc_y = forced_chain(oy[r, c], refs(yb, 16), 16, mode,
-                                  qp16[r, c], 0, self.sbh)
+                                  qp16[r, c], 0, self.sbh, lam=lam,
+                                  st=self.ST)
         rcb, rcr = refs(cbb, 8), refs(crb, 8)
         lv_c, rc_c = forced_chain(
             torch.cat([ocb[r, c], ocr[r, c]]),
             [torch.cat([a, b_]) for a, b_ in zip(rcb, rcr)], 8,
             torch.cat([mode, mode]), torch.cat([qc16[r, c], qc16[r, c]]),
-            1, self.sbh)
+            1, self.sbh, lam=None if lam is None else torch.cat([lam, lam]),
+            st=self.ST)
         k = cx.shape[0]
         yb[r, c], ly[r, c] = rc_y, lv_y
         cbb[r, c], crb[r, c] = rc_c[:k], rc_c[k:]

@@ -14,8 +14,17 @@ A batch of F frames goes through two device phases:
    the CU32 chain, then the quadrants q0 -> q1 -> q2 -> q3, each on the
    earlier quadrants' reconstruction.  Both hypotheses are computed and the
    forced split selects, as in the JAX package, so the outputs are the
-   same.  The loop filter (K4 `deblock`), SAO when enabled (K10
-   `sao_analyse`, K11 `sao_apply`, JAX `:638-650`) and SSE/SSIM follow.
+   same.  With RDOQ on, the luma chains of the commit run K2's RDOQ stage
+   (JAX `eval_intra_luma` :129-132 through the commit's partial :302-306);
+   the chroma chains and the estimate run none, so RDOQ changes levels
+   and recon, never a decision.  The loop filter (K4 `deblock`), SAO when
+   enabled (K10 `sao_analyse`, K11 `sao_apply`, JAX `:638-650`) and
+   SSE/SSIM follow.
+
+At bit depth 10 (Main10 all-intra, JAX `bit_depth=10`) the same flow runs
+K1 and K2 at bit depth 10, the recon state starts at 512, and SSIM is not
+computed (0.0, as in JAX :655).  The lambdas stay those of the 8-bit table,
+as in the reference (`_maps` :812-815).
 
 The JAX `vmap` over frames is the leading frame dimension here, and each
 diagonal's lanes are (frame, CTU) pairs, so no dummy lanes are needed.
@@ -57,19 +66,19 @@ def intra_mode_bits_default() -> np.ndarray:
     return intra_mode_bits(torch.ones(1, dtype=torch.int32))[0].numpy()
 
 
-def eval_luma(orig, refs, n, qpv, lamv, mbits, st: str = "I"):
+def eval_luma(orig, refs, n, qpv, lamv, mbits, st: str = "I", bd: int = 8):
     """35-mode SATD scan, top-4 shortlist, RD on the shortlist (JAX
-    `eval_intra_luma` :101 without SBH; tu_bits at slice type ``st``).
-    refs = raw (top, left, corner) + availability (K1's arguments).
-    Returns (best mode [B] int32, min cost [B] f32)."""
-    sat = satd35(orig, *refs, n, 0)
+    `eval_intra_luma` :101 without SBH or RDOQ; tu_bits at slice type
+    ``st``).  refs = raw (top, left, corner) + availability (K1's
+    arguments).  Returns (best mode [B] int32, min cost [B] f32)."""
+    sat = satd35(orig, *refs, n, 0, bit_depth=bd)
     # two separate rounded ops (no FMA), then a STABLE ascending sort:
     # jax.lax.top_k breaks ties to the lowest index
     scost = sat.to(torch.float32) + lamv[:, None] * mbits
     cand = torch.sort(scost, dim=1, stable=True).indices[:, :RD_CANDS]
-    cpred = predict(*refs, cand, n, 0)
+    cpred = predict(*refs, cand, n, 0, bit_depth=bd)
     levels, _, ssd = residual_chain(orig, cpred, qpv, False,
-                                    want_recon=False)
+                                    want_recon=False, bit_depth=bd)
     rb = tu_bits(levels, 0, qpv[:, None], st)
     mbk = torch.gather(mbits, 1, cand)
     cost = ssd.to(torch.float32) + lamv[:, None] * (rb + mbk)
@@ -78,13 +87,17 @@ def eval_luma(orig, refs, n, qpv, lamv, mbits, st: str = "I"):
     return best.to(torch.int32), cost.amin(1)
 
 
-def forced_chain(orig, refs, n, modes, qpv, c_idx, sbh):
+def forced_chain(orig, refs, n, modes, qpv, c_idx, sbh, bd: int = 8,
+                 lam=None, st: str = "I"):
     """Single-mode intra chain (JAX `eval_intra_luma`/`eval_intra_chroma`
     with a forced mode): the prediction at ``modes`` [B], then the residual
-    chain with intra rounding.  Returns (levels [B,n,n] int16, recon
-    [B,n,n] int32)."""
-    pred = predict(*refs, modes[:, None], n, c_idx)
-    lv, rec, _ = residual_chain(orig, pred, qpv, sbh)
+    chain with intra rounding, and RDOQ at slice type ``st`` with the
+    per-block lambdas ``lam`` [B] when given.  Returns (levels [B,n,n]
+    int16, recon [B,n,n] int32)."""
+    pred = predict(*refs, modes[:, None], n, c_idx, bit_depth=bd)
+    lv, rec, _ = residual_chain(orig, pred, qpv, sbh, bit_depth=bd,
+                                rdoq=lam is not None, lam=lam, st=st,
+                                c_idx=c_idx)
     return lv[:, 0], rec[:, 0]
 
 
@@ -136,10 +149,15 @@ class IntraTreeEncoder:
     CTU = 32
 
     def __init__(self, width: int, height: int, deblock: bool = True,
-                 sign_hide: bool = True, sao: bool = False, device="cuda"):
+                 sign_hide: bool = True, sao: bool = False, device="cuda",
+                 bit_depth: int = 8, rdoq: bool = False):
         if width % 32 or height % 32:
             raise ValueError("caller pads to a CTU32 multiple")
+        if bit_depth not in (8, 10) or (bit_depth == 10 and (deblock or sao)):
+            raise ValueError("bit depth 8, or 10 without loop filters")
         self.device = torch.device(device)
+        self.bd = bit_depth
+        self.rdoq = rdoq
         self.width, self.height = width, height
         self.deblock = deblock
         self.sao = sao
@@ -206,9 +224,10 @@ class IntraTreeEncoder:
         refs = [torch.cat([a, c], 0) for a, c in zip(refs_cb, refs_cr)]
         modes = torch.cat([best, best], 0)[:, None]
         qp2 = torch.cat([qpv, qpv], 0)
-        pred = predict(*refs, modes, n, 1)
+        pred = predict(*refs, modes, n, 1, bit_depth=self.bd)
         levels, _, ssd = residual_chain(torch.cat([ocb, ocr], 0), pred, qp2,
-                                        False, want_recon=False)
+                                        False, want_recon=False,
+                                        bit_depth=self.bd)
         rb = tu_bits(levels[:, 0], 1, qp2)
         sd = ssd[:, 0].to(torch.float32)
         return sd[:b], sd[b:], rb[:b], rb[b:]
@@ -228,8 +247,8 @@ class IntraTreeEncoder:
         qc16 = maps["qc16"].reshape(-1).repeat(f)
         lam16 = maps["lam16"].reshape(-1).repeat(f)
         best16, j16y = eval_luma(oy.reshape(n16, 16, 16),
-                                       self._src_refs(oy), 16, q16, lam16,
-                                       mb16)
+                                 self._src_refs(oy), 16, q16, lam16, mb16,
+                                 bd=self.bd)
         ocb, ocr = _blocks(cb, 8), _blocks(cr, 8)
         sdcb, sdcr, rbcb, rbcr = self._eval_chroma_est(
             ocb.reshape(n16, 8, 8), ocr.reshape(n16, 8, 8),
@@ -242,8 +261,8 @@ class IntraTreeEncoder:
         qc32 = maps["qc32"].reshape(-1).repeat(f)
         lam32 = maps["lam32"].reshape(-1).repeat(f)
         best32, jay = eval_luma(oy32.reshape(n32, 32, 32),
-                                      self._src_refs(oy32), 32, q32, lam32,
-                                      mb32)
+                                self._src_refs(oy32), 32, q32, lam32, mb32,
+                                bd=self.bd)
         ocb16, ocr16 = _blocks(cb, 16), _blocks(cr, 16)
         sdacb, sdacr, rbacb, rbacr = self._eval_chroma_est(
             ocb16.reshape(n32, 16, 16), ocr16.reshape(n32, 16, 16),
@@ -285,7 +304,8 @@ class IntraTreeEncoder:
         refs = [torch.cat([a, c], 0) for a, c in zip(refs_cb, refs_cr)]
         lv, rec = forced_chain(torch.cat([ocb, ocr], 0), refs, n,
                                torch.cat([mode, mode], 0),
-                               torch.cat([qpv, qpv], 0), 1, self.sbh)
+                               torch.cat([qpv, qpv], 0), 1, self.sbh,
+                               self.bd)
         return lv[:b], rec[:b], lv[b:], rec[b:]
 
     def _commit(self, y, cb, cr, maps, f_split, f_modes):
@@ -296,11 +316,12 @@ class IntraTreeEncoder:
         hc, wc, h16, w16 = self.hc, self.wc, self.h16, self.w16
         oy, ocb, ocr = _blocks(y, 16), _blocks(cb, 8), _blocks(cr, 8)
         oy32, ocb16, ocr16 = _blocks(y, 32), _blocks(cb, 16), _blocks(cr, 16)
-        yb = torch.full((f, h16, w16, 16, 16), 128, dtype=torch.int32,
+        mid = 1 << (self.bd - 1)
+        yb = torch.full((f, h16, w16, 16, 16), mid, dtype=torch.int32,
                         device=dev)
-        cbb = torch.full((f, h16, w16, 8, 8), 128, dtype=torch.int32,
+        cbb = torch.full((f, h16, w16, 8, 8), mid, dtype=torch.int32,
                          device=dev)
-        crb = torch.full_like(cbb, 128)
+        crb = torch.full_like(cbb, mid)
         ly = torch.zeros((f, h16, w16, 16, 16), dtype=torch.int16,
                          device=dev)
         lcb = torch.zeros((f, h16, w16, 8, 8), dtype=torch.int16, device=dev)
@@ -308,6 +329,10 @@ class IntraTreeEncoder:
         modes_out = torch.zeros((f, h16, w16), dtype=torch.int32, device=dev)
         qp32, qc32 = maps["qp32"], maps["qc32"]
         qp16, qc16 = maps["qp16"], maps["qc16"]
+        # RDOQ on the luma chains only (the JAX commit passes no lambda to
+        # its chroma chains)
+        lam32 = maps["lam32"] if self.rdoq else None
+        lam16 = maps["lam16"] if self.rdoq else None
 
         for fi, cx, cy in self._diag_lanes(f):
             nl = fi.shape[0]
@@ -340,8 +365,10 @@ class IntraTreeEncoder:
                       torch.cat([_bc(at_top, 32), _bc(at_tr, 32)], 1),
                       torch.cat([_bc(at_left, 32), _bc(zero, 32)], 1), ac_a)
             mode_a = f_modes[fi, by, bx]
-            lva_y, rca_y = forced_chain(oy32[fi, cy, cx], refs_a, 32,
-                                        mode_a, qp32[cy, cx], 0, self.sbh)
+            lva_y, rca_y = forced_chain(
+                oy32[fi, cy, cx], refs_a, 32, mode_a, qp32[cy, cx], 0,
+                self.sbh, self.bd,
+                None if lam32 is None else lam32[cy, cx])
 
             def crefs_a(s):
                 return (torch.cat([bot(s, byu, bx), bot(s, byu, bx + 1),
@@ -364,7 +391,8 @@ class IntraTreeEncoder:
                 mode = f_modes[fi, r, c]
                 lv_y, rc_y = forced_chain(
                     oy[fi, r, c], (top_y, left_y, cor_y, avt, avl, avc), 16,
-                    mode, qp16[r, c], 0, self.sbh)
+                    mode, qp16[r, c], 0, self.sbh, self.bd,
+                    None if lam16 is None else lam16[r, c])
                 avt8, avl8 = avt[:, ::2], avl[:, ::2]
                 out_c = self._chroma_pair(
                     ocb[fi, r, c], ocr[fi, r, c],
@@ -476,15 +504,19 @@ class IntraTreeEncoder:
                                      for k in range(3))
             sao = {f"sao{k}": torch.stack([r[1][k] for r in res])
                    for k in range(10)}
+        ssim = ssim_plane(y, rec_y) if self.bd == 8 else \
+            torch.zeros(y.shape[0], dtype=torch.float32, device=y.device)
         sse = torch.stack([plane_sse(y, rec_y), plane_sse(cb, rec_cb),
-                           plane_sse(cr, rec_cr), ssim_plane(y, rec_y)], 1)
+                           plane_sse(cr, rec_cr), ssim], 1)
         out = dict(split=split.to(torch.int8),
                    modes=modes_out.to(torch.uint8), ly=ly, lcb=lcb, lcr=lcr,
                    sse=sse, **sao)
         if want_recon:
-            out.update(rec_y=rec_y.to(torch.uint8),
-                       rec_cb=rec_cb.to(torch.uint8),
-                       rec_cr=rec_cr.to(torch.uint8))
+            # 10-bit recon travels as int16 (its values fit), read back on
+            # the host as uint16
+            odt = torch.uint8 if self.bd == 8 else torch.int16
+            out.update(rec_y=rec_y.to(odt), rec_cb=rec_cb.to(odt),
+                       rec_cr=rec_cr.to(odt))
         return out
 
     def _to_host(self, dev: dict):
@@ -501,11 +533,18 @@ class IntraTreeEncoder:
         return dict(host=host, event=event)
 
     def _upload(self, a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+        """numpy planes to the device; 10-bit uint16 samples go up as int16
+        bit patterns (equal values below 2^15), which torch handles
+        everywhere."""
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint16:
+            a = a.view(np.int16)
+        return torch.as_tensor(a, device=self.device)
 
     def encode_batch_async(self, ys, cbs, crs, qp: int, want_recon=False):
-        """Dispatch a batch of frames (numpy uint8 [F, H, W] and chroma
-        planes) through one device step; returns a handle."""
+        """Dispatch a batch of frames (numpy uint8 [F, H, W], uint16 at bit
+        depth 10, and chroma planes) through one device step; returns a
+        handle."""
         return self._to_host(self._step(self._upload(ys), self._upload(cbs),
                                         self._upload(crs), qp,
                                         want_recon=want_recon))
@@ -514,8 +553,9 @@ class IntraTreeEncoder:
                      keep_recon=False, qp_offsets=None):
         """One frame, estimate + commit.  ``keep_recon`` also leaves the
         loop-filtered recon planes on the device, as handle["recon_dev"]
-        (uint8 [H, W], [H/2, W/2] x 2): the reference of the next P frame
-        (the JAX `_dispatch_entry` keeps `dev[4:7]`)."""
+        (uint8 [H, W], [H/2, W/2] x 2; int16 at bit depth 10): the
+        reference of the next P frame (the JAX `_dispatch_entry` keeps
+        `dev[4:7]`)."""
         out = self._step(self._upload(y[None]), self._upload(cb[None]),
                          self._upload(cr[None]), qp,
                          want_recon=want_recon or keep_recon,
@@ -559,7 +599,8 @@ class IntraTreeEncoder:
                 res.sao = tuple(h[f"sao{k}"][i] for k in range(10))
             if "rec_y" in h:
                 res.recon_y, res.recon_cb, res.recon_cr = (
-                    h["rec_y"][i], h["rec_cb"][i], h["rec_cr"][i])
+                    h[k][i] if self.bd == 8 else h[k][i].view(np.uint16)
+                    for k in ("rec_y", "rec_cb", "rec_cr"))
             out.append(res)
         return out
 

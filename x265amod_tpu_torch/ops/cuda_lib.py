@@ -9,7 +9,8 @@ either runs the kernel or raises.
 
 `LAUNCHES[name]` counts the wrapper calls that launched kernel `name`;
 `LAUNCHES["intra_pred_lowres"]` counts K1's launches by the lookahead apart
-from the trees'.
+from the trees', `LAUNCHES["residual_chain_rdoq"]` K2's launches with its
+RDOQ stage apart from those without.
 """
 
 from __future__ import annotations
@@ -27,13 +28,14 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-# name -> extra nvcc flags.  tu_bits, subpel and sao_analyse form f32 costs
-# in a fixed order that decides RD argmins, so the compiler must not contract
-# them into FMAs (sao_analyse writes the one FMA the JAX order has itself);
-# lowres_aq and cutree_prop repeat the JAX f32 operations one by one.
+# name -> extra nvcc flags.  tu_bits, subpel, sao_analyse and the RDOQ stage
+# of residual_chain form f32 costs in a fixed order that decides RD argmins,
+# so the compiler must not contract them into FMAs (sao_analyse and
+# residual_chain write the FMAs the JAX order has themselves); lowres_aq and
+# cutree_prop repeat the JAX f32 operations one by one.
 KERNELS = {
     "intra_pred": [],
-    "residual_chain": [],
+    "residual_chain": ["--fmad=false"],
     "tu_bits": ["--fmad=false"],
     "deblock": [],
     "me_ssd": [],
@@ -50,6 +52,7 @@ KERNELS = {
 
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES["intra_pred_lowres"] = 0
+LAUNCHES["residual_chain_rdoq"] = 0
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -5,8 +5,10 @@ Counterparts in the JAX package (`ops/intra.py`, `models/intra_tree.py`):
 `substitute_refs_general`, `predict_all_modes_batch`, `predict_modes_batch`
 and `_satd_modes`.  The JAX code builds predictions with one-hot f32 matmuls;
 here every angular sample is a two-tap gather from the reference line,
-``((32 - f) * a + f * b + 16) >> 5``, which equals the JAX value for 8-bit
-samples (the f32 sums stay below 2^24).
+``((32 - f) * a + f * b + 16) >> 5``, which equals the JAX value for 8- and
+10-bit samples (the f32 sums stay below 2^24).  Every entry point takes the
+bit depth (8 or 10): the mid-grey fill and the clip of the mode 10/26 edge
+filters depend on it.
 
 Entry points (each takes RAW refs plus per-sample availability and runs the
 spec 8.4.4.2.2 substitution itself):
@@ -173,21 +175,22 @@ def _hadamard8_sum(d):
 
 
 def satd35_plain(orig, top_raw, left_raw, corner_raw, avail_top, avail_left,
-                 avail_corner, n: int, c_idx: int = 0):
+                 avail_corner, n: int, c_idx: int = 0, bit_depth: int = 8):
     top, left, corner = substitute_refs_general(
         top_raw, left_raw, corner_raw, avail_top, avail_left, avail_corner,
-        n)
-    preds = _predict_all_plain(top, left, corner, n, c_idx)
+        n, bit_depth)
+    preds = _predict_all_plain(top, left, corner, n, c_idx, bit_depth)
     return _hadamard8_sum(orig.to(torch.int32)[:, None] - preds) \
         .to(torch.int32)
 
 
 def predict_plain(top_raw, left_raw, corner_raw, avail_top, avail_left,
-                  avail_corner, modes, n: int, c_idx: int = 0):
+                  avail_corner, modes, n: int, c_idx: int = 0,
+                  bit_depth: int = 8):
     top, left, corner = substitute_refs_general(
         top_raw, left_raw, corner_raw, avail_top, avail_left, avail_corner,
-        n)
-    preds = _predict_all_plain(top, left, corner, n, c_idx)
+        n, bit_depth)
+    preds = _predict_all_plain(top, left, corner, n, c_idx, bit_depth)
     idx = modes.to(torch.int64)[:, :, None, None].expand(-1, -1, n, n)
     return torch.gather(preds, 1, idx).contiguous()
 
@@ -203,9 +206,9 @@ _I = ctypes.c_int
 def _k1():
     lib = cuda_lib.lib("intra_pred")
     if not getattr(lib, "_typed", False):
-        lib.intra_satd35.argtypes = [_VP] * 8 + [_I, _I, _I, _VP]
+        lib.intra_satd35.argtypes = [_VP] * 8 + [_I] * 4 + [_VP]
         lib.intra_satd35.restype = _I
-        lib.intra_predict.argtypes = [_VP] * 8 + [_I, _I, _I, _I, _VP]
+        lib.intra_predict.argtypes = [_VP] * 8 + [_I] * 5 + [_VP]
         lib.intra_predict.restype = _I
         lib._typed = True
     return lib
@@ -221,14 +224,21 @@ def _ref_args(top_raw, left_raw, corner_raw, avail_top, avail_left,
             avail_corner.to(torch.uint8).contiguous())
 
 
+def _check_bd(bit_depth):
+    if bit_depth not in (8, 10):
+        raise ValueError("intra prediction: bit depth 8 or 10")
+
+
 def satd35(orig, top_raw, left_raw, corner_raw, avail_top, avail_left,
-           avail_corner, n: int, c_idx: int = 0, counter: str = "intra_pred"):
+           avail_corner, n: int, c_idx: int = 0, counter: str = "intra_pred",
+           bit_depth: int = 8):
     """[B, 35] int32 SATD of every intra mode against orig [B, n, n].  A
     launch counts in `cuda_lib.LAUNCHES[counter]` (the lookahead counts
     its own)."""
     if orig.device.type == "cpu":
         return satd35_plain(orig, top_raw, left_raw, corner_raw, avail_top,
-                            avail_left, avail_corner, n, c_idx)
+                            avail_left, avail_corner, n, c_idx, bit_depth)
+    _check_bd(bit_depth)
     refs = _ref_args(top_raw, left_raw, corner_raw, avail_top, avail_left,
                      avail_corner)
     o = orig.to(torch.int32).contiguous()
@@ -239,18 +249,20 @@ def satd35(orig, top_raw, left_raw, corner_raw, avail_top, avail_left,
     out = torch.empty((bsz, 35), dtype=torch.int32, device=o.device)
     if bsz:
         rc = _k1().intra_satd35(*(cuda_lib.ptr(t) for t in (o, *refs, out)),
-                                bsz, n, c_idx,
+                                bsz, n, c_idx, bit_depth,
                                 _VP(cuda_lib.stream_handle(o)))
         cuda_lib.launched(counter, rc)
     return out
 
 
 def predict(top_raw, left_raw, corner_raw, avail_top, avail_left,
-            avail_corner, modes, n: int, c_idx: int = 0):
+            avail_corner, modes, n: int, c_idx: int = 0, bit_depth: int = 8):
     """[B, K, n, n] int32 predictions at modes [B, K]."""
     if top_raw.device.type == "cpu":
         return predict_plain(top_raw, left_raw, corner_raw, avail_top,
-                             avail_left, avail_corner, modes, n, c_idx)
+                             avail_left, avail_corner, modes, n, c_idx,
+                             bit_depth)
+    _check_bd(bit_depth)
     refs = _ref_args(top_raw, left_raw, corner_raw, avail_top, avail_left,
                      avail_corner)
     m = modes.to(torch.int32).contiguous()
@@ -261,7 +273,7 @@ def predict(top_raw, left_raw, corner_raw, avail_top, avail_left,
     out = torch.empty((bsz, k, n, n), dtype=torch.int32, device=m.device)
     if bsz * k:
         rc = _k1().intra_predict(*(cuda_lib.ptr(t) for t in (*refs, m, out)),
-                                 bsz, k, n, c_idx,
+                                 bsz, k, n, c_idx, bit_depth,
                                  _VP(cuda_lib.stream_handle(m)))
         cuda_lib.launched("intra_pred", rc)
     return out

@@ -3,7 +3,7 @@
 The `Param` dataclass and the preset ladder are the JAX package's, field for
 field, so a test can build both encoders from one config through
 `param_from_dict`.  `check_params` here is the slice gate: it refuses every
-setting this port does not run yet (see `_SLICE_REFUSALS`).
+setting this port does not run yet.
 """
 
 from __future__ import annotations
@@ -193,8 +193,9 @@ def check_params(p: Param) -> None:
     slice gate of the port: every setting outside BASELINE configs 1, 2
     and 3 (all-intra or low-delay P with one reference, AQ and CU-tree off;
     a B pyramid with one reference per list, b-adapt 0, AQ and CU-tree on
-    or off; CTU32, CQP, 8-bit, RDOQ off, SAO on or off) is refused loudly,
-    never ignored."""
+    or off; CTU32, CQP, RDOQ levels 0-2, SAO on or off) and Main10
+    all-intra (the reference's own gate: CTU32, keyint 1, no deblocking, no
+    SAO, RDOQ off) is refused loudly, never ignored."""
     if p.width <= 0 or p.height <= 0:
         raise ValueError("picture dimensions must be set")
     if p.chroma_format != 1:
@@ -226,10 +227,21 @@ def check_params(p: Param) -> None:
         # scene cuts, no CU-tree), which no test of the port covers yet
         unwired.append("aq-mode/cutree without B frames (the port runs the "
                        "lookahead in the B pyramid only)")
-    if p.rdoq_level > 0:
-        unwired.append(f"rdoq-level {p.rdoq_level}")
-    if p.internal_bit_depth != 8:
+    if not 0 <= p.rdoq_level <= 2:
+        unwired.append(f"rdoq-level {p.rdoq_level} (levels 1 and 2 run "
+                       "the same level-1 pass)")
+    if p.internal_bit_depth not in (8, 10):
         unwired.append(f"internal-bit-depth {p.internal_bit_depth}")
+    elif p.internal_bit_depth == 10 and (
+            p.keyint != 1 or p.deblock or p.sao or p.lossless):
+        # the reference's Main10 gate (JAX utils/params.py:300-306)
+        unwired.append("internal-bit-depth 10 needs --keyint 1, "
+                       "--no-deblock, no SAO")
+    elif p.internal_bit_depth == 10 and p.rdoq_level > 0:
+        # the reference's RDOQ prices at bit depth 8 whatever the input
+        # (JAX ops/rdoq.py:106,110): Main10 levels collapse under it
+        unwired.append("internal-bit-depth 10 with rdoq (the reference's "
+                       "RDOQ is 8-bit only and wrecks Main10 quality)")
     if (p.rc_mode != "cqp" or p.bitrate > 0 or p.pass_num
             or p.vbv_maxrate > 0 or p.vbv_bufsize > 0 or p.hrd):
         unwired.append("rate control other than CQP (crf/abr/vbv/"
