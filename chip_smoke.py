@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build of the fourteen CUDA kernels
+  1. the card's name and power limit; build of the sixteen CUDA kernels
      (nvcc for sm_90a, all started together) with their ptxas reports;
   2. each kernel against its plain PyTorch version on the card, with its
      time, bound and the plain version's time: K1-K4 at the shapes of
@@ -27,6 +27,11 @@ Phases (any failure exits non-zero):
      P- and B-slice init states and K4 on bS 1 edges; the plain bS/QP maps
      and SSE/SSIM (rows 10-11, also at 1920x1088) are timed too, and the
      decide and commit scans' bounds are worked out from their shapes;
+     K15 (the level pack) at a config-1 batch, a config-2 P frame and a
+     config-3 B frame, with an overflow and int16 extremes, and the packed
+     D2H against the dense one; K16 (the resampler) at 1080p -> 720p and ->
+     360p (luma, chroma, bicubic, bilinear) and 360p -> 720p, on the
+     unrounded and the uint8 output, beside `torch.matmul`;
   3. BASELINE config 1 (640x360 all-intra ultrafast QP 30, CTU32) through
      `Encoder(device="cuda")`, 24 frames with the first 8 as warm-up; fps,
      PSNR-Y, kbps and the launch count of every kernel;
@@ -62,7 +67,21 @@ Phases (any failure exits non-zero):
      warm-up: fps, PSNR-Y at the 10-bit peak, kbps, launches; the recon
      must exceed 255 and the SPS carry profile 2 and bit depth 10;
   13. card against CPU, byte for byte: config 3 + RDOQ at 320x192 (IDR +
-     one mini-GOP) and Main10 all-intra at 640x360 (2 frames).
+     one mini-GOP) and Main10 all-intra at 640x360 (2 frames);
+  14. the ABR ladder at full width through the port's ladder app
+     (`abr.run`, from a y4m of the bench clip, 11 frames at 1920x1080):
+     rungs 1920x1080 at 5800 kb/s, 1280x720 at 2400 and 640x360 at 145
+     (the HEVC rows of Apple's HLS Authoring Specification), each at preset
+     medium with CTU32 under ABR; kb/s against the target, PSNR-Y, frames
+     and QPs per rung, the ladder's enc-fps, and every kernel's launches
+     (K16 resamples the two smaller rungs, K15 packs every frame);
+  15. config 2 (1280x720 superfast, no B frames) under ABR at 1500 kb/s
+     with a VBV of 1500 kb/s and 1500 kb and --hrd, 24 frames through
+     `encode_pipelined`: kb/s, the buffer's lowest fill before the clamp
+     against one frame's budget, the underflow count, and the buffering
+     period and pic timing SEI in the stream;
+  16. card against CPU, byte for byte: the ladder of phase 14 at 320x192,
+     160x96 and 96x64, and phase 15's config at 320x192 (6 frames each).
 
 Prints one JSON line of kernel figures, then the card's name and power
 limit, then `{"ok": true, "device": {...}}` as the last line.
@@ -74,6 +93,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -86,7 +106,8 @@ H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 # the kernels config 1 (all-intra) runs; config 2 runs K1-K8, the config-3
 # slice K1-K11, config 3 with AQ and CU-tree also the lookahead's (K12-K14
 # and K1 on the lowres blocks, counted apart)
-CONFIG1_KERNELS = ("intra_pred", "residual_chain", "tu_bits", "deblock")
+CONFIG1_KERNELS = ("intra_pred", "residual_chain", "tu_bits", "deblock",
+                   "pack_levels")
 CONFIG3_KERNELS = ("mc_bi", "sao_analyse", "sao_apply")
 LOOKAHEAD_KERNELS = ("lowres_aq", "lowres_me", "cutree_prop",
                      "intra_pred_lowres")
@@ -896,7 +917,7 @@ def phase_config2(frames, warm):
         raise AssertionError(f"config 2: PSNR-Y {s['psnr_y']} out of range")
     missing = [k for k, v in launches.items() if v <= 0
                and k not in CONFIG3_KERNELS + LOOKAHEAD_KERNELS
-               + RDOQ_KERNELS]
+               + RDOQ_KERNELS + LADDER_KERNELS]
     if missing:
         raise AssertionError(f"config 2 did not launch {missing}")
     p_stats = enc.frame_stats[warm:]
@@ -1302,8 +1323,8 @@ def phase_config3(frames, warm):
             raise AssertionError(f"config 3: {k} not finite")
     if not 30.0 < s["psnr_y"] < 60.0:
         raise AssertionError(f"config 3: PSNR-Y {s['psnr_y']} out of range")
-    missing = [k for k, v in launches.items()
-               if v <= 0 and k not in LOOKAHEAD_KERNELS + RDOQ_KERNELS]
+    missing = [k for k, v in launches.items() if v <= 0 and
+               k not in LOOKAHEAD_KERNELS + RDOQ_KERNELS + LADDER_KERNELS]
     if missing:
         raise AssertionError(f"config 3 did not launch {missing}")
     if sao_n[0] == 0:
@@ -1365,7 +1386,7 @@ def phase_config3_aq(frames, rdoq=0):
         raise AssertionError(f"config 3 with AQ: PSNR-Y {s['psnr_y']} out "
                              "of range")
     missing = [k for k, v in launches.items() if v <= 0 and
-               (rdoq or k not in RDOQ_KERNELS)]
+               k not in LADDER_KERNELS and (rdoq or k not in RDOQ_KERNELS)]
     if missing:
         raise AssertionError(f"config 3 with AQ did not launch {missing}")
     deltas = np.concatenate([(qp32_of(m) - qp).ravel() for qp, m in qp_maps])
@@ -1498,6 +1519,342 @@ def phase_card_vs_cpu_main10(frames):
                 frames=len(frames), bytes=sum(len(x) for x in out["cuda"][0]))
 
 
+# ---- this slice: level pack (K15), resampler (K16), ABR ladder, VBV --------
+
+def phase_kernels_pack(iters, dev="cuda"):
+    """K15 against its plain version at one config-1 batch (16 x 640x384,
+    cap T/16), one config-2 P frame (1280x736) and one config-3 B frame
+    (1920x1088; cap T/8), each on levels of the density the encode gives,
+    plus an overflow (a cap below nnz) and int16 extremes; then the packed
+    D2H (K15, its outputs to pinned memory, the host unpack) against the
+    dense D2H (the int16 levels to pinned memory) per config-1 batch and
+    per B frame.  Returns (rows, D2H timings)."""
+    import torch
+    from x265amod_tpu_torch.ops import pack
+    dev = torch.device(dev)
+    rng = np.random.default_rng(15)
+
+    def levels(f, h16, w16, density):
+        out = []
+        for n in (16, 8, 8):
+            v = rng.integers(-60, 61, (f, h16, w16, n, n))
+            v[rng.random(v.shape) >= density] = 0
+            out.append(torch.as_tensor(v.astype(np.int16), device=dev))
+        return out
+    d = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, err=0.0)
+    d2h = {}
+    cases = (("config1_batch", 16, 24, 40, 16, 0.02),
+             ("config2_p_frame", 1, 46, 80, 8, 0.03),
+             ("config3_b_frame", 1, 68, 120, 8, 0.01))
+    for name, f, h16, w16, frac, density in cases:
+        lv = levels(f, h16, w16, density)
+        total = h16 * w16 * 384
+        cap = pack.pack_cap(total, frac)
+        edge = [t.clone() for t in lv]
+        edge[0][0, 0, 0, 0, :4] = torch.tensor([-32768, 32767, -1, 1],
+                                               dtype=torch.int16)
+        for c, src in ((cap, lv), (128, lv), (cap, edge)):
+            got = pack.pack_levels(src, c)
+            want = pack.pack_levels_plain(src, c)
+            for part, g, w_ in zip(("bitmap", "vals", "nnz", "fits"), got,
+                                   want):
+                d["err"] = max(d["err"], check_equal(
+                    f"pack_levels {name} cap {c} {part}", g, w_))
+            if c == 128 and bool(got[3].any()):
+                raise AssertionError("pack_levels: the overflow case fits")
+        nnz = pack.pack_levels_plain(lv, cap)[2]
+        if name in ("config1_batch", "config3_b_frame"):
+            d["ms_" + name] = time_ms(lambda: pack.pack_levels(lv, cap),
+                                      iters)
+            d["plain_ms_" + name] = time_ms(
+                lambda: pack.pack_levels_plain(lv, cap), 2)
+            if name == "config3_b_frame":
+                d["ms"], d["plain_ms"] = d["ms_" + name], \
+                    d["plain_ms_" + name]
+            io = 2 * f * total + f * total // 8 \
+                + 2 * int(torch.clamp(nnz, max=cap).sum()) + 5 * f
+            d["bytes_" + name] = io
+            d["bound_ms_" + name] = bound_ms(io, 0)[0]
+            if name == "config3_b_frame":
+                d["bytes"] = io
+            d2h[name] = d2h_times(lv, frac, iters)
+    d["bound_ms"], d["bound_by"] = bound_ms(d["bytes"], 0)
+    d["library_note"] = ("none: no single call packs a bitmap and compacts "
+                         "values")
+    return [("pack_levels", "x265amod_tpu_torch/csrc/pack_levels.cu",
+             "x265amod_tpu/ops/pack.py:108 pack_levels", d)], d2h
+
+
+def d2h_times(lv, frac, iters):
+    """Host ms of the levels' trip to the host, packed (K15, the four
+    outputs to pinned memory, an event wait, `unpack_levels` per frame)
+    against dense (the three int16 tensors to pinned memory, the wait, the
+    int32 copy that `collect` made of them)."""
+    import torch
+    from x265amod_tpu_torch.ops import pack
+
+    def dense():
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in lv]
+        for h_, t in zip(host, lv):
+            h_.copy_(t, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        return [h_.numpy().astype(np.int32) for h_ in host]
+
+    def packed():
+        out = pack.levels_for_host(lv, frac)
+        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                for k, v in out.items()}
+        for k, v in out.items():
+            host[k].copy_(v, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        h_ = {k: v.numpy() for k, v in host.items()}
+        return [pack.levels_from_host(h_, i, lv)
+                for i in range(lv[0].shape[0])]
+    for i, fr in enumerate(packed()):
+        for a, t in zip(fr, lv):
+            if not np.array_equal(a, t[i].cpu().numpy()):
+                raise AssertionError("packed D2H: levels differ")
+    res = {}
+    for name, fn in (("dense", dense), ("packed", packed),
+                     ("dense_again", dense), ("packed_again", packed)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        res[name + "_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+    return res
+
+
+def phase_kernels_resample(iters, dev="cuda"):
+    """K16 against its plain version (the unrounded f32 values and the
+    uint8 output, max abs error 0) at 1920x1080 -> 1280x720 and -> 640x360,
+    luma and chroma, bicubic and bilinear, and one upscale (640x360 ->
+    1280x720) on the bench picture with 0/255 regions; timed per scaled
+    frame (Y, Cb, Cr: six launches) at 1080p -> 720p bicubic, beside the
+    plain version and `torch.matmul(torch.matmul(V, P), H.T)` (TF32 off)
+    on the same planes."""
+    import torch
+    from x265amod_tpu_torch.ops import scaler
+    dev = torch.device(dev)
+    y, cb, cr = (torch.as_tensor(a, device=dev)
+                 for a in synth_frames(1920, 1080, 1, seed=16)[0])
+    y[:64, :64] = 0
+    y[:64, 64:128] = 255
+    d = dict(err=0.0)
+    cases = []
+    for dw, dh in ((1280, 720), (640, 360)):
+        for m in ("bicubic", "bilinear"):
+            cases += [(y, dw, dh, m), (cb, dw // 2, dh // 2, m)]
+    small = scaler.resample_plane(y, 640, 360)
+    cases += [(small, 1280, 720, "bicubic"), (small, 1280, 720, "bilinear")]
+    for p, dw, dh, m in cases:
+        for raw in (True, False):
+            d["err"] = max(d["err"], check_equal(
+                f"resample {tuple(p.shape)}->{dh}x{dw} {m} raw={raw}",
+                scaler.resample_plane(p, dw, dh, m, unrounded=raw),
+                scaler.resample_plane_plain(p, dw, dh, m, unrounded=raw)))
+    frame = (y, cb, cr)
+    d["ms"] = time_ms(lambda: scaler.resample_frame(frame, 1280, 720), iters)
+    d["plain_ms"] = time_ms(
+        lambda: [scaler.resample_plane_plain(p, w_, h_) for p, w_, h_ in
+                 ((y, 1280, 720), (cb, 640, 360), (cr, 640, 360))], 2)
+    mats = []
+    for p, w_, h_ in ((y, 1280, 720), (cb, 640, 360), (cr, 640, 360)):
+        v = torch.as_tensor(scaler._resample_matrix(p.shape[0], h_),
+                            device=dev)
+        hm = torch.as_tensor(scaler._resample_matrix(p.shape[1], w_),
+                             device=dev)
+        mats.append((v, p.to(torch.float32), hm))
+    d["library_ms"] = time_ms(
+        lambda: [torch.matmul(torch.matmul(v, pf), hm.T)
+                 for v, pf, hm in mats], iters)
+    d["library_note"] = ("torch.matmul(torch.matmul(V, P), H.T) per plane, "
+                         "f32 with TF32 off (dense operators)")
+    taps, flops = 0, 0
+    for p, w_, h_ in ((y, 1280, 720), (cb, 640, 360), (cr, 640, 360)):
+        nv = scaler._band_np(p.shape[0], h_, "bicubic")[1].shape[1]
+        nh = scaler._band_np(p.shape[1], w_, "bicubic")[1].shape[1]
+        flops += 2 * (h_ * p.shape[1] * nv + h_ * w_ * nh)
+        taps = max(taps, nv, nh)
+    io = sum(p.numel() for p in frame) + 1280 * 720 * 3 // 2
+    tb = io / H100_BYTES_PER_S * 1e3
+    to = flops / H100_F32_FLOPS * 1e3
+    d["bound_ms"], d["bound_by"] = (tb, "bytes") if tb >= to \
+        else (to, "operations")
+    d["bytes"], d["flops"], d["max_taps"] = io, flops, taps
+    return [("resample", "x265amod_tpu_torch/csrc/resample.cu",
+             "x265amod_tpu/ops/scaler.py:74 resample_plane", d)]
+
+
+# phase 14: the ABR ladder, after the HEVC rows of Apple's HLS Authoring
+# Specification (1080p at 5800 kb/s, 720p at 2400, 360p at 145), each rung
+# at preset medium with CTU32
+LADDER = (("1080p", 1920, 1080, 5800), ("720p", 1280, 720, 2400),
+          ("360p", 640, 360, 145))
+LADDER_FRAMES = 11
+LADDER_KERNELS = ("resample",)
+# phase 15: config 2 under VBV with its HRD signalling
+VBV_FRAMES = 24
+
+
+def write_y4m(path, frames, w, h):
+    from x265amod_tpu_torch.io.y4m import Y4mHeader, Y4mWriter
+    with open(path, "wb") as f:
+        wr = Y4mWriter(f, Y4mHeader(w, h, 25, 1))
+        for fr in frames:
+            wr.write_frame(*fr)
+
+
+def run_ladder(tmp, frames, w, h, rungs, device):
+    """The port's ladder app (`abr.run`, `abr.main` without its report) on
+    the frames written to a y4m under ``tmp``: preset medium, each rung
+    ABR at its bitrate with CTU32, info SEI off."""
+    import os
+    from x265amod_tpu_torch import abr
+    src = os.path.join(tmp, f"in_{w}x{h}.y4m")
+    write_y4m(src, frames, w, h)
+    cfg = os.path.join(tmp, f"ladder_{w}x{h}.txt")
+    with open(cfg, "w") as f:
+        for name, rw, rh, kbps in rungs:
+            f.write(f"{name}:{rw}x{rh}:{kbps}:ctu=32 no-info\n")
+    return abr.run([src, "--ladder", cfg, "--output-prefix",
+                    os.path.join(tmp, f"out_{device}_{w}x{h}"),
+                    "--preset", "medium", "--device", device])
+
+
+def phase_ladder(tmp):
+    """Phase 14: the ladder at full width, launch counts from 0 before the
+    run and read after it."""
+    import torch
+    from x265amod_tpu_torch.ops import cuda_lib
+    frames = synth_frames(1920, 1080, LADDER_FRAMES, seed=14)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    rungs, n_in, dt = run_ladder(tmp, frames, 1920, 1080, LADDER, "cuda")
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    out = dict(input_frames=n_in, rungs=len(rungs), seconds=dt,
+               enc_fps=n_in * len(rungs) / dt, per_rung={})
+    for r in rungs:
+        s = r.encoder.summary()
+        out["per_rung"][r.name] = dict(
+            size=f"{r.width}x{r.height}", frames=r.frames,
+            kbps=s["bitrate_kbps"], target_kbps=r.bitrate,
+            kbps_over_target=s["bitrate_kbps"] / r.bitrate,
+            psnr_y=s["psnr_y"], bytes=r.bytes_out,
+            qps=[x.qp for x in r.encoder.frame_stats],
+            types="".join(x.slice_type for x in r.encoder.frame_stats))
+        if r.frames != n_in or not (np.isfinite(s["psnr_y"])
+                                     and 20.0 < s["psnr_y"] < 70.0):
+            raise AssertionError(f"ladder rung {r.name}: {r.frames} frames, "
+                                 f"PSNR-Y {s['psnr_y']}")
+    missing = [k for k, v in launches.items() if v <= 0
+               and k not in RDOQ_KERNELS]
+    if missing:
+        raise AssertionError(f"the ladder did not launch {missing}")
+    out["launches_pack_levels"] = launches["pack_levels"]
+    out["launches_resample"] = launches["resample"]
+    return out, launches
+
+
+def config_vbv(w=1280, h=720):
+    """Config 2 (1280x720 low-delay P, superfast) under ABR at 1500 kb/s
+    with a VBV of 1500 kb/s and 1500 kb and its HRD signalling (AQ through
+    the depth-1 lookahead)."""
+    p = config2(w, h)
+    p.aq_mode, p.cutree = 2, True
+    p.rc_mode, p.bitrate = "abr", 1500
+    p.vbv_maxrate = p.vbv_bufsize = 1500
+    p.hrd = True
+    return p
+
+
+def sei_counts(stream: bytes) -> dict:
+    """Buffering-period and pic-timing messages in an Annex-B stream."""
+    counts = {0: 0, 1: 0}
+    for nal in stream.split(b"\x00\x00\x01")[1:]:
+        if (nal[0] >> 1) & 0x3F != 39:
+            continue
+        rbsp = nal[2:].replace(b"\x00\x00\x03", b"\x00\x00")
+        i = 0
+        while i < len(rbsp) and rbsp[i] != 0x80:
+            t = s = 0
+            while rbsp[i] == 0xFF:
+                t, i = t + 255, i + 1
+            t, i = t + rbsp[i], i + 1
+            while rbsp[i] == 0xFF:
+                s, i = s + 255, i + 1
+            s, i = s + rbsp[i], i + 1
+            if t in counts:
+                counts[t] += 1
+            i += s
+    return dict(buffering_period=counts[0], pic_timing=counts[1])
+
+
+def phase_vbv(frames):
+    """Phase 15: config 2 under VBV + HRD through `encode_pipelined`."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from x265amod_tpu_torch.ops import cuda_lib
+    enc = Encoder(config_vbv(), device="cuda")
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    outs = list(enc.encode_pipelined(frames))
+    dt = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    s, rc = enc.summary(), enc.rc
+    stream = b"".join(o.nals for o in outs)
+    sei = sei_counts(stream)
+    n = len(frames)
+    if len(outs) != n or sei != dict(buffering_period=1, pic_timing=n):
+        raise AssertionError(f"VBV: {len(outs)} of {n} frames, SEI {sei}")
+    if not (np.isfinite(s["psnr_y"]) and 20.0 < s["psnr_y"] < 70.0):
+        raise AssertionError(f"VBV: PSNR-Y {s['psnr_y']}")
+    missing = [k for k, v in launches.items() if v <= 0 and k not in
+               CONFIG3_KERNELS + LADDER_KERNELS + RDOQ_KERNELS
+               + ("cutree_prop",)]
+    if missing:
+        raise AssertionError(f"VBV did not launch {missing}")
+    return dict(frames=n, seconds=dt, fps=n / dt, kbps=s["bitrate_kbps"],
+                target_kbps=1500, psnr_y=s["psnr_y"],
+                qps=[x.qp for x in enc.frame_stats],
+                min_fill_preclamp=rc.min_fill_preclamp,
+                buffer_rate=rc.buffer_rate, buffer_size=rc.buffer_size,
+                underflow_events=rc.underflow_events,
+                final_fill=rc.buffer_fill, **sei), launches
+
+
+def phase_card_vs_cpu_rc(tmp, frames):
+    """Phase 16: the ladder (rungs scaled to 320x192, 160x96 and 96x64, the
+    same bitrate per pixel) and the VBV config at 320x192, on the card and
+    on the CPU: every stream identical byte for byte."""
+    from x265amod_tpu_torch.models.encoder import Encoder
+    rungs = (("a", 320, 192, 5800 * 320 * 192 // (1920 * 1080)),
+             ("b", 160, 96, 2400 * 160 * 96 // (1280 * 720)),
+             ("c", 96, 64, 145 * 96 * 64 // (640 * 360) + 10))
+    out = {}
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        got = run_ladder(tmp, frames, 320, 192, rungs, dev)[0]
+        streams[dev] = [open(r.out.name, "rb").read() for r in got]
+    if streams["cuda"] != streams["cpu"]:
+        raise AssertionError("ladder at 320x192: card and CPU differ")
+    out["ladder"] = dict(bitstreams_identical=True, rungs=len(rungs),
+                         bytes=[len(x) for x in streams["cuda"]])
+    vbv = {}
+    for dev in ("cuda", "cpu"):
+        e = Encoder(config_vbv(320, 192), device=dev)
+        vbv[dev] = [o.nals for o in e.encode_pipelined(frames)]
+    if vbv["cuda"] != vbv["cpu"]:
+        raise AssertionError("VBV at 320x192: card and CPU differ")
+    out["vbv"] = dict(bitstreams_identical=True, frames=len(frames),
+                      bytes=sum(len(x) for x in vbv["cuda"]))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=24)
@@ -1537,6 +1894,8 @@ def main():
     rows += phase_kernels_b(args.iters)
     rows += phase_kernels_la(args.iters)
     rows += phase_kernels_rdoq(args.iters)
+    pack_rows, d2h = phase_kernels_pack(args.iters)
+    rows += pack_rows + phase_kernels_resample(args.iters)
     # K1-K3 at bit depth 10, at the Main10 path's 16-frame batch of
     # 1920x1088 (phase 12)
     rows += phase_kernels(16, 68, 120, args.iters, bd=10)
@@ -1560,6 +1919,8 @@ def main():
     log("phase 2: plain rows 10-11 " + json.dumps(phase_plain_rows(
         args.iters)) + f" [{card}]")
     log("phase 2: scan bounds, ms " + json.dumps(scan_bounds()))
+    log("phase 2: level D2H, packed (K15) against dense, host ms "
+        + json.dumps(d2h) + f" [{card}]")
     cuda_lib.reset_launches()
     seconds["2_kernels"] = time.time() - t0
 
@@ -1635,6 +1996,23 @@ def main():
     log("phase 13: Main10 " + json.dumps(phase_card_vs_cpu_main10(
         synth_frames10(640, 360, 2))))
     seconds["13_card_vs_cpu"] = time.time() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        ladder_stats, launches14 = phase_ladder(tmp)
+        log("phase 14: " + json.dumps(dict(ladder_stats, card=card,
+                                           launches=launches14)))
+        seconds["14_ladder"] = time.time() - t0
+        t0 = time.time()
+        vbv_stats, launches15 = phase_vbv(
+            synth_frames(1280, 720, VBV_FRAMES, seed=2))
+        log("phase 15: " + json.dumps(dict(vbv_stats, card=card,
+                                           launches=launches15)))
+        seconds["15_vbv"] = time.time() - t0
+        t0 = time.time()
+        log("phase 16: " + json.dumps(phase_card_vs_cpu_rc(
+            tmp, synth_frames(320, 192, 6, seed=14))))
+        seconds["16_rc_card_vs_cpu"] = time.time() - t0
     log("seconds per phase: " + json.dumps(seconds))
 
     kernels = []
@@ -1644,7 +2022,17 @@ def main():
         config3_kernel = name in CONFIG3_KERNELS
         la_kernel = name in LOOKAHEAD_KERNELS
         main10_kernel = name != base
-        if main10_kernel:
+        if name == "pack_levels":
+            launches, shapes = launches14[name], (
+                "one B frame at 1920x1088 (cap T/8); also a 16-frame "
+                "config-1 batch at 640x384 (cap T/16) and a P frame at "
+                "1280x736; launches from the ladder (phase 14)")
+        elif name in LADDER_KERNELS:
+            launches, shapes = launches14[name], (
+                "one 4:2:0 frame 1920x1080 -> 1280x720 (bicubic, 6 "
+                "launches); also checked at -> 640x360, bilinear, and "
+                "640x360 -> 1280x720; launches from the ladder (phase 14)")
+        elif main10_kernel:
             launches, shapes = launches12[base], (
                 "16-frame Main10 batch at 1920x1080 (padded 1920x1088), "
                 "bit depth 10")
@@ -1681,6 +2069,8 @@ def main():
             launches_config3_aq=launches9[base],
             launches_config3_rdoq=launches11[base],
             launches_main10=launches12[base],
+            launches_ladder=launches14[base],
+            launches_vbv=launches15[base],
             launches_per_frame_config3_aq=launches9[base] / CONFIG3_AQ_FRAMES,
             launches_per_frame_config3_rdoq=launches11[base]
             / CONFIG3_AQ_FRAMES,

@@ -1,12 +1,15 @@
 """Where the time goes in the PyTorch/CUDA port's paths on one GPU:
 BASELINE config 1 (640x360 all-intra QP 30, CTU32, 16-frame batches),
 config 2 (1280x720 low-delay P QP 32, CTU32, one reference), the config-3
-slice (1920x1080 B pyramid with SAO, CQP 32, AQ and CU-tree off) and config
-3 as bench.py builds it (the same with the lookahead, AQ and CU-tree: "4").
+slice (1920x1080 B pyramid with SAO, CQP 32, AQ and CU-tree off), config
+3 as bench.py builds it (the same with the lookahead, AQ and CU-tree: "4"),
+the ABR ladder ("5"), config 2 under VBV with HRD ("6"), Main10 all-intra
+("7") and config 3 with RDOQ ("8").
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 profile_port.py [--configs 1,2,3,4] [--batches 2] [--p-frames 4]
+    python3 profile_port.py [--configs 1,2,3,4,5,6,7,8] [--batches 2]
+        [--p-frames 4]
 
 Prints JSON lines:
   - "stages": host wall time of each stage of a config 1 16-frame batch,
@@ -34,6 +37,23 @@ Prints JSON lines:
     queue with K14), averaged over 9 frames;
   - "aq_profile": torch.profiler over the pushes that code one mini-GOP of
     config 3 with AQ and CU-tree (after the IDR and a warm-up mini-GOP);
+  - "ladder_stages": chip_smoke's ladder (1920x1080 in; 1080p, 720p and
+    360p rungs at preset medium, ABR) per input frame: K16's resample of
+    each smaller rung with the copy of its planes to the host, and each
+    rung's encode_push and flush (gross; the lookahead of preset medium
+    holds 20 frames, so an 11-frame run codes in the flush), out of which
+    the trees' level pack and D2H
+    start (`_to_host`: K15 and the copies), the wait and the unpack
+    (`collect`), the lookahead and the rate control are broken out;
+    "other" is the wall time outside every stage (the input's upload
+    among it; K16's stage includes the first frame's band build);
+  - "vbv_stages": config 2 under ABR + VBV with HRD (chip_smoke phase 15)
+    per frame through encode_pipelined: lookahead, rate control, level pack
+    and D2H start, wait and unpack, the rest of the encode;
+  - "main10_stages": Main10 all-intra at 1920x1080 per 16-frame batch:
+    upload, estimate, commit, level pack and D2H start, wait and unpack;
+  - "rdoq_b_stages": the B-frame breakdown of "b_stages" with
+    `rdoq_level=2` (its final MC and residuals carry the RDOQ stage);
   - the card's name and power limit.
 """
 
@@ -315,6 +335,127 @@ def la_stage_breakdown(frames):
     return acc
 
 
+class StageTimer:
+    """Wraps methods of objects so that each call runs between two device
+    synchronizes and adds its host ms to a stage; nested calls count in
+    the innermost stage only.  `acc` holds the sums."""
+
+    def __init__(self):
+        self.acc = {}
+        self._depth = 0
+
+    def wrap(self, obj, method, stage):
+        import torch
+        inner = getattr(obj, method)
+
+        def timed(*a, **k):
+            self._depth += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                self._depth -= 1
+                self.acc[stage] = self.acc.get(stage, 0.0) + ms
+                self.acc["_nested"] = self.acc.get("_nested", 0.0) + (
+                    ms if self._depth else 0.0)
+        setattr(obj, method, timed)
+
+    def wrap_encoder(self, enc, prefix=""):
+        """The stages every config shares: the lookahead, the rate control,
+        the pack + D2H start and the wait + unpack of each tree."""
+        if enc.lookahead is not None:
+            self.wrap(enc.lookahead, "push", prefix + "lookahead")
+            self.wrap(enc.lookahead, "flush", prefix + "lookahead")
+        for m in ("frame_qp", "update", "set_complexity"):
+            self.wrap(enc.rc, m, prefix + "rate_control")
+        for tree in (enc.frame_encoder, enc.inter_encoder, enc.b_encoder):
+            if tree is None:
+                continue
+            self.wrap(tree, "_to_host", prefix + "level_pack_and_d2h_start")
+            self.wrap(tree, "collect_batch" if hasattr(tree, "collect_batch")
+                      else "collect", prefix + "d2h_wait_and_unpack")
+
+    def per(self, n, total_ms):
+        """The sums per unit (frame or batch), with the rest of the wall
+        time as "other"."""
+        nested = self.acc.pop("_nested", 0.0)
+        out = {k: v / n for k, v in self.acc.items()}
+        out["other"] = (total_ms - sum(self.acc.values()) + nested) / n
+        out["total"] = total_ms / n
+        return out
+
+
+def ladder_stages(frames):
+    """The ladder per input frame, its stages timed (see the docstring)."""
+    import torch
+    from x265amod_tpu_torch import abr
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from chip_smoke import LADDER
+    rungs = [abr.Rung(name, w, h, kbps, ["ctu=32", "no-info"])
+             for name, w, h, kbps in LADDER]
+    for r in rungs:
+        r.encoder = Encoder(abr.rung_param(r, "medium", 25, 1),
+                            device="cuda")
+    st = StageTimer()
+    for r in rungs:
+        st.wrap_encoder(r.encoder, r.name + "_")
+    resample = abr.resample_frame
+    st.wrap(abr, "resample_frame", "resample_k16")
+    for r in rungs:
+        for m in ("encode_push", "flush"):
+            st.wrap(r.encoder, m, r.name + "_encode")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src_h, src_w = frames[0][0].shape
+    try:
+        abr.encode_ladder(rungs, frames, src_w, src_h, torch.device("cuda"))
+        torch.cuda.synchronize()
+    finally:
+        abr.resample_frame = resample
+    total = (time.perf_counter() - t0) * 1e3
+    out = st.per(len(frames), total)
+    out["rung_kbps"] = {r.name: r.encoder.summary()["bitrate_kbps"]
+                        for r in rungs}
+    return out
+
+
+def vbv_stages(frames):
+    import torch
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from chip_smoke import config_vbv
+    enc = Encoder(config_vbv(), device="cuda")
+    st = StageTimer()
+    st.wrap_encoder(enc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    list(enc.encode_pipelined(frames))
+    torch.cuda.synchronize()
+    return st.per(len(frames), (time.perf_counter() - t0) * 1e3)
+
+
+def main10_stages(frames):
+    import torch
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from chip_smoke import config_main10
+    enc = Encoder(config_main10(), device="cuda")
+    list(enc.encode_pipelined(frames[:16]))             # warm-up batch
+    st = StageTimer()
+    fe = enc.frame_encoder
+    for m, stage in (("_upload", "upload"), ("_estimate", "estimate"),
+                     ("_commit", "commit")):
+        st.wrap(fe, m, stage)
+    st.wrap_encoder(enc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    list(enc.encode_pipelined(frames[16:]))
+    torch.cuda.synchronize()
+    return st.per(-(-len(frames[16:]) // 16),
+                  (time.perf_counter() - t0) * 1e3)
+
+
 def device_profile(run, n_frames):
     """torch.profiler over ``run()``: wall time, device kernel time, the
     device busy share and the kernels with the most device time."""
@@ -347,7 +488,7 @@ def device_profile(run, n_frames):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--configs", default="1,2,3,4")
+    ap.add_argument("--configs", default="1,2,3,4,5,6,7,8")
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--p-frames", type=int, default=4)
     args = ap.parse_args()
@@ -398,6 +539,20 @@ def main():
             aenc.encode_push(*f)
         print(json.dumps({"aq_profile": device_profile(
             lambda: [aenc.encode_push(*f) for f in aframes[8:12]], 4)}))
+    if 5 in configs:
+        lframes = synth_frames(1920, 1080, 11, seed=14)
+        print(json.dumps({"ladder_stages": ladder_stages(lframes)}))
+    if 6 in configs:
+        print(json.dumps({"vbv_stages": vbv_stages(
+            synth_frames(1280, 720, 12, seed=2))}))
+    if 7 in configs:
+        from chip_smoke import synth_frames10
+        print(json.dumps({"main10_stages": main10_stages(
+            synth_frames10(1920, 1080, 48))}))
+    if 8 in configs:
+        rframes = synth_frames(1920, 1080, 5, seed=4)
+        print(json.dumps({"rdoq_b_stages": b_stage_breakdown(
+            Encoder(config3(rdoq=2), device="cuda"), rframes)}))
     print(card_line())
 
 

@@ -502,7 +502,7 @@ def test_check_params_admits_the_config3_slice():
 
 @pytest.mark.parametrize("field,value", [
     ("aq_mode", 3), ("wpp", True), ("ref", 2), ("rdoq_level", 3),
-    ("b_adapt", 1), ("bframes", 17), ("rc_mode", "crf"),
+    ("b_adapt", 1), ("bframes", 17), ("rc_mode", "vbr"),
     ("vbv_maxrate", 1000)])
 def test_check_params_refuses_what_the_b_slice_does_not_run(field, value):
     p = config3()
@@ -513,11 +513,11 @@ def test_check_params_refuses_what_the_b_slice_does_not_run(field, value):
 
 @pytest.mark.parametrize("kw", [dict(keyint=1, bframes=0),
                                 dict(bframes=0), dict(bframes=0, aq_mode=0)])
-def test_check_params_refuses_the_lookahead_without_b_frames(kw):
-    """All-intra and low-delay P would run a depth-1 lookahead, which the
-    port leaves refused (ROADMAP queue 1)."""
-    with pytest.raises(ValueError, match="without B frames"):
-        check_params(config3_aq(**kw))
+def test_check_params_admits_the_lookahead_without_b_frames(kw):
+    """All-intra and low-delay P run a depth-1 lookahead (AQ and scene cuts,
+    no CU-tree), as the reference does; tests/test_torch_ratecontrol.py
+    holds their streams against the JAX Encoder's."""
+    check_params(config3_aq(**kw))
 
 
 def test_b_encoder_needs_a_card_unless_asked_for_the_cpu():

@@ -448,3 +448,38 @@ def test_intra_pred_and_residual_chain_at_bit_depth_10(cuda_dev, n, c_idx):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert int(got[1].max()) > 255
+
+
+@pytest.mark.parametrize("density,cap", [(0.0, 128), (0.03, 1152),
+                                         (0.5, 1152), (1.0, 9216)])
+def test_pack_levels_kernel(cuda_dev, density, cap):
+    """K15 against its plain version over a batch of 3 frames of 24 cells:
+    empty, sparse, past cap (dropped values, overflow) and dense, with the
+    int16 extremes."""
+    from x265amod_tpu_torch.ops import pack
+    rng = np.random.default_rng(int(density * 100) + cap)
+    lv = []
+    for n in (16, 8, 8):
+        v = rng.integers(-32768, 32768, (3, 24, n, n))
+        v[rng.random(v.shape) >= density] = 0
+        lv.append(torch.as_tensor(v.astype(np.int16), device=cuda_dev))
+    for g, w in zip(pack.pack_levels(lv, cap), pack.pack_levels_plain(lv,
+                                                                      cap)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("src,dst,method", [
+    ((64, 96), (32, 48), "bicubic"), ((64, 96), (96, 144), "bilinear"),
+    ((96, 192), (32, 64), "bicubic"), ((36, 64), (24, 40), "bilinear")])
+def test_resample_kernel(cuda_dev, src, dst, method):
+    """K16 against its plain version on the unrounded f32 values and the
+    uint8 output."""
+    from x265amod_tpu_torch.ops import scaler
+    rng = np.random.default_rng(src[0] + dst[1])
+    p = torch.as_tensor(rng.integers(0, 256, src).astype(np.uint8),
+                        device=cuda_dev)
+    for raw in (True, False):
+        assert torch.equal(
+            scaler.resample_plane(p, dst[1], dst[0], method, unrounded=raw),
+            scaler.resample_plane_plain(p, dst[1], dst[0], method,
+                                        unrounded=raw))

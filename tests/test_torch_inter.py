@@ -179,8 +179,8 @@ def test_encode_frame_and_push_match_the_pipeline():
 
 @pytest.mark.parametrize("field,value", [
     ("bframes", 17), ("ref", 2), ("me_range", 2), ("b_adapt", 1),
-    ("aq_mode", 2), ("cutree", True), ("rdoq_level", 3),
-    ("internal_bit_depth", 10), ("rc_mode", "crf"), ("wpp", True),
+    ("aq_mode", 3), ("rdoq_level", 3), ("internal_bit_depth", 10),
+    ("rc_mode", "vbr"), ("wpp", True),
     ("qpfile", "q.txt"), ("analysis_load", "a.dat"),
     ("decoded_picture_hash", 1)])
 def test_check_params_refuses_what_the_p_slice_does_not_run(field, value):

@@ -47,13 +47,22 @@ def test_filter_tables_equal_the_jax_packages():
     np.testing.assert_array_equal(tme.CHROMA_FILTERS, jme.CHROMA_FILTERS)
 
 
-@pytest.mark.parametrize("bn,hi", [(16, 256), (32, 121)])
+@pytest.mark.parametrize("bn,hi", [
+    (16, 256), (32, 121),
+    pytest.param(32, 256, marks=pytest.mark.xfail(strict=True, reason=(
+        "JAX's f32 grid is inexact at bn 32 on full-range content (energies "
+        "past 2^24) and XLA's CPU order for its grouped convolutions is "
+        "Eigen's GEMM blocking, which depends on the host's vector width "
+        "and caches; the port computes the exact SSD (ROADMAP queue 3 k)")))])
 def test_me_ssd_grid_parity(bn, hi):
     """Row 13.  The JAX grid is w2 - 2 corr + c2 in f32: exact at bn 16 on
     any 8-bit content, and at bn 32 while block energies stay below 2^24
     (pixels 0..120).  The port's grid is the exact integer SSD.  Also the
     grid over the half-pel plane, whose samples reach about 1.45x the
-    input range, on content where JAX stays exact."""
+    input range, on content where JAX stays exact.  On full-range content
+    at bn 32 (the integer and the unclipped half-pel plane), JAX's grid is
+    off by up to 4 and the port does not reproduce it: that case is the
+    standing record of ROADMAP queue 3 k."""
     rng = np.random.default_rng(bn)
     h, w = 64, 96
     ref = rng.integers(0, hi, (h, w)).astype(np.int32)

@@ -3,7 +3,8 @@
 The port's subset of the JAX package's `bitstream/sei.py`: the stream-level
 prefix messages the encoder writes (user data unregistered, mastering
 display colour volume, content light level, alternative transfer
-characteristics).  Payload framing per spec 7.3.5 (ff-byte escape for
+characteristics) and the HRD messages of a VBV encode (buffering period on
+each IRAP access unit, picture timing on every one).  Payload framing per spec 7.3.5 (ff-byte escape for
 type/size).
 """
 
@@ -13,6 +14,8 @@ from .bitio import BitWriter
 from .nal import NAL_PREFIX_SEI, NAL_SUFFIX_SEI, wrap_nal
 
 # payload types (spec Annex D)
+SEI_BUFFERING_PERIOD = 0
+SEI_PIC_TIMING = 1
 SEI_USER_DATA_UNREGISTERED = 5
 SEI_MASTERING_DISPLAY = 137
 SEI_CONTENT_LIGHT_LEVEL = 144
@@ -53,6 +56,33 @@ def wrap_sei(messages: list[tuple[int, bytes]], suffix: bool = False,
     bw.rbsp_trailing_bits()
     return wrap_nal(NAL_SUFFIX_SEI if suffix else NAL_PREFIX_SEI,
                     bw.data(), temporal_id=temporal_id)
+
+
+# ---- HRD conformance SEI (D.2.2/D.2.3; reference SEIBP/SEIPT sei.h) -------
+
+def buffering_period(initial_delay_90k: int,
+                     initial_offset_90k: int) -> bytes:
+    """buffering_period SEI (spec D.2.2), NAL HRD, one CPB, matching
+    the SPS hrd_parameters written by headers._write_hrd_parameters
+    (24-bit delay fields).  Delays in 90 kHz ticks."""
+    bw = BitWriter()
+    bw.write_ue(0)                      # bp_seq_parameter_set_id
+    bw.write_flag(0)                    # irap_cpb_params_present_flag
+    bw.write_flag(0)                    # concatenation_flag
+    bw.write(0, 24)                     # au_cpb_removal_delay_delta-1
+    bw.write(min(initial_delay_90k, (1 << 24) - 1), 24)
+    bw.write(min(initial_offset_90k, (1 << 24) - 1), 24)
+    return _payload_data(bw)
+
+
+def pic_timing(au_cpb_removal_delay: int,
+               pic_dpb_output_delay: int) -> bytes:
+    """pic_timing SEI (spec D.2.3) with CpbDpbDelaysPresent and
+    frame_field_info off (matches the emitted VUI)."""
+    bw = BitWriter()
+    bw.write(max(au_cpb_removal_delay - 1, 0) & ((1 << 24) - 1), 24)
+    bw.write(pic_dpb_output_delay & ((1 << 24) - 1), 24)
+    return _payload_data(bw)
 
 
 # ---- HDR static metadata ----------------------------------------------------

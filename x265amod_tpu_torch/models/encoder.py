@@ -1,11 +1,14 @@
 """Top-level encoder of the port (role of reference `encoder/encoder.cpp` +
 `encoder/api.cpp`), cut down to BASELINE configs 1, 2 and 3: the CTU32 tree,
-CQP, deblock on, SAO on or off, sign-bit hiding on, RDOQ off or on (levels 1
-and 2 run the same pass); all-intra, low-delay P with one reference, or a B
-pyramid with one reference per list, the last with or without the lookahead
-(AQ, CU-tree and scene cuts).  And Main10 all-intra: 10-bit uint16 planes in
-and out, profile 2 in the SPS, PSNR at the 10-bit peak, no loop filters and
-no RDOQ (the reference's gate).
+deblock on, SAO on or off, sign-bit hiding on, RDOQ off or on (levels 1 and
+2 run the same pass); all-intra, low-delay P with one reference, or a B
+pyramid with one reference per list, each with or without the lookahead
+(AQ, scene cuts, and CU-tree in the B pyramid); rate control CQP, CRF, ABR,
+VBV (with its HRD signalling: hrd_parameters in the SPS, a buffering-period
+SEI on each IDR and a pic-timing SEI on every frame) or 2-pass
+(`models/ratecontrol.py`).  And Main10 all-intra at CQP: 10-bit uint16
+planes in and out, profile 2 in the SPS, PSNR at the 10-bit peak, no loop
+filters and no RDOQ (the reference's gate).
 
 All-intra `encode_pipelined` runs the batched path of the JAX package's
 `models/encoder.py:_encode_intra_batched`: BATCH_FRAMES frames per device
@@ -18,15 +21,17 @@ with its device recon; with B frames, display frames wait in a mini-GOP
 buffer until bframes + 1 are there, and the mini-GOP is coded in decode
 order: the P anchor against the previous anchor, then the B pyramid (a
 referenced B at each middle, non-referenced b at the leaves) between the
-pictures around it.  `encode_pipelined` codes frames through `encode_push`
-and `flush`.  The host waits on a CUDA event and reads dense levels from
-pinned memory (no level packing).
+pictures around it.  `encode_pipelined` keeps two plan entries in flight,
+in the JAX order of rate-control calls (see there).  Each tree packs its
+levels on the device (`ops/pack.py`, K15); the host waits on a CUDA event,
+reads the packed levels from pinned memory and unpacks them.
 
-With AQ or CU-tree on (B pyramid only), display frames pass through the
+With AQ, CU-tree or VBV on, display frames pass through the
 `models/lookahead.Lookahead` first (JAX `_push_display_frame` -> `_la_frame`
--> `_admit`): a scene cut starts a new IDR, and each frame's per-16-cell QP
-offsets reach its tree (per-CTU QP, chroma QP and lambda maps) and the
-serializer (`cu_qp_delta`, QG == CTB32).
+-> `_admit`; depth 1 without B frames): a scene cut starts a new IDR, each
+frame's lowres SATD feeds the rate control at dispatch, and under AQ or
+CU-tree each frame's per-16-cell QP offsets reach its tree (per-CTU QP,
+chroma QP and lambda maps) and the serializer (`cu_qp_delta`, QG == CTB32).
 """
 
 from __future__ import annotations
@@ -104,7 +109,7 @@ def resolve_device(device=None) -> torch.device:
 
 class Encoder:
     """x265_encoder_open/encode/close analog for BASELINE configs 1, 2 and 3
-    (RDOQ off or on) and Main10 all-intra."""
+    (RDOQ off or on, every rate-control mode) and Main10 all-intra."""
 
     BATCH_FRAMES = 16
 
@@ -138,22 +143,33 @@ class Encoder:
             depth = max(1, math.ceil(math.log2(self.bframes + 1)))
             self.sps.max_num_reorder = depth
             self.sps.max_dec_buffering = depth + 2
-        # AQ/CU-tree offsets ride the lookahead (JAX :117-124, where VBV
-        # also runs it; the port runs no VBV and gates AQ to the B pyramid)
+        self.vbv = param.vbv_maxrate > 0 and param.vbv_bufsize > 0
+        if self.vbv:
+            # HRD signalling rides the VBV config (JAX :110-115, reference
+            # initHRD): hrd_parameters in the VUI, a buffering-period SEI on
+            # each IRAP access unit and a pic-timing SEI on every one
+            self.sps.hrd_bitrate = param.vbv_maxrate * 1000
+            self.sps.hrd_cpb_size = param.vbv_bufsize * 1000
+        self._au_since_bp = 0
+        # AQ/CU-tree offsets ride the lookahead, and VBV reads its SATD
+        # costs (JAX :117-124)
         self.use_aq = (param.aq_mode > 0 or param.cutree) and \
             self.inter_enabled or (param.aq_mode > 0 and
                                    not self.inter_enabled)
+        self.use_lookahead = self.use_aq or self.vbv
         # QG == CTB: one cu_qp_delta per coded CTB (JAX :142-158)
         self.pps = PpsInfo(init_qp=26, sign_data_hiding=param.sign_hide,
                            deblocking_disabled=not param.deblock,
                            beta_offset_div2=param.deblock_beta_offset,
                            tc_offset_div2=param.deblock_tc_offset,
-                           cu_qp_delta_enabled=self.use_aq,
+                           cu_qp_delta_enabled=self.use_aq
+                           and self.use_lookahead,
                            diff_cu_qp_delta_depth=0,
                            entropy_coding_sync=False,
                            transquant_bypass=False)
-        # zero-latency configs (all-intra, or bframes 0) would run a depth-1
-        # lookahead without CU-tree (JAX :163-180)
+        # zero-latency configs (all-intra, or bframes 0) run a depth-1
+        # lookahead without CU-tree: AQ and scene cuts, no future window
+        # (JAX :163-180)
         zero_latency = not self.inter_enabled or param.bframes == 0
         self.lookahead = Lookahead(
             self.pad_w, self.pad_h, strength=param.aq_strength,
@@ -161,7 +177,7 @@ class Encoder:
             scenecut_bias=param.scenecut / 100.0,
             cutree=param.cutree and self.inter_enabled and not zero_latency,
             min_keyint=max(param.min_keyint, 2), device=self.device) \
-            if self.use_aq else None
+            if self.use_lookahead else None
         rdoq = param.rdoq_level > 0
         self.frame_encoder = IntraTreeEncoder(
             self.pad_w, self.pad_h, deblock=param.deblock,
@@ -229,18 +245,26 @@ class Encoder:
     def encode_pipelined(self, frames, return_recon: bool = False):
         """Generator over EncodeOutput, one per input (y, cb, cr) frame.
 
-        All-intra without return_recon: groups of BATCH_FRAMES frames go to
-        the device in one step (a tail group pads by repeating its last
-        frame); while group g computes, group g-1's slices are serialized
-        on the thread pool.  Otherwise `encode_push` frame by frame, then
-        `flush`.  The JAX `encode_pipelined` (:554) keeps two frames in
-        flight; here a P frame's commit reads its decisions on the host
-        mid-dispatch, so a second frame in flight could overlap only one
-        frame's D2H and CABAC (a few ms against hundreds of ms of scans)."""
-        if self.inter_enabled or return_recon:
-            for fr in frames:
-                yield from self.encode_push(*fr, return_recon=return_recon)
-            yield from self.flush(return_recon)
+        All-intra CQP without the lookahead and without return_recon:
+        groups of BATCH_FRAMES frames go to the device in one step (a tail
+        group pads by repeating its last frame); while group g computes,
+        group g-1's slices are serialized on the thread pool.  Otherwise
+        two plan entries are in flight, as in the JAX `encode_pipelined`
+        (:554-594): entry n is dispatched (its `frame_qp` included) before
+        entry n-1 is finished (its `rc.update` included).  Under CQP the
+        order changes nothing; under CRF, ABR, VBV and 2-pass it decides
+        the QPs, so it is the reference's.  `encode_push` finishes each
+        entry before the next is dispatched, as the JAX `encode_push`
+        does."""
+        if (self.inter_enabled or self.use_lookahead or return_recon
+                or self.rc.mode != "cqp"):
+            q = deque()
+            for e in self._entries(frames):
+                q.append(self._dispatch_entry(e, return_recon))
+                while len(q) > 1:
+                    yield self._finish(q.popleft())
+            while q:
+                yield self._finish(q.popleft())
             return
         bsz = self.BATCH_FRAMES
         fe = self.frame_encoder
@@ -292,6 +316,13 @@ class Encoder:
                     yield from finish(started)
             while pending:
                 yield from finish(start_cabac(pending.popleft()))
+
+    def _entries(self, frames):
+        """Plan entries in decode order for the display frames, then for
+        what the lookahead and the mini-GOP buffer hold at the end."""
+        for fr in frames:
+            yield from self._push_display_frame(*fr)
+        yield from self._flush_gop()
 
     def _assemble_intra_nal(self, res, qp, payload, entry_offs,
                             t0) -> EncodeOutput:
@@ -544,6 +575,8 @@ class Encoder:
                        (1 if self.inter_enabled else 0), 3)
             audw.rbsp_trailing_bits()
             nal = wrap_nal(NAL_AUD, audw.data()) + nal
+        if self.vbv:
+            nal = self._hrd_sei(st) + nal
         if self.param.repeat_headers or e["first_in_stream"]:
             nal = self.headers() + nal
         stats = self._record(nal, res, e["poc"], st, qp, t0, e["display"])
@@ -553,6 +586,27 @@ class Encoder:
             recon = (res.recon_y[:h, :w], res.recon_cb[:h // 2, :w // 2],
                      res.recon_cr[:h // 2, :w // 2])
         return EncodeOutput(nal, stats, recon)
+
+    def _hrd_sei(self, slice_type: str) -> bytes:
+        """The HRD SEI NAL of one access unit (JAX `_finish` :827-847): on an
+        I frame a buffering period whose initial CPB removal delay is the
+        buffer fill that the rate control holds now (90 kHz ticks, spec
+        D.2.2); on every frame a picture timing with the count of access
+        units since that buffering period and the reorder depth as the DPB
+        output delay."""
+        msgs = []
+        if slice_type == "I":
+            delay = int(90000.0 * self.rc.buffer_fill / self.sps.hrd_bitrate)
+            off = max(int(90000.0 * self.sps.hrd_cpb_size
+                          / self.sps.hrd_bitrate) - delay, 0)
+            msgs.append((sei.SEI_BUFFERING_PERIOD,
+                         sei.buffering_period(delay, off)))
+            self._au_since_bp = 0
+        self._au_since_bp += 1
+        msgs.append((sei.SEI_PIC_TIMING,
+                     sei.pic_timing(self._au_since_bp,
+                                    self.sps.max_num_reorder)))
+        return sei.wrap_sei(msgs)
 
     def encode_push(self, y, cb, cr, return_recon: bool = False
                     ) -> list[EncodeOutput]:
@@ -576,6 +630,11 @@ class Encoder:
         """Drain the mini-GOP buffer at the end of the stream."""
         return [self._finish(self._dispatch_entry(e, return_recon))
                 for e in self._flush_gop()]
+
+    def close(self) -> None:
+        """End of the encode (x265_encoder_close analog): writes the pass-1
+        rate-control stats (JAX `close` :753-758)."""
+        self.rc.write_stats()
 
     # -- host side -------------------------------------------------------------
 

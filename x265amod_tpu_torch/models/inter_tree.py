@@ -46,6 +46,7 @@ from ..ops.estbits import intra_hdr_bits, tu_bits
 from ..ops.me import (check_window, hpel_plane, mc_bi, mc_chroma_qpel,
                       mc_luma_qpel, me_ssd_grid, mvd_bits, subpel_refine)
 from ..ops.metrics import plane_sse, ssim_plane
+from ..ops.pack import levels_for_host, levels_from_host
 from ..ops.residual import residual_chain
 from ..ops.sao import sao_filter_frame
 from .b_frame import BFrameResult
@@ -745,20 +746,25 @@ class InterTreeEncoder:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
     def _to_host(self, dev: dict, recon_dev):
-        """Start the D2H copy of every output (pinned memory, non-blocking
-        on the card); the recon planes stay on the device as the next
-        reference."""
+        """Pack the frame's levels (K15, one launch; JAX `_mux_small`
+        :781-795, cap = T / 8), then start the D2H copy of every output but
+        the dense levels (pinned memory, non-blocking on the card), which
+        stay on the device in case the pack overflows; the recon planes
+        stay on the device as the next reference."""
         costs = dev.pop("costs", None)
+        dense = [dev.pop(k)[None] for k in ("ly", "lcb", "lcr")]
+        dev.update(levels_for_host(dense, 8))
+        handle = dict(event=None, recon_dev=recon_dev, costs=costs,
+                      dense=dense)
         if self.device.type != "cuda":
-            return dict(host=dev, event=None, recon_dev=recon_dev,
-                        costs=costs)
+            return dict(handle, host=dev)
         host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
                 for k, v in dev.items()}
         for k, v in dev.items():
             host[k].copy_(v, non_blocking=True)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
-        return dict(host=host, event=event, recon_dev=recon_dev, costs=costs)
+        return dict(handle, host=host, event=event)
 
     def encode_async(self, y, cb, cr, ref_dev, qp: int, want_recon=False,
                      want_costs=False, qp_offsets=None):
@@ -813,8 +819,8 @@ class InterTreeEncoder:
         res = InterFrameResult(
             h["kinds"].astype(np.int32), h["merge"].astype(np.int32),
             h["mvd"].astype(np.int32), h["mvp"].astype(np.int32),
-            h["modes"].astype(np.int32), h["ly"].astype(np.int32),
-            h["lcb"].astype(np.int32), h["lcr"].astype(np.int32), h["sse"],
+            h["modes"].astype(np.int32),
+            *levels_from_host(h, 0, handle["dense"]), h["sse"],
             recon_dev=handle["recon_dev"],
             split=h["split"].astype(np.int32),
             ref0=np.zeros(h["kinds"].shape, np.int32), sao=_sao_of(h))
@@ -1307,8 +1313,8 @@ class BTreeEncoder(InterTreeEncoder):
             return h[k].astype(np.int32)
         res = BFrameResult(
             i32("kinds"), i32("merge"), i32("dir"), i32("mvd0"), i32("mvp0"),
-            i32("mvd1"), i32("mvp1"), i32("modes"), i32("ly"), i32("lcb"),
-            i32("lcr"), h["sse"], recon_dev=handle["recon_dev"],
+            i32("mvd1"), i32("mvp1"), i32("modes"),
+            *levels_from_host(h, 0, handle["dense"]), h["sse"], recon_dev=handle["recon_dev"],
             split=i32("split"), sao=_sao_of(h))
         if "rec_y" in h:
             res.recon_y, res.recon_cb, res.recon_cr = (

@@ -39,6 +39,7 @@ from ..ops.deblock import deblock_frame_planes
 from ..ops.estbits import tu_bits
 from ..ops.intra import predict, satd35
 from ..ops.metrics import plane_sse, ssim_plane
+from ..ops.pack import levels_for_host, levels_from_host
 from ..ops.quant import chroma_qp_np, derive_qp_maps
 from ..ops.residual import residual_chain
 from ..ops.sao import sao_filter_frame
@@ -520,17 +521,22 @@ class IntraTreeEncoder:
         return out
 
     def _to_host(self, dev: dict):
-        """Start the D2H copy of every output (pinned memory, non-blocking
-        on the card) and return a handle for `collect_batch`."""
+        """Pack each frame's levels (K15, one launch for the batch; JAX
+        :665-674, cap = T / 16), then start the D2H copy of every output but
+        the dense levels (pinned memory, non-blocking on the card), which
+        stay on the device for a frame whose pack overflows.  Returns a
+        handle for `collect_batch`."""
+        dense = [dev.pop(k) for k in ("ly", "lcb", "lcr")]
+        dev.update(levels_for_host(dense, 16))
         if self.device.type != "cuda":
-            return dict(host=dev, event=None)
+            return dict(host=dev, event=None, dense=dense)
         host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
                 for k, v in dev.items()}
         for k, v in dev.items():
             host[k].copy_(v, non_blocking=True)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
-        return dict(host=host, event=event)
+        return dict(host=host, event=event, dense=dense)
 
     def _upload(self, a):
         """numpy planes to the device; 10-bit uint16 samples go up as int16
@@ -591,9 +597,8 @@ class IntraTreeEncoder:
         out = []
         for i in range(h["split"].shape[0]):
             res = FrameResult(h["modes"][i].astype(np.int32),
-                              h["ly"][i].astype(np.int32),
-                              h["lcb"][i].astype(np.int32),
-                              h["lcr"][i].astype(np.int32), h["sse"][i])
+                              *levels_from_host(h, i, handle["dense"]),
+                              h["sse"][i])
             res.split = h["split"][i].astype(np.int32)
             if "sao0" in h:
                 res.sao = tuple(h[f"sao{k}"][i] for k in range(10))

@@ -32,7 +32,8 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # of residual_chain form f32 costs in a fixed order that decides RD argmins,
 # so the compiler must not contract them into FMAs (sao_analyse and
 # residual_chain write the FMAs the JAX order has themselves); lowres_aq and
-# cutree_prop repeat the JAX f32 operations one by one.
+# cutree_prop repeat the JAX f32 operations one by one, and resample writes
+# the FMA chain of XLA's dot itself.
 KERNELS = {
     "intra_pred": [],
     "residual_chain": ["--fmad=false"],
@@ -48,6 +49,8 @@ KERNELS = {
     "lowres_aq": ["--fmad=false"],
     "lowres_me": [],
     "cutree_prop": ["--fmad=false"],
+    "pack_levels": [],
+    "resample": ["--fmad=false"],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

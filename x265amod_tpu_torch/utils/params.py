@@ -2,8 +2,9 @@
 
 The `Param` dataclass and the preset ladder are the JAX package's, field for
 field, so a test can build both encoders from one config through
-`param_from_dict`.  `check_params` here is the slice gate: it refuses every
-setting this port does not run yet.
+`param_from_dict`, and the string parser `param_parse` is the JAX package's.
+`check_params` here is the slice gate: it refuses every setting this port
+does not run yet.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import dataclasses
 from dataclasses import dataclass
 
 MAX_BFRAMES = 16
+MAX_LOOKAHEAD = 250
 QP_MAX_SPEC = 51
 
 PRESETS = ["ultrafast", "superfast", "veryfast", "faster", "fast",
@@ -178,6 +180,90 @@ def param_default_preset(preset: str = "medium", tune: str = "") -> Param:
     return p
 
 
+_BOOL_TRUE = {"1", "true", "yes", "on"}
+_BOOL_FALSE = {"0", "false", "no", "off"}
+
+
+def param_parse(p: Param, name: str, value: str | None = None) -> None:
+    """String option parser (role of x265_param_parse, param.cpp:710; the
+    JAX package's `param_parse`, option for option).  The ABR ladder's
+    per-rung options go through it; `check_params` then refuses what the
+    port does not run."""
+    name = name.replace("_", "-").lstrip("-")
+    negated = name.startswith("no-")
+    if negated:
+        name = name[3:]
+        value = "false"
+    elif value is None:
+        value = "true"
+
+    aliases = {
+        "input-res": "_res", "fps": "_fps", "qp": "qp", "crf": "crf",
+        "keyint": "keyint", "min-keyint": "min_keyint",
+        "bframes": "bframes", "ref": "ref", "ctu": "ctu_size",
+        "rd": "rd_level", "me": "me_method", "merange": "me_range",
+        "subme": "subme", "aq-mode": "aq_mode",
+        "aq-strength": "aq_strength", "rc-lookahead": "rc_lookahead",
+        "rdoq-level": "rdoq_level", "psy-rd": "psy_rd",
+        "psy-rdoq": "psy_rdoq", "lossless": "lossless",
+        "sao": "sao", "deblock": "deblock", "wpp": "wpp",
+        "open-gop": "open_gop", "b-pyramid": "b_pyramid",
+        "b-adapt": "b_adapt", "cutree": "cutree",
+        "signhide": "sign_hide", "repeat-headers": "repeat_headers",
+        "aud": "aud", "hrd": "hrd", "info": "info",
+        "bitrate": "bitrate", "vbv-maxrate": "vbv_maxrate",
+        "vbv-bufsize": "vbv_bufsize", "vbv-init": "vbv_init",
+        "frames": "total_frames", "csv": "csv",
+        "csv-log-level": "csv_log_level", "log-level": "log_level",
+        "early-skip": "early_skip", "fast-intra": "fast_intra",
+        "rect": "rect", "amp": "amp", "max-merge": "max_merge",
+        "tu-intra-depth": "tu_intra_depth",
+        "tu-inter-depth": "tu_inter_depth",
+        "hash": "decoded_picture_hash",
+        "master-display": "master_display",
+        "max-cll": "_maxcll", "atc-sei": "atc_sei",
+        "pass": "pass_num", "stats": "stats_file",
+        "scenecut": "scenecut",
+        "analysis-save": "analysis_save",
+        "analysis-load": "analysis_load",
+        "analysis-reuse-level": "analysis_reuse_level",
+        "qpfile": "qpfile",
+    }
+    if name == "max-cll":
+        cll, fall = value.split(",")
+        p.max_cll, p.max_fall = int(cll), int(fall)
+        return
+    if name == "input-res":
+        w, h = value.lower().split("x")
+        p.width, p.height = int(w), int(h)
+        return
+    if name == "fps":
+        if "/" in value:
+            n, d = value.split("/")
+            p.fps_num, p.fps_den = int(n), int(d)
+        else:
+            p.fps_num, p.fps_den = int(round(float(value) * 1000)), 1000
+        return
+    if name not in aliases:
+        raise ValueError(f"unknown option '{name}'")
+    attr = aliases[name]
+    cur = getattr(p, attr)
+    if isinstance(cur, bool):
+        lv = value.lower()
+        if lv in _BOOL_TRUE:
+            setattr(p, attr, True)
+        elif lv in _BOOL_FALSE:
+            setattr(p, attr, False)
+        else:
+            raise ValueError(f"bad boolean '{value}' for {name}")
+    elif isinstance(cur, int):
+        setattr(p, attr, int(value))
+    elif isinstance(cur, float):
+        setattr(p, attr, float(value))
+    else:
+        setattr(p, attr, value)
+
+
 def param_from_dict(d: dict) -> Param:
     """The port's `Param` from a plain dict, e.g. `dataclasses.asdict` of
     the JAX package's `Param`.  Unknown keys are refused."""
@@ -190,18 +276,29 @@ def param_from_dict(d: dict) -> Param:
 
 def check_params(p: Param) -> None:
     """Validation (role of x265_check_params, param.cpp:1583), with the
-    slice gate of the port: every setting outside BASELINE configs 1, 2
-    and 3 (all-intra or low-delay P with one reference, AQ and CU-tree off;
-    a B pyramid with one reference per list, b-adapt 0, AQ and CU-tree on
-    or off; CTU32, CQP, RDOQ levels 0-2, SAO on or off) and Main10
-    all-intra (the reference's own gate: CTU32, keyint 1, no deblocking, no
-    SAO, RDOQ off) is refused loudly, never ignored."""
+    slice gate of the port.  It refuses everything the JAX package's gate
+    refuses (the same errors where that gate raises outright: subme,
+    lookahead depth, --hrd without VBV) and, loudly, every setting the port
+    does not run yet.  The port runs: all-intra, low-delay P with one
+    reference, or a B pyramid with one reference per list and b-adapt 0;
+    CTU32; AQ and CU-tree on or off (without B frames through the depth-1
+    lookahead, as the reference does); RDOQ levels 0-2; SAO on or off; CQP,
+    CRF, ABR, VBV (with its HRD signalling under --hrd) and 2-pass rate
+    control; and Main10 all-intra at CQP (the reference's gate: CTU32,
+    keyint 1, no deblocking, no SAO; the port also keeps RDOQ and AQ off)."""
     if p.width <= 0 or p.height <= 0:
         raise ValueError("picture dimensions must be set")
     if p.chroma_format != 1:
         raise ValueError("only 4:2:0 is wired up in this build")
     if not 0 <= p.qp <= QP_MAX_SPEC:
         raise ValueError("qp out of range")
+    if p.rc_lookahead > MAX_LOOKAHEAD:
+        raise ValueError("lookahead too deep")
+    if p.hrd and not (p.vbv_maxrate > 0 and p.vbv_bufsize > 0):
+        raise ValueError("--hrd requires --vbv-maxrate and "
+                         "--vbv-bufsize (reference: HRD rides VBV)")
+    if not 0 <= p.subme <= 7:
+        raise ValueError("subme out of range 0..7")
     unwired = []
     if not 0 <= p.bframes <= MAX_BFRAMES:
         unwired.append(f"bframes {p.bframes} (0..{MAX_BFRAMES})")
@@ -213,7 +310,7 @@ def check_params(p: Param) -> None:
     if p.ref != 1:
         unwired.append(f"ref {p.ref} (the port codes one reference per "
                        "list)")
-    if p.keyint != 1 and not 4 <= p.me_range <= 32:
+    if not 4 <= p.me_range <= 32:
         unwired.append(f"merange {p.me_range} (dense-grid ME takes 4..32)")
     if p.ctu_size != 32:
         unwired.append(f"ctu {p.ctu_size} (the port codes the CTU32 "
@@ -222,14 +319,11 @@ def check_params(p: Param) -> None:
         unwired.append("--lossless")
     if p.aq_mode not in (0, 1, 2):
         unwired.append(f"aq-mode {p.aq_mode} (variance modes 0-2 only)")
-    if (p.aq_mode > 0 or p.cutree) and (p.keyint == 1 or p.bframes == 0):
-        # all-intra and low-delay P would run a depth-1 lookahead (AQ and
-        # scene cuts, no CU-tree), which no test of the port covers yet
-        unwired.append("aq-mode/cutree without B frames (the port runs the "
-                       "lookahead in the B pyramid only)")
     if not 0 <= p.rdoq_level <= 2:
         unwired.append(f"rdoq-level {p.rdoq_level} (levels 1 and 2 run "
                        "the same level-1 pass)")
+    rate_control = (p.rc_mode != "cqp" or p.bitrate > 0 or p.pass_num
+                    or p.vbv_maxrate > 0 or p.vbv_bufsize > 0)
     if p.internal_bit_depth not in (8, 10):
         unwired.append(f"internal-bit-depth {p.internal_bit_depth}")
     elif p.internal_bit_depth == 10 and (
@@ -242,10 +336,21 @@ def check_params(p: Param) -> None:
         # (JAX ops/rdoq.py:106,110): Main10 levels collapse under it
         unwired.append("internal-bit-depth 10 with rdoq (the reference's "
                        "RDOQ is 8-bit only and wrecks Main10 quality)")
-    if (p.rc_mode != "cqp" or p.bitrate > 0 or p.pass_num
-            or p.vbv_maxrate > 0 or p.vbv_bufsize > 0 or p.hrd):
-        unwired.append("rate control other than CQP (crf/abr/vbv/"
-                       "2-pass/hrd)")
+    elif p.internal_bit_depth == 10 and (rate_control or p.aq_mode > 0
+                                         or p.cutree):
+        # the port's lookahead and rate control run on 8-bit planes only
+        unwired.append("internal-bit-depth 10 with rate control other "
+                       "than CQP, AQ or CU-tree")
+    if p.rc_mode not in ("cqp", "crf", "abr"):
+        unwired.append(f"rc mode {p.rc_mode!r} (cqp, crf or abr)")
+    elif p.rc_mode == "abr" and p.bitrate <= 0:
+        unwired.append("--rc abr without --bitrate")
+    if p.pass_num not in (0, 1, 2):
+        unwired.append(f"pass {p.pass_num} (1 or 2)")
+    elif p.pass_num == 2 and p.bitrate <= 0:
+        unwired.append("--pass 2 without --bitrate")
+    if (p.vbv_maxrate > 0) != (p.vbv_bufsize > 0):
+        unwired.append("VBV needs both --vbv-maxrate and --vbv-bufsize")
     if p.wpp:
         unwired.append("--wpp")
     if p.decoded_picture_hash:
