@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build of the sixteen CUDA kernels
+  1. the card's name and power limit; build of the eighteen CUDA kernels
      (nvcc for sm_90a, all started together) with their ptxas reports;
   2. each kernel against its plain PyTorch version on the card, with its
      time, bound and the plain version's time: K1-K4 at the shapes of
@@ -31,14 +31,23 @@ Phases (any failure exits non-zero):
      config-3 B frame, with an overflow and int16 extremes, and the packed
      D2H against the dense one; K16 (the resampler) at 1080p -> 720p and ->
      360p (luma, chroma, bicubic, bilinear) and 360p -> 720p, on the
-     unrounded and the uint8 output, beside `torch.matmul`;
+     unrounded and the uint8 output, beside `torch.matmul`; K17 (the P
+     decide scan, one launch a frame) on a real 1280x736 P frame's phase-1
+     outputs (frame 4 of the bench clip against the card's recon of frames
+     1-3) at R = 1 and R = 3, free (decisions, MVs, references and cost
+     rows) and forced (the plain scan's decisions replayed), against the
+     plain scan on the card, and again at R = 1 on config 3's first P
+     anchor (1920x1088, phases 7 and 9's frames); K18 (`pick_ref`) at R = 3
+     on the 720p frame's CU16 and CU32 trials; K7 with a reference index at R = 3 (final luma and
+     chroma MC and the trials, MVs at the window bound on border blocks);
   3. BASELINE config 1 (640x360 all-intra ultrafast QP 30, CTU32) through
      `Encoder(device="cuda")`, 24 frames with the first 8 as warm-up; fps,
      PSNR-Y, kbps and the launch count of every kernel;
   4. config 1's bitstream on the card against the port's CPU bitstream
      (plain versions) on the first 2 frames;
   5. BASELINE config 2 (1280x720 low-delay P superfast QP 32, CTU32, one
-     reference) through `Encoder(device="cuda")` and `encode_push`/`flush`,
+     reference; K17 decides every P frame) through `Encoder(device="cuda")`
+     and `encode_push`/`flush`,
      12 frames with the first 4 as warm-up, as the repository's bench.py
      runs it; fps, PSNR-Y, kbps, seconds, and every kernel's launch count;
   6. config 2's bitstream on the card against the CPU's for its first 3
@@ -81,7 +90,15 @@ Phases (any failure exits non-zero):
      against one frame's budget, the underflow count, and the buffering
      period and pic timing SEI in the stream;
   16. card against CPU, byte for byte: the ladder of phase 14 at 320x192,
-     160x96 and 96x64, and phase 15's config at 320x192 (6 frames each).
+     160x96 and 96x64, and phase 15's config at 320x192 (6 frames each);
+  17. config 2 at x265's default `--ref 3` on phase 5's frames (12, the
+     first 4 as warm-up) through `encode_push`/`flush`: fps, PSNR-Y, kbps,
+     the share of inter cells on an older reference (ref_idx >= 1), the
+     launches per P frame of K5-K8, K17 and K18, beside phase 5's figures
+     and those of config 2 at one reference run again right after;
+  18. card against CPU, byte for byte: `--ref 4` at 320x192 on a period-2
+     flicker clip, 8 frames (the cyclic fill and every ref_idx bin occur);
+     some inter cells must use an older reference.
 
 Prints one JSON line of kernel figures, then the card's name and power
 limit, then `{"ok": true, "device": {...}}` as the last line.
@@ -917,7 +934,7 @@ def phase_config2(frames, warm):
         raise AssertionError(f"config 2: PSNR-Y {s['psnr_y']} out of range")
     missing = [k for k, v in launches.items() if v <= 0
                and k not in CONFIG3_KERNELS + LOOKAHEAD_KERNELS
-               + RDOQ_KERNELS + LADDER_KERNELS]
+               + RDOQ_KERNELS + LADDER_KERNELS + MULTIREF_KERNELS]
     if missing:
         raise AssertionError(f"config 2 did not launch {missing}")
     p_stats = enc.frame_stats[warm:]
@@ -1240,8 +1257,8 @@ def phase_kernels_la(iters, dev="cuda", w=1920, h=1088):
 
 
 def scan_bounds():
-    """Least times of the wavefront scans (rows 16b and 16c), from their
-    shapes: each reads the phase-1 outputs once (the SSD grids at bn 16
+    """Least times of the wavefront scans (rows 16b, 16c and 16d), from
+    their shapes: each reads the phase-1 outputs once (the SSD grids at bn 16
     and 32 over the reference and the half-pel plane, per list, f32
     [S, S] per block; the trial costs and MVs) and writes the decisions;
     the commit scan reads the source planes and writes recon and levels.
@@ -1256,6 +1273,9 @@ def scan_bounds():
         out[name] = bound_ms(grids + per_cell + n16 * 16, 0)[0]
     npix = 1280 * 736
     out["p_commit_720p"] = bound_ms(npix * 1.5 * (1 + 4 + 2), 0)[0]
+    # the intra tree's commit of a config-1 batch (16 frames of 640x384)
+    out["intra_commit_config1_batch"] = bound_ms(
+        16 * 640 * 384 * 1.5 * (1 + 4 + 2), 0)[0]
     return out
 
 
@@ -1324,7 +1344,8 @@ def phase_config3(frames, warm):
     if not 30.0 < s["psnr_y"] < 60.0:
         raise AssertionError(f"config 3: PSNR-Y {s['psnr_y']} out of range")
     missing = [k for k, v in launches.items() if v <= 0 and
-               k not in LOOKAHEAD_KERNELS + RDOQ_KERNELS + LADDER_KERNELS]
+               k not in LOOKAHEAD_KERNELS + RDOQ_KERNELS + LADDER_KERNELS
+               + MULTIREF_KERNELS]
     if missing:
         raise AssertionError(f"config 3 did not launch {missing}")
     if sao_n[0] == 0:
@@ -1386,7 +1407,8 @@ def phase_config3_aq(frames, rdoq=0):
         raise AssertionError(f"config 3 with AQ: PSNR-Y {s['psnr_y']} out "
                              "of range")
     missing = [k for k, v in launches.items() if v <= 0 and
-               k not in LADDER_KERNELS and (rdoq or k not in RDOQ_KERNELS)]
+               k not in LADDER_KERNELS + MULTIREF_KERNELS
+               and (rdoq or k not in RDOQ_KERNELS)]
     if missing:
         raise AssertionError(f"config 3 with AQ did not launch {missing}")
     deltas = np.concatenate([(qp32_of(m) - qp).ravel() for qp, m in qp_maps])
@@ -1751,7 +1773,7 @@ def phase_ladder(tmp):
             raise AssertionError(f"ladder rung {r.name}: {r.frames} frames, "
                                  f"PSNR-Y {s['psnr_y']}")
     missing = [k for k, v in launches.items() if v <= 0
-               and k not in RDOQ_KERNELS]
+               and k not in RDOQ_KERNELS + MULTIREF_KERNELS]
     if missing:
         raise AssertionError(f"the ladder did not launch {missing}")
     out["launches_pack_levels"] = launches["pack_levels"]
@@ -1815,7 +1837,7 @@ def phase_vbv(frames):
         raise AssertionError(f"VBV: PSNR-Y {s['psnr_y']}")
     missing = [k for k, v in launches.items() if v <= 0 and k not in
                CONFIG3_KERNELS + LADDER_KERNELS + RDOQ_KERNELS
-               + ("cutree_prop",)]
+               + MULTIREF_KERNELS + ("cutree_prop",)]
     if missing:
         raise AssertionError(f"VBV did not launch {missing}")
     return dict(frames=n, seconds=dt, fps=n / dt, kbps=s["bitrate_kbps"],
@@ -1855,6 +1877,359 @@ def phase_card_vs_cpu_rc(tmp, frames):
     return out
 
 
+# ---- this slice: multi-reference P, the P decide scan (K17), pick_ref (K18) -
+
+# phase 17: config 2 at x265's default --ref 3 on phase 5's frames
+MULTIREF = 3
+# launched only with several references (phase 17, 18)
+MULTIREF_KERNELS = ("pick_ref",)
+# phase 18: card against CPU at --ref 4 on a period-2 flicker clip
+FLICKER_REF, FLICKER_FRAMES = 4, 8
+
+
+def check_exact(name, got, want):
+    """Bit equality (dtype, shape and values; +inf equals +inf, as the CU32
+    cost rows hold it in the intra column).  Returns the max abs error, 0."""
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape or \
+            not torch.equal(got, want):
+        raise AssertionError(f"{name}: differs from the plain version")
+    return 0.0
+
+
+def flicker_frames(w, h, n, period=2, seed=5):
+    """The flicker clip of the repository's multi-reference tests (a copy):
+    two alternating patterns plus noise, so frame t is predicted far better
+    from t - 2 than from t - 1."""
+    rng = np.random.default_rng(seed)
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+    bases = [128 + 70 * np.sin(xx / 7.0) * np.cos(yy / 9.0),
+             128 + 70 * np.cos(xx / 5.0) * np.sin(yy / 11.0)]
+    out = []
+    for t in range(n):
+        y = (bases[t % period] + rng.normal(0, 2, (h, w))).clip(
+            0, 255).astype(np.uint8)
+        out.append((y, np.full((h // 2, w // 2), 120, np.uint8),
+                    np.full((h // 2, w // 2), 130, np.uint8)))
+    return out
+
+
+def config2_ref(ref, w=1280, h=720):
+    p = config2(w, h)
+    p.ref = ref
+    return p
+
+
+def time_once_ms(fn):
+    """One call timed with CUDA events (for the plain scan, a few hundred
+    host-launched ops a diagonal), after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def decide_bytes(tree, nr, forced):
+    """Bytes the decide scan must move for one frame: its per-CU inputs
+    (free: d, rb, lambda, intra cost, MV and reference of every 16-cell and
+    CTU, two SSD-grid lookups per CU decision, the dsf and bin tables;
+    forced: the choice, MVD, MVP index and reference per CU and the split)
+    read once, its outputs (decisions, MVs, references; the cost rows when
+    free) written once.  Its arithmetic is a few hundred operations a CU,
+    far below the bytes."""
+    n16, n32 = tree.h16 * tree.w16, tree.hc * tree.wc
+    if forced:
+        inp = (n16 + n32) * 20 + n32 * 4
+    else:
+        inp = n16 * 28 + n32 * 24 + (n16 + n32) * 2 * 4 + nr * nr * 8
+    out = n32 * 24 + n16 * 32 + (0 if forced else n16 * 16 + n32 * 24)
+    return inp + out
+
+
+def check_decide(tree, st1, maps, tables, label):
+    """K17 free (decisions, MVs, references and cost rows) and forced (the
+    plain scan's decisions replayed) against the plain scan on the card,
+    bit for bit.  Returns (max abs error, the forced inputs, the per-cell
+    decisions)."""
+    import torch
+    err = 0.0
+    got = tree._decide_kernel(st1, maps, tables, want_costs=True)
+    want = tree._decide_plain(st1, maps, tables, want_costs=True)
+    for k in want:
+        err = max(err, check_exact(f"decide_p {label} {k}", got[k], want[k]))
+    cells = tree._cell_decisions(want)
+    kinds = cells["kinds"]
+    forced = dict(c16=(torch.where(kinds == 0, cells["merge"],
+                                   torch.where(kinds == 1, 2, 3)),
+                       cells["mvd"], cells["mvp"], cells["ref"]),
+                  split=want["split"].reshape(-1))
+    forced["c32"] = [v[tree._q0_cell] for v in forced["c16"]]
+    fk = tree._decide_kernel(None, maps, tables, forced=forced)
+    fp = tree._decide_plain(None, maps, tables, forced=forced)
+    for k in fp:
+        err = max(err, check_exact(f"decide_p forced {label} {k}", fk[k],
+                                   fp[k]))
+    for k in ("split", "mv", "ref"):
+        check_exact(f"decide_p forced {label} replays {k}", fk[k], want[k])
+    return err, forced, cells
+
+
+def phase_kernels_decide_1080p(iters, dev="cuda"):
+    """K17 at config 3's P-anchor shapes: the first P anchor of the bench
+    clip at 1920x1080 (padded 1920x1088; phases 7 and 9's frames) against
+    the card's recon of its IDR, R = 1, at the P tree's search range,
+    free and forced against the plain scan, and timed."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import Encoder, _pad_to_ctu
+    enc = Encoder(config3(), device=torch.device(dev))
+    frames = synth_frames(1920, 1080, enc.bframes + 2, seed=4)
+    enc.encode_push(*frames[0])
+    tree = enc.inter_encoder
+    poc = enc.bframes + 1
+    y = torch.as_tensor(_pad_to_ctu(frames[poc][0], 32), device=dev) \
+        .to(torch.int32)
+    refs, tables = tree._ref_list([enc._dpb[0]], [0], poc)
+    maps = tree._maps(32)
+    st1 = tree._phase1(y, refs[0], maps, tables)
+    err, _, _ = check_decide(tree, st1, maps, tables, "1080p R=1")
+    return dict(err=err, width=tree.width, height=tree.height, sr=tree.sr,
+                lanes=tree._bmax, maps_bytes=16 * tree.h16 * tree.w16,
+                ms=time_ms(lambda: tree._decide_kernel(st1, maps, tables),
+                           iters),
+                bound_ms=bound_ms(decide_bytes(tree, 1, False), 0)[0])
+
+
+def phase_kernels_multiref(iters, frames, dev="cuda"):
+    """K17 at a real 1280x736 P frame's phase-1 outputs (frame 4 of the bench
+    clip against the card's recon of frames 1-3, as config 2 at --ref 3
+    codes it), at R = 1 and R = 3, free (decisions, MVs, references and cost
+    rows) and forced (the plain scan's decisions replayed), against the
+    plain scan on the card; K18 at R = 3 on the same frame's trials (CU16
+    and CU32); K7 with a reference index at R = 3: the final MC of luma and
+    chroma and the trials, with MVs at the window bound on border
+    blocks."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import Encoder, _pad_to_ctu
+    from x265amod_tpu_torch.ops import me
+    dev = torch.device(dev)
+    enc = Encoder(config2_ref(MULTIREF), device=dev)
+    for fr in frames[:4]:
+        enc.encode_push(*fr)
+    tree = enc.inter_encoder
+    pocs = sorted(enc._dpb, reverse=True)
+    y = torch.as_tensor(_pad_to_ctu(frames[4][0], 32), device=dev) \
+        .to(torch.int32)
+    rows = []
+    d = dict(err=0.0)
+    per_r = {}
+    for nr in (1, MULTIREF):
+        refs, tables = tree._ref_list([enc._dpb[p] for p in pocs[:nr]],
+                                      pocs[:nr], 4)
+        maps = tree._maps(32)
+        st1 = tree._phase1(y, refs[0], maps, tables)
+        err, forced, cells = check_decide(tree, st1, maps, tables,
+                                          f"R={nr}")
+        d["err"] = max(d["err"], err)
+        kinds = cells["kinds"]
+        per_r[nr] = dict(
+            ms=time_ms(lambda: tree._decide_kernel(st1, maps, tables), iters),
+            forced_ms=time_ms(lambda: tree._decide_kernel(
+                None, maps, tables, forced=forced), iters),
+            plain_ms=time_once_ms(lambda: tree._decide_plain(st1, maps,
+                                                             tables)),
+            forced_plain_ms=time_once_ms(lambda: tree._decide_plain(
+                None, maps, tables, forced=forced)),
+            bound_ms=bound_ms(decide_bytes(tree, nr, False), 0)[0],
+            forced_bound_ms=bound_ms(decide_bytes(tree, nr, True), 0)[0],
+            older_ref_share=float((cells["ref"][kinds <= 1] >= 1).float()
+                                  .mean()))
+    tables3 = tables
+    r1, r3 = per_r[1], per_r[MULTIREF]
+    d.update(ms=r1["ms"], plain_ms=r1["plain_ms"], bound_ms=r1["bound_ms"],
+             bound_by="bytes", library_ms=None,
+             library_note="none: no single call makes the decision",
+             launches_per_p_frame=1,
+             ms_forced=r1["forced_ms"], plain_ms_forced=r1["forced_plain_ms"],
+             bound_ms_forced=r1["forced_bound_ms"],
+             ms_r3=r3["ms"], plain_ms_r3=r3["plain_ms"],
+             bound_ms_r3=r3["bound_ms"], ms_forced_r3=r3["forced_ms"],
+             plain_ms_forced_r3=r3["forced_plain_ms"],
+             bound_ms_forced_r3=r3["forced_bound_ms"],
+             bound_by_r3="bytes",
+             bound_ms_whole_grids=scan_bounds()["p_decide_720p"])
+    rows.append(("decide_p", "x265amod_tpu_torch/csrc/decide_p.cu",
+                 "x265amod_tpu/models/inter_tree.py:336-544 decide_body "
+                 "(lax.scan :544)", d))
+
+    # K18 pick_ref at R = 3: the trials of the same frame at 16 and 32
+    d = dict(err=0.0, ms=0.0, plain_ms=0.0)
+    per = []
+    for r in range(MULTIREF):
+        m = tree._motion_search(y, refs[0][r], maps)
+        m.update(tree._subpel(y, refs[0][r], maps, m))
+        per.append(m)
+    trials = tree._trials(y, refs[0], maps, per)
+    nbytes_ = 0
+    for bn, lam in ((16, maps["lam16"]), (32, maps["lam32"])):
+        args = (trials[f"d{bn}"], trials[f"rb{bn}"], trials[f"mv{bn}"], lam,
+                tables3[1])
+        for i, (g, w_) in enumerate(zip(me.pick_ref(*args),
+                                        me.pick_ref_plain(*args))):
+            d["err"] = max(d["err"], check_equal(f"pick_ref bn={bn} out{i}",
+                                                 g, w_))
+        d["ms"] += time_ms(lambda: me.pick_ref(*args), iters)
+        d["plain_ms"] += time_ms(lambda: me.pick_ref_plain(*args), 2)
+        n = lam.shape[0]
+        nbytes_ += nbytes(*args) + n * 20
+    d["bound_ms"], d["bound_by"] = bound_ms(nbytes_, 0)
+    d["library_ms"] = None
+    d["library_note"] = "none: no single call makes the decision"
+    d["launches_per_p_frame_r3"] = 2
+    rows.append(("pick_ref", "x265amod_tpu_torch/csrc/pick_ref.cu",
+                 "x265amod_tpu/models/inter_tree.py:274-290 pick_ref", d))
+
+    # K7 with a reference index at R = 3 (row 15's extension)
+    rng = np.random.default_rng(17)
+    ext = dict(err=0.0, ms=0.0, plain_ms=0.0)
+    nbytes_, ops = 0, 0
+    sr = tree.sr
+    for planes, n, chroma, bound, k in (
+            (refs[0], 16, False, 4 * (sr + 2), 1),
+            (refs[1], 8, True, 8 * (sr // 2 + 2), 1),
+            (refs[2], 8, True, 8 * (sr // 2 + 2), 1),
+            (refs[0], 16, False, 4 * (sr + 2), MULTIREF),
+            (refs[0], 32, False, 4 * (sr + 2), MULTIREF)):
+        ph, pw = planes.shape[1:]
+        wb = pw // n
+        nb = (ph // n) * wb * k
+        mv = rng.integers(-bound, bound + 1, (nb, 2)).astype(np.int32)
+        mv[:wb] = (-bound, -bound)
+        mv[-wb:] = (bound, bound)
+        mv[::wb] = (-bound, bound)
+        ref = rng.integers(0, MULTIREF, nb).astype(np.int32) if k == 1 \
+            else np.repeat(np.arange(MULTIREF, dtype=np.int32), nb // k)
+        mv, ref = (torch.as_tensor(a, device=dev) for a in (mv, ref))
+        ext["err"] = max(ext["err"], check_equal(
+            f"mc_qpel_ref n={n} chroma={chroma} k={k}",
+            me.mc_qpel_ref(planes, mv, ref, n, chroma),
+            me.mc_ref_plain(planes, mv, ref, n, chroma)))
+        ext["ms"] += time_ms(lambda: me.mc_qpel_ref(planes, mv, ref, n,
+                                                    chroma), iters)
+        ext["plain_ms"] += time_ms(lambda: me.mc_ref_plain(planes, mv, ref, n,
+                                                           chroma), 2)
+        t = 4 if chroma else 8
+        # as K7's own row: the stacked planes read once, the MVs and
+        # indices read, the predictions written
+        nbytes_ += nbytes(planes, mv, ref) + nb * n * n * 4
+        ops += nb * ((n + t - 1) * n * 2 * t + n * n * (2 * t + 4))
+    ext["bound_ms"], ext["bound_by"] = bound_ms(nbytes_, ops)
+    summary = dict(older_ref_share_r3=r3["older_ref_share"],
+                   decide_free_equal=True, decide_forced_equal=True)
+    return rows, ext, summary
+
+
+def phase_config2_ref(frames, warm, p5):
+    """Config 2 at --ref 3 through `encode_push` and `flush` on phase 5's
+    frames; fps, PSNR-Y, kbps, the share of inter cells on an older
+    reference (ref_idx >= 1), and the launches per P frame of K5-K8, K17
+    and K18, beside phase 5's figures (one reference)."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from x265amod_tpu_torch.ops import cuda_lib
+    enc = Encoder(config2_ref(MULTIREF), device="cuda")
+    shares = []
+    inner = enc.inter_encoder.collect
+
+    def collect(handle):
+        r = inner(handle)
+        m = r.kinds <= 1
+        shares.append((int((r.ref0[m] >= 1).sum()), int(m.sum())))
+        return r
+    enc.inter_encoder.collect = collect
+    n_done, t0 = 0, None
+    for i, fr in enumerate(frames):
+        outs = enc.encode_push(*fr)
+        if i == warm - 1:
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            shares.clear()
+            t0 = time.time()
+        elif i >= warm:
+            n_done += len(outs)
+    n_done += len(enc.flush())
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    s = enc.summary()
+    n = len(frames) - warm
+    if n_done != n or enc.num_ref_p != MULTIREF:
+        raise AssertionError(f"config 2 --ref 3: {n_done} of {n} frames")
+    if not 30.0 < s["psnr_y"] < 60.0 or not np.isfinite(s["bitrate_kbps"]):
+        raise AssertionError(f"config 2 --ref 3: PSNR-Y {s['psnr_y']}")
+    missing = [k for k, v in launches.items() if v <= 0
+               and k not in CONFIG3_KERNELS + LOOKAHEAD_KERNELS
+               + RDOQ_KERNELS + LADDER_KERNELS]
+    if missing:
+        raise AssertionError(f"config 2 --ref 3 did not launch {missing}")
+    if launches["decide_p"] != n:
+        raise AssertionError(f"config 2 --ref 3: {launches['decide_p']} "
+                             f"launches of K17 for {n} P frames")
+    timed = enc.frame_stats[warm:]
+    return dict(
+        frames=n, seconds=dt, fps=n / dt, psnr_y=s["psnr_y"],
+        kbps=s["bitrate_kbps"], ssim_y=s["ssim_y"],
+        timed_psnr_y=float(np.mean([x.psnr_y for x in timed])),
+        timed_kbps=float(sum(x.bits for x in timed) * 25.0 / n / 1000.0),
+        older_ref_share=sum(a for a, _ in shares) / max(sum(
+            b for _, b in shares), 1),
+        launches_per_p_frame={k: launches[k] / n for k in (
+            "me_ssd", "subpel", "mc_qpel", "hpel", "decide_p", "pick_ref")},
+        phase5_one_ref=dict(fps=p5["fps"], psnr_y=p5["psnr_y"],
+                            kbps=p5["kbps"], timed_psnr_y=p5["timed_psnr_y"],
+                            timed_kbps=p5["timed_kbps"])), launches
+
+
+def phase_card_vs_cpu_multiref(w=320, h=192):
+    """--ref 4 at 320x192 on the flicker clip, 8 frames, on the card and on
+    the CPU: the streams must be identical byte for byte, and some inter
+    cells must use an older reference (the cyclic fill and every ref_idx
+    bin occur)."""
+    from x265amod_tpu_torch.models.encoder import Encoder
+    frames = flicker_frames(w, h, FLICKER_FRAMES)
+    streams, refs_used = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = config2_ref(FLICKER_REF, w, h)
+        p.info = False
+        e = Encoder(p, device=dev)
+        used = []
+        inner = e.inter_encoder.collect
+
+        def collect(handle, inner=inner, used=used):
+            r = inner(handle)
+            used.append(r.ref0[r.kinds <= 1])
+            return r
+        e.inter_encoder.collect = collect
+        streams[dev] = [o.nals for f in frames for o in e.encode_push(*f)] \
+            + [o.nals for o in e.flush()]
+        refs_used[dev] = np.concatenate(used)
+    if streams["cuda"] != streams["cpu"]:
+        raise AssertionError("--ref 4: card and CPU streams differ")
+    r = refs_used["cpu"]
+    share = float((r >= 1).mean())
+    if share <= 0.0:
+        raise AssertionError("--ref 4: no inter cell uses an older reference")
+    return dict(bitstreams_identical=True, frames=FLICKER_FRAMES,
+                older_ref_share=share,
+                ref_idx_counts=np.bincount(r, minlength=FLICKER_REF)
+                .tolist())
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=24)
@@ -1891,6 +2266,15 @@ def main():
     h16, w16 = -(-h // 32) * 2, w // 16
     rows = phase_kernels(16, h16, w16, args.iters)
     rows += phase_kernels_p(args.iters)
+    # K17, K18 and K7 with a reference index on the bench clip's frames
+    pframes = synth_frames(1280, 720, args.p_frames, seed=2)
+    mr_rows, mc_ref, mr_summary = phase_kernels_multiref(args.iters, pframes)
+    rows += mr_rows
+    mc_row = next(d for name, _, _, d in rows if name == "mc_qpel")
+    mc_row["err"] = max(mc_row["err"], mc_ref["err"])
+    mc_row.update(ms_ref_r3=mc_ref["ms"], plain_ms_ref_r3=mc_ref["plain_ms"],
+                  bound_ms_ref_r3=mc_ref["bound_ms"],
+                  bound_by_ref_r3=mc_ref["bound_by"])
     rows += phase_kernels_b(args.iters)
     rows += phase_kernels_la(args.iters)
     rows += phase_kernels_rdoq(args.iters)
@@ -1908,6 +2292,14 @@ def main():
         by_name[name]["checked_at_config3_shapes"] = True
         log(f"phase 2: {name} equal to plain at 1920x1088 (max abs err "
             f"{d['err']})")
+    # K17 at config 3's P-anchor shapes (also the ladder's 1080p rung)
+    dec1080 = phase_kernels_decide_1080p(args.iters)
+    dec = by_name["decide_p"]
+    dec["err"] = max(dec["err"], dec1080["err"])
+    dec["checked_at_config3_shapes"] = True
+    dec.update(ms_1080p=dec1080["ms"], bound_ms_1080p=dec1080["bound_ms"])
+    log("phase 2: decide_p equal to plain at config 3's P anchor "
+        + json.dumps(dec1080) + f" [{card}]")
     for name, _, _, d in rows:
         log(f"phase 2: {name} equal to plain (max abs err {d['err']}); "
             f"{d['ms']:.4f} ms vs plain {d['plain_ms']:.4f} ms, bound "
@@ -1919,6 +2311,10 @@ def main():
     log("phase 2: plain rows 10-11 " + json.dumps(phase_plain_rows(
         args.iters)) + f" [{card}]")
     log("phase 2: scan bounds, ms " + json.dumps(scan_bounds()))
+    log("phase 2: multi-reference " + json.dumps(dict(
+        mr_summary, mc_qpel_ref_r3={k: mc_ref[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "err")}))
+        + f" [{card}]")
     log("phase 2: level D2H, packed (K15) against dense, host ms "
         + json.dumps(d2h) + f" [{card}]")
     cuda_lib.reset_launches()
@@ -1934,7 +2330,6 @@ def main():
     seconds["3_4_config1"] = time.time() - t0
 
     t0 = time.time()
-    pframes = synth_frames(1280, 720, args.p_frames, seed=2)
     p_stats, launches2 = phase_config2(pframes, args.p_warm)
     log("phase 5: " + json.dumps(dict(p_stats, card=card,
                                       launches=launches2)))
@@ -2013,6 +2408,20 @@ def main():
         log("phase 16: " + json.dumps(phase_card_vs_cpu_rc(
             tmp, synth_frames(320, 192, 6, seed=14))))
         seconds["16_rc_card_vs_cpu"] = time.time() - t0
+    t0 = time.time()
+    mr_stats, launches17 = phase_config2_ref(pframes, args.p_warm, p_stats)
+    # config 2 at one reference again, after --ref 3: phase 5 ran first in
+    # the process, so the pair 5, 17 alone confounds the reference count
+    # with run order
+    again, _ = phase_config2(pframes, args.p_warm)
+    mr_stats["one_ref_after"] = {k: again[k] for k in (
+        "fps", "psnr_y", "kbps", "timed_psnr_y", "timed_kbps")}
+    log("phase 17: " + json.dumps(dict(mr_stats, card=card,
+                                       launches=launches17)))
+    seconds["17_config2_ref3"] = time.time() - t0
+    t0 = time.time()
+    log("phase 18: " + json.dumps(phase_card_vs_cpu_multiref()))
+    seconds["18_multiref_card_vs_cpu"] = time.time() - t0
     log("seconds per phase: " + json.dumps(seconds))
 
     kernels = []
@@ -2027,6 +2436,15 @@ def main():
                 "one B frame at 1920x1088 (cap T/8); also a 16-frame "
                 "config-1 batch at 640x384 (cap T/16) and a P frame at "
                 "1280x736; launches from the ladder (phase 14)")
+        elif name in MULTIREF_KERNELS:
+            launches, shapes = launches17[name], (
+                "one P frame at 1280x720 (padded 1280x736), sr 8, R 3, CU16 "
+                "and CU32; launches from config 2 at --ref 3 (phase 17)")
+        elif name == "decide_p":
+            launches, shapes = launches2[name], (
+                "one P frame at 1280x720 (padded 1280x736), sr 8, R 1 (and "
+                "R 3: the _r3 keys), free and forced; launches from config "
+                "2 (phase 5)")
         elif name in LADDER_KERNELS:
             launches, shapes = launches14[name], (
                 "one 4:2:0 frame 1920x1080 -> 1280x720 (bicubic, 6 "
@@ -2054,7 +2472,10 @@ def main():
         else:
             launches, shapes = launches2[name], (
                 "one P frame at 1280x720 (padded 1280x736), sr 8")
-        if d.get("checked_at_config3_shapes"):
+        if name == "decide_p":
+            shapes += "; also checked and timed (the _1080p keys) at config " \
+                "3's first P anchor (1920x1088, R 1)"
+        elif d.get("checked_at_config3_shapes"):
             shapes += "; also checked at one B frame's shapes (1920x1088, " \
                 "sr 16)"
         extra = {k: v for k, v in d.items() if k.startswith(
@@ -2071,6 +2492,7 @@ def main():
             launches_main10=launches12[base],
             launches_ladder=launches14[base],
             launches_vbv=launches15[base],
+            launches_config2_ref3=launches17[base],
             launches_per_frame_config3_aq=launches9[base] / CONFIG3_AQ_FRAMES,
             launches_per_frame_config3_rdoq=launches11[base]
             / CONFIG3_AQ_FRAMES,

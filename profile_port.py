@@ -4,11 +4,12 @@ config 2 (1280x720 low-delay P QP 32, CTU32, one reference), the config-3
 slice (1920x1080 B pyramid with SAO, CQP 32, AQ and CU-tree off), config
 3 as bench.py builds it (the same with the lookahead, AQ and CU-tree: "4"),
 the ABR ladder ("5"), config 2 under VBV with HRD ("6"), Main10 all-intra
-("7") and config 3 with RDOQ ("8").
+("7"), config 3 with RDOQ ("8") and config 2 at x265's default --ref 3
+("9").
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 profile_port.py [--configs 1,2,3,4,5,6,7,8] [--batches 2]
+    python3 profile_port.py [--configs 1,2,3,4,5,6,7,8,9] [--batches 2]
         [--p-frames 4]
 
 Prints JSON lines:
@@ -20,9 +21,10 @@ Prints JSON lines:
     32 frames: wall time, summed device kernel time, the device busy share
     (kernel time / wall) and the kernels with the most device time;
   - "p_stages": the same breakdown of a config 2 P frame (upload, ME,
-    sub-pel, trials, intra trial, decide scan, final MC and residuals,
-    commit scan, loop filter + metrics, D2H, CABAC), averaged over
-    --p-frames P frames;
+    sub-pel, trials, pick_ref (K18, with several references), intra trial,
+    decide scan (K17), final MC and residuals, commit scan, loop filter +
+    metrics, D2H, CABAC), averaged over --p-frames P frames after two
+    P frames that warm every stage up;
   - "p_profile": torch.profiler over --p-frames P frames of config 2
     through encode_push;
   - "b_stages": the breakdown of a config-3 B frame (upload, ME, trials,
@@ -54,6 +56,9 @@ Prints JSON lines:
     upload, estimate, commit, level pack and D2H start, wait and unpack;
   - "rdoq_b_stages": the B-frame breakdown of "b_stages" with
     `rdoq_level=2` (its final MC and residuals carry the RDOQ stage);
+  - "p_stages_ref3": the "p_stages" breakdown of config 2 at --ref 3, over
+    the P frames 3 to --p-frames + 2 (the two warm-up P frames are the
+    ones coded against a list filled cyclically from fewer pictures);
   - the card's name and power limit.
 """
 
@@ -66,7 +71,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from chip_smoke import card_line, config1, config2, config3, synth_frames
+from chip_smoke import (card_line, config1, config2, config2_ref, config3,
+                        synth_frames)
+
+# P frames that run every stage before the P breakdowns' clock starts
+P_WARM = 2
 
 
 def stage_breakdown(enc, frames, batches):
@@ -121,66 +130,81 @@ def stage_breakdown(enc, frames, batches):
     return acc
 
 
-def p_stage_breakdown(enc, frames):
-    """Stages of config 2's P frames, each against the previous frame's
-    recon; frames[0] is coded as the I frame that seeds the reference."""
+def p_stage_breakdown(enc, frames, warm=P_WARM):
+    """Stages of config 2's P frames (at the encoder's --ref), each against
+    the recon of the previous frames as the encoder's L0 list holds them
+    (nearest first, filled cyclically while fewer exist); frames[0] is
+    coded as the I frame that seeds the list, and the first ``warm`` P
+    frames run every stage once before the clock counts (first-call
+    set-up: lazy module loads, the allocator's first blocks)."""
     import torch
     enc.encode_push(*frames[0])
-    ref = next(iter(enc._dpb.values()))
+    recons = [next(iter(enc._dpb.values()))]
+    nr = enc.num_ref_p
     fe = enc.inter_encoder
     qp = enc.rc.frame_qp("P")
     maps = fe._maps(qp)
-    n = len(frames) - 1
+    n = len(frames) - 1 - warm
     acc = {}
+    timed = [False]
 
     def mark(name, t0):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        acc[name] = acc.get(name, 0.0) + (t1 - t0) * 1e3 / n
+        if timed[0]:
+            acc[name] = acc.get(name, 0.0) + (t1 - t0) * 1e3 / n
         return t1
 
     pad = [[np.pad(a, ((0, (-a.shape[0]) % s), (0, 0)), mode="edge")
             for a, s in zip(f, (32, 16, 16))] for f in frames[1:]]
-    for fr in pad:
+    for poc, fr in enumerate(pad, 1):
+        timed[0] = poc > warm
         torch.cuda.synchronize()
         t = time.perf_counter()
         y, cb, cr = (fe._upload(a).to(torch.int32) for a in fr)
-        refs = tuple(r.to(torch.int32) for r in ref)
+        pick = [k % len(recons) for k in range(nr)]
+        refs, tables = fe._ref_list([recons[k] for k in pick],
+                                    [poc - 1 - k for k in pick], poc)
         t = mark("upload", t)
-        st1 = fe._motion_search(y, refs[0], maps)
+        per = [fe._motion_search(y, refs[0][r], maps) for r in range(nr)]
         t = mark("me", t)
-        st1.update(fe._subpel(y, refs[0], maps, st1))
+        for r, m in enumerate(per):
+            m.update(fe._subpel(y, refs[0][r], maps, m))
         t = mark("subpel", t)
-        st1.update(fe._trials(y, refs[0], maps, st1))
+        st1 = dict(grid=fe._stack_grids(per))
+        st1.update(fe._trials(y, refs[0], maps, per))
         t = mark("trials", t)
+        fe._pick_refs(st1, maps, tables)
+        t = mark("pick_ref", t)
         oy = y.reshape(fe.h16, 16, fe.w16, 16).permute(0, 2, 1, 3)
         st1["di16"], st1["imode16"] = fe._intra_trial16(
             oy, oy.reshape(-1, 16, 16), maps["qp16"], maps["lam16"])
         t = mark("intra_trial", t)
-        dec = fe._decide(st1, maps)
+        dec = fe._decide(st1, maps, tables)
         t = mark("decide_scan", t)
         cell = fe._cell_decisions(dec)
-        cell["mv"] = dec["mv"]
         lv, rec = fe._phase3(y, cb, cr, fe._final_mc(refs, cell), maps,
                              cell)
         t = mark("final_mc_residuals", t)
         rec, lv, modes = fe._commit(y, cb, cr, maps, cell["kinds"],
                                     st1["imode16"], lv, rec)
         t = mark("commit_scan", t)
-        intra = (cell["kinds"] == 2).reshape(fe.h16, fe.w16)
-        mv0 = torch.where(intra[..., None], 0,
-                          dec["mv"].reshape(fe.h16, fe.w16, 2))
+        h16, w16 = fe.h16, fe.w16
+        intra = (cell["kinds"] == 2).reshape(h16, w16)
+        mv0 = torch.where(intra[..., None], 0, dec["mv"].reshape(h16, w16, 2))
+        ref0 = torch.where(intra, 0, cell["ref"].reshape(h16, w16))
         rec, sse, _ = fe._filter_and_metrics(
             (y, cb, cr), rec, lv, cell["kinds"], dec["split"],
-            (torch.where(intra, 0, 1), mv0, torch.zeros_like(mv0)), maps, qp)
+            (torch.where(intra, 0, 1), mv0, torch.zeros_like(mv0)), maps, qp,
+            ref0)
         t = mark("loop_filter_and_metrics", t)
-        h16, w16 = fe.h16, fe.w16
         handle = fe._to_host(dict(
             split=dec["split"].to(torch.int8),
             kinds=cell["kinds"].reshape(h16, w16).to(torch.uint8),
             merge=cell["merge"].reshape(h16, w16).to(torch.uint8),
             mvd=cell["mvd"].reshape(h16, w16, 2).to(torch.int16),
             mvp=cell["mvp"].reshape(h16, w16).to(torch.uint8),
+            ref=cell["ref"].reshape(h16, w16).to(torch.uint8),
             modes=modes.to(torch.uint8),
             ly=lv[0].reshape(h16, w16, 16, 16),
             lcb=lv[1].reshape(h16, w16, 8, 8),
@@ -190,7 +214,7 @@ def p_stage_breakdown(enc, frames):
         t = mark("d2h", t)
         enc._cabac_inter_tree(res, qp)
         mark("cabac", t)
-        ref = handle["recon_dev"]
+        recons = [handle["recon_dev"]] + recons[:nr - 1]
     acc["total"] = sum(acc.values())
     return acc
 
@@ -488,7 +512,7 @@ def device_profile(run, n_frames):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--configs", default="1,2,3,4,5,6,7,8")
+    ap.add_argument("--configs", default="1,2,3,4,5,6,7,8,9")
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--p-frames", type=int, default=4)
     args = ap.parse_args()
@@ -512,7 +536,7 @@ def main():
         pframes = synth_frames(1280, 720, 2 * args.p_frames + 2, seed=2)
         penc = Encoder(config2(), device="cuda")
         print(json.dumps({"p_stages": p_stage_breakdown(
-            penc, pframes[:args.p_frames + 1])}))
+            penc, pframes[:P_WARM + args.p_frames + 1])}))
         penc = Encoder(config2(), device="cuda")
         penc.encode_push(*pframes[0])
         penc.encode_push(*pframes[1])
@@ -553,6 +577,11 @@ def main():
         rframes = synth_frames(1920, 1080, 5, seed=4)
         print(json.dumps({"rdoq_b_stages": b_stage_breakdown(
             Encoder(config3(rdoq=2), device="cuda"), rframes)}))
+    if 9 in configs:
+        pframes = synth_frames(1280, 720, P_WARM + args.p_frames + 1,
+                               seed=2)
+        print(json.dumps({"p_stages_ref3": p_stage_breakdown(
+            Encoder(config2_ref(3), device="cuda"), pframes)}))
     print(card_line())
 
 

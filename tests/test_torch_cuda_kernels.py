@@ -483,3 +483,84 @@ def test_resample_kernel(cuda_dev, src, dst, method):
             scaler.resample_plane(p, dst[1], dst[0], method, unrounded=raw),
             scaler.resample_plane_plain(p, dst[1], dst[0], method,
                                         unrounded=raw))
+
+
+@pytest.mark.parametrize("n,chroma", [(16, False), (32, False), (8, True)])
+def test_mc_qpel_ref_kernel(cuda_dev, n, chroma):
+    """K7 with a per-block reference index over 3 stacked planes, for the
+    final MC (one prediction per block) and the trials (every block on
+    every plane), MVs at the window bound on border blocks."""
+    from x265amod_tpu_torch.ops import me
+    rng = np.random.default_rng(40 + n + chroma)
+    h, w = (32, 48) if chroma else (64, 96)
+    planes = torch.stack([_plane(rng, h, w, cuda_dev) for _ in range(3)])
+    nb = (h // n) * (w // n)
+    bound = 8 * (8 // 2 + 2) if chroma else 4 * (8 + 2)
+    for k in (nb, 3 * nb):
+        mv = rng.integers(-bound, bound + 1, (k, 2)).astype(np.int32)
+        mv[0], mv[-1] = (-bound, -bound), (bound, bound)
+        ref = rng.integers(0, 3, k).astype(np.int32)
+        mv, ref = (torch.as_tensor(a, device=cuda_dev) for a in (mv, ref))
+        assert torch.equal(me.mc_qpel_ref(planes, mv, ref, n, chroma),
+                           me.mc_ref_plain(planes, mv, ref, n, chroma))
+
+
+@pytest.mark.parametrize("nr", [2, 3, 4])
+def test_pick_ref_kernel(cuda_dev, nr):
+    """K18 against its plain version, with exact ties between references
+    (the first wins) and costs whose FMA rounding differs from the product
+    rounded before the add."""
+    from x265amod_tpu_torch.models.mvpred import ref_list_tables
+    from x265amod_tpu_torch.ops import me
+    rng = np.random.default_rng(nr)
+    n = 999
+    d = rng.uniform(0, 1e5, (n, nr)).astype(np.float32)
+    rb = rng.uniform(0, 300, (n, nr)).astype(np.float32)
+    mv = rng.integers(-40, 41, (n, nr, 2)).astype(np.int32)
+    lam = rng.uniform(0, 400, n).astype(np.float32)
+    d[::3, 1] = d[::3, 0]
+    rb[::3, 1] = rb[::3, 0]
+    mv[::3, 1] = mv[::3, 0]
+    bits = ref_list_tables(nr, list(range(nr - 1, -1, -1)))[1]
+    args = [torch.as_tensor(a, device=cuda_dev)
+            for a in (d, rb, mv, lam, bits)]
+    for g, w in zip(me.pick_ref(*args), me.pick_ref_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("nr", [1, 3, 4])
+def test_decide_p_kernel(cuda_dev, nr):
+    """K17 against the plain scan on the card on a 128x96 P frame's phase-1
+    outputs: free (decisions, MVs, references and cost rows bit-equal) and
+    forced with the plain scan's decisions, at R = 1, 3 and 4."""
+    from x265amod_tpu_torch.models.inter_tree import InterTreeEncoder
+    from x265amod_tpu_torch.models.mvpred import ref_list_tables
+    rng = np.random.default_rng(70 + nr)
+    w, h = 128, 96
+    tree = InterTreeEncoder(w, h, search_range=8, subme=1, device=cuda_dev)
+    y = _plane(rng, h, w, cuda_dev)
+    refs = torch.stack([torch.roll(y, (r + 1, -r), (0, 1)) + r
+                        for r in range(nr)]).clamp(0, 255).to(torch.int32)
+    dsf, bits = ref_list_tables(nr, [nr - 1 - r for r in range(nr)])
+    tables = (torch.as_tensor(dsf, device=cuda_dev),
+              torch.as_tensor(bits, device=cuda_dev))
+    maps = tree._maps(30)
+    st1 = tree._phase1(y, refs, maps, tables)
+    got = tree._decide_kernel(st1, maps, tables, want_costs=True)
+    want = tree._decide_plain(st1, maps, tables, want_costs=True)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+    cells = tree._cell_decisions(want)
+    kinds = cells["kinds"]
+    forced = dict(c16=(torch.where(kinds == 0, cells["merge"],
+                                   torch.where(kinds == 1, 2, 3)),
+                       cells["mvd"], cells["mvp"], cells["ref"]),
+                  split=want["split"].reshape(-1))
+    forced["c32"] = [v[tree._q0_cell] for v in forced["c16"]]
+    fk = tree._decide_kernel(None, maps, tables, forced=forced)
+    fp = tree._decide_plain(None, maps, tables, forced=forced)
+    for k in ("split", "mv", "ref"):
+        assert torch.equal(fk[k], fp[k]), k
+        assert torch.equal(fk[k], want[k]), k

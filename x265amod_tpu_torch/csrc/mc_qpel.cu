@@ -6,9 +6,19 @@
 // and mc_chroma_qpel / mc_chroma_qpel14 (uni path), with the one-hot window
 // fetch _block_windows they use.
 //
-// Entry point (plain C, caller's stream, returns cudaGetLastError()):
+// With a per-block reference index it also replaces the final MC of a
+// multi-reference P frame (JAX models/inter_tree.py mc_sel :598-615, which
+// runs the MC on every reference and sums them under a one-hot mask, a TPU
+// stand-in for a gather): prediction k reads plane ref[k] of the stacked
+// planes.  The same entry serves the multi-reference trials (K = R x nb
+// predictions in one launch).
+//
+// Entry points (plain C, caller's stream, return cudaGetLastError()):
 //   mc_qpel(plane [H,W] i32, H, W, mv [nb,2] i32, nb, n, chroma,
 //           out [nb,n,n] i32)
+//   mc_qpel_ref(planes [R,H,W] i32, R, H, W, mv [K,2] i32, ref [K] i32, K,
+//               n, chroma, out [K,n,n] i32): prediction k is raster block
+//               k mod (H/n)(W/n) of plane ref[k] (clamped to 0..R-1)
 // mv is in luma quarter-pel units; for chroma the same value is the
 // eighth-pel chroma MV (4:2:0).
 //
@@ -34,18 +44,23 @@ __constant__ int kChroma[8][4] = {{0, 64, 0, 0},     {-2, 58, 10, -2},
                                   {-2, 16, 54, -4},  {-2, 10, 58, -2}};
 
 template <int T>
-__global__ void mc_kernel(const int32_t* __restrict__ plane, int H, int W,
-                          const int32_t* __restrict__ mv, int nb, int n,
+__global__ void mc_kernel(const int32_t* __restrict__ planes, int R, int H,
+                          int W, const int32_t* __restrict__ mv,
+                          const int32_t* __restrict__ ref, int nb, int n,
                           int32_t* __restrict__ out) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int nn = n * n;
   if (idx >= (int64_t)nb * nn) return;
-  const int b = (int)(idx / nn), p = (int)(idx % nn);
+  const int k = (int)(idx / nn), p = (int)(idx % nn);
   const int i = p / n, j = p % n;
   const int wb = W / n;
+  const int b = k % (wb * (H / n));
+  int r = ref == nullptr ? 0 : ref[k];
+  r = r < 0 ? 0 : (r > R - 1 ? R - 1 : r);
+  const int32_t* plane = planes + (size_t)r * H * W;
+  const int vx = mv[2 * k], vy = mv[2 * k + 1];
   const int sh = T == 8 ? 2 : 3;
   const int margin = T == 8 ? 3 : 1;
-  const int vx = mv[2 * b], vy = mv[2 * b + 1];
   const int fx = vx & ((1 << sh) - 1), fy = vy & ((1 << sh) - 1);
   const int* tx;
   const int* ty;
@@ -81,16 +96,31 @@ __global__ void mc_kernel(const int32_t* __restrict__ plane, int H, int W,
 
 }  // namespace
 
-extern "C" int mc_qpel(const int32_t* plane, int H, int W, const int32_t* mv,
-                       int nb, int n, int chroma, int32_t* out,
-                       cudaStream_t stream) {
+static int launch(const int32_t* planes, int R, int H, int W,
+                  const int32_t* mv, const int32_t* ref, int nb, int n,
+                  int chroma, int32_t* out, cudaStream_t stream) {
   if (n != 8 && n != 16 && n != 32) return (int)cudaErrorInvalidValue;
   const int64_t total = (int64_t)nb * n * n;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   if (chroma)
-    mc_kernel<4><<<blocks, threads, 0, stream>>>(plane, H, W, mv, nb, n, out);
+    mc_kernel<4><<<blocks, threads, 0, stream>>>(planes, R, H, W, mv, ref,
+                                                 nb, n, out);
   else
-    mc_kernel<8><<<blocks, threads, 0, stream>>>(plane, H, W, mv, nb, n, out);
+    mc_kernel<8><<<blocks, threads, 0, stream>>>(planes, R, H, W, mv, ref,
+                                                 nb, n, out);
   return (int)cudaGetLastError();
+}
+
+extern "C" int mc_qpel(const int32_t* plane, int H, int W, const int32_t* mv,
+                       int nb, int n, int chroma, int32_t* out,
+                       cudaStream_t stream) {
+  return launch(plane, 1, H, W, mv, nullptr, nb, n, chroma, out, stream);
+}
+
+extern "C" int mc_qpel_ref(const int32_t* planes, int R, int H, int W,
+                           const int32_t* mv, const int32_t* ref, int K,
+                           int n, int chroma, int32_t* out,
+                           cudaStream_t stream) {
+  return launch(planes, R, H, W, mv, ref, K, n, chroma, out, stream);
 }

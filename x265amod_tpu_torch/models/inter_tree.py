@@ -1,20 +1,27 @@
-"""P-slice CTU32 quadtree encoder on the card, single reference: the port of
-the JAX package's `models/inter_tree.py:InterTreeEncoder` (R = 1).
+"""P-slice CTU32 quadtree encoder on the card with 1 to 4 L0 references: the
+port of the JAX package's `models/inter_tree.py:InterTreeEncoder`.
 
 Four phases per P frame, as in the JAX `_encode` (:171):
 
-1. Parallel ME and trials (:219-297): the dense SSD grid of every 16x16 cell
-   and every CTU32 over +-sr (kernel K5 `me_ssd_grid`), the ME cost argmin,
-   the +-2 qpel refinement (K6 `subpel_refine`), and an inter trial at each
-   size (K7 `mc_qpel`, K2 `residual_chain` with inter rounding, K3 `tu_bits`
-   at P init states); the SSD grids over the half-pel plane (K8
-   `hpel_plane`) that price sub-pel merge candidates; the intra trial of
-   every cell on source references (`_intra_trial16`, :798: K1, K2, K3).
-2. Decide scan (:311-595): a Python loop over the anti-diagonals of the CTU32
-   grid.  Each CTU derives its merge and AMVP candidates from the motion
-   already decided (spec 8.5.3.2, z-scan availability) and picks skip,
-   AMVP inter or intra per CU, then split against no split.
-3. Final MC and residuals at the decided MVs (:597-687): K7, K2.
+1. Parallel ME and trials (:219-297), per reference: the dense SSD grid of
+   every 16x16 cell and every CTU32 over +-sr (kernel K5 `me_ssd_grid`), the
+   ME cost argmin, the +-2 qpel refinement (K6 `subpel_refine`), and an
+   inter trial at each size (K7 `mc_qpel`, K2 `residual_chain` with inter
+   rounding, K3 `tu_bits` at P init states); the SSD grids over the half-pel
+   plane (K8 `hpel_plane`) that price sub-pel merge candidates.  With
+   several references, the best one per CU by trial cost with its ref_idx
+   bins (K18 `pick_ref`, :274-290).  The intra trial of every cell on
+   source references (`_intra_trial16`, :798: K1, K2, K3).
+2. Decide scan (:336-544): over the anti-diagonals of the CTU32 grid, each
+   CTU derives its merge and AMVP candidates from the motion and references
+   already decided (spec 8.5.3.2, z-scan availability; merge pruning on
+   (MV, reference), AMVP scaled to the CU's reference) and picks skip, AMVP
+   inter or intra per CU, then split against no split.  On the card one
+   launch of K17 (`decide_p`); on the CPU its plain version, a Python loop
+   over the diagonals.
+3. Final MC against each cell's reference (K7, with a reference index over
+   the stacked planes when R > 1; JAX `mc_sel` :598-615) and residuals at
+   the decided MVs (:616-687): K2.
 4. Commit scan (:829-1044): intra cells re-coded from the true neighbouring
    reconstruction at the mode the trial chose (K1, K2).  The inter
    reconstruction of every cell is final after phase 3, so the state starts
@@ -27,32 +34,39 @@ also cb and cr with the luma lambda; the B tree's chroma runs none, as in
 JAX :1626-1638) and on the luma and chroma of the intra cells in phase 4;
 the trials of phase 1 and the decide scan run none, so no decision moves.
 
-Then the loop filter with the inter bS maps (K4), SSE and SSIM.  Per-lane
-side data is permuted once per frame into scan-slot order (diagonal by
-diagonal), so each diagonal reads contiguous views.
+Then the loop filter with the inter bS maps (K4; the L0 reference index per
+cell, JAX :735), SSE and SSIM.  The plain scan permutes its per-lane side
+data once per frame into scan-slot order (diagonal by diagonal), so each
+diagonal reads contiguous views.
 
 `encode_async_load` replays given decisions (split, kinds, merge indices,
-MVDs, MVP indices, intra modes) through the same candidate derivation, so
-the JAX encoder's decisions can drive the port.
+MVDs, MVP indices, reference indices, intra modes) through the same
+candidate derivation, so the JAX encoder's decisions can drive the port.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from ..ops import cuda_lib
 from ..ops.deblock import deblock_frame_planes, inter_tree_bs_maps
 from ..ops.estbits import intra_hdr_bits, tu_bits
 from ..ops.me import (check_window, hpel_plane, mc_bi, mc_chroma_qpel,
-                      mc_luma_qpel, me_ssd_grid, mvd_bits, subpel_refine)
+                      mc_luma_qpel, mc_qpel_ref, me_ssd_grid, mvd_bits,
+                      pick_ref, subpel_refine)
 from ..ops.metrics import plane_sse, ssim_plane
 from ..ops.pack import levels_for_host, levels_from_host
+from ..ops.rdoq import fma32
 from ..ops.residual import residual_chain
 from ..ops.sao import sao_filter_frame
 from .b_frame import BFrameResult
 from .inter_frame import InterFrameResult
 from .intra_frame import _diag_schedule
 from .intra_tree import ctu_maps, eval_luma, forced_chain, intra_mode_bits
+from .mvpred import ref_list_tables
 
 # header-bin cost of an intra CU inside a P slice, rounded to f32 as the
 # JAX weakly-typed scalar is
@@ -63,6 +77,35 @@ _KIND_OF_CHOICE = (0, 0, 1, 2)
 # B0 vs B1, B2 vs A1, B2 vs B1
 _PRUNE_B = [1, 2, 3, 3]
 _PRUNE_A = [0, 1, 0, 1]
+
+
+_P = ctypes.c_void_p
+
+
+class _DecideArgs(ctypes.Structure):
+    """`DecideArgs` of `csrc/decide_p.cu`, field for field."""
+    _fields_ = ([(k, ctypes.c_int) for k in (
+        "wc", "hc", "w16", "h16", "n_diags", "bmax", "sr", "R")]
+        + [(k, _P) for k in (
+            "grid", "d32", "rb32", "lam32", "mv32", "ref32", "d16", "rb16",
+            "di16", "lam16", "mv16", "ref16", "dsf", "refbits")]
+        + [("intra_hdr_bits", ctypes.c_float)]
+        + [(k, _P) for k in (
+            "slot_ctu", "diag_off", "f_ch16", "f_mvd16", "f_mvp16",
+            "f_ref16", "f_ch32", "f_mvd32", "f_mvp32", "f_ref32", "f_split",
+            "split", "ch32", "mvd32", "mvp32", "ref32_out", "chq", "mvdq",
+            "mvpq", "refq", "mv_cell", "ref_cell", "jsq", "js32", "jsplit",
+            "j32", "maps")])
+
+
+def decide_p_launch(args: _DecideArgs, like) -> None:
+    """One launch of K17 on the stream of the tensor ``like``."""
+    lib = cuda_lib.lib("decide_p")
+    f = lib.decide_p
+    f.argtypes = [ctypes.POINTER(_DecideArgs), _P]
+    f.restype = ctypes.c_int
+    cuda_lib.launched("decide_p", f(ctypes.byref(args),
+                                    _P(cuda_lib.stream_handle(like))))
 
 
 def _blocks(plane, bn):
@@ -125,7 +168,10 @@ class InterTreeEncoder:
         self._prune_a = torch.tensor(_PRUNE_A, device=dev)
         self._prune_b = torch.tensor(_PRUNE_B, device=dev)
         self._skip_bins = torch.tensor([2.0, 3.0], device=dev)
+        self._hdr_bits = torch.tensor(_INTRA_HDR_BITS, dtype=torch.float32,
+                                      device=dev)
         self._zero_mv = torch.zeros((1, 1, 2), dtype=torch.int32, device=dev)
+        self._zero_ref = torch.zeros((1, 1), dtype=torch.int32, device=dev)
         self._no = torch.zeros(1, dtype=torch.bool, device=dev)
 
     # ---- static schedule ---------------------------------------------------
@@ -139,6 +185,16 @@ class InterTreeEncoder:
         cx = np.array([c[0] for c in order])
         cy = np.array([c[1] for c in order])
         self._perm32 = torch.as_tensor(cy * wc + cx, device=dev)
+        # K17's schedule: slot -> raster CTU, and each diagonal's first slot
+        self._slot_ctu = self._perm32.to(torch.int32)
+        self._diag_off = torch.as_tensor(np.cumsum(
+            [0] + [len(c) for c in self.diags]), dtype=torch.int32,
+            device=dev)
+        self._bmax = max(len(c) for c in self.diags)
+        # raster CTU -> its top-left 16-cell
+        i32 = np.arange(self.hc * wc)
+        self._q0_cell = torch.as_tensor(2 * (i32 // wc) * w16 + 2 * (i32 % wc),
+                                        device=dev)
         bx, by = 2 * cx, 2 * cy
         cells = np.stack([by * w16 + bx, by * w16 + bx + 1,
                           (by + 1) * w16 + bx, (by + 1) * w16 + bx + 1], 1)
@@ -213,22 +269,53 @@ class InterTreeEncoder:
         best, j = eval_luma(oy_flat, refs, 16, qp16, lam16, mb, st=self.ST)
         return j, best
 
-    def _phase1(self, y, ref_y, maps):
-        """Stage-1 outputs in raster order: ME MVs, trial costs, intra trial
-        and the four SSD grids stacked [2 n16 + 2 n32, S, S]."""
-        st1 = self._motion_search(y, ref_y, maps)
-        st1.update(self._subpel(y, ref_y, maps, st1))
-        st1.update(self._trials(y, ref_y, maps, st1))
+    def _phase1(self, y, refs_y, maps, tables):
+        """Stage-1 outputs in raster order (JAX :219-296): per reference the
+        ME MVs, sub-pel refinement and trials; with R > 1 references the
+        best one per CU (K18 `pick_ref`, :274-290); the intra trial; and the
+        SSD grids of every reference stacked as JAX flattens them (see
+        `_stack_grids`).  refs_y [R, H, W]; tables (dsf, refbits)."""
+        per = []
+        for r in range(refs_y.shape[0]):
+            m = self._motion_search(y, refs_y[r], maps)
+            m.update(self._subpel(y, refs_y[r], maps, m))
+            per.append(m)
+        st1 = dict(grid=self._stack_grids(per))
+        st1.update(self._trials(y, refs_y, maps, per))
+        self._pick_refs(st1, maps, tables)
         st1["di16"], st1["imode16"] = self._intra_trial16(
             _blocks(y, 16), _blocks(y, 16).reshape(-1, 16, 16),
             maps["qp16"], maps["lam16"])
         return st1
 
+    @staticmethod
+    def _pick_refs(st1, maps, tables):
+        """The trials' d, rb and MV [nb, R] of each CU size become the best
+        reference's [nb] and its index ref{bn} (K18 when R > 1)."""
+        for bn, lam in ((16, maps["lam16"]), (32, maps["lam32"])):
+            if st1[f"d{bn}"].shape[1] == 1:
+                st1[f"ref{bn}"] = torch.zeros_like(st1[f"d{bn}"][:, 0],
+                                                   dtype=torch.int32)
+                for k in ("d", "rb", "mv"):
+                    st1[f"{k}{bn}"] = st1[f"{k}{bn}"][:, 0]
+            else:
+                (st1[f"ref{bn}"], st1[f"d{bn}"], st1[f"rb{bn}"],
+                 st1[f"mv{bn}"]) = pick_ref(st1[f"d{bn}"], st1[f"rb{bn}"],
+                                            st1[f"mv{bn}"], lam, tables[1])
+
+    @staticmethod
+    def _stack_grids(per):
+        """The SSD grids of R references in one tensor, as JAX flattens them
+        (:292-296): CU16 grids first, [integer-pel of refs 0..R-1, half-pel
+        of refs 0..R-1] x n16 rows, then the CU32 grids likewise, so a
+        candidate on reference r reads row base + (sub R + r) n + idx."""
+        return torch.cat([p["grids"][k] for k in range(4) for p in per], 0)
+
     def _motion_search(self, y, ref_y, maps):
         """Integer ME (JAX `best_mv` :227 before the refinement): the SSD
         grids at 16 and 32 over the reference (K5), their cost argmin, and
         the grids over the half-pel plane (K8, K5) that price sub-pel
-        merge candidates."""
+        merge candidates: grids [g16, g16 half-pel, g32, g32 half-pel]."""
         sr = self.sr
         s = 2 * sr + 1
         off = torch.arange(s, device=y.device, dtype=torch.int32) - sr
@@ -245,7 +332,7 @@ class InterTreeEncoder:
             out[f"mvi{bn}"] = torch.stack([flat % s - sr, flat // s - sr],
                                           1).to(torch.int32)
             grids += [g, me_ssd_grid(cur, rh, sr, bn)]
-        out["grid"] = torch.cat(grids, 0)
+        out["grids"] = grids
         return out
 
     def _subpel(self, y, ref_y, maps, st1):
@@ -259,113 +346,169 @@ class InterTreeEncoder:
                 bn)[0] if self.subme >= 1 else mvi * 4
         return out
 
-    def _trials(self, y, ref_y, maps, st1):
-        """The inter trial at each CU size (JAX `inter_trial` :239): MC
-        (K7), the residual chain with inter rounding and no SBH (K2), its
-        SSD and bits at P init states (K3)."""
+    def _trials(self, y, refs_y, maps, per):
+        """The inter trial of every reference at each CU size (JAX
+        `inter_trial` :239): MC (K7, one launch over the stacked planes with
+        a reference index per prediction), the residual chain with inter
+        rounding and no SBH (K2), its SSD and bits at P init states (K3).
+        d{bn}, rb{bn} [nb, R]; mv{bn} [nb, R, 2]."""
         out = {}
+        nr = refs_y.shape[0]
         for bn, q in ((16, maps["qp16"]), (32, maps["qp32"])):
-            pred = mc_luma_qpel(ref_y, st1[f"mv{bn}"], bn)
+            mv = torch.stack([p[f"mv{bn}"] for p in per], 1)
+            nb = mv.shape[0]
+            ref = torch.arange(nr, dtype=torch.int32, device=y.device) \
+                .repeat_interleave(nb)
+            pred = mc_qpel_ref(refs_y, mv.transpose(0, 1).reshape(-1, 2),
+                               ref, bn, False).reshape(nr, nb, bn, bn) \
+                .transpose(0, 1).contiguous()
             lv, _, ssd = residual_chain(_blocks(y, bn).reshape(-1, bn, bn),
-                                        pred[:, None], q, False,
-                                        want_recon=False, intra=False)
-            out[f"d{bn}"] = ssd[:, 0].to(torch.float32)
-            out[f"rb{bn}"] = tu_bits(lv[:, 0], 0, q, self.ST)
+                                        pred, q, False, want_recon=False,
+                                        intra=False)
+            out[f"d{bn}"] = ssd.to(torch.float32)
+            out[f"rb{bn}"] = tu_bits(lv, 0, q[:, None].expand(-1, nr),
+                                     self.ST)
+            out[f"mv{bn}"] = mv
         return out
 
     # ---- phase 2: decide scan ----------------------------------------------
 
-    def _decide_cu(self, av, mv, dd, rbd, mvme, lamv, di, row, ngrid,
-                   forced=None):
-        """One CU decision per lane from its candidates av/mv [L, 4(, 2)]
-        in the order A1, B1, B0, B2 (JAX `decide_cu` :363, R = 1: every
-        reference index is 0, so neighbour MVs need no scaling).  row is
-        the lane's integer-pel grid row; a sub-pel candidate reads
-        row + ngrid (the half-pel grid).  ``forced`` = (choice, mvd,
-        mvp_idx) replays a decision.  Returns (choice [L] int64, mv [L, 2],
-        mvd [L, 2], mvp_idx [L] bool, js [L, 4] or None)."""
+    def _scale_to(self, mv, rf, cur, dsf):
+        """Neighbour MVs [L, 2] on references rf [L] viewed at the CU's
+        references cur [L] (JAX `scale_to` :355-361: the same index passes
+        through, another is scaled by dsf[rf, cur], spec 8.5.3.2.8)."""
+        f = dsf[rf.long(), cur.long()][:, None]
+        return torch.where((rf == cur)[:, None], mv, _scale_mv_vec(mv, f))
+
+    def _decide_cu(self, av, mv, rf, dd, rbd, mvme, refme, lamv, di, row,
+                   ngrid, tables, forced=None):
+        """One CU decision per lane from its candidates av/mv/rf [L, 4(, 2)]
+        in the order A1, B1, B0, B2 (JAX `decide_cu` :363-476): the merge
+        list pruned on (MV, reference), AMVP A/B scaled to the lane's
+        reference, the ref_idx bins of tables = (dsf [R, R], refbits [R]) in
+        the inter cost, the skip costs from the SSD grid of the candidate's
+        reference (row + (sub R + r) ngrid; row is the lane's base + idx),
+        and the three costs XLA contracts into an FMA as one (`fma32`).
+        ``forced`` = (choice, mvd, mvp_idx, ref) replays a decision.
+        Returns (choice [L] int64, mv [L, 2], ref [L] int32, mvd [L, 2],
+        mvp_idx [L] bool, js [L, 4] or None)."""
+        dsf, refbits = tables
+        nr = refbits.shape[0]
         sr, s = self.sr, 2 * self.sr + 1
         # merge list (spec 8.5.3.2.3): B1 pruned against A1, B0 against B1,
         # B2 against A1 and B1, each against the partner's availability
         pa, pb = self._prune_a, self._prune_b
-        eq = (mv[:, pb] == mv[:, pa]).all(-1) & av[:, pa]
+        eq = (mv[:, pb] == mv[:, pa]).all(-1) & (rf[:, pb] == rf[:, pa]) & \
+            av[:, pa]
         avs = av.clone()
         avs[:, 1:3] &= ~eq[:, 0:2]
         avs[:, 3] &= ~(eq[:, 2] | eq[:, 3])
         pos = torch.cumsum(avs.to(torch.int32), 1)
         sel = avs[:, :, None] & (pos[:, :, None] == self._one_two)
         mrg = (mv[:, :, None, :] * sel[..., None]).sum(1, dtype=torch.int32)
-        # AMVP (8.5.3.2.6): A = A1, B = first of (B0, B1, B2), B pruned
-        # against A
+        mrf = (rf[:, :, None] * sel).sum(1, dtype=torch.int32)
+        # AMVP (8.5.3.2.6): A = A1, B = first of (B0, B1, B2), both viewed
+        # at the lane's reference, B pruned against A
+        cur = refme if forced is None else forced[3]
         a1, b1, b0 = av[:, 0], av[:, 1], av[:, 2]
-        ma1 = mv[:, 0]
         avb = av[:, 1:].any(1)
         mvb = torch.where(b0[:, None], mv[:, 2],
                           torch.where(b1[:, None], mv[:, 1], mv[:, 3]))
-        amvp0 = torch.where(a1[:, None], ma1,
-                            torch.where(avb[:, None], mvb, 0))
-        amvp1 = torch.where((a1 & avb & ~(mvb == ma1).all(-1))[:, None],
-                            mvb, 0)
+        rfb = torch.where(b0, rf[:, 2], torch.where(b1, rf[:, 1], rf[:, 3]))
+        sa = self._scale_to(mv[:, 0], rf[:, 0], cur, dsf)
+        sb = self._scale_to(mvb, rfb, cur, dsf)
+        amvp0 = torch.where(a1[:, None], sa,
+                            torch.where(avb[:, None], sb, 0))
+        amvp1 = torch.where((a1 & avb & ~(sb == sa).all(-1))[:, None],
+                            sb, 0)
         zero = self._zero_mv.expand(mv.shape[0], 1, 2)
+        zr = self._zero_ref.expand(mv.shape[0], 1)
         if forced is not None:
-            choice, mvd, mvp_idx = forced
+            choice, mvd, mvp_idx, ref = forced
             amvp = torch.where((mvp_idx == 1)[:, None], amvp1, amvp0)
             cands = torch.cat([mrg, (amvp + mvd)[:, None], zero], 1)
-            mv_fin = torch.gather(cands, 1, choice[:, None, None]
-                                  .expand(-1, 1, 2))[:, 0]
-            return choice, mv_fin, mvd, mvp_idx == 1, None
-        mvds = mvme[:, None] - torch.stack([amvp0, amvp1], 1)   # [L, 2, 2]
-        bits = mvd_bits(mvds)
-        use1 = bits[:, 1] < bits[:, 0]
-        mvd = torch.where(use1[:, None], mvds[:, 1], mvds[:, 0])
-        j_inter = dd + lamv * ((rbd + bits.amin(1)) + 6.0)
-        # skip on merge candidate 0 / 1: the SSD grid at the candidate's
-        # integer part, the half-pel grid for a sub-pel one
-        sub = ((mrg & 3) != 0).any(-1)                           # [L, 2]
-        mi = mrg >> 2
-        inside = (mi.abs() <= sr).all(-1)
-        mi = torch.clamp(mi + sr, 0, s - 1).long()
-        val = self._grid[row[:, None] + sub * ngrid, mi[..., 1], mi[..., 0]]
-        skip = torch.where(inside, val, 1e18) + lamv[:, None] * \
-            self._skip_bins
-        js = torch.cat([skip, j_inter[:, None],
-                        (di + lamv * _INTRA_HDR_BITS)[:, None]], 1)
-        choice = torch.argmin(js, 1)
-        cands = torch.cat([mrg, mvme[:, None], zero], 1)
+            rcands = torch.cat([mrf, ref.to(torch.int32)[:, None], zr], 1)
+        else:
+            mvds = mvme[:, None] - torch.stack([amvp0, amvp1], 1)
+            bits = mvd_bits(mvds)
+            use1 = bits[:, 1] < bits[:, 0]
+            mvd = torch.where(use1[:, None], mvds[:, 1], mvds[:, 0])
+            j_inter = fma32(lamv, ((rbd + bits.amin(1))
+                                   + refbits[refme.long()]) + 6.0, dd)
+            # skip on merge candidate 0 / 1: the SSD grid of the candidate's
+            # reference at its integer part, the half-pel grid for a sub-pel
+            # one
+            sub = ((mrg & 3) != 0).any(-1)                       # [L, 2]
+            mi = mrg >> 2
+            inside = (mi.abs() <= sr).all(-1)
+            mi = torch.clamp(mi + sr, 0, s - 1).long()
+            val = self._grid[row[:, None] + (sub * nr + mrf) * ngrid,
+                             mi[..., 1], mi[..., 0]]
+            skip = fma32(lamv[:, None], self._skip_bins,
+                         torch.where(inside, val, 1e18))
+            intra = torch.where(torch.isinf(di), di,
+                                fma32(lamv, self._hdr_bits, di))
+            js = torch.cat([skip, j_inter[:, None], intra[:, None]], 1)
+            choice = torch.argmin(js, 1)
+            cands = torch.cat([mrg, mvme[:, None], zero], 1)
+            rcands = torch.cat([mrf, refme.to(torch.int32)[:, None], zr], 1)
         mv_fin = torch.gather(cands, 1, choice[:, None, None]
                               .expand(-1, 1, 2))[:, 0]
-        return choice, mv_fin, mvd, use1, js
+        ref_fin = torch.gather(rcands, 1, choice[:, None])[:, 0]
+        if forced is not None:
+            return choice, mv_fin, ref_fin, mvd, mvp_idx == 1, None
+        return choice, mv_fin, ref_fin, mvd, use1, js
 
-    def _decide(self, st1, maps, forced=None, want_costs=False):
-        """The decide scan over the CTU32 diagonals.  Returns raster maps:
-        split [hc, wc] bool and per 16-cell choice, MV, MVD and MVP index
-        (plus, with want_costs, the per-cell cost rows and split costs).
-        The CU32 hypothesis and quadrant q0 read committed motion only, so
-        they share one call; their per-frame inputs are interleaved per CTU
-        ([n32, 2]) so that a diagonal's lanes are one contiguous view."""
+    def _decide(self, st1, maps, tables, forced=None, want_costs=False):
+        """The decide scan: on the card one launch of K17 (`decide_p`), on
+        the CPU its plain version.  Returns raster maps (see
+        `_decide_plain`)."""
+        if self.device.type == "cpu":
+            return self._decide_plain(st1, maps, tables, forced, want_costs)
+        return self._decide_kernel(st1, maps, tables, forced, want_costs)
+
+    def _decide_plain(self, st1, maps, tables, forced=None,
+                      want_costs=False):
+        """The decide scan over the CTU32 diagonals (JAX `decide_body`
+        :336-544), the plain version of K17.  Returns raster maps: split
+        [hc, wc] bool, per CTU32 the choice, MVD, MVP index and reference of
+        its CU32 hypothesis, per 16-cell its quadrant's choice, MVD, MVP
+        index and reference and the committed MV and reference of the cell
+        (plus, with want_costs, the cost rows and split costs).  The CU32
+        hypothesis and quadrant q0 read committed motion only, so they share
+        one call; their per-frame inputs are interleaved per CTU ([n32, 2])
+        so that a diagonal's lanes are one contiguous view.  ``forced``
+        holds raster (choice, mvd, mvp_idx, ref) per 16-cell (c16) and per
+        CTU (c32) and the split [n32]."""
         dev = self.device
         h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
         n16, n32 = h16 * w16, hc * wc
         p32, p16 = self._perm32, self._perm16
+        nr = tables[1].shape[0]
 
         def pair(a, b):              # [n32, 2, ...]: (CU32, q0) per CTU
             return torch.stack([a, b], 1)
-        row01 = pair(2 * n16 + p32, p16[:, 0])
+        # grid rows: CU16 grids first, the CU32 grids after 2 R n16 rows
+        row01 = pair(2 * nr * n16 + p32, p16[:, 0])
         ng01 = pair(torch.full_like(p32, n32), torch.full_like(p32, n16))
         if forced is None:
             self._grid = st1["grid"]
-            d16, rb16, mv16, di16, lam16 = (
+            d16, rb16, mv16, ref16, di16, lam16 = (
                 t[p16] for t in (st1["d16"], st1["rb16"], st1["mv16"],
-                                 st1["di16"], maps["lam16"]))
+                                 st1["ref16"], st1["di16"], maps["lam16"]))
             x01 = [pair(st1[k][p32], c[:, 0]) for k, c in (
-                ("d32", d16), ("rb32", rb16), ("mv32", mv16))]
+                ("d32", d16), ("rb32", rb16), ("mv32", mv16),
+                ("ref32", ref16))]
             x01 += [pair(maps["lam32"][p32], lam16[:, 0]),
                     pair(self._inf.expand(n32), di16[:, 0])]
         else:
-            f01 = [pair(a, c[:, 0]) for a, c in zip(forced["c32"],
-                                                     forced["c16"])]
+            f16 = [t[p16] for t in forced["c16"]]
+            f01 = [pair(t[p32], c[:, 0]) for t, c in zip(forced["c32"],
+                                                         f16)]
+            fsplit = forced["split"][p32]
         mv_map = torch.zeros((h16, w16, 2), dtype=torch.int32, device=dev)
         inter_map = torch.zeros((h16, w16), dtype=torch.bool, device=dev)
+        ref_map = torch.zeros((h16, w16), dtype=torch.int32, device=dev)
         outs = []
         for lane in self._lanes:
             sl = lane["sl"]
@@ -373,63 +516,76 @@ class InterTreeEncoder:
             ny, nx = lane["ny"], lane["nx"]
             nav = lane["nok"] & inter_map[ny, nx]
             nmv = torch.where(nav[..., None], mv_map[ny, nx], 0)
+            nrf = torch.where(nav, ref_map[ny, nx], 0)
             av01 = nav[:, 0:8].reshape(2 * b, 4)
             mv01 = nmv[:, 0:8].reshape(2 * b, 4, 2)
+            rf01 = nrf[:, 0:8].reshape(2 * b, 4)
             row_ = row01[sl].reshape(-1)
             ng_ = ng01[sl].reshape(-1, 1)
             if forced is None:
                 r01 = self._decide_cu(
-                    av01, mv01, *(t[sl].reshape((2 * b,) + t.shape[2:])
-                                  for t in x01), row_, ng_)
+                    av01, mv01, rf01, *(t[sl].reshape((2 * b,) + t.shape[2:])
+                                        for t in x01), row_, ng_, tables)
 
-                def q_call(q, av, mv):
-                    return self._decide_cu(av, mv, d16[sl, q], rb16[sl, q],
-                                           mv16[sl, q], lam16[sl, q],
-                                           di16[sl, q], p16[sl, q], n16)
+                def q_call(q, av, mv, rf):
+                    return self._decide_cu(
+                        av, mv, rf, d16[sl, q], rb16[sl, q], mv16[sl, q],
+                        ref16[sl, q], lam16[sl, q], di16[sl, q], p16[sl, q],
+                        n16, tables)
             else:
                 r01 = self._decide_cu(
-                    av01, mv01, None, None, None, None, None, row_, ng_,
+                    av01, mv01, rf01, None, None, None, None, None, None,
+                    row_, ng_, tables,
                     forced=tuple(t[sl].reshape((2 * b,) + t.shape[2:])
                                  for t in f01))
 
-                def q_call(q, av, mv):
+                def q_call(q, av, mv, rf):
                     return self._decide_cu(
-                        av, mv, None, None, None, None, None, None, None,
-                        forced=tuple(c[sl, q] for c in forced["c16"]))
+                        av, mv, rf, None, None, None, None, None, None, None,
+                        None, tables, forced=tuple(c[sl, q] for c in f16))
             c32 = [t[0::2] if t is not None else None for t in r01]
             q0 = [t[1::2] if t is not None else None for t in r01]
-            a0, m0 = q0[0] <= 2, q0[1]
+            a0, m0, f0 = q0[0] <= 2, q0[1], q0[2]
             q1 = q_call(1, torch.stack([a0, nav[:, 8], nav[:, 9],
                                         nav[:, 10]], 1),
                         torch.stack([m0, nmv[:, 8], nmv[:, 9], nmv[:, 10]],
+                                    1),
+                        torch.stack([f0, nrf[:, 8], nrf[:, 9], nrf[:, 10]],
                                     1))
-            a1, m1 = q1[0] <= 2, q1[1]
+            a1, m1, f1 = q1[0] <= 2, q1[1], q1[2]
             q2 = q_call(2, torch.stack([nav[:, 11], a0, a1, nav[:, 12]], 1),
-                        torch.stack([nmv[:, 11], m0, m1, nmv[:, 12]], 1))
+                        torch.stack([nmv[:, 11], m0, m1, nmv[:, 12]], 1),
+                        torch.stack([nrf[:, 11], f0, f1, nrf[:, 12]], 1))
             no = self._no.expand(b)
+            zr = self._zero_ref[0].expand(b)
             q3 = q_call(3, torch.stack([q2[0] <= 2, a1, no, a0], 1),
                         torch.stack([q2[1], m1, self._zero_mv[0].expand(
-                            b, 2), m0], 1))
+                            b, 2), m0], 1),
+                        torch.stack([q2[2], f1, zr, f0], 1))
             qs = (q0, q1, q2, q3)
             if forced is None:
-                jq = [q[4].amin(1) for q in qs]
+                jq = [q[5].amin(1) for q in qs]
                 jsplit = ((jq[0] + jq[1]) + jq[2]) + jq[3]
-                j32 = c32[4].amin(1)
+                j32 = c32[5].amin(1)
                 split = jsplit < j32
             else:
-                split = forced["split"][sl]
+                split = fsplit[sl]
             chq = torch.stack([q[0] for q in qs], 1)
             mvfq = torch.stack([q[1] for q in qs], 1)
+            rffq = torch.stack([q[2] for q in qs], 1)
             cell_mv = torch.where(split[:, None, None], mvfq,
                                   c32[1][:, None, :])
+            cell_ref = torch.where(split[:, None], rffq, c32[2][:, None])
             mv_map[lane["cys"], lane["cxs"]] = cell_mv
+            ref_map[lane["cys"], lane["cxs"]] = cell_ref
             inter_map[lane["cys"], lane["cxs"]] = (chq <= 2) | \
                 ~split[:, None]
-            out = [split, c32[0], c32[2], c32[3], chq,
-                   torch.stack([q[2] for q in qs], 1),
-                   torch.stack([q[3] for q in qs], 1), cell_mv]
+            out = [split, c32[0], c32[3], c32[4], c32[2], chq,
+                   torch.stack([q[3] for q in qs], 1),
+                   torch.stack([q[4] for q in qs], 1), rffq, cell_mv,
+                   cell_ref]
             if want_costs:
-                out += [torch.stack([q[4] for q in qs], 1), c32[4],
+                out += [torch.stack([q[5] for q in qs], 1), c32[5],
                         jsplit, j32]
             outs.append(out)
         cat = [torch.cat(o, 0) for o in zip(*outs)]
@@ -445,17 +601,89 @@ class InterTreeEncoder:
             return r
         res = dict(split=to32(cat[0]).reshape(hc, wc), ch32=to32(cat[1]),
                    mvd32=to32(cat[2]), mvp32=to32(cat[3]).to(torch.int32),
-                   chq=to16(cat[4]), mvdq=to16(cat[5]),
-                   mvpq=to16(cat[6]).to(torch.int32), mv=to16(cat[7]))
+                   ref32=to32(cat[4]), chq=to16(cat[5]), mvdq=to16(cat[6]),
+                   mvpq=to16(cat[7]).to(torch.int32), refq=to16(cat[8]),
+                   mv=to16(cat[9]), ref=to16(cat[10]))
         if want_costs:
-            res.update(jsq=to16(cat[8]), js32=to32(cat[9]),
-                       jsplit=to32(cat[10]), j32=to32(cat[11]))
+            res.update(jsq=to16(cat[11]), js32=to32(cat[12]),
+                       jsplit=to32(cat[13]), j32=to32(cat[14]))
         self._grid = None
         return res
 
+    def _decide_kernel(self, st1, maps, tables, forced=None,
+                       want_costs=False):
+        """The decide scan as one launch of K17 (`csrc/decide_p.cu`), free
+        or forced; the same raster outputs as `_decide_plain`."""
+        dev = self.device
+        h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
+        n16, n32 = h16 * w16, hc * wc
+        dsf, refbits = tables
+        nr = refbits.shape[0]
+        i32, f32 = torch.int32, torch.float32
+
+        def c(t, dt):
+            return t.to(dt).contiguous()
+        keep = []                    # the tensors the launch reads
+
+        def p(t):
+            if t is None:
+                return None
+            keep.append(t)
+            return cuda_lib.ptr(t)
+        a = _DecideArgs(wc=wc, hc=hc, w16=w16, h16=h16,
+                        n_diags=len(self.diags), bmax=self._bmax, sr=self.sr,
+                        R=nr, intra_hdr_bits=_INTRA_HDR_BITS)
+        a.dsf, a.refbits = p(c(dsf, i32)), p(c(refbits, f32))
+        a.slot_ctu, a.diag_off = p(self._slot_ctu), p(self._diag_off)
+        if forced is None:
+            a.grid = p(c(st1["grid"], f32))
+            for k, dt in (("d32", f32), ("rb32", f32), ("mv32", i32),
+                          ("ref32", i32), ("d16", f32), ("rb16", f32),
+                          ("mv16", i32), ("ref16", i32), ("di16", f32)):
+                setattr(a, k, p(c(st1[k], dt)))
+            a.lam32, a.lam16 = p(c(maps["lam32"], f32)), \
+                p(c(maps["lam16"], f32))
+        else:
+            for pre, vals in (("16", forced["c16"]), ("32", forced["c32"])):
+                for k, v in zip(("f_ch", "f_mvd", "f_mvp", "f_ref"), vals):
+                    setattr(a, k + pre, p(c(v, i32)))
+            a.f_split = p(c(forced["split"], i32))
+        out = dict(
+            split=torch.empty(n32, dtype=i32, device=dev),
+            ch32=torch.empty(n32, dtype=i32, device=dev),
+            mvd32=torch.empty((n32, 2), dtype=i32, device=dev),
+            mvp32=torch.empty(n32, dtype=i32, device=dev),
+            ref32=torch.empty(n32, dtype=i32, device=dev),
+            chq=torch.empty(n16, dtype=i32, device=dev),
+            mvdq=torch.empty((n16, 2), dtype=i32, device=dev),
+            mvpq=torch.empty(n16, dtype=i32, device=dev),
+            refq=torch.empty(n16, dtype=i32, device=dev),
+            mv=torch.empty((n16, 2), dtype=i32, device=dev),
+            ref=torch.empty(n16, dtype=i32, device=dev))
+        for k, v in out.items():
+            setattr(a, "ref32_out" if k == "ref32" else
+                    "mv_cell" if k == "mv" else
+                    "ref_cell" if k == "ref" else k, p(v))
+        if want_costs and forced is None:
+            out.update(jsq=torch.empty((n16, 4), dtype=f32, device=dev),
+                       js32=torch.empty((n32, 4), dtype=f32, device=dev),
+                       jsplit=torch.empty(n32, dtype=f32, device=dev),
+                       j32=torch.empty(n32, dtype=f32, device=dev))
+            for k in ("jsq", "js32", "jsplit", "j32"):
+                setattr(a, k, p(out[k]))
+        # the committed motion the scan reads back (16 bytes a 16-cell)
+        a.maps = p(torch.empty(4 * n16, dtype=i32, device=dev))
+        cuda_lib.require_cuda(*keep)
+        decide_p_launch(a, keep[0])
+        out["split"] = out["split"].bool().reshape(hc, wc)
+        out["ch32"] = out["ch32"].long()
+        out["chq"] = out["chq"].long()
+        return out
+
     def _cell_decisions(self, dec):
-        """Per 16-cell kinds, merge index, MVD and MVP index: the quadrant's
-        own where its CTU is split, the CU32's replicated otherwise."""
+        """Per 16-cell kinds, merge index, MVD, MVP index, MV and reference:
+        the quadrant's own where its CTU is split, the CU32's replicated
+        otherwise (the MV and reference as the scan committed them)."""
         h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
 
         def rep(t):
@@ -470,7 +698,7 @@ class InterTreeEncoder:
             merge=torch.clamp(ch, max=1),
             mvd=torch.where(sp[:, None], dec["mvdq"], rep(dec["mvd32"])),
             mvp=torch.where(sp, dec["mvpq"], rep(dec["mvp32"])),
-            k32=kind_tab[dec["ch32"]])
+            k32=kind_tab[dec["ch32"]], mv=dec["mv"], ref=dec["ref"])
 
     # ---- phases 3 and 4 ------------------------------------------------------
 
@@ -494,11 +722,14 @@ class InterTreeEncoder:
         return lam, (torch.cat([lam, lam]) if self.ST == "P" else None)
 
     def _final_mc(self, refs, cell):
-        """Final uni MC of every cell at its decided MV (K7): luma, cb, cr
-        predictions [n16, n, n]."""
-        mv = cell["mv"]
-        return (mc_luma_qpel(refs[0], mv, 16), mc_chroma_qpel(refs[1], mv, 8),
-                mc_chroma_qpel(refs[2], mv, 8))
+        """Final uni MC of every cell at its decided MV against its decided
+        reference (K7 over the stacked planes with the cell's reference
+        index, JAX `mc_sel` :598-615): luma, cb, cr predictions [n16, n, n].
+        refs: stacked planes [R, H, W] each."""
+        mv, ref = cell["mv"], cell["ref"]
+        return (mc_qpel_ref(refs[0], mv, ref, 16, False),
+                mc_qpel_ref(refs[1], mv, ref, 8, True),
+                mc_qpel_ref(refs[2], mv, ref, 8, True))
 
     def _phase3(self, y, cb, cr, preds, maps, cell):
         """Residuals of the final predictions for both CU sizes (K2);
@@ -656,13 +887,14 @@ class InterTreeEncoder:
     # ---- loop filter and metrics ----------------------------------------------
 
     def _filter_and_metrics(self, src, rec, levels, kinds, split, motion,
-                            maps, qp):
+                            maps, qp, ref0=None):
         """The deblocking filter with the inter bS maps (JAX :709-746: TU
         cbf per cell, a TU32's over its four cells; prediction directions
         and MVs [h16, w16(, 2)] in ``motion`` = (dir, mv0, mv1), 0 on intra
-        cells), SAO when enabled (:747-760), then SSE and SSIM (:762-767)
-        on the final recon.  Returns (recon planes, sse [4], SAO outputs
-        {"sao0".."sao9": tensor})."""
+        cells; the L0 reference index per cell ``ref0``, 0 on intra cells
+        and when not given), SAO when enabled (:747-760), then SSE and SSIM
+        (:762-767) on the final recon.  Returns (recon planes, sse [4], SAO
+        outputs {"sao0".."sao9": tensor})."""
         h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
         (y, cb, cr), (ry, rcb, rcr), (ly, lcb, lcr) = src, rec, levels
         if self.deblock:
@@ -672,10 +904,11 @@ class InterTreeEncoder:
             sp_rep = split.repeat_interleave(2, 0).repeat_interleave(2, 1)
             cbf = torch.where(sp_rep, nz_y, cbf32.repeat_interleave(2, 0)
                               .repeat_interleave(2, 1))
-            zeros = torch.zeros_like(intra, dtype=torch.int32)
+            if ref0 is None:
+                ref0 = torch.zeros_like(intra, dtype=torch.int32)
             bs = inter_tree_bs_maps(intra[None], cbf[None],
                                     *(t[None] for t in motion), split[None],
-                                    zeros[None])
+                                    ref0[None])
             coded = (nz_y | (lcb != 0).any(-1).any(-1).reshape(h16, w16)
                      | (lcr != 0).any(-1).any(-1).reshape(h16, w16))
             ry, rcb, rcr = (t[0] for t in deblock_frame_planes(
@@ -694,24 +927,24 @@ class InterTreeEncoder:
 
     # ---- one P frame ---------------------------------------------------------
 
-    def _step(self, y, cb, cr, refs, qp: int, forced=None, want_recon=False,
-              want_costs=False, qp_offsets=None):
+    def _step(self, y, cb, cr, refs, qp: int, tables, forced=None,
+              want_recon=False, want_costs=False, qp_offsets=None):
         """The four phases, loop filter and metrics for one frame on the
-        device, with the per-16-cell QP offsets [h16, w16] of AQ and
-        CU-tree when given.  Returns a dict of device tensors."""
+        device against the L0 list ``refs`` (stacked [R, H, W] luma, cb,
+        cr) with its tables (dsf, refbits), with the per-16-cell QP offsets
+        [h16, w16] of AQ and CU-tree when given.  Returns a dict of device
+        tensors."""
         maps = self._maps(qp, qp_offsets)
         y, cb, cr = (t.to(torch.int32) for t in (y, cb, cr))
-        refs = tuple(t.to(torch.int32) for t in refs)
         h16, w16 = self.h16, self.w16
         if forced is None:
-            st1 = self._phase1(y, refs[0], maps)
-            dec = self._decide(st1, maps, want_costs=want_costs)
+            st1 = self._phase1(y, refs[0], maps, tables)
+            dec = self._decide(st1, maps, tables, want_costs=want_costs)
             imode = st1["imode16"]
         else:
-            dec = self._decide(None, maps, forced=forced["scan"])
+            dec = self._decide(None, maps, tables, forced=forced["scan"])
             imode = forced["modes"]
         cell = self._cell_decisions(dec)
-        cell["mv"] = dec["mv"]
         lv, rec = self._phase3(y, cb, cr, self._final_mc(refs, cell), maps,
                                cell)
         kinds = cell["kinds"]
@@ -720,14 +953,17 @@ class InterTreeEncoder:
         split = dec["split"]
         intra = (kinds == 2).reshape(h16, w16)
         mv0 = torch.where(intra[..., None], 0, dec["mv"].reshape(h16, w16, 2))
+        ref0 = torch.where(intra, 0, cell["ref"].reshape(h16, w16))
         (ry, rcb, rcr), sse, sao = self._filter_and_metrics(
             (y, cb, cr), (ry, rcb, rcr), (ly, lcb, lcr), kinds, split,
-            (torch.where(intra, 0, 1), mv0, torch.zeros_like(mv0)), maps, qp)
+            (torch.where(intra, 0, 1), mv0, torch.zeros_like(mv0)), maps, qp,
+            ref0)
         out = dict(split=split.to(torch.int8),
                    kinds=kinds.reshape(h16, w16).to(torch.uint8),
                    merge=cell["merge"].reshape(h16, w16).to(torch.uint8),
                    mvd=cell["mvd"].reshape(h16, w16, 2).to(torch.int16),
                    mvp=cell["mvp"].reshape(h16, w16).to(torch.uint8),
+                   ref=cell["ref"].reshape(h16, w16).to(torch.uint8),
                    modes=modes.to(torch.uint8),
                    ly=ly.reshape(h16, w16, 16, 16),
                    lcb=lcb.reshape(h16, w16, 8, 8),
@@ -766,46 +1002,66 @@ class InterTreeEncoder:
         event.record(torch.cuda.current_stream(self.device))
         return dict(handle, host=host, event=event)
 
+    def _ref_list(self, ref_dev, ref_pocs, poc):
+        """The L0 list as stacked int32 planes (luma, cb, cr) [R, H, W] and
+        its tables (dsf [R, R] int32, refbits [R] f32; JAX `encode_async`
+        :1087-1101) on the device.  ref_dev: a list of (y, cb, cr) tuples of
+        device planes, nearest first, or one tuple (a one-picture list);
+        ref_pocs default to 0..R-1."""
+        if not isinstance(ref_dev, list):
+            ref_dev = [ref_dev]
+        refs = tuple(torch.stack([r[k].to(torch.int32) for r in ref_dev])
+                     for k in range(3))
+        pocs = list(range(len(ref_dev))) if ref_pocs is None else ref_pocs
+        dsf, bits = ref_list_tables(poc, pocs)
+        return refs, (self._upload(dsf), self._upload(bits))
+
     def encode_async(self, y, cb, cr, ref_dev, qp: int, want_recon=False,
-                     want_costs=False, qp_offsets=None):
-        """Dispatch one P frame (numpy uint8 planes) against ``ref_dev``, the
-        reference's device planes (y, cb, cr), with optional per-16-cell
-        QP offsets.  Returns a handle."""
+                     want_costs=False, qp_offsets=None, ref_pocs=None,
+                     poc: int = 0):
+        """Dispatch one P frame (numpy uint8 planes) against ``ref_dev``:
+        the reference's device planes (y, cb, cr), or a list of them, the
+        L0 list nearest first, whose POCs ``ref_pocs`` and the picture's
+        ``poc`` give the MV scale factors; with optional per-16-cell QP
+        offsets.  Returns a handle."""
+        refs, tables = self._ref_list(ref_dev, ref_pocs, poc)
         out, rec = self._step(self._upload(y), self._upload(cb),
-                              self._upload(cr), ref_dev, qp,
+                              self._upload(cr), refs, qp, tables,
                               want_recon=want_recon, want_costs=want_costs,
                               qp_offsets=qp_offsets)
         return self._to_host(out, rec)
 
     def encode_async_load(self, y, cb, cr, ref_dev, qp: int, split, kinds,
                           merge_idx, mvd, mvp_idx, modes, want_recon=False,
-                          qp_offsets=None):
+                          qp_offsets=None, ref_idx=None, ref_pocs=None,
+                          poc: int = 0):
         """One P frame under given decisions, as `InterFrameResult` carries
-        them (split [hc, wc]; kinds, merge_idx, mvp_idx, modes [h16, w16];
-        mvd [h16, w16, 2]).  Phases 1 and 2 are skipped: each cell's MV is
-        rebuilt in z-order from the same merge/AMVP derivation."""
+        them (split [hc, wc]; kinds, merge_idx, mvp_idx, modes and, with
+        several references, the L0 index ref_idx [h16, w16]; mvd [h16, w16,
+        2]).  Phases 1 and 2 are skipped: each cell's MV and reference are
+        rebuilt in z-order from the same merge/AMVP derivation (on the card
+        by K17's forced mode)."""
         dev = self.device
-        kinds = torch.as_tensor(np.asarray(kinds, np.int64), device=dev)
-        merge = torch.as_tensor(np.asarray(merge_idx, np.int64), device=dev)
+        refs, tables = self._ref_list(ref_dev, ref_pocs, poc)
+
+        def t(a, dt):
+            return torch.as_tensor(np.asarray(a, dt), device=dev)
+        kinds, merge = t(kinds, np.int64), t(merge_idx, np.int64)
         choice = torch.where(kinds == 0, merge, torch.where(kinds == 1, 2,
                                                             3)).reshape(-1)
-        mvd_t = torch.as_tensor(np.asarray(mvd, np.int32),
-                                device=dev).reshape(-1, 2)
-        mvp_t = torch.as_tensor(np.asarray(mvp_idx, np.int32),
-                                device=dev).reshape(-1)
-        p16, p32 = self._perm16, self._perm32
-        q0 = p16[:, 0]
-        f16 = (choice[p16], mvd_t[p16], mvp_t[p16])
+        ref = torch.zeros_like(choice, dtype=torch.int32) \
+            if ref_idx is None else t(ref_idx, np.int32).reshape(-1)
+        c16 = (choice, t(mvd, np.int32).reshape(-1, 2),
+               t(mvp_idx, np.int32).reshape(-1), ref)
         # a CU32's decision is replicated over its cells: read it at q0
-        f32 = (choice[q0], mvd_t[q0], mvp_t[q0])
-        sp = torch.as_tensor(np.asarray(split, bool), device=dev) \
-            .reshape(-1)[p32]
-        forced = dict(scan=dict(c32=f32, c16=f16, split=sp),
-                      modes=torch.as_tensor(np.asarray(modes, np.int32),
-                                            device=dev).reshape(-1))
+        q0 = self._q0_cell
+        forced = dict(scan=dict(c16=c16, c32=[v[q0] for v in c16],
+                                split=t(split, bool).reshape(-1)),
+                      modes=t(modes, np.int32).reshape(-1))
         out, rec = self._step(self._upload(y), self._upload(cb),
-                              self._upload(cr), ref_dev, qp, forced=forced,
-                              want_recon=want_recon, qp_offsets=qp_offsets)
+                              self._upload(cr), refs, qp, tables,
+                              forced=forced, want_recon=want_recon,
+                              qp_offsets=qp_offsets)
         return self._to_host(out, rec)
 
     @staticmethod
@@ -823,7 +1079,7 @@ class InterTreeEncoder:
             *levels_from_host(h, 0, handle["dense"]), h["sse"],
             recon_dev=handle["recon_dev"],
             split=h["split"].astype(np.int32),
-            ref0=np.zeros(h["kinds"].shape, np.int32), sao=_sao_of(h))
+            ref0=h["ref"].astype(np.int32), sao=_sao_of(h))
         if "rec_y" in h:
             res.recon_y, res.recon_cb, res.recon_cr = (
                 h["rec_y"], h["rec_cb"], h["rec_cr"])
@@ -843,11 +1099,13 @@ _DIR_OF_CHOICE_B = (0, 0, 1, 2, 3, 0)
 _B_ORDER = [2, 1, 3]
 
 
-def _scale_mv_vec(mv, dsf: int):
+def _scale_mv_vec(mv, dsf):
     """Spec 8.5.3.2.8 MV scaling (JAX `inter_tree.py:_scale_mv_vec`
     :1175): ``sign(x) ((|x| + 127) >> 8)`` of x = dsf mv, clipped to 16
-    bits; mv [..., 2] int32 qpel."""
-    x = mv.to(torch.int32) * int(dsf)
+    bits; mv [..., 2] int32 qpel; dsf an int or an int32 tensor that
+    broadcasts against mv (one factor per lane)."""
+    x = mv.to(torch.int32) * (dsf.to(torch.int32)
+                              if isinstance(dsf, torch.Tensor) else int(dsf))
     mag = (x.abs() + 127) >> 8
     return torch.clamp(torch.sign(x) * mag, -32768, 32767).to(torch.int32)
 
@@ -907,7 +1165,7 @@ class BTreeEncoder(InterTreeEncoder):
             m = self._motion_search(y, ref, maps)
             m.update(self._subpel(y, ref, maps, m))
             st.update({f"mv{li}_16": m["mv16"], f"mv{li}_32": m["mv32"],
-                       f"grid{li}": m["grid"]})
+                       f"grid{li}": self._stack_grids([m])})
         return st
 
     def _trials_b(self, y, refs, maps, st1, excess):

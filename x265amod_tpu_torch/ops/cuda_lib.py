@@ -28,12 +28,13 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-# name -> extra nvcc flags.  tu_bits, subpel, sao_analyse and the RDOQ stage
-# of residual_chain form f32 costs in a fixed order that decides RD argmins,
-# so the compiler must not contract them into FMAs (sao_analyse and
-# residual_chain write the FMAs the JAX order has themselves); lowres_aq and
-# cutree_prop repeat the JAX f32 operations one by one, and resample writes
-# the FMA chain of XLA's dot itself.
+# name -> extra nvcc flags.  tu_bits, subpel, sao_analyse, decide_p,
+# pick_ref and the RDOQ stage of residual_chain form f32 costs in a fixed
+# order that decides RD argmins, so the compiler must not contract them into
+# FMAs (sao_analyse, residual_chain, decide_p and pick_ref write the FMAs the
+# JAX order has themselves); lowres_aq and cutree_prop repeat the JAX f32
+# operations one by one, and resample writes the FMA chain of XLA's dot
+# itself.
 KERNELS = {
     "intra_pred": [],
     "residual_chain": ["--fmad=false"],
@@ -51,6 +52,8 @@ KERNELS = {
     "cutree_prop": ["--fmad=false"],
     "pack_levels": [],
     "resample": ["--fmad=false"],
+    "decide_p": ["--fmad=false"],
+    "pick_ref": ["--fmad=false"],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -1,12 +1,16 @@
 """Motion estimation and motion compensation for the P and B trees: kernels
-K5 `me_ssd_grid`, K6 `subpel_refine`, K7 `mc_qpel`, K8 `hpel_plane` and K9
-`mc_bi` (bi-prediction), each beside its plain PyTorch version.
+K5 `me_ssd_grid`, K6 `subpel_refine`, K7 `mc_qpel` (also over stacked
+reference planes with a per-block reference index, `mc_qpel_ref`), K8
+`hpel_plane`, K9 `mc_bi` (bi-prediction) and K18 `pick_ref` (the best
+reference per CU of a multi-reference P frame), each beside its plain
+PyTorch version.
 
 Counterparts in the JAX package: `ops/me.py` (`me_ssd_grid` :33,
 `subpel_refine` :385, `mc_luma_qpel` :315 / `mc_luma_qpel14` :262,
 `mc_chroma_qpel` :377 / `mc_chroma_qpel14` :331, `bi_combine` :323,
 `LUMA_FILTERS` and `CHROMA_FILTERS` :230-247, `_mvd_bits_f` :450) and
-`models/inter_tree.py:_hpel_plane` (:51).
+`models/inter_tree.py:_hpel_plane` (:51), `pick_ref` (:274) and `mc_sel`
+(:598).
 
 The JAX package fetches each block's reference window with one-hot f32
 matmuls (`ops/me.py:_block_windows`), the TPU's stand-in for a gather.  Here
@@ -105,12 +109,13 @@ def me_ssd_grid_plain(cur, ref, sr: int, bn: int = 16):
     return out
 
 
-def mc14(plane, mv, n, chroma):
+def mc14(plane, mv, n, chroma, blk=None):
     """14-bit intermediate uni prediction [nb, n, n] int32 of the raster
     blocks of ``plane`` at qpel luma MVs mv [nb, 2] (chroma: the same value
-    in eighth-pel chroma units).  Phase 0 of each filter table is a single
-    64 tap, so one formula covers every phase: horizontal taps, then
-    vertical taps and >> 6 (spec 8.5.3.3.3, 8-bit: first shift 0)."""
+    in eighth-pel chroma units); ``blk`` [nb] names each prediction's block
+    when it is not block i for prediction i.  Phase 0 of each filter table
+    is a single 64 tap, so one formula covers every phase: horizontal taps,
+    then vertical taps and >> 6 (spec 8.5.3.3.3, 8-bit: first shift 0)."""
     h, w = plane.shape
     filt, sh, margin = (CHROMA_FILTERS, 3, 1) if chroma else \
         (LUMA_FILTERS, 2, 3)
@@ -118,6 +123,8 @@ def mc14(plane, mv, n, chroma):
     taps = torch.as_tensor(filt, device=plane.device)
     mv = mv.to(torch.int32)
     bx, by = _plane_blocks(h, w, n, plane.device)
+    if blk is not None:
+        bx, by = bx[blk], by[blk]
     mask = (1 << sh) - 1
     win = _gather_windows(plane.to(torch.int32), bx + (mv[:, 0] >> sh)
                           - margin, by + (mv[:, 1] >> sh) - margin,
@@ -141,6 +148,20 @@ def mc_luma_qpel_plain(plane, mv, n: int = 16):
 def mc_chroma_qpel_plain(plane, mv, n: int = 8):
     """Eighth-pel chroma uni MC (JAX `mc_chroma_qpel`) at luma qpel MVs."""
     return _uni(mc14(plane, mv, n, True))
+
+
+def mc_ref_plain(planes, mv, ref, n: int, chroma: bool):
+    """Uni MC of prediction k from plane ``ref[k]`` of the stacked planes
+    [R, H, W], at mv[k], for the raster block k mod (blocks per plane):
+    [K, n, n] int32.  Every plane's prediction, then the pick: the JAX
+    per-reference MC and one-hot sum (`models/inter_tree.py:mc_sel`
+    :598-615)."""
+    h, w = planes.shape[1:]
+    blk = torch.arange(mv.shape[0], device=mv.device) % ((h // n) * (w // n))
+    preds = torch.stack([_uni(mc14(planes[r], mv, n, chroma, blk))
+                         for r in range(planes.shape[0])])
+    return torch.gather(preds, 0, ref.long()[None, :, None, None].expand(
+        1, -1, n, n))[0]
 
 
 def mc_luma_qpel14(plane, mv, n: int = 16):
@@ -197,6 +218,24 @@ def subpel_refine_plain(ref, cur, mv_int, lam, n: int = 16):
     return mv_q.contiguous(), torch.gather(ssd, 1, best[:, None])[:, 0]
 
 
+def pick_ref_plain(d, rb, mv, lam, refbits):
+    """Per-CU best reference of the trials (JAX `models/inter_tree.py:
+    pick_ref` :274-290): d, rb [n, R] f32, mv [n, R, 2] int32, lam [n] f32,
+    refbits [R] f32.  j_r = d_r + lam ((rb_r + mvd_bits(mv_r)) + refbits_r)
+    with the last step one FMA, as XLA's CPU code contracts it (the
+    product's one use); JAX prices `mvd_bits` of the absolute MV, and so
+    does this.  First minimum over r.  Returns (ref [n] int32, d [n],
+    rb [n], mv [n, 2])."""
+    from .rdoq import fma32
+    j = fma32(lam.to(torch.float32)[:, None],
+              (rb + mvd_bits(mv)) + refbits.to(rb.device)[None], d)
+    best = torch.argmin(j, 1)
+    take = best[:, None]
+    return (best.to(torch.int32), torch.gather(d, 1, take)[:, 0],
+            torch.gather(rb, 1, take)[:, 0],
+            torch.gather(mv, 1, take[..., None].expand(-1, 1, 2))[:, 0])
+
+
 def hpel_plane_plain(ref):
     """(1/2, 1/2)-phase 8-tap plane of ref [H, W] on the integer grid,
     ``(v + 2048) >> 12`` without clipping (JAX `inter_tree._hpel_plane`)."""
@@ -219,12 +258,14 @@ _I = ctypes.c_int
 
 
 def _lib(name, fn, argtypes):
+    """The library of kernel ``name`` with its entry ``fn`` typed."""
     lib = cuda_lib.lib(name)
-    if not getattr(lib, "_typed", False):
+    typed = lib.__dict__.setdefault("_typed_fns", set())
+    if fn not in typed:
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = _I
-        lib._typed = True
+        typed.add(fn)
     return lib
 
 
@@ -306,6 +347,62 @@ def _mc(plane, mv, n, chroma):
 def mc_luma_qpel(plane, mv, n: int = 16):
     """See mc_luma_qpel_plain; a CUDA tensor launches `csrc/mc_qpel.cu`."""
     return _mc(plane, mv, n, False)
+
+
+def mc_qpel_ref(planes, mv, ref, n: int, chroma: bool):
+    """See mc_ref_plain: the uni MC of K predictions, each from the plane
+    ``ref[k]`` of the stacked planes [R, H, W] for the raster block k mod
+    (blocks per plane).  A CUDA tensor launches `csrc/mc_qpel.cu` with its
+    per-block reference index (one launch for the K predictions)."""
+    if planes.device.type == "cpu":
+        return mc_ref_plain(planes, mv, ref, n, chroma)
+    p = planes.to(torch.int32).contiguous()
+    m = mv.to(torch.int32).contiguous()
+    r = ref.to(torch.int32).contiguous()
+    cuda_lib.require_cuda(p, m, r)
+    if p.dim() != 3 or n not in (8, 16, 32):
+        raise ValueError("mc_qpel_ref: planes must be [R, H, W], n 8/16/32")
+    nr, h, w = p.shape
+    k = m.shape[0]
+    if m.shape != (k, 2) or r.shape != (k,):
+        raise ValueError("mc_qpel_ref: bad shapes")
+    out = torch.empty((k, n, n), dtype=torch.int32, device=p.device)
+    if k:
+        rc = _lib("mc_qpel", "mc_qpel_ref", [_VP, _I, _I, _I, _VP, _VP, _I,
+                                             _I, _I, _VP, _VP]).mc_qpel_ref(
+            cuda_lib.ptr(p), nr, h, w, cuda_lib.ptr(m), cuda_lib.ptr(r), k, n,
+            int(chroma), cuda_lib.ptr(out), _VP(cuda_lib.stream_handle(p)))
+        cuda_lib.launched("mc_qpel", rc)
+    return out
+
+
+def pick_ref(d, rb, mv, lam, refbits):
+    """See pick_ref_plain; a CUDA tensor launches `csrc/pick_ref.cu`."""
+    if d.device.type == "cpu":
+        return pick_ref_plain(d, rb, mv, lam, refbits)
+    d_ = d.to(torch.float32).contiguous()
+    rb_ = rb.to(torch.float32).contiguous()
+    mv_ = mv.to(torch.int32).contiguous()
+    la = lam.to(torch.float32).contiguous()
+    bits = refbits.to(device=d.device, dtype=torch.float32).contiguous()
+    cuda_lib.require_cuda(d_, rb_, mv_, la, bits)
+    n, nr = d_.shape
+    if rb_.shape != (n, nr) or mv_.shape != (n, nr, 2) or \
+            la.shape != (n,) or bits.shape != (nr,) or not 1 <= nr <= 4:
+        raise ValueError("pick_ref: bad shapes")
+    best = torch.empty(n, dtype=torch.int32, device=d.device)
+    d_out = torch.empty(n, dtype=torch.float32, device=d.device)
+    rb_out = torch.empty(n, dtype=torch.float32, device=d.device)
+    mv_out = torch.empty((n, 2), dtype=torch.int32, device=d.device)
+    if n:
+        rc = _lib("pick_ref", "pick_ref", [_VP] * 5 + [_I, _I] + [_VP] * 5) \
+            .pick_ref(cuda_lib.ptr(d_), cuda_lib.ptr(rb_), cuda_lib.ptr(mv_),
+                      cuda_lib.ptr(la), cuda_lib.ptr(bits), n, nr,
+                      cuda_lib.ptr(best), cuda_lib.ptr(d_out),
+                      cuda_lib.ptr(rb_out), cuda_lib.ptr(mv_out),
+                      _VP(cuda_lib.stream_handle(d_)))
+        cuda_lib.launched("pick_ref", rc)
+    return best, d_out, rb_out, mv_out
 
 
 def mc_chroma_qpel(plane, mv, n: int = 8):

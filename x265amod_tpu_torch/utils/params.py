@@ -279,8 +279,8 @@ def check_params(p: Param) -> None:
     slice gate of the port.  It refuses everything the JAX package's gate
     refuses (the same errors where that gate raises outright: subme,
     lookahead depth, --hrd without VBV) and, loudly, every setting the port
-    does not run yet.  The port runs: all-intra, low-delay P with one
-    reference, or a B pyramid with one reference per list and b-adapt 0;
+    does not run yet.  The port runs: all-intra, low-delay P with 1 to 4
+    references, or a B pyramid with one reference per list and b-adapt 0;
     CTU32; AQ and CU-tree on or off (without B frames through the depth-1
     lookahead, as the reference does); RDOQ levels 0-2; SAO on or off; CQP,
     CRF, ABR, VBV (with its HRD signalling under --hrd) and 2-pass rate
@@ -307,9 +307,13 @@ def check_params(p: Param) -> None:
                        "the port plans fixed mini-GOPs, --b-adapt 0)")
     if p.bframes > 1 and not p.b_pyramid:
         unwired.append("--no-b-pyramid (the port codes the B pyramid)")
-    if p.ref != 1:
-        unwired.append(f"ref {p.ref} (the port codes one reference per "
-                       "list)")
+    if not 1 <= p.ref <= 4:
+        unwired.append(f"ref {p.ref} (supported: 1-4)")
+    elif p.ref > 1 and (p.ctu_size != 32 or p.bframes > 0 or p.lossless):
+        # multi-reference L0 runs on the low-delay P CTU32 tree only (JAX
+        # utils/params.py:307-314); B lists keep one reference each
+        unwired.append(f"ref {p.ref} (multi-ref needs --ctu 32, bframes 0, "
+                       "no lossless)")
     if not 4 <= p.me_range <= 32:
         unwired.append(f"merange {p.me_range} (dense-grid ME takes 4..32)")
     if p.ctu_size != 32:
