@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build of the eighteen CUDA kernels
+  1. the card's name and power limit; build of the twenty CUDA kernels
      (nvcc for sm_90a, all started together) with their ptxas reports;
   2. each kernel against its plain PyTorch version on the card, with its
      time, bound and the plain version's time: K1-K4 at the shapes of
@@ -25,8 +25,7 @@ Phases (any failure exits non-zero):
      lambda 0 for SAO, flat lowres planes whose candidates all tie, a
      CU-tree pile-up on the border blocks), K2 with inter rounding, K3 at
      P- and B-slice init states and K4 on bS 1 edges; the plain bS/QP maps
-     and SSE/SSIM (rows 10-11, also at 1920x1088) are timed too, and the
-     decide and commit scans' bounds are worked out from their shapes;
+     and SSE/SSIM (rows 10-11, also at 1920x1088) are timed too;
      K15 (the level pack) at a config-1 batch, a config-2 P frame and a
      config-3 B frame, with an overflow and int16 extremes, and the packed
      D2H against the dense one; K16 (the resampler) at 1080p -> 720p and ->
@@ -38,8 +37,16 @@ Phases (any failure exits non-zero):
      rows) and forced (the plain scan's decisions replayed), against the
      plain scan on the card, and again at R = 1 on config 3's first P
      anchor (1920x1088, phases 7 and 9's frames); K18 (`pick_ref`) at R = 3
-     on the 720p frame's CU16 and CU32 trials; K7 with a reference index at R = 3 (final luma and
-     chroma MC and the trials, MVs at the window bound on border blocks);
+     on the 720p frame's CU16 and CU32 trials; K7 with a reference index
+     at R = 3 (final luma and chroma MC and the trials, MVs at the window
+     bound on border blocks); K19 (the B decide scan, one launch a B
+     frame) free and forced against the plain scan at one config-3 B frame
+     (phase 9's clip at 1920x1088, sr 16, between the card's recon of the
+     IDR and the P anchor) at POC 2 (dsf -256) and POC 1 (dsf -85 and
+     -768); K20 (the forced intra commit, one launch a diagonal) against
+     the trees' plain commits on a config-1 batch, a Main10 batch, an
+     intra batch with RDOQ, a config-2 P frame and a config-3 B frame with
+     RDOQ 2 (the inter frames with a flat patch where intra cells win);
   3. BASELINE config 1 (640x360 all-intra ultrafast QP 30, CTU32) through
      `Encoder(device="cuda")`, 24 frames with the first 8 as warm-up; fps,
      PSNR-Y, kbps and the launch count of every kernel;
@@ -124,8 +131,8 @@ H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 # slice K1-K11, config 3 with AQ and CU-tree also the lookahead's (K12-K14
 # and K1 on the lowres blocks, counted apart)
 CONFIG1_KERNELS = ("intra_pred", "residual_chain", "tu_bits", "deblock",
-                   "pack_levels")
-CONFIG3_KERNELS = ("mc_bi", "sao_analyse", "sao_apply")
+                   "pack_levels", "commit_intra")
+CONFIG3_KERNELS = ("mc_bi", "sao_analyse", "sao_apply", "decide_b")
 LOOKAHEAD_KERNELS = ("lowres_aq", "lowres_me", "cutree_prop",
                      "intra_pred_lowres")
 # phase 7: IDR + one mini-GOP (P + 3 B) in display order; the IDR warms up
@@ -1256,29 +1263,6 @@ def phase_kernels_la(iters, dev="cuda", w=1920, h=1088):
     return rows
 
 
-def scan_bounds():
-    """Least times of the wavefront scans (rows 16b, 16c and 16d), from
-    their shapes: each reads the phase-1 outputs once (the SSD grids at bn 16
-    and 32 over the reference and the half-pel plane, per list, f32
-    [S, S] per block; the trial costs and MVs) and writes the decisions;
-    the commit scan reads the source planes and writes recon and levels.
-    Their arithmetic (a few candidates per CU) is far below the bytes."""
-    out = {}
-    for name, w, h, sr, lists in (("p_decide_720p", 1280, 736, 8, 1),
-                                  ("b_decide_1080p", 1920, 1088, 16, 2)):
-        n16, n32 = (h // 16) * (w // 16), (h // 32) * (w // 32)
-        s_ = 2 * sr + 1
-        grids = lists * 2 * (n16 + n32) * s_ * s_ * 4
-        per_cell = lists * (n16 + n32) * (2 * 4 + 2 * 4 + 4 * 2)
-        out[name] = bound_ms(grids + per_cell + n16 * 16, 0)[0]
-    npix = 1280 * 736
-    out["p_commit_720p"] = bound_ms(npix * 1.5 * (1 + 4 + 2), 0)[0]
-    # the intra tree's commit of a config-1 batch (16 frames of 640x384)
-    out["intra_commit_config1_batch"] = bound_ms(
-        16 * 640 * 384 * 1.5 * (1 + 4 + 2), 0)[0]
-    return out
-
-
 def config3(w=1920, h=1080, aq=False, rdoq=0):
     """BASELINE config 3 as the repository's bench.py builds it
     (`bench.py:114`, aq=True), or with AQ and CU-tree off so that no
@@ -1494,7 +1478,8 @@ def phase_main10(frames, warm):
     kbps = float(sum(x.bits for x in timed) * 25.0 / n / 1000.0)
     if not (np.isfinite(psnr) and np.isfinite(kbps) and 30.0 < psnr < 70.0):
         raise AssertionError(f"Main10: PSNR-Y {psnr}, kbps {kbps}")
-    missing = [k for k in ("intra_pred", "residual_chain", "tu_bits")
+    missing = [k for k in ("intra_pred", "residual_chain", "tu_bits",
+                           "commit_intra")
                if launches[k] <= 0]
     unexpected = [k for k in ("deblock", "sao_analyse", "sao_apply",
                               "residual_chain_rdoq") if launches[k] > 0]
@@ -2005,6 +1990,244 @@ def phase_kernels_decide_1080p(iters, dev="cuda"):
                 bound_ms=bound_ms(decide_bytes(tree, 1, False), 0)[0])
 
 
+def decide_b_bytes(tree, forced):
+    """Bytes the B decide scan must move for one frame, counted as K17's:
+    its per-CU inputs (free: d and rb of L0, L1 and bi, both ME MVs,
+    lambda, and the intra cost of every 16-cell; two SSD-grid entries per
+    list and CU decision for the merge candidates; forced: the choice,
+    both MVDs and MVP indices per CU and the split) read once, its outputs
+    (decisions, directions and MVs; the cost rows when free) written once.
+    Its arithmetic is a few hundred operations a CU, far below the
+    bytes."""
+    n16, n32 = tree.h16 * tree.w16, tree.hc * tree.wc
+    if forced:
+        inp = (n16 + n32) * 28 + n32 * 4
+    else:
+        inp = n16 * 48 + n32 * 44 + (n16 + n32) * 2 * 2 * 4
+    out = n32 * 32 + n16 * 44 + (0 if forced else n16 * 24 + n32 * 32)
+    return inp + out
+
+
+def check_decide_b(tree, st1, maps, dsf, label):
+    """K19 free (decisions, directions, MVs and cost rows) and forced (the
+    plain scan's decisions replayed) against the plain B scan on the card,
+    bit for bit.  Returns (max abs error, the forced inputs)."""
+    import torch
+    err = 0.0
+    got = tree._decide_b_kernel(st1, maps, dsf, want_costs=True)
+    want = tree._decide_b_plain(st1, maps, dsf, want_costs=True)
+    if got.keys() != want.keys():
+        raise AssertionError(f"decide_b {label}: outputs {sorted(got)} != "
+                             f"{sorted(want)}")
+    for k in want:
+        err = max(err, check_exact(f"decide_b {label} {k}", got[k], want[k]))
+    cells = tree._cell_decisions_b(want)
+    kinds = cells["kinds"]
+    choice = torch.where(kinds == 0, cells["merge"], torch.where(
+        kinds == 1, 1 + cells["dir"].long(), 5))
+    c16 = (choice, cells["mvd0"], cells["mvp0"], cells["mvd1"],
+           cells["mvp1"])
+    forced = dict(c16=c16, c32=[v[tree._q0_cell] for v in c16],
+                  split=want["split"].reshape(-1))
+    fk = tree._decide_b_kernel(None, maps, dsf, forced=forced)
+    fp = tree._decide_b_plain(None, maps, dsf, forced=forced)
+    for k in fp:
+        err = max(err, check_exact(f"decide_b forced {label} {k}", fk[k],
+                                   fp[k]))
+    for k in ("split", "dir", "mv0", "mv1"):
+        check_exact(f"decide_b forced {label} replays {k}", fk[k], want[k])
+    return err, forced
+
+
+def flat_patch(frame, seed, w, h):
+    """A frame with a flat luma patch (and its chroma) over the middle
+    fifth of a w x h frame, where the references hold the clip's texture,
+    so that intra cells win there and the commit of intra cells has
+    work."""
+    y, cb, cr = (a.copy() for a in frame)
+    rng = np.random.default_rng(seed)
+    v = int(rng.integers(60, 200))
+    x0, x1, y0, y1 = 2 * w // 5, 3 * w // 5, 2 * h // 5, 3 * h // 5
+    y[y0:y1, x0:x1] = v
+    cb[y0 // 2:y1 // 2, x0 // 2:x1 // 2] = 255 - v // 2
+    cr[y0 // 2:y1 // 2, x0 // 2:x1 // 2] = v // 2
+    return y, cb, cr
+
+
+def commit_bytes_ops(split=None, kinds=None, f=1, h=1088, w=1920):
+    """(bytes, int32 operations) the forced intra commit must spend: the
+    source read and the recon and levels written of every coded cell (the
+    intra tree: every sample; the P/B commit: its intra cells, and the
+    kinds read), the references of each block read, and the transforms' 8
+    n^3 operations a block (four n-point matrix products of multiply-adds)
+    of each luma block and its two chroma blocks."""
+    if split is not None:
+        n32 = int((split == 0).sum())
+        n16 = 4 * int((split != 0).sum())
+        nbytes_ = f * h * w * 1.5 * (4 + 4 + 2) + split.numel() * 4 \
+            + f * (h // 16) * (w // 16) * 4
+    else:
+        n32 = 0
+        n16 = int((kinds == 2).sum())
+        nbytes_ = kinds.numel() * 4 + n16 * 384 * (4 + 4 + 2 + 4)
+    refs = n16 * (65 + 2 * 33) + n32 * (129 + 2 * 65)
+    ops = n16 * (8 * 16 ** 3 + 2 * 8 * 8 ** 3) \
+        + n32 * (8 * 32 ** 3 + 2 * 8 * 16 ** 3)
+    return nbytes_ + refs * 4, ops
+
+
+def phase_kernels_scans(iters, dev="cuda"):
+    """K19 (the B decide scan, one launch a B frame) and K20 (the forced
+    intra commit, one launch a diagonal) against their plain versions on
+    the card, every output bit for bit.  K19 free and forced at one
+    config-3 B frame (phase 9's clip at 1920x1088, sr 16: POC 2 between
+    the card's recon of the IDR and of the P anchor, dsf -256 both ways)
+    and at POC 1 between the same references (dsf -85 and -768).  K20 on a
+    config-1 batch (16 frames of 640x384), a Main10 batch (16 frames of
+    1920x1088, bit depth 10), an intra batch with RDOQ (640x384), a
+    config-2 P frame (1280x736) and a config-3 B frame with RDOQ 2
+    (1920x1088, luma and chroma RDOQ), the two inter frames with a flat
+    patch where intra cells win.  Times: CUDA events, 20 launches after 2
+    warm-up, wrapper included; the plain versions once after a warm-up."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import Encoder, _pad_to_ctu
+    from x265amod_tpu_torch.models.intra_tree import IntraTreeEncoder
+    from x265amod_tpu_torch.models.mvpred import dist_scale_factor
+    dev = torch.device(dev)
+
+    def up(frame, bd=8):
+        return tuple(torch.as_tensor(
+            _pad_to_ctu(a.view(np.int16) if bd == 10 else a, m),
+            device=dev).to(torch.int32) for a, m in zip(frame, (32, 16, 16)))
+
+    # ---- the config-3 B frames (config 3 + RDOQ 2: its B tree codes its
+    # final and commit RDOQ; the decide scan runs none) ----
+    frames = synth_frames(1920, 1080, 5, seed=4)
+    enc = Encoder(config3(rdoq=2), device=dev)
+    for fr in frames[:4]:
+        enc.encode_push(*fr)
+    refs0 = tuple(t.to(torch.int32) for t in enc._dpb[0])
+    enc.encode_push(*frames[4])        # the P anchor and the mini-GOP
+    refs1 = tuple(t.to(torch.int32) for t in enc._dpb[4])
+    tree = enc.b_encoder
+    maps = tree._maps(33)
+    kb = dict(err=0.0)
+    for poc, label in ((2, "1080p POC 2"), (1, "1080p POC 1")):
+        y, cb, cr = up(frames[poc])
+        dsf = (dist_scale_factor(poc, 0, 4), dist_scale_factor(poc, 4, 0))
+        st1 = tree._phase1_b(y, (refs0[0], refs1[0]), maps, [])
+        err, forced = check_decide_b(tree, st1, maps, dsf, label)
+        kb["err"] = max(kb["err"], err)
+        key = "" if poc == 2 else "_poc1"
+        kb[f"dsf{key}"] = list(dsf)
+        kb[f"ms{key}"] = time_ms(lambda: tree._decide_b_kernel(st1, maps,
+                                                               dsf), iters)
+        kb[f"ms_forced{key}"] = time_ms(lambda: tree._decide_b_kernel(
+            None, maps, dsf, forced=forced), iters)
+        kb[f"plain_ms{key}"] = time_once_ms(
+            lambda: tree._decide_b_plain(st1, maps, dsf))
+        kb[f"plain_ms_forced{key}"] = time_once_ms(
+            lambda: tree._decide_b_plain(None, maps, dsf, forced=forced))
+    kb.update(bound_ms=bound_ms(decide_b_bytes(tree, False), 0)[0],
+              bound_ms_forced=bound_ms(decide_b_bytes(tree, True), 0)[0],
+              bound_by="bytes", library_ms=None,
+              library_note="none: no single call makes the decision",
+              lanes=tree._bmax,
+              diagonals=len(tree.diags),
+              maps_bytes=20 * tree.h16 * tree.w16)
+    rows = [("decide_b", "x265amod_tpu_torch/csrc/decide_b.cu",
+             "x265amod_tpu/models/inter_tree.py:1317-1570 B decide_body "
+             "(lax.scan :1568)", kb)]
+
+    # ---- K20 ----
+    kc = dict(err=0.0)
+
+    def commit_check(label, kernel, plain, nb, key):
+        got, want = kernel(), plain()
+        flat_g = [t for t in got if torch.is_tensor(t)] + [
+            t for g in got if isinstance(g, tuple) for t in g]
+        flat_w = [t for t in want if torch.is_tensor(t)] + [
+            t for g in want if isinstance(g, tuple) for t in g]
+        for i, (g, w_) in enumerate(zip(flat_g, flat_w)):
+            kc["err"] = max(kc["err"], check_exact(
+                f"commit_intra {label} out{i}", g, w_))
+        kc[f"ms{key}"] = time_ms(kernel, iters)
+        kc[f"plain_ms{key}"] = time_once_ms(plain)
+        b, o = nb
+        kc[f"bound_ms{key}"], kc[f"bound_by{key}"] = bound_ms(b, o)
+
+    # the B frame of phase 9's clip with RDOQ 2 and a flat patch
+    y, cb, cr = up(flat_patch(frames[2], 3, 1920, 1080))
+    dsf = (dist_scale_factor(2, 0, 4), dist_scale_factor(2, 4, 0))
+    st1 = tree._phase1_b(y, (refs0[0], refs1[0]), maps, [])
+    cell = tree._cell_decisions_b(tree._decide_b(st1, maps, dsf))
+    lv, rec = tree._phase3(y, cb, cr, tree._final_mc_b(
+        refs0, refs1, cell, []), maps, cell)
+    kinds, imode = cell["kinds"], st1["imode16"]
+    kc["intra_cells_b_frame"] = int((kinds == 2).sum())
+    lv_k = tuple(t.clone() for t in lv)
+    commit_check("B frame rdoq 2", lambda: tree._commit_kernel(
+        y, cb, cr, maps, kinds, imode, lv_k, rec),
+        lambda: tree._commit_plain(y, cb, cr, maps, kinds, imode, lv, rec),
+        commit_bytes_ops(kinds=kinds), "_b_frame_rdoq")
+    kc["diagonals_b_frame"] = len(tree.diags)
+    del enc, tree, st1, lv, rec, lv_k
+
+    # a config-2 P frame with a flat patch
+    pframes = synth_frames(1280, 720, 5, seed=2)
+    enc = Encoder(config2(), device=dev)
+    for fr in pframes[:4]:
+        enc.encode_push(*fr)
+    ptree = enc.inter_encoder
+    refs, tables = ptree._ref_list([enc._dpb[3]], [3], 4)
+    pmaps = ptree._maps(32)
+    y, cb, cr = up(flat_patch(pframes[4], 4, 1280, 720))
+    st1 = ptree._phase1(y, refs[0], pmaps, tables)
+    cell = ptree._cell_decisions(ptree._decide(st1, pmaps, tables))
+    lv, rec = ptree._phase3(y, cb, cr, ptree._final_mc(refs, cell), pmaps,
+                            cell)
+    kinds, imode = cell["kinds"], st1["imode16"]
+    kc["intra_cells_p_frame"] = int((kinds == 2).sum())
+    lv_k = tuple(t.clone() for t in lv)
+    commit_check("P frame", lambda: ptree._commit_kernel(
+        y, cb, cr, pmaps, kinds, imode, lv_k, rec),
+        lambda: ptree._commit_plain(y, cb, cr, pmaps, kinds, imode, lv, rec),
+        commit_bytes_ops(kinds=kinds), "_p_frame")
+    kc["diagonals_p_frame"] = len(ptree.diags)
+    if kc["intra_cells_p_frame"] == 0 or kc["intra_cells_b_frame"] == 0:
+        raise AssertionError("commit_intra: the P or B frame has no intra "
+                             f"cell ({kc})")
+    del enc, ptree, st1, lv, rec, lv_k
+
+    # intra batches: config 1, config 1 with RDOQ, Main10
+    for label, w, h, bd, rdoq, key in (
+            ("config-1 batch", 640, 360, 8, False, ""),
+            ("intra batch rdoq", 640, 360, 8, True, "_rdoq"),
+            ("Main10 batch", 1920, 1080, 10, False, "_main10")):
+        fr = synth_frames(w, h, 16) if bd == 8 else synth_frames10(w, h, 16)
+        ups = [up(x, bd) for x in fr]
+        y, cb, cr = (torch.stack([u[k] for u in ups]) for k in range(3))
+        itree = IntraTreeEncoder(y.shape[2], y.shape[1], deblock=bd == 8,
+                                 device=dev, bit_depth=bd, rdoq=rdoq)
+        imaps = itree._maps(30)
+        split, modes = itree._estimate(y, cb, cr, imaps)
+        commit_check(label, lambda: itree._commit_kernel(
+            y, cb, cr, imaps, split, modes),
+            lambda: itree._commit_plain(y, cb, cr, imaps, split, modes),
+            commit_bytes_ops(split=split, f=16, h=y.shape[1],
+                             w=y.shape[2]), key)
+        kc[f"diagonals_batch{key}"] = len(itree.diags)
+        kc[f"cu32_share{key}"] = float((split == 0).float().mean())
+        del ups, y, cb, cr
+    kc.update(library_ms=None,
+              library_note="none: no single call codes a wavefront")
+    rows.append(("commit_intra", "x265amod_tpu_torch/csrc/commit_intra.cu",
+                 "x265amod_tpu/models/intra_tree.py:308-596 _encode_frame "
+                 "scan (:595); x265amod_tpu/models/inter_tree.py:829-1044 "
+                 "_commit_scan (:1028)", kc))
+    return rows
+
+
 def phase_kernels_multiref(iters, frames, dev="cuda"):
     """K17 at a real 1280x736 P frame's phase-1 outputs (frame 4 of the bench
     clip against the card's recon of frames 1-3, as config 2 at --ref 3
@@ -2061,8 +2284,7 @@ def phase_kernels_multiref(iters, frames, dev="cuda"):
              bound_ms_r3=r3["bound_ms"], ms_forced_r3=r3["forced_ms"],
              plain_ms_forced_r3=r3["forced_plain_ms"],
              bound_ms_forced_r3=r3["forced_bound_ms"],
-             bound_by_r3="bytes",
-             bound_ms_whole_grids=scan_bounds()["p_decide_720p"])
+             bound_by_r3="bytes")
     rows.append(("decide_p", "x265amod_tpu_torch/csrc/decide_p.cu",
                  "x265amod_tpu/models/inter_tree.py:336-544 decide_body "
                  "(lax.scan :544)", d))
@@ -2300,6 +2522,11 @@ def main():
     dec.update(ms_1080p=dec1080["ms"], bound_ms_1080p=dec1080["bound_ms"])
     log("phase 2: decide_p equal to plain at config 3's P anchor "
         + json.dumps(dec1080) + f" [{card}]")
+    # K19 and K20 (the B decide scan and the forced intra commit)
+    rows += phase_kernels_scans(args.iters)
+    by_name = {name: d for name, _, _, d in rows}
+    for name in ("decide_b", "commit_intra"):
+        log(f"phase 2: {name} " + json.dumps(by_name[name]) + f" [{card}]")
     for name, _, _, d in rows:
         log(f"phase 2: {name} equal to plain (max abs err {d['err']}); "
             f"{d['ms']:.4f} ms vs plain {d['plain_ms']:.4f} ms, bound "
@@ -2310,7 +2537,6 @@ def main():
         + f" [{card}]")
     log("phase 2: plain rows 10-11 " + json.dumps(phase_plain_rows(
         args.iters)) + f" [{card}]")
-    log("phase 2: scan bounds, ms " + json.dumps(scan_bounds()))
     log("phase 2: multi-reference " + json.dumps(dict(
         mr_summary, mc_qpel_ref_r3={k: mc_ref[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "err")}))
@@ -2475,12 +2701,21 @@ def main():
         if name == "decide_p":
             shapes += "; also checked and timed (the _1080p keys) at config " \
                 "3's first P anchor (1920x1088, R 1)"
+        elif name == "decide_b":
+            shapes += "; POC 2 between the IDR and the P anchor, free and " \
+                "forced; also at POC 1 (unequal dsf, the _poc1 keys)"
+        elif name == "commit_intra":
+            shapes += "; also a Main10 batch at 1920x1088 (_main10), an " \
+                "intra batch with RDOQ (_rdoq), a config-2 P frame " \
+                "(_p_frame) and a config-3 B frame with RDOQ 2 " \
+                "(_b_frame_rdoq); launches = diagonals"
         elif d.get("checked_at_config3_shapes"):
             shapes += "; also checked at one B frame's shapes (1920x1088, " \
                 "sr 16)"
         extra = {k: v for k, v in d.items() if k.startswith(
-            ("ms_", "plain_ms_", "bound_ms_", "bound_by_"))
-            or k in ("ties", "level_bound_reached")}
+            ("ms_", "plain_ms_", "bound_ms_", "bound_by_", "diagonals",
+             "intra_cells_", "dsf", "cu32_share"))
+            or k in ("ties", "level_bound_reached", "lanes", "maps_bytes")}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches,

@@ -39,9 +39,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from x265amod_tpu.models import mvpred as jmvpred
+from x265amod_tpu.models.inter_frame import _mvd_bits as jax_mvd_bits
 from x265amod_tpu.models.encoder import Encoder as JaxEncoder
 from x265amod_tpu.models.inter_tree import _scale_mv_vec as jax_scale
 from x265amod_tpu.models.ratecontrol import RateControl as JaxRC
@@ -489,6 +491,75 @@ def test_config3_aq_free_running_stream_equals_jax_and_decodes(jax_runs):
 
 
 # ---- the slice gate and the device rule ------------------------------------------
+
+
+def _fma_lanes(rng, n):
+    """(d, lam, x) f32 lanes where fma(lam, x, d), the FMA XLA's CPU code
+    forms, differs from d + round(lam x), the product rounded first."""
+    d = rng.uniform(1e3, 1e5, 16 * n).astype(np.float32)
+    lam = rng.uniform(1, 400, 16 * n).astype(np.float32)
+    x = rng.uniform(8, 300, 16 * n).astype(np.float32)
+    fused = (d.astype(np.float64) + lam.astype(np.float64)
+             * x.astype(np.float64)).astype(np.float32)
+    keep = np.nonzero(fused != d + lam * x)[0][:n]
+    return d[keep], lam[keep], x[keep]
+
+
+def test_b_decide_costs_pin_xla_fma():
+    """The B decide body's six costs (JAX :1420-1435) on lanes with no
+    neighbour, so that both merge candidates are the zero-bi fill (skip
+    reads 0.5 (grid0 + grid1) at [row, sr, sr]) and both AMVP candidates
+    of each list are zero: the port's `_decide_cu_b` cost rows equal, bit
+    for bit, a jitted JAX function of JAX's formulas (XLA's CPU code fuses
+    each product with the add after it: the decide fusion's object code
+    has an FMA for the two skip costs, the three AMVP costs and the intra
+    cost), and the costs with the product rounded first differ on at least
+    10 lanes.  Only the formulas are jitted."""
+    rng = np.random.default_rng(8)
+    tree = BTreeEncoder(64, 64, search_range=4, subme=1, device="cpu")
+    d, lam, x = _fma_lanes(rng, 256)
+    n = d.shape[0]
+    mv0 = rng.integers(-16, 17, (n, 2)).astype(np.int32)
+    mv1 = rng.integers(-16, 17, (n, 2)).astype(np.int32)
+    b0 = me.mvd_bits(torch.as_tensor(mv0)).numpy()
+    b1 = me.mvd_bits(torch.as_tensor(mv1)).numpy()
+    # the L0 cost's x is the crafted one; L1 and bi take random d, rb
+    dd = np.stack([d, rng.uniform(1e3, 1e5, n), rng.uniform(1e3, 1e5, n)],
+                  1).astype(np.float32)
+    rb = np.stack([x - b0 - np.float32(8.0), rng.uniform(0, 300, n),
+                   rng.uniform(0, 300, n)], 1).astype(np.float32)
+    di = rng.uniform(1e3, 1e5, n).astype(np.float32)
+    di[::17] = np.inf                      # a CU without the intra option
+    g0 = rng.uniform(1e3, 1e5, (2 * 16, 9, 9)).astype(np.float32)
+    g1 = rng.uniform(1e3, 1e5, (2 * 16, 9, 9)).astype(np.float32)
+    row = rng.integers(0, 16, n)
+    tree._grid0, tree._grid1 = torch.as_tensor(g0), torch.as_tensor(g1)
+    T = torch.as_tensor
+    out = tree._decide_cu_b(
+        T(np.zeros((n, 4), bool)), T(np.zeros((n, 4), np.int32)),
+        T(np.zeros((n, 4, 2), np.int32)), T(np.zeros((n, 4, 2), np.int32)),
+        (T(dd), T(rb), T(mv0), T(mv1), T(lam), T(di)), T(row), T([16]),
+        (256, 256))
+    js = out[8].numpy()
+    hdr = np.float32(tree._hdr_bits)
+
+    @jax.jit
+    def jax_costs(dd, rb, mv0, mv1, lamv, l0, l1, di):
+        bits0 = jax_mvd_bits(mv0)
+        bits1 = jax_mvd_bits(mv1)
+        skip = 0.5 * (l0 + l1)
+        return jnp.stack([
+            skip + lamv * 2.0, skip + lamv * 3.0,
+            dd[:, 0] + lamv * (rb[:, 0] + bits0 + 8.0),
+            dd[:, 1] + lamv * (rb[:, 1] + bits1 + 8.0),
+            dd[:, 2] + lamv * (rb[:, 2] + bits0 + bits1 + 10.0),
+            di + lamv * hdr], 1)
+    want = np.asarray(jax_costs(dd, rb, mv0, mv1, lam, g0[row, 4, 4],
+                                g1[row, 4, 4], di))
+    np.testing.assert_array_equal(js, want)
+    np.testing.assert_array_equal(out[0].numpy(), np.argmin(want, 1))
+    rounded = dd[:, 0] + lam * ((rb[:, 0] + b0) + np.float32(8.0))
+    assert (rounded != js[:, 2]).sum() >= 10
 
 
 def test_check_params_admits_the_config3_slice():

@@ -564,3 +564,112 @@ def test_decide_p_kernel(cuda_dev, nr):
     for k in ("split", "mv", "ref"):
         assert torch.equal(fk[k], fp[k]), k
         assert torch.equal(fk[k], want[k]), k
+
+
+def _b_forced(tree, want):
+    """The forced inputs of a B decide scan that replay the decisions
+    ``want`` (raster, as `BTreeEncoder.encode_async_load` builds them)."""
+    cells = tree._cell_decisions_b(want)
+    kinds = cells["kinds"]
+    choice = torch.where(kinds == 0, cells["merge"],
+                         torch.where(kinds == 1, 1 + cells["dir"].long(), 5))
+    c16 = (choice, cells["mvd0"], cells["mvp0"], cells["mvd1"],
+           cells["mvp1"])
+    return dict(c16=c16, c32=[v[tree._q0_cell] for v in c16],
+                split=want["split"].reshape(-1))
+
+
+@pytest.mark.parametrize("poc,p0,p1", [(2, 0, 4), (1, 0, 4)])
+def test_decide_b_kernel(cuda_dev, poc, p0, p1):
+    """K19 against the plain B scan on the card on a 128x96 B frame's
+    phase-1 outputs: free (decisions, directions, MVs and cost rows
+    bit-equal) and forced with the plain scan's decisions, with dsf 256 in
+    the middle of the pyramid and unequal distances (POC 1 between 0 and
+    4)."""
+    from x265amod_tpu_torch.models.inter_tree import BTreeEncoder
+    from x265amod_tpu_torch.models.mvpred import dist_scale_factor
+    rng = np.random.default_rng(80 + poc)
+    w, h = 128, 96
+    tree = BTreeEncoder(w, h, search_range=8, subme=1, device=cuda_dev)
+    y = _plane(rng, h, w, cuda_dev)
+    r0 = torch.roll(y, (1, -2), (0, 1))
+    r1 = (torch.roll(y, (-2, 1), (0, 1)) + 3).clamp(0, 255)
+    r1[:32, :48] = _plane(rng, 32, 48, cuda_dev)     # intra wins there
+    dsf = (dist_scale_factor(poc, p0, p1), dist_scale_factor(poc, p1, p0))
+    maps = tree._maps(30)
+    st1 = tree._phase1_b(y, (r0, r1), maps, [])
+    got = tree._decide_b_kernel(st1, maps, dsf, want_costs=True)
+    want = tree._decide_b_plain(st1, maps, dsf, want_costs=True)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+    forced = _b_forced(tree, want)
+    fk = tree._decide_b_kernel(None, maps, dsf, forced=forced)
+    fp = tree._decide_b_plain(None, maps, dsf, forced=forced)
+    for k in fp:
+        assert torch.equal(fk[k], fp[k]), k
+    for k in ("split", "dir", "mv0", "mv1"):
+        assert torch.equal(fk[k], want[k]), k
+
+
+def _frames(rng, f, h, w, dev, hi=256):
+    return tuple(torch.as_tensor(rng.integers(0, hi, s).astype(np.int32),
+                                 device=dev)
+                 for s in ((f, h, w), (f, h // 2, w // 2), (f, h // 2,
+                                                            w // 2)))
+
+
+@pytest.mark.parametrize("bd,rdoq", [(8, False), (8, True), (10, False),
+                                     (10, True)])
+def test_commit_intra_kernel_intra_tree(cuda_dev, bd, rdoq):
+    """K20 against the intra tree's plain commit on the card: 64x64, two
+    frames, a random forced split and random modes, bit depth 8 and 10,
+    RDOQ off and on (recon, levels and modes bit-equal)."""
+    from x265amod_tpu_torch.models.intra_tree import IntraTreeEncoder
+    rng = np.random.default_rng(90 + bd + rdoq)
+    tree = IntraTreeEncoder(64, 64, deblock=False, device=cuda_dev,
+                            bit_depth=bd, rdoq=rdoq)
+    y, cb, cr = _frames(rng, 2, 64, 64, cuda_dev, 1 << bd)
+    split = torch.as_tensor(rng.integers(0, 2, (2, 2, 2)).astype(np.int32),
+                            device=cuda_dev)
+    split[0, 0, 0], split[1, 0, 0] = 0, 1
+    modes = torch.as_tensor(rng.integers(0, 35, (2, 4, 4)).astype(np.int32),
+                            device=cuda_dev)
+    maps = tree._maps(30 if bd == 8 else 22)
+    got = tree._commit_kernel(y, cb, cr, maps, split, modes)
+    want = tree._commit_plain(y, cb, cr, maps, split, modes)
+    for g, wt in zip(got, want):
+        assert g.dtype == wt.dtype and torch.equal(g, wt)
+
+
+@pytest.mark.parametrize("b_tree,rdoq", [(False, False), (False, True),
+                                         (True, False), (True, True)])
+def test_commit_intra_kernel_inter_tree(cuda_dev, b_tree, rdoq):
+    """K20 against the P/B trees' plain commit on the card: a 64x64 frame
+    whose cells are inter (their recon and levels given) or intra (kind 2,
+    about a third, re-coded), RDOQ off and on (on luma and chroma)."""
+    from x265amod_tpu_torch.models.inter_tree import (BTreeEncoder,
+                                                      InterTreeEncoder)
+    rng = np.random.default_rng(95 + 2 * b_tree + rdoq)
+    cls = BTreeEncoder if b_tree else InterTreeEncoder
+    tree = cls(64, 64, device=cuda_dev, rdoq=rdoq)
+    y, cb, cr = (t[0] for t in _frames(rng, 1, 64, 64, cuda_dev))
+    n16 = 16
+    kinds = torch.as_tensor(rng.integers(0, 3, n16), device=cuda_dev)
+    kinds[:4] = 0                        # a CTU without intra cells
+    imode = torch.as_tensor(rng.integers(0, 35, n16).astype(np.int32),
+                            device=cuda_dev)
+    rec = tuple(torch.as_tensor(rng.integers(0, 256, (n16, n, n))
+                                .astype(np.int32), device=cuda_dev)
+                for n in (16, 8, 8))
+    lv = tuple(torch.as_tensor(rng.integers(-3, 4, (n16, n, n))
+                               .astype(np.int16), device=cuda_dev)
+               for n in (16, 8, 8))
+    maps = tree._maps(30)
+    got = tree._commit_kernel(y, cb, cr, maps, kinds, imode,
+                              tuple(t.clone() for t in lv), rec)
+    want = tree._commit_plain(y, cb, cr, maps, kinds, imode, lv, rec)
+    for g, wt in zip(got[0] + got[1] + (got[2],),
+                     want[0] + want[1] + (want[2],)):
+        assert g.dtype == wt.dtype and torch.equal(g, wt)

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from x265amod_tpu.models.inter_frame import _mvd_bits as j_mvd_bits
@@ -271,3 +272,114 @@ def test_inter_tree_bs_maps_parity(seed):
     np.testing.assert_array_equal(tv[0].numpy(), jv)
     np.testing.assert_array_equal(th[0].numpy(), jh)
     assert set(np.unique(jv)) | set(np.unique(jh)) >= {0, 1}
+
+
+def _near_ties(rng, n, bits_a, bits_b, base, integer=False):
+    """f32 lanes (lam, cost_a, cost_b) of two candidates, a before b, whose
+    costs ``c + lam * bits`` tie within a few ulps: candidate b's value is
+    candidate a's cost less its own product, rounded and jittered by up to
+    3 ulps; with ``integer`` both values are integers (SSDs) and lambda is
+    drawn within 1e-3 of a multiple of 1 / (bits_a - bits_b), so that the
+    two costs still tie within an ulp."""
+    ca = rng.integers(*base, n).astype(np.float32)
+    if integer:
+        k = rng.integers(200, 80000, n)
+        lam = ((k + rng.uniform(-1e-3, 1e-3, n)) / (bits_a - bits_b)) \
+            .astype(np.float32)
+        cb = (ca + k).astype(np.float32)
+        return lam, ca, cb
+    lam = rng.uniform(1, 400, n).astype(np.float32)
+    ca = (ca + rng.random(n)).astype(np.float32)
+    want = (ca.astype(np.float64) + lam.astype(np.float64)
+            * (bits_a - bits_b)).astype(np.float32)
+    jit = rng.integers(-3, 4, n)
+    cb = want.copy()
+    for _ in range(3):
+        step = np.abs(jit) > _
+        cb = np.where(step, np.nextafter(cb, np.where(
+            jit > 0, np.inf, -np.inf).astype(np.float32)), cb)
+    return lam, ca, cb.astype(np.float32)
+
+
+def _fused_first(lam, ca, cb, bits_a, bits_b):
+    """Whether the FMA forms pick candidate a (the first minimum), and
+    whether the rounded forms do."""
+    l64 = lam.astype(np.float64)
+    fa = (ca + l64 * bits_a).astype(np.float32)
+    fb = (cb + l64 * bits_b).astype(np.float32)
+    ra = ca + lam * np.float32(bits_a)
+    rb = cb + lam * np.float32(bits_b)
+    return fa <= fb, ra <= rb
+
+
+def test_int_mv_argmin_pins_xla_fma():
+    """The integer ME's argmin (JAX `models/inter_tree.py:best_mv` :227;
+    XLA's CPU code computes ``grid + lam * mvbits`` as one FMA, the
+    argmin fusion's object code): on crafted grids where two MVs tie
+    within a few ulps, the port's `int_mv_argmin` equals a jitted JAX
+    function of JAX's formula, and the rounded form picks otherwise on at
+    least 10 lanes."""
+    rng = np.random.default_rng(41)
+    sr, n = 4, 20000
+    s = 2 * sr + 1
+    # candidate a at (dx, dy) = (-sr, -sr), candidate b at (0, 0)
+    bits_a = float(j_mvd_bits(jnp.asarray([-4 * sr, -4 * sr])))
+    bits_b = 2.0
+    lam, ca, cb = _near_ties(rng, n, bits_a, bits_b, (1000, 1000000))
+    fused, rounded = _fused_first(lam, ca, cb, bits_a, bits_b)
+    keep = np.nonzero(fused != rounded)[0]
+    assert keep.size >= 10
+    keep = np.concatenate([keep, np.arange(64)])
+    lam, ca, cb = lam[keep], ca[keep], cb[keep]
+    grid = np.full((keep.size, s, s), 3e7, np.float32)
+    grid[:, 0, 0] = ca
+    grid[:, sr, sr] = cb
+
+    @jax.jit
+    def jax_best(grid, lam):
+        off = jnp.arange(s) - sr
+        mygrid, mxgrid = jnp.meshgrid(off, off, indexing="ij")
+        mvbits = j_mvd_bits(jnp.stack([mxgrid * 4, mygrid * 4], -1))
+        cost = grid + lam[:, None, None] * mvbits[None]
+        flat = jnp.argmin(cost.reshape(cost.shape[0], -1), axis=1)
+        return jnp.stack([flat % s - sr, flat // s - sr], 1)
+    want = np.asarray(jax_best(grid, lam))
+    got = tme.int_mv_argmin(T(grid), T(lam), sr).numpy()
+    np.testing.assert_array_equal(got, want)
+    rounded_mv = np.where(rounded[keep][:, None], -sr, 0)
+    assert (rounded_mv != want).any(1).sum() >= 10
+
+
+def test_subpel_pick_pins_xla_fma():
+    """The sub-pel refinement's choice (JAX `ops/me.py:subpel_refine`
+    :444, ``cost + lam * rate`` one FMA in XLA's CPU code): on integer
+    SSDs where candidate 0 and candidate 12 (the integer MV) tie within a
+    few ulps, the port's `subpel_pick` (the choice of K6's plain version)
+    equals a jitted JAX function of JAX's formula, and the rounded form
+    picks otherwise on at least 10 lanes."""
+    rng = np.random.default_rng(43)
+    n = 12000
+    mv_int = np.zeros((n, 2), np.int32)
+    d = np.array([[dx, dy] for dy in range(-2, 3) for dx in range(-2, 3)],
+                 np.int32)
+    cand = mv_int[:, None] * 4 + d[None]
+    rate = np.asarray(jme._mvd_bits_f(jnp.asarray(cand)))
+    lam, ca, cb = _near_ties(rng, n, float(rate[0, 0]), float(rate[0, 12]),
+                             (1000, 300000), integer=True)
+    fused, rounded = _fused_first(lam, ca, cb, float(rate[0, 0]),
+                                  float(rate[0, 12]))
+    keep = np.nonzero(fused != rounded)[0]
+    assert keep.size >= 10
+    keep = np.concatenate([keep, np.arange(64)])
+    lam, ca, cb = lam[keep], ca[keep], cb[keep]
+    ssd = np.full((keep.size, 25), 3e7, np.float32)
+    ssd[:, 0] = ca
+    ssd[:, 12] = cb
+
+    @jax.jit
+    def jax_pick(cost, lam, cand):
+        return jnp.argmin(cost + lam * jme._mvd_bits_f(cand), axis=1)
+    want = np.asarray(jax_pick(ssd, lam[:, None], cand[keep]))
+    got = tme.subpel_pick(T(ssd), T(lam), T(cand[keep])).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (np.where(rounded[keep], 0, 12) != want).sum() >= 10

@@ -38,13 +38,17 @@
 // What bounds it on an H100: neither bytes nor operations (it reads each
 // SSD-grid entry it needs once, a few thousand of the 9.6 MB at 720p, R 1,
 // sr 8); its time is the latency of one thread's chain of dependent steps
-// per diagonal times the number of diagonals (62 at 720p, 93 at 1080p).
+// per diagonal times the number of diagonals (84 at 1280x736, 126 at
+// 1920x1088).  The device helpers it shares with K19 (`decide_b.cu`) are
+// in decide_common.cuh.
 //
 // Entry point (plain C, caller's stream, returns cudaGetLastError()):
 //   decide_p(const DecideArgs* args, cudaStream_t stream)
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "decide_common.cuh"
 
 extern "C" {
 struct DecideArgs {
@@ -81,6 +85,9 @@ struct DecideArgs {
 
 namespace {
 
+using decide::mvd_bits;
+using decide::scale_mv;
+
 struct Cand {
   bool av;
   int mx, my, rf;
@@ -92,36 +99,15 @@ struct Decision {
   float j;
 };
 
-__device__ __forceinline__ int bitlen(int a) {
-  return a == 0 ? 0 : 32 - __clz(a);
-}
-
-__device__ __forceinline__ float mvd_bits(int x, int y) {
-  return (float)(2 * (bitlen(abs(x)) + bitlen(abs(y))) + 2);
-}
-
-// spec 8.5.3.2.8: sign(x) ((|x| + 127) >> 8) of x = dsf mv, clipped to 16
-// bits (the port's inter_tree._scale_mv_vec)
-__device__ __forceinline__ int scale_mv(int v, int dsf) {
-  const int x = v * dsf;
-  const int mag = (abs(x) + 127) >> 8;
-  int r = x > 0 ? mag : (x < 0 ? -mag : 0);
-  return r < -32768 ? -32768 : (r > 32767 ? 32767 : r);
-}
-
 struct Maps {
   int32_t *mv, *inter, *ref;
-  int w16, h16;
 
-  __device__ Cand nb(int px, int py, bool ok) const {
-    px = px < 0 ? 0 : (px > w16 - 1 ? w16 - 1 : px);
-    py = py < 0 ? 0 : (py > h16 - 1 ? h16 - 1 : py);
-    const int c = py * w16 + px;
+  __device__ Cand nb(decide::NbPos p) const {
     Cand r;
-    r.av = ok && inter[c] != 0;
-    r.mx = r.av ? mv[2 * c] : 0;
-    r.my = r.av ? mv[2 * c + 1] : 0;
-    r.rf = r.av ? ref[c] : 0;
+    r.av = p.ok && inter[p.cell] != 0;
+    r.mx = r.av ? mv[2 * p.cell] : 0;
+    r.my = r.av ? mv[2 * p.cell + 1] : 0;
+    r.rf = r.av ? ref[p.cell] : 0;
     return r;
   }
 };
@@ -218,16 +204,10 @@ __device__ Decision decide_cu(const DecideArgs& a, const Cand c[4],
   const float m = b1 < b0 ? b1 : b0;
   const float x = ((rbd + m) + a.refbits[refme]) + 6.0f;
   const float j_inter = __fmaf_rn(lamv, x, dd);
-  const int S = 2 * a.sr + 1;
   for (int i = 0; i < 2; ++i) {
-    const bool sub = (mrg_x[i] & 3) != 0 || (mrg_y[i] & 3) != 0;
-    const int ix = mrg_x[i] >> 2, iy = mrg_y[i] >> 2;
-    const bool inside = abs(ix) <= a.sr && abs(iy) <= a.sr;
-    int gx = ix + a.sr, gy = iy + a.sr;
-    gx = gx < 0 ? 0 : (gx > S - 1 ? S - 1 : gx);
-    gy = gy < 0 ? 0 : (gy > S - 1 ? S - 1 : gy);
+    const bool sub = decide::sub_pel(mrg_x[i], mrg_y[i]);
     const int64_t r = row + (int64_t)((sub ? R : 0) + mrg_r[i]) * ngrid;
-    const float v = inside ? a.grid[(r * S + gy) * S + gx] : 1e18f;
+    const float v = decide::grid_at(a.grid, r, a.sr, mrg_x[i], mrg_y[i]);
     o.js[i] = __fmaf_rn(lamv, i == 0 ? 2.0f : 3.0f, v);
   }
   o.js[2] = j_inter;
@@ -259,8 +239,7 @@ __global__ void decide_kernel(const DecideArgs a) {
   mp.mv = base;
   mp.inter = base + 2 * cells;
   mp.ref = base + 3 * cells;
-  mp.w16 = a.w16;
-  mp.h16 = a.h16;
+  const int w16 = a.w16, h16 = a.h16;
   for (int i = threadIdx.x; i < 4 * cells; i += blockDim.x) base[i] = 0;
   __syncthreads();
   const int n16 = cells, n32 = a.wc * a.hc;
@@ -279,10 +258,8 @@ __global__ void decide_kernel(const DecideArgs a) {
                           (by + 1) * a.w16 + bx, (by + 1) * a.w16 + bx + 1};
       // hypothesis A: one CU32
       Cand c[4];
-      c[0] = mp.nb(bx - 1, by + 1, left);
-      c[1] = mp.nb(bx + 1, by - 1, top);
-      c[2] = mp.nb(bx + 2, by - 1, tr);
-      c[3] = mp.nb(bx - 1, by - 1, left && top);
+      for (int k = 0; k < 4; ++k)
+        c[k] = mp.nb(decide::nb_cu32(k, bx, by, left, top, tr, w16, h16));
       Decision r32 = forced
           ? decide_cu(a, c, false, base32 + i32, n32, 0.f, 0.f, 0, 0, 0, 0.f,
                       0.f, a.f_ch32[i32], a.f_mvd32[2 * i32],
@@ -294,21 +271,22 @@ __global__ void decide_kernel(const DecideArgs a) {
       // hypothesis B: four CU16 quadrants in z-order
       Decision q[4];
       for (int k = 0; k < 4; ++k) {
+        auto ext = [&](int j) {
+          return mp.nb(decide::nb_quad(k, j, bx, by, left, top, tr, w16,
+                                       h16));
+        };
         if (k == 0) {
-          c[0] = mp.nb(bx - 1, by, left);
-          c[1] = mp.nb(bx, by - 1, top);
-          c[2] = mp.nb(bx + 1, by - 1, top);
-          c[3] = mp.nb(bx - 1, by - 1, left && top);
+          for (int j = 0; j < 4; ++j) c[j] = ext(j);
         } else if (k == 1) {
           c[0] = local(q[0]);
-          c[1] = mp.nb(bx + 1, by - 1, top);
-          c[2] = mp.nb(bx + 2, by - 1, tr);
-          c[3] = mp.nb(bx, by - 1, top);
+          c[1] = ext(1);
+          c[2] = ext(2);
+          c[3] = ext(3);
         } else if (k == 2) {
-          c[0] = mp.nb(bx - 1, by + 1, left);
+          c[0] = ext(0);
           c[1] = local(q[0]);
           c[2] = local(q[1]);
-          c[3] = mp.nb(bx - 1, by, left);
+          c[3] = ext(3);
         } else {
           c[0] = local(q[2]);
           c[1] = local(q[1]);

@@ -16,8 +16,9 @@
 // read once at clamped coordinates (edge padding) into shared memory, the
 // five horizontal phases of the window are filtered there, and each warp
 // takes whole candidates, reducing its exact int32 SSD with shuffles.  The
-// cost decides an argmin, so it is formed as JAX writes it, the product
-// rounded and then the add (__fmul_rn, __fadd_rn; built with --fmad=false).
+// cost decides an argmin, so it is formed as XLA's CPU code forms JAX's
+// `cost + lam * rate`: one FMA (__fmaf_rn; built with --fmad=false so that
+// nothing else contracts).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -106,8 +107,7 @@ __global__ void subpel_kernel(const int32_t* __restrict__ ref, int H, int W,
     for (int cand = 0; cand < 25; ++cand) {
       const int vx = 4 * mx + cand % 5 - 2, vy = 4 * my + cand / 5 - 2;
       const float rate = __fadd_rn(mv_bins(vx), mv_bins(vy));
-      const float cost = __fadd_rn(__int2float_rn(acc[cand]),
-                                   __fmul_rn(l, rate));
+      const float cost = __fmaf_rn(l, rate, __int2float_rn(acc[cand]));
       if (cand == 0 || cost < best_cost) {
         best_cost = cost;
         best = cand;

@@ -23,11 +23,13 @@ Four phases per P frame, as in the JAX `_encode` (:171):
    the stacked planes when R > 1; JAX `mc_sel` :598-615) and residuals at
    the decided MVs (:616-687): K2.
 4. Commit scan (:829-1044): intra cells re-coded from the true neighbouring
-   reconstruction at the mode the trial chose (K1, K2).  The inter
-   reconstruction of every cell is final after phase 3, so the state starts
-   from it and only the (diagonal, quadrant) steps that hold an intra cell
-   run, each on the CTUs that need it; a cell never reads a neighbour that
-   is not final, so the output is the JAX scan's.
+   reconstruction at the mode the trial chose.  The inter reconstruction
+   of every cell is final after phase 3, so the state starts from it; a
+   cell never reads a neighbour that is not final, so the output is the
+   JAX scan's.  On the card K20 (`commit_intra`, one launch a diagonal, a
+   CTU without an intra cell returning at once, no host read); on the CPU
+   its plain version, which runs only the (diagonal, quadrant) steps that
+   hold an intra cell (K1, K2).
 
 With RDOQ on, K2 runs its RDOQ stage in phase 3 (luma, and in the P tree
 also cb and cr with the luma lambda; the B tree's chroma runs none, as in
@@ -52,11 +54,12 @@ import numpy as np
 import torch
 
 from ..ops import cuda_lib
+from ..ops.commit import commit_intra
 from ..ops.deblock import deblock_frame_planes, inter_tree_bs_maps
 from ..ops.estbits import intra_hdr_bits, tu_bits
-from ..ops.me import (check_window, hpel_plane, mc_bi, mc_chroma_qpel,
-                      mc_luma_qpel, mc_qpel_ref, me_ssd_grid, mvd_bits,
-                      pick_ref, subpel_refine)
+from ..ops.me import (check_window, hpel_plane, int_mv_argmin, mc_bi,
+                      mc_chroma_qpel, mc_luma_qpel, mc_qpel_ref, me_ssd_grid,
+                      mvd_bits, pick_ref, subpel_refine)
 from ..ops.metrics import plane_sse, ssim_plane
 from ..ops.pack import levels_for_host, levels_from_host
 from ..ops.rdoq import fma32
@@ -98,14 +101,32 @@ class _DecideArgs(ctypes.Structure):
             "j32", "maps")])
 
 
-def decide_p_launch(args: _DecideArgs, like) -> None:
-    """One launch of K17 on the stream of the tensor ``like``."""
-    lib = cuda_lib.lib("decide_p")
-    f = lib.decide_p
-    f.argtypes = [ctypes.POINTER(_DecideArgs), _P]
+class _DecideBArgs(ctypes.Structure):
+    """`DecideBArgs` of `csrc/decide_b.cu`, field for field."""
+    _fields_ = ([(k, ctypes.c_int) for k in (
+        "wc", "hc", "w16", "h16", "n_diags", "bmax", "sr", "dsf0", "dsf1")]
+        + [(k, _P) for k in (
+            "grid0", "grid1", "d32", "rb32", "lam32", "mv0_32", "mv1_32",
+            "d16", "rb16", "di16", "lam16", "mv0_16", "mv1_16")]
+        + [("intra_hdr_bits", ctypes.c_float)]
+        + [(k, _P) for k in (
+            "slot_ctu", "diag_off", "f_ch16", "f_mvd0_16", "f_mvp0_16",
+            "f_mvd1_16", "f_mvp1_16", "f_ch32", "f_mvd0_32", "f_mvp0_32",
+            "f_mvd1_32", "f_mvp1_32", "f_split", "split", "ch32", "mvd0_32",
+            "mvp0_32", "mvd1_32", "mvp1_32", "chq", "mvd0q", "mvp0q",
+            "mvd1q", "mvp1q", "dir", "mv0", "mv1", "jsq", "js32", "jsplit",
+            "j32", "maps")])
+
+
+def _launch(name, struct, args, like) -> None:
+    """One launch of the decide-scan kernel ``name`` (K17 `decide_p`, K19
+    `decide_b`) with its argument struct on the stream of the tensor
+    ``like``."""
+    f = getattr(cuda_lib.lib(name), name)
+    f.argtypes = [ctypes.POINTER(struct), _P]
     f.restype = ctypes.c_int
-    cuda_lib.launched("decide_p", f(ctypes.byref(args),
-                                    _P(cuda_lib.stream_handle(like))))
+    cuda_lib.launched(name, f(ctypes.byref(args),
+                              _P(cuda_lib.stream_handle(like))))
 
 
 def _blocks(plane, bn):
@@ -315,23 +336,16 @@ class InterTreeEncoder:
         """Integer ME (JAX `best_mv` :227 before the refinement): the SSD
         grids at 16 and 32 over the reference (K5), their cost argmin, and
         the grids over the half-pel plane (K8, K5) that price sub-pel
-        merge candidates: grids [g16, g16 half-pel, g32, g32 half-pel]."""
-        sr = self.sr
-        s = 2 * sr + 1
-        off = torch.arange(s, device=y.device, dtype=torch.int32) - sr
-        mvbits = mvd_bits(torch.stack(torch.meshgrid(off * 4, off * 4,
-                                                     indexing="xy"), -1))
+        merge candidates: grids [g16, g16 half-pel, g32, g32 half-pel].
+        The argmin's cost is the FMA XLA forms (`int_mv_argmin`)."""
         out = {}
         grids = []
         rh = hpel_plane(ref_y)
         for bn, lam in ((16, maps["lam16"]), (32, maps["lam32"])):
             cur = _blocks(y, bn).reshape(-1, bn, bn)
-            g = me_ssd_grid(cur, ref_y, sr, bn)
-            cost = g + lam[:, None, None] * mvbits[None]
-            flat = torch.argmin(cost.reshape(cost.shape[0], -1), 1)
-            out[f"mvi{bn}"] = torch.stack([flat % s - sr, flat // s - sr],
-                                          1).to(torch.int32)
-            grids += [g, me_ssd_grid(cur, rh, sr, bn)]
+            g = me_ssd_grid(cur, ref_y, self.sr, bn)
+            out[f"mvi{bn}"] = int_mv_argmin(g, lam, self.sr)
+            grids += [g, me_ssd_grid(cur, rh, self.sr, bn)]
         out["grids"] = grids
         return out
 
@@ -674,7 +688,7 @@ class InterTreeEncoder:
         # the committed motion the scan reads back (16 bytes a 16-cell)
         a.maps = p(torch.empty(4 * n16, dtype=i32, device=dev))
         cuda_lib.require_cuda(*keep)
-        decide_p_launch(a, keep[0])
+        _launch("decide_p", _DecideArgs, a, keep[0])
         out["split"] = out["split"].bool().reshape(hc, wc)
         out["ch32"] = out["ch32"].long()
         out["chq"] = out["chq"].long()
@@ -791,8 +805,42 @@ class InterTreeEncoder:
 
     def _commit(self, y, cb, cr, maps, kinds, imode, lv, rec):
         """Re-code the intra cells from true reconstruction (JAX
-        `_commit_scan`); lv/rec are the inter results per raster cell.
-        Returns recon planes, levels per cell and the mode map."""
+        `_commit_scan`); lv/rec are the inter results per raster cell.  On
+        the card K20 (`commit_intra`, one launch a diagonal, the intra cells
+        found on the device), on the CPU its plain version.  Returns recon
+        planes, levels per cell and the mode map."""
+        if self.device.type == "cpu":
+            return self._commit_plain(y, cb, cr, maps, kinds, imode, lv, rec)
+        return self._commit_kernel(y, cb, cr, maps, kinds, imode, lv, rec)
+
+    def _commit_kernel(self, y, cb, cr, maps, kinds, imode, lv, rec):
+        """The commit as K20 (`csrc/commit_intra.cu`) over raster recon
+        planes made from the inter recon; the levels of the intra cells are
+        written into ``lv`` in place.  No host read: a CTU without an intra
+        cell returns at once on the card.  The same outputs as
+        `_commit_plain`."""
+        h16, w16 = self.h16, self.w16
+        n16 = h16 * w16
+        planes = (_unblocks(rec[0].reshape(h16, w16, 16, 16)),
+                  _unblocks(rec[1].reshape(h16, w16, 8, 8)),
+                  _unblocks(rec[2].reshape(h16, w16, 8, 8)))
+        levels = (lv[0].reshape(1, h16, w16, 16, 16),
+                  lv[1].reshape(1, h16, w16, 8, 8),
+                  lv[2].reshape(1, h16, w16, 8, 8))
+        modes = torch.where(kinds == 2, imode, 1).to(torch.int32) \
+            .reshape(h16, w16)
+        commit_intra(tuple(t[None] for t in (y, cb, cr)),
+                     tuple(t[None] for t in planes), levels, modes[None],
+                     maps, kinds=kinds.reshape(1, h16, w16), sbh=self.sbh,
+                     rdoq=self.rdoq, st=self.ST)
+        return (planes, (levels[0].reshape(n16, 16, 16),
+                         levels[1].reshape(n16, 8, 8),
+                         levels[2].reshape(n16, 8, 8)), modes)
+
+    def _commit_plain(self, y, cb, cr, maps, kinds, imode, lv, rec):
+        """The commit as the plain version of K20: the (diagonal, quadrant)
+        steps that hold an intra cell, found with one host read of the
+        kinds."""
         h16, w16, wc = self.h16, self.w16, self.wc
         n16 = h16 * w16
         dev = y.device
@@ -1119,14 +1167,16 @@ class BTreeEncoder(InterTreeEncoder):
     1. ME at CU16 and CU32 on both references (K5, K6) and the half-pel
        grids (K8, K5); the L0, L1 and bi trials (K7 twice, K9, K2, K3 at
        B init states) and the intra trial (K1-K3).
-    2. The decide scan (JAX :1317-1570), a Python loop over the CTU32
-       anti-diagonals with the CU32 and q0 decisions of a diagonal in one
-       call: merge-B candidates with pruning and zero-bi fill, AMVP per
-       list with cross-list scaling, skip priced on the SSD grids (the
-       mean of both lists' for a bi candidate).
+    2. The decide scan (JAX :1317-1570): merge-B candidates with pruning
+       and zero-bi fill, AMVP per list with cross-list scaling, skip
+       priced on the SSD grids (the mean of both lists' for a bi
+       candidate), the costs with XLA's FMAs.  On the card one launch of
+       K19 (`decide_b`); on the CPU its plain version, a Python loop over
+       the CTU32 anti-diagonals with the CU32 and q0 decisions of a
+       diagonal in one call.
     3. Final MC (`mc_select` :1610-1624: K7 per list, K9 where both lists
        are used) and residuals (K2), then the shared commit scan of intra
-       cells.
+       cells (K20 on the card).
     4. Deblock with both lists' motion (K4), SAO (K10, K11), metrics.
 
     `encode_async_load` replays given B decisions through the same
@@ -1271,14 +1321,19 @@ class BTreeEncoder(InterTreeEncoder):
                 return torch.where(inside, val, 1e18)
             l0 = lookup(self._grid0, mrg_v0)                          # [L, 2]
             l1 = lookup(self._grid1, mrg_v1)
-            skip = torch.where(mrg_d == 3, 0.5 * (l0 + l1),
-                               torch.where(mrg_d == 1, l0, l1)) \
-                + lamv[:, None] * self._skip_bins
-            j_l0 = d[:, 0] + lamv * ((rb[:, 0] + bits0) + 8.0)
-            j_l1 = d[:, 1] + lamv * ((rb[:, 1] + bits1) + 8.0)
-            j_bi = d[:, 2] + lamv * (((rb[:, 2] + bits0) + bits1) + 10.0)
-            js = torch.cat([skip, torch.stack([j_l0, j_l1, j_bi, di + lamv *
-                                               _INTRA_HDR_BITS], 1)], 1)
+            # every cost's product has one use, the add after it, and
+            # XLA's CPU code fuses the two (the decide fusion's object
+            # code): fma32 where JAX writes a + lam * x
+            skip = fma32(lamv[:, None], self._skip_bins, torch.where(
+                mrg_d == 3, 0.5 * (l0 + l1), torch.where(mrg_d == 1, l0,
+                                                         l1)))
+            j_l0 = fma32(lamv, (rb[:, 0] + bits0) + 8.0, d[:, 0])
+            j_l1 = fma32(lamv, (rb[:, 1] + bits1) + 8.0, d[:, 1])
+            j_bi = fma32(lamv, ((rb[:, 2] + bits0) + bits1) + 10.0, d[:, 2])
+            intra = torch.where(torch.isinf(di), di,
+                                fma32(lamv, self._hdr_bits, di))
+            js = torch.cat([skip, torch.stack([j_l0, j_l1, j_bi, intra], 1)],
+                           1)
             choice = torch.argmin(js, 1)
         dir_fin = torch.where(choice <= 1, torch.gather(
             mrg_d, 1, torch.clamp(choice, max=1)[:, None])[:, 0],
@@ -1292,10 +1347,22 @@ class BTreeEncoder(InterTreeEncoder):
                 mvd0, mvp0, mvd1, mvp1, js)
 
     def _decide_b(self, st1, maps, dsf, forced=None, want_costs=False):
+        """The B decide scan: on the card one launch of K19 (`decide_b`),
+        on the CPU its plain version.  Returns raster maps (see
+        `_decide_b_plain`)."""
+        if self.device.type == "cpu":
+            return self._decide_b_plain(st1, maps, dsf, forced, want_costs)
+        return self._decide_b_kernel(st1, maps, dsf, forced, want_costs)
+
+    def _decide_b_plain(self, st1, maps, dsf, forced=None,
+                        want_costs=False):
         """The B decide scan over the CTU32 diagonals (JAX :1317-1570; the
-        lane layout of the P scan).  Returns raster maps: split [hc, wc],
-        per CTU the CU32 choice, MVDs and MVP indices, per 16-cell the
-        quadrant's, and the cells' final direction and MVs."""
+        lane layout of the P scan), the plain version of K19.  Returns
+        raster maps: split [hc, wc], per CTU the CU32 choice, MVDs and MVP
+        indices, per 16-cell the quadrant's, and the cells' final direction
+        and MVs (plus, with want_costs, the cost rows [., 6] and the split
+        costs).  ``forced`` holds raster (choice, mvd0, mvp0, mvd1, mvp1)
+        per 16-cell (c16) and per CTU (c32) and the split [n32]."""
         dev = self.device
         h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
         n16, n32 = h16 * w16, hc * wc
@@ -1315,8 +1382,10 @@ class BTreeEncoder(InterTreeEncoder):
             x01 += [pair(maps["lam32"][p32], q16[4][:, 0]),
                     pair(self._inf.expand(n32), q16[5][:, 0])]
         else:
-            f01 = [pair(a, c[:, 0]) for a, c in zip(forced["c32"],
-                                                     forced["c16"])]
+            f16 = [t[p16] for t in forced["c16"]]
+            f01 = [pair(t[p32], c[:, 0]) for t, c in zip(forced["c32"],
+                                                         f16)]
+            fsplit = forced["split"][p32]
         dir_map = torch.zeros((h16, w16), dtype=torch.int32, device=dev)
         mv0_map = torch.zeros((h16, w16, 2), dtype=torch.int32, device=dev)
         mv1_map = torch.zeros((h16, w16, 2), dtype=torch.int32, device=dev)
@@ -1353,7 +1422,7 @@ class BTreeEncoder(InterTreeEncoder):
                 def q_call(q, cand):
                     return self._decide_cu_b(
                         *cand, None, None, None, dsf,
-                        forced=[c[sl, q] for c in forced["c16"]])
+                        forced=[c[sl, q] for c in f16])
             c32 = [t[0::2] if t is not None else None for t in r01]
             q0 = [t[1::2] if t is not None else None for t in r01]
 
@@ -1377,7 +1446,7 @@ class BTreeEncoder(InterTreeEncoder):
                 j32 = c32[8].amin(1)
                 split = jsplit < j32
             else:
-                split = forced["split"][sl]
+                split = fsplit[sl]
 
             def qst(i):
                 return torch.stack([q[i] for q in qs], 1)
@@ -1416,6 +1485,66 @@ class BTreeEncoder(InterTreeEncoder):
                        jsplit=to32(cat[16]), j32=to32(cat[17]))
         self._grid0 = self._grid1 = None
         return res
+
+    def _decide_b_kernel(self, st1, maps, dsf, forced=None,
+                         want_costs=False):
+        """The B decide scan as one launch of K19 (`csrc/decide_b.cu`), free
+        or forced; the same raster outputs as `_decide_b_plain`."""
+        dev = self.device
+        h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
+        n16, n32 = h16 * w16, hc * wc
+        i32, f32 = torch.int32, torch.float32
+
+        def c(t, dt):
+            return t.to(dt).contiguous()
+        keep = []                    # the tensors the launch reads
+
+        def p(t):
+            keep.append(t)
+            return cuda_lib.ptr(t)
+        a = _DecideBArgs(wc=wc, hc=hc, w16=w16, h16=h16,
+                         n_diags=len(self.diags), bmax=self._bmax, sr=self.sr,
+                         dsf0=int(dsf[0]), dsf1=int(dsf[1]),
+                         intra_hdr_bits=_INTRA_HDR_BITS)
+        a.slot_ctu, a.diag_off = p(self._slot_ctu), p(self._diag_off)
+        if forced is None:
+            a.grid0, a.grid1 = p(c(st1["grid0"], f32)), p(c(st1["grid1"],
+                                                            f32))
+            for k, dt in (("d32", f32), ("rb32", f32), ("mv0_32", i32),
+                          ("mv1_32", i32), ("d16", f32), ("rb16", f32),
+                          ("mv0_16", i32), ("mv1_16", i32), ("di16", f32)):
+                setattr(a, k, p(c(st1[k], dt)))
+            a.lam32, a.lam16 = p(c(maps["lam32"], f32)), \
+                p(c(maps["lam16"], f32))
+        else:
+            for pre, vals in (("16", forced["c16"]), ("32", forced["c32"])):
+                for k, v in zip(("f_ch", "f_mvd0_", "f_mvp0_", "f_mvd1_",
+                                 "f_mvp1_"), vals):
+                    setattr(a, k + pre, p(c(v, i32)))
+            a.f_split = p(c(forced["split"], i32))
+
+        def e(*shape):
+            return torch.empty(shape, dtype=i32, device=dev)
+        out = dict(split=e(n32), ch32=e(n32), mvd0_32=e(n32, 2),
+                   mvp0_32=e(n32), mvd1_32=e(n32, 2), mvp1_32=e(n32),
+                   chq=e(n16), mvd0q=e(n16, 2), mvp0q=e(n16),
+                   mvd1q=e(n16, 2), mvp1q=e(n16), dir=e(n16),
+                   mv0=e(n16, 2), mv1=e(n16, 2))
+        if want_costs and forced is None:
+            out.update(jsq=torch.empty((n16, 6), dtype=f32, device=dev),
+                       js32=torch.empty((n32, 6), dtype=f32, device=dev),
+                       jsplit=torch.empty(n32, dtype=f32, device=dev),
+                       j32=torch.empty(n32, dtype=f32, device=dev))
+        for k, v in out.items():
+            setattr(a, k, p(v))
+        # the committed motion the scan reads back (20 bytes a 16-cell)
+        a.maps = p(torch.empty(5 * n16, dtype=i32, device=dev))
+        cuda_lib.require_cuda(*keep)
+        _launch("decide_b", _DecideBArgs, a, keep[0])
+        out["split"] = out["split"].bool().reshape(hc, wc)
+        out["ch32"] = out["ch32"].long()
+        out["chq"] = out["chq"].long()
+        return out
 
     def _cell_decisions_b(self, dec):
         """Per 16-cell kinds, merge index, MVDs and MVP indices of both
@@ -1548,11 +1677,10 @@ class BTreeEncoder(InterTreeEncoder):
                 t(mvp0, np.int32).reshape(-1),
                 t(mvd1, np.int32).reshape(-1, 2),
                 t(mvp1, np.int32).reshape(-1))
-        p16, p32 = self._perm16, self._perm32
-        q0 = p16[:, 0]
-        forced = dict(scan=dict(c32=[v[q0] for v in vals],
-                                c16=[v[p16] for v in vals],
-                                split=t(split, bool).reshape(-1)[p32]),
+        # a CU32's decision is replicated over its cells: read it at q0
+        q0 = self._q0_cell
+        forced = dict(scan=dict(c32=[v[q0] for v in vals], c16=vals,
+                                split=t(split, bool).reshape(-1)),
                       modes=t(modes, np.int32).reshape(-1))
         out, rec = self._step_b(
             self._upload(y), self._upload(cb), self._upload(cr), ref0_dev,

@@ -9,15 +9,17 @@ A batch of F frames goes through two device phases:
    candidates (K1 `predict`, K2 `residual_chain`) and their bits (K3
    `tu_bits`).  It decides every split and intra mode.
 2. Wavefront commit (`_commit`, JAX `_encode_frame` with forced
-   `f_split`/`f_modes`): a Python loop over the anti-diagonals of the CTU32
-   grid.  Each CTU replays its decisions on true reconstructed references:
-   the CU32 chain, then the quadrants q0 -> q1 -> q2 -> q3, each on the
-   earlier quadrants' reconstruction.  Both hypotheses are computed and the
-   forced split selects, as in the JAX package, so the outputs are the
-   same.  With RDOQ on, the luma chains of the commit run K2's RDOQ stage
-   (JAX `eval_intra_luma` :129-132 through the commit's partial :302-306);
-   the chroma chains and the estimate run none, so RDOQ changes levels
-   and recon, never a decision.  The loop filter (K4 `deblock`), SAO when
+   `f_split`/`f_modes`): on the card K20 `commit_intra`, one launch per
+   anti-diagonal of the CTU32 grid; on the CPU its plain version, a Python
+   loop over the diagonals.  Each CTU replays its decisions on true
+   reconstructed references: the CU32 chain, or the quadrants q0 -> q1 ->
+   q2 -> q3, each on the earlier quadrants' reconstruction.  The plain
+   version computes both hypotheses and the forced split selects, as the
+   JAX package does; K20 codes only the selected one, whose outputs are
+   the same.  With RDOQ on, the luma chains of the commit run K2's RDOQ
+   stage (JAX `eval_intra_luma` :129-132 through the commit's partial
+   :302-306); the chroma chains and the estimate run none, so RDOQ changes
+   levels and recon, never a decision.  The loop filter (K4 `deblock`), SAO when
    enabled (K10 `sao_analyse`, K11 `sao_apply`, JAX `:638-650`) and
    SSE/SSIM follow.
 
@@ -35,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.commit import commit_intra
 from ..ops.deblock import deblock_frame_planes
 from ..ops.estbits import tu_bits
 from ..ops.intra import predict, satd35
@@ -310,8 +313,40 @@ class IntraTreeEncoder:
         return lv[:b], rec[:b], lv[b:], rec[b:]
 
     def _commit(self, y, cb, cr, maps, f_split, f_modes):
-        """Forced-decision wavefront commit over F frames.  Returns recon
-        planes (pre-loop-filter, int32) and the raster level / mode maps."""
+        """Forced-decision wavefront commit over F frames: on the card the
+        launches of K20 (`commit_intra`, one a diagonal), on the CPU its
+        plain version.  Returns recon planes (pre-loop-filter, int32) and
+        the raster level / mode maps."""
+        if self.device.type == "cpu":
+            return self._commit_plain(y, cb, cr, maps, f_split, f_modes)
+        return self._commit_kernel(y, cb, cr, maps, f_split, f_modes)
+
+    def _commit_kernel(self, y, cb, cr, maps, f_split, f_modes):
+        """The commit as K20 (`csrc/commit_intra.cu`): every CTU of the
+        batch codes its CU32 or its four CU16s in place in raster planes;
+        the same outputs as `_commit_plain`."""
+        f = y.shape[0]
+        h16, w16 = self.h16, self.w16
+        dev = y.device
+        rec = tuple(torch.empty_like(t, dtype=torch.int32)
+                    for t in (y, cb, cr))
+        lv = (torch.empty((f, h16, w16, 16, 16), dtype=torch.int16,
+                          device=dev),
+              torch.empty((f, h16, w16, 8, 8), dtype=torch.int16,
+                          device=dev),
+              torch.empty((f, h16, w16, 8, 8), dtype=torch.int16,
+                          device=dev))
+        commit_intra((y, cb, cr), rec, lv, f_modes, maps, split=f_split,
+                     sbh=self.sbh, bit_depth=self.bd, rdoq=self.rdoq)
+        srep = f_split.repeat_interleave(2, 1).repeat_interleave(2, 2)
+        mode_a = f_modes[:, 0::2, 0::2].repeat_interleave(2, 1) \
+            .repeat_interleave(2, 2)
+        modes_out = torch.where(srep == 1, f_modes, mode_a).to(torch.int32)
+        return rec + lv + (modes_out,)
+
+    def _commit_plain(self, y, cb, cr, maps, f_split, f_modes):
+        """The commit as a Python loop over the diagonals (the plain version
+        of K20)."""
         f = y.shape[0]
         dev = y.device
         hc, wc, h16, w16 = self.hc, self.wc, self.h16, self.w16

@@ -7,7 +7,8 @@ launches, and returns `cudaGetLastError()`; the wrappers raise on a nonzero
 code.  Nothing here falls back to the plain PyTorch versions: a CUDA tensor
 either runs the kernel or raises.
 
-`LAUNCHES[name]` counts the wrapper calls that launched kernel `name`;
+`LAUNCHES[name]` counts the launches of kernel `name` by its wrapper (one
+a call; K20 `commit_intra` enqueues one a diagonal in one call);
 `LAUNCHES["intra_pred_lowres"]` counts K1's launches by the lookahead apart
 from the trees', `LAUNCHES["residual_chain_rdoq"]` K2's launches with its
 RDOQ stage apart from those without.
@@ -16,6 +17,7 @@ RDOQ stage apart from those without.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -29,14 +31,15 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 # name -> extra nvcc flags.  tu_bits, subpel, sao_analyse, decide_p,
-# pick_ref and the RDOQ stage of residual_chain form f32 costs in a fixed
-# order that decides RD argmins, so the compiler must not contract them into
-# FMAs (sao_analyse, residual_chain, decide_p and pick_ref write the FMAs the
-# JAX order has themselves); lowres_aq and cutree_prop repeat the JAX f32
-# operations one by one, and resample writes the FMA chain of XLA's dot
-# itself.
+# decide_b, pick_ref and the RDOQ stage of residual_chain (also in
+# commit_intra, through intra_chain.cuh) form f32 costs in a fixed order that
+# decides RD argmins, so the compiler must not contract them into FMAs (each
+# writes the FMAs XLA's order has itself); lowres_aq and cutree_prop repeat
+# the JAX f32 operations one by one, and resample writes the FMA chain of
+# XLA's dot itself.  Every file that includes a shared header (csrc/*.cuh)
+# builds with the header's flags.
 KERNELS = {
-    "intra_pred": [],
+    "intra_pred": ["--fmad=false"],
     "residual_chain": ["--fmad=false"],
     "tu_bits": ["--fmad=false"],
     "deblock": [],
@@ -54,6 +57,8 @@ KERNELS = {
     "resample": ["--fmad=false"],
     "decide_p": ["--fmad=false"],
     "pick_ref": ["--fmad=false"],
+    "decide_b": ["--fmad=false"],
+    "commit_intra": ["--fmad=false"],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -108,12 +113,13 @@ def build_all() -> dict:
 
 
 def lib(name: str):
-    """The loaded ctypes library of kernel ``name`` (built at first use)."""
+    """The loaded ctypes library of kernel ``name`` (built at first use, and
+    again when its source or a shared header is newer)."""
     with _lock:
         if name not in _libs:
             path, _ = build_library(
                 [os.path.join(CSRC, f"{name}.cu")], f"lib{name}.so",
-                _cmd(name))
+                _cmd(name), deps=glob.glob(os.path.join(CSRC, "*.cuh")))
             _libs[name] = ctypes.CDLL(path)
         return _libs[name]
 
@@ -127,10 +133,10 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def launched(name: str, rc: int) -> None:
-    """Count one launch of ``name`` and raise if the C entry reported a
-    CUDA error."""
-    LAUNCHES[name] += 1
+def launched(name: str, rc: int, n: int = 1) -> None:
+    """Count ``n`` launches of ``name`` (the kernel launches one C call
+    enqueued) and raise if the C entry reported a CUDA error."""
+    LAUNCHES[name] += n
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {rc})")

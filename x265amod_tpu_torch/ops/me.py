@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from . import cuda_lib
+from .rdoq import fma32
 
 # luma 8-tap filters per quarter phase (spec Table 8-11)
 LUMA_FILTERS = np.array([
@@ -196,11 +197,35 @@ _SUBPEL_D = torch.tensor([[dx, dy] for dy in range(-2, 3)
                           for dx in range(-2, 3)], dtype=torch.int32)
 
 
+def int_mv_argmin(grid, lam, sr: int):
+    """The integer MV of each block from its SSD grid [nb, S, S] (S = 2 sr +
+    1, dy-major) and lambda [nb] f32 (JAX `models/inter_tree.py:best_mv`
+    :227): the first minimum of ``fma(lam, mvd_bits(4 d), grid)``, the FMA
+    XLA's CPU code forms of JAX's ``grid + lam * mvbits`` (the product's
+    one use is the add).  Returns [nb, 2] int32 (dx, dy)."""
+    s = 2 * sr + 1
+    off = torch.arange(s, device=grid.device, dtype=torch.int32) - sr
+    mvbits = mvd_bits(torch.stack(torch.meshgrid(off * 4, off * 4,
+                                                 indexing="xy"), -1))
+    cost = fma32(lam.to(torch.float32)[:, None, None], mvbits[None], grid)
+    flat = torch.argmin(cost.reshape(cost.shape[0], -1), 1)
+    return torch.stack([flat % s - sr, flat // s - sr], 1).to(torch.int32)
+
+
+def subpel_pick(ssd, lam, cand):
+    """The refinement's choice among its candidates (JAX `ops/me.py:
+    subpel_refine` :444): ssd [nb, K] f32, lam [nb] f32, cand [nb, K, 2]
+    qpel MVs; the first minimum of ``fma(lam, mvd_bits(cand), ssd)``."""
+    return torch.argmin(fma32(lam.to(torch.float32)[:, None],
+                              mvd_bits(cand), ssd), 1)
+
+
 def subpel_refine_plain(ref, cur, mv_int, lam, n: int = 16):
     """Exhaustive +-2 qpel refinement around integer MVs: ref [H, W], cur
     [nb, n, n], mv_int [nb, 2], lam [nb] f32 -> (mv_q [nb, 2] int32,
-    ssd [nb] f32).  Cost ``ssd + lam * mvd_bits(mv)`` in f32 (product
-    rounded, then the add), first minimum in the JAX candidate order."""
+    ssd [nb] f32).  Cost ``fma(lam, mvd_bits(mv), ssd)`` in f32, the FMA
+    XLA's CPU code forms of JAX's ``cost + lam * rate`` (the product's one
+    use is the add), first minimum in the JAX candidate order."""
     nb = cur.shape[0]
     dev = ref.device
     cand = mv_int.to(torch.int32)[:, None, :] * 4 + _SUBPEL_D.to(dev)[None]
@@ -212,8 +237,7 @@ def subpel_refine_plain(ref, cur, mv_int, lam, n: int = 16):
         pred = mc_luma_qpel_plain(ref, cand[:, k], n)
         d = pred - cur
         ssd[:, k] = (d * d).sum((1, 2)).to(torch.float32)
-    cost = ssd + lam.to(torch.float32)[:, None] * mvd_bits(cand)
-    best = torch.argmin(cost, 1)
+    best = subpel_pick(ssd, lam, cand)
     mv_q = torch.gather(cand, 1, best[:, None, None].expand(nb, 1, 2))[:, 0]
     return mv_q.contiguous(), torch.gather(ssd, 1, best[:, None])[:, 0]
 
@@ -226,7 +250,6 @@ def pick_ref_plain(d, rb, mv, lam, refbits):
     product's one use); JAX prices `mvd_bits` of the absolute MV, and so
     does this.  First minimum over r.  Returns (ref [n] int32, d [n],
     rb [n], mv [n, 2])."""
-    from .rdoq import fma32
     j = fma32(lam.to(torch.float32)[:, None],
               (rb + mvd_bits(mv)) + refbits.to(rb.device)[None], d)
     best = torch.argmin(j, 1)

@@ -67,7 +67,9 @@ def _k2():
 _tables: dict = {}
 
 
-def _rdoq_table(n, st, c_idx, dev):
+def rdoq_table(n, st, c_idx, dev):
+    """K2's RDOQ table (`kernel_table`) of TU size n, slice type st and
+    plane c_idx on device dev, uploaded once."""
     key = (n, st, 1 if c_idx else 0, dev)
     if key not in _tables:          # one upload per table and device
         _tables[key] = torch.as_tensor(kernel_table(n, st, key[2]),
@@ -95,7 +97,7 @@ def residual_chain(orig, pred, qp, sbh: bool, want_recon=True,
     tab = lamv = None
     if rdoq:
         lamv = lam.to(torch.float32).contiguous()
-        tab = _rdoq_table(n, st, c_idx, dev)
+        tab = rdoq_table(n, st, c_idx, dev)
         if lamv.shape != (bsz,):
             raise ValueError("residual_chain: lam must be [B]")
         cuda_lib.require_cuda(o, p, q, lamv, tab)

@@ -17,14 +17,16 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
 
 
 def build_library(sources: list[str], name: str, cmd: list[str],
-                  timeout: int = 600) -> tuple[str, str]:
+                  timeout: int = 600, deps=()) -> tuple[str, str]:
     """Compile ``sources`` into ``BUILD_DIR/name`` with ``cmd`` (the
-    compiler and its flags; ``-o`` and the sources are appended) unless an
-    up-to-date library is there.  Returns (path, compiler output)."""
+    compiler and its flags; ``-o`` and the sources are appended) unless a
+    library newer than the sources and the headers ``deps`` is there.
+    Returns (path, compiler output)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, name)
     if os.path.exists(out) and all(
-            os.path.getmtime(out) >= os.path.getmtime(s) for s in sources):
+            os.path.getmtime(out) >= os.path.getmtime(s)
+            for s in list(sources) + list(deps)):
         return out, ""
     tmp = f"{out}.tmp{os.getpid()}"
     proc = subprocess.run(cmd + ["-o", tmp] + sources, capture_output=True,
