@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build of the twenty CUDA kernels
+  1. the card's name and power limit; build of the twenty-four CUDA kernels
      (nvcc for sm_90a, all started together) with their ptxas reports;
   2. each kernel against its plain PyTorch version on the card, with its
      time, bound and the plain version's time: K1-K4 at the shapes of
@@ -24,8 +24,13 @@ Phases (any failure exits non-zero):
      on border blocks, 0/255 steps under the MC filters, rec == orig and
      lambda 0 for SAO, flat lowres planes whose candidates all tie, a
      CU-tree pile-up on the border blocks), K2 with inter rounding, K3 at
-     P- and B-slice init states and K4 on bS 1 edges; the plain bS/QP maps
-     and SSE/SSIM (rows 10-11, also at 1920x1088) are timed too;
+     P- and B-slice init states and K4 on bS 1 edges;
+     K21 (the loop filter's bS/QP maps) and K22 (SSE/SSIM) at a config-1
+     batch, a config-2 P frame, a config-3 B frame and a 1080p CTB16 frame;
+     the ME argmin on K5's grids of a config-2 P frame and a 1080p B frame
+     (and crafted near-ties); K23 (the flat CTB16 scan, one launch a
+     diagonal) at one 1920x1088 frame, lossy and lossless, and a 16-frame
+     batch of 640x368;
      K15 (the level pack) at a config-1 batch, a config-2 P frame and a
      config-3 B frame, with an overflow and int16 extremes, and the packed
      D2H against the dense one; K16 (the resampler) at 1080p -> 720p and ->
@@ -105,7 +110,15 @@ Phases (any failure exits non-zero):
      and those of config 2 at one reference run again right after;
   18. card against CPU, byte for byte: `--ref 4` at 320x192 on a period-2
      flicker clip, 8 frames (the cyclic fill and every ref_idx bin occur);
-     some inter cells must use an older reference.
+     some inter cells must use an older reference;
+  19. CTB16 all-intra at 1920x1080 (the JAX package's defaults: `Param()`
+     with keyint 1, CQP 32, deblocking on, SAO off) through
+     `encode_pipelined`, 20 frames with the first 4 as warm-up: fps,
+     PSNR-Y, kbps, K23's launches (a diagonal each);
+  20. lossless at 1920x1080, 5 frames with the first as warm-up: the recon
+     must equal the source; fps, kbps;
+  21. card against CPU, byte for byte: CTB16 with AQ 2 and SAO, and
+     lossless, at 320x192 (3 frames each).
 
 Prints one JSON line of kernel figures, then the card's name and power
 limit, then `{"ok": true, "device": {...}}` as the last line.
@@ -131,7 +144,13 @@ H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 # slice K1-K11, config 3 with AQ and CU-tree also the lookahead's (K12-K14
 # and K1 on the lowres blocks, counted apart)
 CONFIG1_KERNELS = ("intra_pred", "residual_chain", "tu_bits", "deblock",
-                   "pack_levels", "commit_intra")
+                   "pack_levels", "commit_intra", "deblock_maps",
+                   "frame_metrics")
+# the flat CTB16 scan runs only on the CTB16 path (phases 19-21)
+FLAT_KERNELS = ("intra16_scan",)
+# phase 19: CTB16 all-intra at 1920x1080; phase 20: lossless at 1920x1080
+CTB16_FRAMES, CTB16_WARM = 20, 4
+LOSSLESS_FRAMES, LOSSLESS_WARM = 5, 1
 CONFIG3_KERNELS = ("mc_bi", "sao_analyse", "sao_apply", "decide_b")
 LOOKAHEAD_KERNELS = ("lowres_aq", "lowres_me", "cutree_prop",
                      "intra_pred_lowres")
@@ -761,57 +780,215 @@ def phase_kernels_p(iters, dev="cuda", w=1280, h=736, sr=8):
     return rows
 
 
-def phase_plain_rows(iters, dev="cuda"):
-    """Rows 10-11 of the kernel table (plain PyTorch on the card): the bS
-    and QP maps and SSE/SSIM, for config 1's 16-frame batch, one config 2
-    frame and one config-3 B frame (two lists, per-CTU QPs)."""
+def flat_levels(rng, f, h16, w16, dev):
+    """Sparse random levels of F frames in the trees' cell layout (ly [F,
+    h16, w16, 16, 16], lcb, lcr [F, h16, w16, 8, 8] int16): about half the
+    cells code something, a frame codes nothing."""
     import torch
-    from x265amod_tpu_torch.ops import deblock, metrics
+    out = []
+    for n in (16, 8, 8):
+        coded = rng.random((f, h16, w16, 1, 1)) < 0.5
+        v = rng.integers(-4, 5, (f, h16, w16, n, n)) * (
+            rng.random((f, h16, w16, n, n)) < 0.05) * coded
+        if f > 1:
+            v[-1] = 0
+        out.append(torch.as_tensor(v.astype(np.int16), device=dev))
+    return tuple(out)
+
+
+def scan_bytes_ops(f, h, w, lossless):
+    """(bytes, int32 operations) of the flat CTB16 scan of F frames: the
+    source planes read, the recon planes, levels and modes written, the
+    maps read; 35 luma modes a CTU16 through the transforms' 8 n^3
+    operations (four n-point matrix products of multiply-adds: forward and
+    inverse) and the two 8x8 chroma blocks at the chosen mode (none under
+    lossless)."""
+    npix = f * h * w * 1.5
+    nctu = f * (h // 16) * (w // 16)
+    nbytes_ = npix * (4 + 4 + 2) + nctu * 4 + (h // 16) * (w // 16) * 12
+    ops = 0 if lossless else nctu * (35 * 8 * 16 ** 3 + 2 * 8 * 8 ** 3)
+    return nbytes_, ops
+
+
+def phase_kernels_flat(iters, dev="cuda"):
+    """K21 (the loop filter's maps), K22 (SSE/SSIM), the ME argmin and K23
+    (the flat CTB16 scan) against their plain versions on the card, exact
+    but the SSIM (1e-6).  K21 and K22 at the shapes of the three trees'
+    tails (a config-1 batch of 16 frames of 640x384 with random splits; a
+    config-2 P frame at 1280x736 and a config-3 B frame at 1920x1088 with
+    random kinds, directions, MVs and reference indices and per-CTU QPs)
+    and of a 1080p CTB16 frame; the argmin on K5's grids of the bench clip
+    at a config-2 P frame (sr 8) and a config-3 B frame (1920x1088, sr 16),
+    CU16 and CU32, plus crafted near-ties and exact ties; K23 at one
+    1920x1088 frame, lossy (QP 32) and lossless, and a 16-frame batch of
+    640x368.  Times: CUDA events, 20 calls after 2 warm-up (the plain
+    scans once after a warm-up)."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import _pad_to_ctu
+    from x265amod_tpu_torch.models.intra_frame import IntraFrameEncoder
+    from x265amod_tpu_torch.ops import deblock, me, metrics
+    from x265amod_tpu_torch.utils.lambdas import lambda2_of
     dev = torch.device(dev)
-    rng = np.random.default_rng(5)
-    out = {}
-    for name, f, h, w in (("config1_batch", 16, 384, 640),
-                          ("config2_frame", 1, 736, 1280),
-                          ("config3_frame", 1, 1088, 1920)):
+    rng = np.random.default_rng(21)
+    km, kq = dict(err=0.0), dict(err=0.0)
+    for key, f, h, w, kind in (("", 16, 384, 640, "intra"),
+                               ("_p_frame", 1, 736, 1280, "p"),
+                               ("_b_frame", 1, 1088, 1920, "b"),
+                               ("_flat_1080p", 1, 1088, 1920, "flat")):
         h16, w16 = h // 16, w // 16
-        split = torch.as_tensor(rng.integers(0, 2, (f, h16 // 2, w16 // 2)),
+        lv = flat_levels(rng, f, h16, w16, dev)
+        flat = kind == "flat"
+        grid = (h16, w16) if flat else (h16 // 2, w16 // 2)
+        qp_sig = torch.as_tensor(30 + rng.integers(-6, 3, grid).astype(
+            np.int32) * (kind in ("b", "flat")), device=dev)
+        split = None if flat else torch.as_tensor(rng.integers(
+            0, 2, (f,) + grid).astype(np.int32), device=dev)
+        inter = None
+
+        def r(lo, hi, *shp):
+            return torch.as_tensor(rng.integers(lo, hi, (f, h16, w16) + shp)
+                                   .astype(np.int32), device=dev)
+        if kind == "p":
+            inter = (r(0, 3), None, r(-40, 41, 2), None, r(0, 1))
+        elif kind == "b":
+            inter = (r(0, 3), r(1, 4), r(-40, 41, 2), r(-40, 41, 2), None)
+        got = deblock.deblock_maps(lv, 30, qp_sig, split, inter)
+        want = deblock.deblock_maps_plain(lv, 30, qp_sig, split, inter)
+        for i, (g, w_) in enumerate(zip(got, want)):
+            km["err"] = max(km["err"], check_exact(
+                f"deblock_maps {kind} out{i}", g, w_))
+        km[f"ms{key}"] = time_ms(lambda: deblock.deblock_maps(
+            lv, 30, qp_sig, split, inter), iters)
+        km[f"plain_ms{key}"] = time_ms(lambda: deblock.deblock_maps_plain(
+            lv, 30, qp_sig, split, inter), iters)
+        ins = list(lv) + [qp_sig, split] + [t for t in inter or ()]
+        km[f"bound_ms{key}"], km[f"bound_by{key}"] = bound_ms(
+            nbytes(*ins) + nbytes(*got), 0)
+        src = tuple(torch.as_tensor(rng.integers(0, 256, s).astype(np.int32),
+                                    device=dev)
+                    for s in ((f, h, w), (f, h // 2, w // 2),
+                              (f, h // 2, w // 2)))
+        rec = tuple(torch.clamp(t + torch.as_tensor(rng.integers(
+            -6, 7, t.shape).astype(np.int32), device=dev), 0, 255)
+            for t in src)
+        got = metrics.frame_metrics(src, rec)
+        want = metrics.frame_metrics_plain(src, rec)
+        check_exact("frame_metrics sse", got[:, :3].contiguous(),
+                    want[:, :3].contiguous())
+        kq["err"] = max(kq["err"], check_equal("frame_metrics ssim",
+                                               got[:, 3], want[:, 3], 1e-6))
+        kq[f"ms{key}"] = time_ms(lambda: metrics.frame_metrics(src, rec),
+                                 iters)
+        kq[f"plain_ms{key}"] = time_ms(
+            lambda: metrics.frame_metrics_plain(src, rec), iters)
+        kq[f"bound_ms{key}"], kq[f"bound_by{key}"] = bound_ms(
+            nbytes(*src, *rec, got), 0)
+        del lv, src, rec
+    for k in (km, kq):
+        k.update(library_ms=None, shapes_note=(
+            "keys without suffix: a config-1 batch of 16 frames of 640x384; "
+            "_p_frame 1280x736; _b_frame 1920x1088; _flat_1080p a CTB16 "
+            "frame at 1920x1088"))
+    km["library_note"] = "none: no single PyTorch call derives the maps"
+    kq["library_note"] = "none: no single PyTorch call computes SSIM"
+    rows = [("deblock_maps", "x265amod_tpu_torch/csrc/deblock_maps.cu",
+             "x265amod_tpu/ops/deblock.py:296 _bs_pair (+ :310 bs_maps, "
+             ":330 intra_tree_bs_maps, :356 inter_tree_bs_maps, :384 "
+             "effective_qp_map, :415 effective_qp16_tree, :454 "
+             "edge_qp_maps)", km),
+            ("frame_metrics", "x265amod_tpu_torch/csrc/frame_metrics.cu",
+             "x265amod_tpu/ops/metrics.py:24 ssim_plane (+ the plane SSE of "
+             "each encoder's tail)", kq)]
+
+    # ---- the ME argmin on K5's grids of the bench clip ----
+    ka = dict(err=0.0)
+    for key, w, h, sr, seed in (("", 1280, 720, 8, 2),
+                                ("_b_frame", 1920, 1080, 16, 4)):
+        fr = synth_frames(w, h, 2, seed=seed)
+        ref, cur_p = (torch.as_tensor(_pad_to_ctu(x[0], 32), device=dev)
+                      .to(torch.int32) for x in fr)
+        ms = plain = nb_all = 0.0
+        nbytes_ = 0
+        for bn in (16, 32):
+            hh, ww = cur_p.shape
+            cur = cur_p.reshape(hh // bn, bn, ww // bn, bn).permute(
+                0, 2, 1, 3).reshape(-1, bn, bn).contiguous()
+            g = me.me_ssd_grid(cur, ref, sr, bn)
+            lam = torch.as_tensor(lambda2_of(np.full(
+                g.shape[0], 32)).astype(np.float32), device=dev)
+            got = me.int_mv_argmin(g, lam, sr)
+            ka["err"] = max(ka["err"], check_exact(
+                f"mv_argmin {w}x{h} bn {bn}", got,
+                me.int_mv_argmin_plain(g, lam, sr)))
+            ms += time_ms(lambda: me.int_mv_argmin(g, lam, sr), iters)
+            plain += time_ms(lambda: me.int_mv_argmin_plain(g, lam, sr),
+                             iters)
+            nbytes_ += nbytes(g, lam, got)
+            nb_all += g.shape[0]
+        ka[f"ms{key}"], ka[f"plain_ms{key}"] = ms, plain
+        ka[f"bound_ms{key}"], ka[f"bound_by{key}"] = bound_ms(nbytes_, 0)
+        ka[f"blocks{key}"] = int(nb_all)
+    # crafted near-ties (the FMA and the rounded cost pick differently)
+    # and exact ties (the first index wins)
+    sr, n = 8, 4096
+    s_ = 2 * sr + 1
+    lam = rng.uniform(1.0, 300.0, n).astype(np.float32)
+    grid = rng.uniform(1e3, 1e6, (n, s_, s_)).astype(np.float32)
+    bits_a = float(me.mvd_bits(torch.tensor([-4 * sr, -4 * sr])))
+    cb_ = rng.uniform(1e3, 1e5, n)
+    ca = (cb_ + lam * 2.0 - lam.astype(np.float64) * bits_a) * (
+        1 + rng.integers(-3, 4, n) * 2.0 ** -23)
+    grid[:, 0, 0], grid[:, sr, sr] = ca, cb_
+    grid[::7, 1, 1] = grid[::7, 0, 0]
+    g, la = (torch.as_tensor(a, device=dev) for a in (grid, lam))
+    ka["err"] = max(ka["err"], check_exact(
+        "mv_argmin crafted ties", me.int_mv_argmin(g, la, sr),
+        me.int_mv_argmin_plain(g, la, sr)))
+    ka.update(library_ms=None, ties_checked=n, shapes_note=(
+        "keys without suffix: a config-2 P frame at 1280x736, sr 8, CU16 + "
+        "CU32 grids (two launches); _b_frame: 1920x1088, sr 16"),
+        library_note="none: torch.argmin over fma(lam, bits, grid) needs "
+        "the FMA formed first (a second kernel)")
+    rows.append(("mv_argmin", "x265amod_tpu_torch/csrc/mv_argmin.cu",
+                 "x265amod_tpu/models/inter_tree.py:227-229 best_mv cost "
+                 "and argmin", ka))
+
+    # ---- K23, the flat CTB16 scan ----
+    kz = dict(err=0.0)
+    for key, w, h, f, lossless, seed in (
+            ("", 1920, 1080, 1, False, 19),
+            ("_lossless", 1920, 1080, 1, True, 20),
+            ("_batch16_640x368", 640, 360, 16, False, 3)):
+        fr = synth_frames(w, h, f, seed=seed)
+        y, cb, cr = (torch.stack([torch.as_tensor(
+            _pad_to_ctu(x[k], 16 if k == 0 else 8), device=dev)
+            for x in fr]).to(torch.int32) for k in range(3))
+        enc = IntraFrameEncoder(y.shape[2], y.shape[1], lossless=lossless,
                                 device=dev)
-        coded = torch.as_tensor(rng.random((f, h16, w16)) < 0.5, device=dev)
-        qp32 = torch.full((h16 // 2, w16 // 2), 30, dtype=torch.int32,
-                          device=dev)
-        if name == "config3_frame":          # AQ and CU-tree QPs
-            qp32 = qp32 + torch.as_tensor(rng.integers(
-                -6, 3, qp32.shape).astype(np.int32), device=dev)
-        intra = torch.as_tensor(rng.random((f, h16, w16)) < 0.1, device=dev)
-        mv = torch.as_tensor(rng.integers(-40, 41, (f, h16, w16, 2)),
-                             device=dev)
-        two = name == "config3_frame"
-        dirs = torch.as_tensor(rng.integers(1, 4 if two else 2,
-                                            (f, h16, w16)), device=dev)
-        mv1 = torch.flip(mv, (2,)) if two else torch.zeros_like(mv)
-
-        def maps():
-            if name == "config1_batch":
-                bs = deblock.intra_tree_bs_maps(split, h16, w16)
-            else:
-                bs = deblock.inter_tree_bs_maps(
-                    intra, coded, torch.where(intra, 0, dirs), mv, mv1,
-                    split, torch.zeros_like(coded, dtype=torch.int32))
-            eff = deblock.effective_qp16_tree(qp32, split, coded, 30)
-            return bs, deblock.edge_qp_maps(eff)
-        a = torch.as_tensor(rng.integers(0, 256, (f, h, w)), device=dev) \
-            .to(torch.uint8)
-        b = torch.as_tensor(rng.integers(0, 256, (f, h, w)), device=dev) \
-            .to(torch.uint8)
-
-        def quality():
-            return metrics.plane_sse(a, b), metrics.ssim_plane(a, b)
-        out[name] = dict(
-            bs_qp_maps_ms=time_ms(maps, iters),
-            bs_qp_maps_bound_ms=bound_ms(f * h16 * w16 * 4 * 12, 0)[0],
-            sse_ssim_ms=time_ms(quality, iters),
-            sse_ssim_bound_ms=bound_ms(2 * a.numel(), a.numel() * 12)[0])
-    return out
+        maps = enc._maps(32)
+        got = enc._scan_kernel(y, cb, cr, maps)
+        want = enc._scan_plain(y, cb, cr, maps)
+        for i, (g, w_) in enumerate(zip(got, want)):
+            kz["err"] = max(kz["err"], check_exact(
+                f"intra16_scan {key or '1080p'} out{i}", g, w_))
+        kz[f"ms{key}"] = time_ms(lambda: enc._scan_kernel(y, cb, cr, maps),
+                                 iters)
+        kz[f"plain_ms{key}"] = time_once_ms(
+            lambda: enc._scan_plain(y, cb, cr, maps))
+        kz[f"bound_ms{key}"], kz[f"bound_by{key}"] = bound_ms(
+            *scan_bytes_ops(f, y.shape[1], y.shape[2], lossless))
+        kz[f"diagonals{key}"] = len(enc.diags)
+        kz[f"ms_per_launch{key}"] = kz[f"ms{key}"] / len(enc.diags)
+        del y, cb, cr, got, want
+    kz.update(library_ms=None, shapes_note=(
+        "keys without suffix: one 1920x1088 frame at QP 32; _lossless the "
+        "same frame under transquant bypass; _batch16_640x368 16 frames; "
+        "launches = diagonals"),
+        library_note="none: no single call codes a wavefront")
+    rows.append(("intra16_scan", "x265amod_tpu_torch/csrc/intra16_scan.cu",
+                 "x265amod_tpu/models/intra_frame.py:121 _encode_frame "
+                 "(scan body :183-234, lax.scan :236)", kz))
+    return rows
 
 
 # ---- phases 3 and 4 -----------------------------------------------------------
@@ -941,7 +1118,8 @@ def phase_config2(frames, warm):
         raise AssertionError(f"config 2: PSNR-Y {s['psnr_y']} out of range")
     missing = [k for k, v in launches.items() if v <= 0
                and k not in CONFIG3_KERNELS + LOOKAHEAD_KERNELS
-               + RDOQ_KERNELS + LADDER_KERNELS + MULTIREF_KERNELS]
+               + RDOQ_KERNELS + LADDER_KERNELS + MULTIREF_KERNELS
+               + FLAT_KERNELS]
     if missing:
         raise AssertionError(f"config 2 did not launch {missing}")
     p_stats = enc.frame_stats[warm:]
@@ -1329,7 +1507,7 @@ def phase_config3(frames, warm):
         raise AssertionError(f"config 3: PSNR-Y {s['psnr_y']} out of range")
     missing = [k for k, v in launches.items() if v <= 0 and
                k not in LOOKAHEAD_KERNELS + RDOQ_KERNELS + LADDER_KERNELS
-               + MULTIREF_KERNELS]
+               + MULTIREF_KERNELS + FLAT_KERNELS]
     if missing:
         raise AssertionError(f"config 3 did not launch {missing}")
     if sao_n[0] == 0:
@@ -1391,7 +1569,7 @@ def phase_config3_aq(frames, rdoq=0):
         raise AssertionError(f"config 3 with AQ: PSNR-Y {s['psnr_y']} out "
                              "of range")
     missing = [k for k, v in launches.items() if v <= 0 and
-               k not in LADDER_KERNELS + MULTIREF_KERNELS
+               k not in LADDER_KERNELS + MULTIREF_KERNELS + FLAT_KERNELS
                and (rdoq or k not in RDOQ_KERNELS)]
     if missing:
         raise AssertionError(f"config 3 with AQ did not launch {missing}")
@@ -1758,7 +1936,7 @@ def phase_ladder(tmp):
             raise AssertionError(f"ladder rung {r.name}: {r.frames} frames, "
                                  f"PSNR-Y {s['psnr_y']}")
     missing = [k for k, v in launches.items() if v <= 0
-               and k not in RDOQ_KERNELS + MULTIREF_KERNELS]
+               and k not in RDOQ_KERNELS + MULTIREF_KERNELS + FLAT_KERNELS]
     if missing:
         raise AssertionError(f"the ladder did not launch {missing}")
     out["launches_pack_levels"] = launches["pack_levels"]
@@ -1822,7 +2000,7 @@ def phase_vbv(frames):
         raise AssertionError(f"VBV: PSNR-Y {s['psnr_y']}")
     missing = [k for k, v in launches.items() if v <= 0 and k not in
                CONFIG3_KERNELS + LADDER_KERNELS + RDOQ_KERNELS
-               + MULTIREF_KERNELS + ("cutree_prop",)]
+               + MULTIREF_KERNELS + FLAT_KERNELS + ("cutree_prop",)]
     if missing:
         raise AssertionError(f"VBV did not launch {missing}")
     return dict(frames=n, seconds=dt, fps=n / dt, kbps=s["bitrate_kbps"],
@@ -2396,7 +2574,7 @@ def phase_config2_ref(frames, warm, p5):
         raise AssertionError(f"config 2 --ref 3: PSNR-Y {s['psnr_y']}")
     missing = [k for k, v in launches.items() if v <= 0
                and k not in CONFIG3_KERNELS + LOOKAHEAD_KERNELS
-               + RDOQ_KERNELS + LADDER_KERNELS]
+               + RDOQ_KERNELS + LADDER_KERNELS + FLAT_KERNELS]
     if missing:
         raise AssertionError(f"config 2 --ref 3 did not launch {missing}")
     if launches["decide_p"] != n:
@@ -2450,6 +2628,89 @@ def phase_card_vs_cpu_multiref(w=320, h=192):
                 older_ref_share=share,
                 ref_idx_counts=np.bincount(r, minlength=FLICKER_REF)
                 .tolist())
+
+
+# ---- phases 19-21: the flat CTB16 path ---------------------------------------
+
+def config_ctb16(w=1920, h=1080, **kw):
+    """The JAX package's defaults (`Param()`: CTU16, deblocking on, SAO
+    off, sign hiding on, CQP 32) at keyint 1; kw overrides."""
+    from x265amod_tpu_torch.utils.params import Param
+    return Param(width=w, height=h, keyint=1, info=False, **kw)
+
+
+def phase_ctb16(frames, warm, lossless=False):
+    """CTB16 all-intra (or lossless) through `Encoder(device="cuda")` and
+    `encode_pipelined` (the per-frame path): the first ``warm`` frames as
+    warm-up, the rest timed.  fps, PSNR-Y, kbps, K23's launches per frame;
+    lossless: the recon must equal the source."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from x265amod_tpu_torch.ops import cuda_lib
+    label = "lossless" if lossless else "CTB16"
+    enc = Encoder(config_ctb16(lossless=lossless), device="cuda")
+    for _ in enc.encode_pipelined(frames[:warm]):
+        pass
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    outs = list(enc.encode_pipelined(frames[warm:], return_recon=lossless))
+    dt = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    n = len(frames) - warm
+    timed = enc.frame_stats[warm:]
+    if len(outs) != n or not all(o.nals for o in outs) or enc.ctu != 16:
+        raise AssertionError(f"{label}: missing encoded frames")
+    psnr = float(np.mean([x.psnr_y for x in timed]))
+    kbps = float(sum(x.bits for x in timed) * 25.0 / n / 1000.0)
+    if not np.isfinite(kbps) or not (psnr == 99.99 if lossless
+                                     else 30.0 < psnr < 60.0):
+        raise AssertionError(f"{label}: PSNR-Y {psnr}, kbps {kbps}")
+    if lossless:
+        for o, fr in zip(outs, frames[warm:]):
+            for rec, src in zip(o.recon, fr):
+                if not np.array_equal(rec, src):
+                    raise AssertionError("lossless: recon differs from the "
+                                         "source")
+    want = ("intra16_scan", "frame_metrics") + (
+        () if lossless else ("deblock_maps", "deblock", "pack_levels"))
+    tree = ("intra_pred", "residual_chain", "tu_bits", "commit_intra")
+    missing = [k for k in want if launches[k] <= 0]
+    unexpected = [k for k in tree + (("deblock_maps", "deblock",
+                                      "pack_levels") if lossless else ())
+                  if launches[k] > 0]
+    diags = len(enc.frame_encoder.diags)
+    if missing or unexpected or launches["intra16_scan"] != n * diags:
+        raise AssertionError(f"{label}: did not launch {missing}, launched "
+                             f"{unexpected}, K23 {launches['intra16_scan']}"
+                             f" launches for {n} frames of {diags} "
+                             "diagonals")
+    return dict(frames=n, seconds=dt, fps=n / dt, psnr_y=psnr, kbps=kbps,
+                ssim_y=float(np.mean([x.ssim_y for x in timed])),
+                qp=timed[0].qp, diagonals=diags,
+                recon_equals_source=lossless or None), launches
+
+
+def phase_card_vs_cpu_flat(w=320, h=192, n=3):
+    """CTB16 with AQ 2 (the depth-1 lookahead, cu_qp_delta) and SAO, and
+    lossless, on the card and on the CPU through `encode_pipelined`: the
+    streams must be identical byte for byte."""
+    from x265amod_tpu_torch.models.encoder import Encoder
+    frames = synth_frames(w, h, n, seed=21)
+    out = {}
+    for label, kw in (("aq2_sao", dict(aq_mode=2, sao=True)),
+                      ("lossless", dict(lossless=True))):
+        streams = {}
+        for dev in ("cuda", "cpu"):
+            e = Encoder(config_ctb16(w, h, **kw), device=dev)
+            streams[dev] = b"".join(o.nals for o in e.encode_pipelined(
+                frames))
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"CTB16 {label}: card and CPU streams "
+                                 "differ")
+        out[label] = dict(bitstreams_identical=True,
+                          bytes=len(streams["cuda"]))
+    return out
 
 
 def main():
@@ -2524,8 +2785,11 @@ def main():
         + json.dumps(dec1080) + f" [{card}]")
     # K19 and K20 (the B decide scan and the forced intra commit)
     rows += phase_kernels_scans(args.iters)
+    # K21, K22, the ME argmin and K23 (the flat CTB16 scan)
+    rows += phase_kernels_flat(args.iters)
     by_name = {name: d for name, _, _, d in rows}
-    for name in ("decide_b", "commit_intra"):
+    for name in ("decide_b", "commit_intra", "deblock_maps",
+                 "frame_metrics", "mv_argmin", "intra16_scan"):
         log(f"phase 2: {name} " + json.dumps(by_name[name]) + f" [{card}]")
     for name, _, _, d in rows:
         log(f"phase 2: {name} equal to plain (max abs err {d['err']}); "
@@ -2535,8 +2799,6 @@ def main():
     log("phase 2: residual_chain_rdoq " + json.dumps(
         {k: v for k, v in rd.items() if k.startswith(("ms_", "ties"))})
         + f" [{card}]")
-    log("phase 2: plain rows 10-11 " + json.dumps(phase_plain_rows(
-        args.iters)) + f" [{card}]")
     log("phase 2: multi-reference " + json.dumps(dict(
         mr_summary, mc_qpel_ref_r3={k: mc_ref[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "err")}))
@@ -2648,6 +2910,22 @@ def main():
     t0 = time.time()
     log("phase 18: " + json.dumps(phase_card_vs_cpu_multiref()))
     seconds["18_multiref_card_vs_cpu"] = time.time() - t0
+    t0 = time.time()
+    cframes = synth_frames(1920, 1080, CTB16_FRAMES, seed=19)
+    ctb16_stats, launches19 = phase_ctb16(cframes, CTB16_WARM)
+    log("phase 19: " + json.dumps(dict(ctb16_stats, card=card,
+                                       launches=launches19)))
+    seconds["19_ctb16"] = time.time() - t0
+    t0 = time.time()
+    ll_stats, launches20 = phase_ctb16(cframes[:LOSSLESS_FRAMES],
+                                       LOSSLESS_WARM, lossless=True)
+    del cframes
+    log("phase 20: " + json.dumps(dict(ll_stats, card=card,
+                                       launches=launches20)))
+    seconds["20_lossless"] = time.time() - t0
+    t0 = time.time()
+    log("phase 21: " + json.dumps(phase_card_vs_cpu_flat()))
+    seconds["21_ctb16_card_vs_cpu"] = time.time() - t0
     log("seconds per phase: " + json.dumps(seconds))
 
     kernels = []
@@ -2657,7 +2935,11 @@ def main():
         config3_kernel = name in CONFIG3_KERNELS
         la_kernel = name in LOOKAHEAD_KERNELS
         main10_kernel = name != base
-        if name == "pack_levels":
+        if name in FLAT_KERNELS:
+            launches, shapes = launches19[name], (
+                "one 1920x1088 CTB16 frame (1920x1080 padded), QP 32; "
+                "launches from CTB16 all-intra (phase 19)")
+        elif name == "pack_levels":
             launches, shapes = launches14[name], (
                 "one B frame at 1920x1088 (cap T/8); also a 16-frame "
                 "config-1 batch at 640x384 (cap T/16) and a P frame at "
@@ -2709,13 +2991,17 @@ def main():
                 "intra batch with RDOQ (_rdoq), a config-2 P frame " \
                 "(_p_frame) and a config-3 B frame with RDOQ 2 " \
                 "(_b_frame_rdoq); launches = diagonals"
+        elif "shapes_note" in d:
+            shapes += "; " + d["shapes_note"]
         elif d.get("checked_at_config3_shapes"):
             shapes += "; also checked at one B frame's shapes (1920x1088, " \
                 "sr 16)"
         extra = {k: v for k, v in d.items() if k.startswith(
             ("ms_", "plain_ms_", "bound_ms_", "bound_by_", "diagonals",
              "intra_cells_", "dsf", "cu32_share"))
-            or k in ("ties", "level_bound_reached", "lanes", "maps_bytes")}
+            or k.startswith(("blocks", "ms_per_launch"))
+            or k in ("ties", "level_bound_reached", "lanes", "maps_bytes",
+                     "ties_checked")}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches,
@@ -2728,6 +3014,8 @@ def main():
             launches_ladder=launches14[base],
             launches_vbv=launches15[base],
             launches_config2_ref3=launches17[base],
+            launches_ctb16=launches19[base],
+            launches_lossless=launches20[base],
             launches_per_frame_config3_aq=launches9[base] / CONFIG3_AQ_FRAMES,
             launches_per_frame_config3_rdoq=launches11[base]
             / CONFIG3_AQ_FRAMES,

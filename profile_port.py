@@ -4,18 +4,20 @@ config 2 (1280x720 low-delay P QP 32, CTU32, one reference), the config-3
 slice (1920x1080 B pyramid with SAO, CQP 32, AQ and CU-tree off), config
 3 as bench.py builds it (the same with the lookahead, AQ and CU-tree: "4"),
 the ABR ladder ("5"), config 2 under VBV with HRD ("6"), Main10 all-intra
-("7"), config 3 with RDOQ ("8") and config 2 at x265's default --ref 3
-("9").
+("7"), config 3 with RDOQ ("8"), config 2 at x265's default --ref 3
+("9") and the flat CTB16 all-intra path at 1920x1080, lossy and lossless
+("10").
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 profile_port.py [--configs 1,2,3,4,5,6,7,8,9] [--batches 2]
+    python3 profile_port.py [--configs 1,2,3,4,5,6,7,8,9,10] [--batches 2]
         [--p-frames 4]
 
 Prints JSON lines:
   - "stages": host wall time of each stage of a config 1 16-frame batch,
     with a device synchronize after each (upload, estimate, commit (K20),
-    loop filter + metrics, D2H copy, CABAC on 4 threads, NAL assembly),
+    loop filter + metrics (K21, K4, K22), D2H copy, CABAC on 4 threads, NAL
+    assembly),
     averaged over --batches batches;
   - "profile": torch.profiler over one config 1 encode_pipelined call of
     32 frames: wall time, summed device kernel time, the device busy share
@@ -60,6 +62,12 @@ Prints JSON lines:
   - "p_stages_ref3": the "p_stages" breakdown of config 2 at --ref 3, over
     the P frames 3 to --p-frames + 2 (the two warm-up P frames are the
     ones coded against a list filled cyclically from fewer pictures);
+  - "ctb16_stages" and "lossless_stages": the flat CTB16 all-intra path
+    (chip_smoke phases 19 and 20: 1920x1080, the JAX defaults at keyint 1,
+    QP 32; and lossless) per frame through encode_pipelined after 2
+    warm-up frames: the scan (K23), the loop filter (K21 + K4), SAO,
+    SSE/SSIM (K22), level pack and D2H start, wait and unpack, CABAC, rate
+    control; "ctb16_profile": torch.profiler over 8 CTB16 frames;
   - the card's name and power limit.
 """
 
@@ -82,7 +90,7 @@ P_WARM = 2
 def stage_breakdown(enc, frames, batches):
     import torch
     from x265amod_tpu_torch.ops.deblock import deblock_frame_planes
-    from x265amod_tpu_torch.ops.metrics import plane_sse, ssim_plane
+    from x265amod_tpu_torch.ops.metrics import frame_metrics
     fe = enc.frame_encoder
     qp = enc.rc.frame_qp("I")
     maps = fe._maps(qp)
@@ -109,12 +117,9 @@ def stage_breakdown(enc, frames, batches):
             ry, rcb, rcr, ly, lcb, lcr, mo = fe._commit(y, cb, cr, maps,
                                                         split, modes)
             t = mark("commit", t)
-            coded = ((ly != 0).any(-1).any(-1) | (lcb != 0).any(-1).any(-1)
-                     | (lcr != 0).any(-1).any(-1))
-            ry, rcb, rcr = deblock_frame_planes(ry, rcb, rcr, split, coded,
-                                                maps["qp32"], qp)
-            sse = torch.stack([plane_sse(y, ry), plane_sse(cb, rcb),
-                               plane_sse(cr, rcr), ssim_plane(y, ry)], 1)
+            ry, rcb, rcr = deblock_frame_planes(
+                ry, rcb, rcr, (ly, lcb, lcr), maps["qp32"], qp, split=split)
+            sse = frame_metrics((y, cb, cr), (ry, rcb, rcr))
             t = mark("loop_filter_and_metrics", t)
             handle = fe._to_host(dict(
                 split=split.to(torch.int8), modes=mo.to(torch.uint8), ly=ly,
@@ -486,6 +491,29 @@ def main10_stages(frames):
                   (time.perf_counter() - t0) * 1e3)
 
 
+def ctb16_stages(frames, lossless=False, warm=2):
+    """The flat CTB16 path per frame (see the docstring)."""
+    import torch
+    from x265amod_tpu_torch.models import intra_frame
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from chip_smoke import config_ctb16
+    enc = Encoder(config_ctb16(lossless=lossless), device="cuda")
+    list(enc.encode_pipelined(frames[:warm]))
+    st = StageTimer()
+    st.wrap(enc.frame_encoder, "_scan", "scan_k23")
+    for fn, stage in (("deblock_frame_planes", "loop_filter_k21_k4"),
+                      ("sao_filter_frame", "sao"),
+                      ("frame_metrics", "sse_ssim_k22")):
+        st.wrap(intra_frame, fn, stage)
+    st.wrap(enc, "_cabac_intra", "cabac")
+    st.wrap_encoder(enc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    list(enc.encode_pipelined(frames[warm:]))
+    torch.cuda.synchronize()
+    return st.per(len(frames) - warm, (time.perf_counter() - t0) * 1e3)
+
+
 def device_profile(run, n_frames):
     """torch.profiler over ``run()``: wall time, device kernel time, the
     device busy share and the kernels with the most device time."""
@@ -518,7 +546,7 @@ def device_profile(run, n_frames):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--configs", default="1,2,3,4,5,6,7,8,9")
+    ap.add_argument("--configs", default="1,2,3,4,5,6,7,8,9,10")
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--p-frames", type=int, default=4)
     args = ap.parse_args()
@@ -588,6 +616,16 @@ def main():
                                seed=2)
         print(json.dumps({"p_stages_ref3": p_stage_breakdown(
             Encoder(config2_ref(3), device="cuda"), pframes)}))
+    if 10 in configs:
+        cframes = synth_frames(1920, 1080, 10, seed=19)
+        print(json.dumps({"ctb16_stages": ctb16_stages(cframes)}))
+        print(json.dumps({"lossless_stages": ctb16_stages(
+            cframes[:6], lossless=True)}))
+        from chip_smoke import config_ctb16
+        cenc = Encoder(config_ctb16(), device="cuda")
+        list(cenc.encode_pipelined(cframes[:2]))
+        print(json.dumps({"ctb16_profile": device_profile(
+            lambda: list(cenc.encode_pipelined(cframes[2:])), 8)}))
     print(card_line())
 
 

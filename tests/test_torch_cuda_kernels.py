@@ -673,3 +673,107 @@ def test_commit_intra_kernel_inter_tree(cuda_dev, b_tree, rdoq):
     for g, wt in zip(got[0] + got[1] + (got[2],),
                      want[0] + want[1] + (want[2],)):
         assert g.dtype == wt.dtype and torch.equal(g, wt)
+
+
+def _levels(rng, f, h16, w16, dev, density=0.3):
+    """Random sparse levels of F frames: ly [F, h16, w16, 16, 16], lcb,
+    lcr [F, h16, w16, 8, 8] int16, a cell coded with probability density."""
+    out = []
+    for n in (16, 8, 8):
+        coded = rng.random((f, h16, w16, 1, 1)) < density
+        v = rng.integers(-3, 4, (f, h16, w16, n, n)) * (rng.random(
+            (f, h16, w16, n, n)) < 0.1) * coded
+        out.append(torch.as_tensor(v.astype(np.int16), device=dev))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("shape", ["intra_tree", "inter_p", "inter_b",
+                                   "flat"])
+def test_deblock_maps_kernel(cuda_dev, shape):
+    """K21 against its plain version: the three shapes of the maps (the
+    inter trees with and without directions, L1 MVs and reference indices),
+    QP maps with offsets, sparse and empty frames, bit for bit."""
+    from x265amod_tpu_torch.ops import deblock
+    rng = np.random.default_rng(200 + len(shape))
+    f, h16, w16 = 3, 6, 10
+    lv = _levels(rng, f, h16, w16, cuda_dev)
+    for t in lv:
+        t[1].zero_()                      # a frame with nothing coded
+    flat = shape == "flat"
+    qp_sig = torch.as_tensor(rng.integers(20, 45, (h16, w16) if flat else
+                                          (h16 // 2, w16 // 2))
+                             .astype(np.int32), device=cuda_dev)
+    split = None if flat else torch.as_tensor(
+        rng.integers(0, 2, (f, h16 // 2, w16 // 2)).astype(np.int32),
+        device=cuda_dev)
+    inter = None
+    if shape.startswith("inter"):
+        def r(lo, hi, *s):
+            return torch.as_tensor(rng.integers(lo, hi, (f, h16, w16) + s)
+                                   .astype(np.int32), device=cuda_dev)
+        b = shape == "inter_b"
+        inter = (r(0, 3), r(1, 4) if b else None, r(-9, 10, 2),
+                 r(-9, 10, 2) if b else None, None if b else r(0, 3))
+    got = deblock.deblock_maps(lv, 30, qp_sig, split, inter)
+    want = deblock.deblock_maps_plain(lv, 30, qp_sig, split, inter)
+    for g, wt in zip(got, want):
+        assert torch.equal(g, wt.to(torch.int32))
+
+
+@pytest.mark.parametrize("ssim", [True, False])
+def test_frame_metrics_kernel(cuda_dev, ssim):
+    """K22 against its plain version: SSE exact, SSIM within 1e-6."""
+    from x265amod_tpu_torch.ops import metrics
+    rng = np.random.default_rng(210 + ssim)
+    src = _frames(rng, 3, 64, 96, cuda_dev, 1024 if not ssim else 256)
+    rec = tuple(torch.clamp(t + torch.as_tensor(
+        rng.integers(-6, 7, t.shape).astype(np.int32), device=cuda_dev), 0,
+        255 if ssim else 1023) for t in src)
+    got = metrics.frame_metrics(src, rec, ssim)
+    want = metrics.frame_metrics_plain(src, rec, ssim)
+    assert torch.equal(got[:, :3], want[:, :3])
+    assert (got[:, 3] - want[:, 3]).abs().max().item() <= 1e-6
+
+
+def test_mv_argmin_kernel_on_crafted_ties(cuda_dev):
+    """The ME argmin kernel against `int_mv_argmin_plain`: grids with two
+    MVs within a few ulps of each other (where the FMA and the rounded
+    cost pick differently) and exact ties (the first index wins)."""
+    from x265amod_tpu_torch.ops import me
+    rng = np.random.default_rng(220)
+    sr, n = 8, 4096
+    s = 2 * sr + 1
+    lam = rng.uniform(1.0, 300.0, n).astype(np.float32)
+    grid = rng.uniform(1e3, 1e6, (n, s, s)).astype(np.float32)
+    # candidate a at (-sr, -sr), b at (0, 0): cost b - cost a within ulps
+    bits_a = float(me.mvd_bits(torch.tensor([-4 * sr, -4 * sr])))
+    cb = rng.uniform(1e3, 1e5, n).astype(np.float32)
+    ca = (cb.astype(np.float64) + lam * 2.0 - lam.astype(np.float64)
+          * bits_a)
+    ca = (ca * (1 + rng.integers(-3, 4, n) * 2.0 ** -23)).astype(np.float32)
+    grid[:, 0, 0], grid[:, sr, sr] = ca, cb
+    grid[::7, 1, 1] = grid[::7, 0, 0]       # exact ties elsewhere
+    g = torch.as_tensor(grid, device=cuda_dev)
+    la = torch.as_tensor(lam, device=cuda_dev)
+    assert torch.equal(me.int_mv_argmin(g, la, sr),
+                       me.int_mv_argmin_plain(g, la, sr))
+
+
+@pytest.mark.parametrize("lossless,aq,f", [(False, False, 1), (False, True, 2),
+                                           (True, False, 1), (True, True, 2)])
+def test_intra16_scan_kernel(cuda_dev, lossless, aq, f):
+    """K23 against the flat encoder's plain scan on the card: 96x64, one
+    frame or a batch of two, random content, AQ offsets or not, lossy and
+    lossless (recon, levels and modes bit-equal)."""
+    from x265amod_tpu_torch.models.intra_frame import IntraFrameEncoder
+    rng = np.random.default_rng(240 + 2 * lossless + aq)
+    enc = IntraFrameEncoder(96, 64, deblock=False, lossless=lossless,
+                            device=cuda_dev)
+    y, cb, cr = _frames(rng, f, 64, 96, cuda_dev)
+    y[:, :16] = 200                        # a flat strip
+    off = rng.uniform(-6, 6, (4, 6)) if aq else None
+    maps = enc._maps(27, off)
+    got = enc._scan_kernel(y, cb, cr, maps)
+    want = enc._scan_plain(y, cb, cr, maps)
+    for g, wt in zip(got, want):
+        assert g.dtype == wt.dtype and torch.equal(g, wt)

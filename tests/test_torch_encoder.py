@@ -101,7 +101,7 @@ def test_encoder_needs_a_card_unless_asked_for_the_cpu():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("ref", 2), ("ctu_size", 16), ("lossless", True), ("bframes", 17),
+    ("ref", 2), ("ctu_size", 64), ("lossless", True), ("bframes", 17),
     ("aq_mode", 3), ("rdoq_level", 3), ("internal_bit_depth", 10),
     ("rc_mode", "vbr"), ("me_range", 3),
     ("vbv_maxrate", 1000), ("pass_num", 2), ("wpp", True),

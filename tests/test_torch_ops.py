@@ -266,3 +266,97 @@ def test_ssim_and_sse_parity():
                               - jnp.asarray(a[i], jnp.int32))
                              .astype(jnp.float32) ** 2))
         assert float(tmet.plane_sse(T(a), T(b))[i]) == jsse
+
+
+@pytest.mark.parametrize("shape", ["intra_tree", "inter_p", "inter_b",
+                                   "flat"])
+def test_deblock_maps_parity(shape):
+    """Row 10 as K21's plain version computes it, from a frame batch's
+    levels: against the JAX functions the encoders call (the intra tree:
+    `intra_tree_bs_maps` and `effective_qp16_tree`; the P/B trees:
+    `inter_tree_bs_maps` with the TU luma cbf and `effective_qp16_tree`;
+    the flat CTB16 frame: bS 2 everywhere and `effective_qp_map`), then
+    `edge_qp_maps` and the chroma mapping; two frames at 128x64, one of
+    them with nothing coded."""
+    rng = np.random.default_rng(40 + len(shape))
+    f, h16, w16 = 2, 4, 8
+    lv = []
+    for n in (16, 8, 8):
+        v = rng.integers(-3, 4, (f, h16, w16, n, n)) * (
+            rng.random((f, h16, w16, 1, 1)) < 0.4) * (
+            rng.random((f, h16, w16, n, n)) < 0.1)
+        v[1] = 0
+        lv.append(v.astype(np.int16))
+    flat = shape == "flat"
+    grid = (h16, w16) if flat else (h16 // 2, w16 // 2)
+    qp_sig = rng.integers(22, 40, grid).astype(np.int32)
+    split = None if flat else rng.integers(0, 2, (f,) + grid).astype(
+        np.int32)
+    kinds = rng.integers(0, 3, (f, h16, w16)).astype(np.int32)
+    b = shape == "inter_b"
+    dirs = rng.integers(1, 4, (f, h16, w16)).astype(np.int32) if b else None
+    mv0, mv1 = (rng.integers(-9, 10, (f, h16, w16, 2)).astype(np.int32)
+                for _ in range(2))
+    ref0 = None if b else rng.integers(0, 2, (f, h16, w16)).astype(np.int32)
+    inter = None
+    if shape.startswith("inter"):
+        inter = (T(kinds), None if dirs is None else T(dirs), T(mv0),
+                 T(mv1) if b else None, None if ref0 is None else T(ref0))
+    got = tdb.deblock_maps_plain(tuple(T(a) for a in lv), 30, T(qp_sig),
+                                 None if flat else T(split), inter)
+    for i in range(f):
+        nz_y = (lv[0][i] != 0).any((2, 3))
+        coded = nz_y | (lv[1][i] != 0).any((2, 3)) | \
+            (lv[2][i] != 0).any((2, 3))
+        if flat:
+            bs = (np.full((h16, w16 - 1), 2), np.full((h16 - 1, w16), 2))
+            eff = jdb.effective_qp_map(jnp.asarray(qp_sig),
+                                       jnp.asarray(coded), 30)
+        else:
+            eff = jdb.effective_qp16_tree(jnp.asarray(qp_sig),
+                                          jnp.asarray(split[i]),
+                                          jnp.asarray(coded), 30)
+            if inter is None:
+                bs = jdb.intra_tree_bs_maps(jnp.asarray(split[i]), h16, w16)
+            else:
+                intra = kinds[i] == 2
+                cbf32 = nz_y.reshape(h16 // 2, 2, w16 // 2, 2).any((1, 3))
+                sp = np.repeat(np.repeat(split[i], 2, 0), 2, 1) == 1
+                cbf = np.where(sp, nz_y, np.repeat(np.repeat(cbf32, 2, 0),
+                                                   2, 1))
+                # the JAX trees zero the motion of intra cells
+                d_ = np.where(intra, 0, dirs[i] if b else 1)
+                m0 = np.where(intra[..., None], 0, mv0[i])
+                m1 = np.where(intra[..., None], 0, mv1[i]) if b else \
+                    np.zeros_like(m0)
+                r0 = np.zeros_like(kinds[i]) if b else \
+                    np.where(intra, 0, ref0[i])
+                bs = jdb.inter_tree_bs_maps(
+                    jnp.asarray(intra), jnp.asarray(cbf), jnp.asarray(d_),
+                    jnp.asarray(m0), jnp.asarray(m1), jnp.asarray(split[i]),
+                    ref0=jnp.asarray(r0))
+        qv, qh = jdb.edge_qp_maps(eff)
+        want = (bs[0], qv, jq.chroma_qp_jnp(qv), bs[1], qh,
+                jq.chroma_qp_jnp(qh))
+        for g, w_ in zip(got, want):
+            np.testing.assert_array_equal(g[i].numpy(), np.asarray(w_))
+
+
+def test_frame_metrics_parity():
+    """Row 11 as K22's plain version gives it, [F, 4] per frame batch:
+    the SSE of each plane equal to the JAX encoders' f32 sums (exact at
+    this size), the SSIM within 1e-6 of `ssim_plane`."""
+    rng = np.random.default_rng(5)
+    src = [rng.integers(0, 256, s).astype(np.int32)
+           for s in ((2, 64, 96), (2, 32, 48), (2, 32, 48))]
+    rec = [np.clip(a + rng.integers(-9, 10, a.shape), 0, 255) for a in src]
+    got = tmet.frame_metrics_plain(tuple(T(a) for a in src),
+                                   tuple(T(a) for a in rec)).numpy()
+    for i in range(2):
+        for k in range(3):
+            assert got[i, k] == float(jnp.sum((jnp.asarray(rec[k][i])
+                                               - jnp.asarray(src[k][i]))
+                                              .astype(jnp.float32) ** 2))
+        js = float(jmet.ssim_plane(jnp.asarray(src[0][i]),
+                                   jnp.asarray(rec[0][i])))
+        assert abs(got[i, 3] - js) <= 1e-6

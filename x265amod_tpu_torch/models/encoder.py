@@ -10,6 +10,12 @@ SEI on each IDR and a pic-timing SEI on every frame) or 2-pass
 planes in and out, profile 2 in the SPS, PSNR at the 10-bit peak, no loop
 filters and no RDOQ (the reference's gate).
 
+`ctu_size` 16 (the `Param` default, as in the JAX package) codes all-intra
+on the flat CTB16 frame (`models/intra_frame.py`; SPS CTB 16, TB 16), lossy
+or `--lossless` (transquant bypass in the PPS and on every CU, no sign
+hiding, no loop filters, recon equal to the source), one frame a device
+step through the per-frame path, as the JAX `Encoder` runs it.
+
 All-intra `encode_pipelined` runs the batched path of the JAX package's
 `models/encoder.py:_encode_intra_batched`: BATCH_FRAMES frames per device
 step, two steps in flight, and the native CABAC serializer on a 4-thread
@@ -36,6 +42,7 @@ chroma QP and lambda maps) and the serializer (`cu_qp_delta`, QG == CTB32).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from collections import deque
@@ -58,6 +65,7 @@ from ..ops.sao import sao_pack
 from ..utils.params import Param, check_params
 from .inter_frame import MAX_MERGE
 from .inter_tree import BTreeEncoder, InterTreeEncoder
+from .intra_frame import IntraFrameEncoder
 from .intra_tree import IntraTreeEncoder, qp32_of
 from .lookahead import Lookahead
 from .mvpred import dist_scale_factor
@@ -115,13 +123,19 @@ class Encoder:
 
     def __init__(self, param: Param, device=None):
         check_params(param)
+        if param.lossless:
+            # recon == source: the in-loop filters stay off (JAX :74-79)
+            param = dataclasses.replace(param, deblock=False, sao=False)
         self.param = param
         self.device = resolve_device(device)
         w, h = param.width, param.height
         self.inter_enabled = param.keyint != 1
-        self.ctu = 32
-        self.pad_w = -(-w // 32) * 32
-        self.pad_h = -(-h // 32) * 32
+        # the CTU32 quadtree when asked for, else the flat CTB16 frame (the
+        # JAX default and the lossless pipeline, JAX :86-91)
+        self.use_tree = param.ctu_size == 32
+        self.ctu = 32 if self.use_tree else 16
+        self.pad_w = -(-w // self.ctu) * self.ctu
+        self.pad_h = -(-h // self.ctu) * self.ctu
         fps = param.fps_num / max(param.fps_den, 1)
         self.bit_depth = param.internal_bit_depth
         self.sps = SpsInfo(
@@ -134,9 +148,10 @@ class Encoder:
             level_idc=determine_level(self.pad_w, self.pad_h, fps),
             num_negative_ref=1 if self.inter_enabled else 0,
             sao_enabled=param.sao)
-        self.sps.log2_ctb_size = 5
-        self.sps.log2_min_cb_size = 4
-        self.sps.log2_max_tb_size = 5
+        if self.use_tree:
+            self.sps.log2_ctb_size = 5
+            self.sps.log2_min_cb_size = 4
+            self.sps.log2_max_tb_size = 5
         self.bframes = param.bframes if self.inter_enabled else 0
         # multi-reference L0 on the low-delay P tree (JAX :182-189): the
         # last num_ref_p anchors stay in the DPB
@@ -166,7 +181,8 @@ class Encoder:
                                    not self.inter_enabled)
         self.use_lookahead = self.use_aq or self.vbv
         # QG == CTB: one cu_qp_delta per coded CTB (JAX :142-158)
-        self.pps = PpsInfo(init_qp=26, sign_data_hiding=param.sign_hide,
+        self.pps = PpsInfo(init_qp=26, sign_data_hiding=param.sign_hide
+                           and not param.lossless,
                            deblocking_disabled=not param.deblock,
                            beta_offset_div2=param.deblock_beta_offset,
                            tc_offset_div2=param.deblock_tc_offset,
@@ -174,7 +190,7 @@ class Encoder:
                            and self.use_lookahead,
                            diff_cu_qp_delta_depth=0,
                            entropy_coding_sync=False,
-                           transquant_bypass=False)
+                           transquant_bypass=param.lossless)
         # zero-latency configs (all-intra, or bframes 0) run a depth-1
         # lookahead without CU-tree: AQ and scene cuts, no future window
         # (JAX :163-180)
@@ -190,7 +206,11 @@ class Encoder:
         self.frame_encoder = IntraTreeEncoder(
             self.pad_w, self.pad_h, deblock=param.deblock,
             sign_hide=self.pps.sign_data_hiding, sao=param.sao,
-            device=self.device, bit_depth=self.bit_depth, rdoq=rdoq)
+            device=self.device, bit_depth=self.bit_depth, rdoq=rdoq) \
+            if self.use_tree else IntraFrameEncoder(
+                self.pad_w, self.pad_h, deblock=param.deblock,
+                sign_hide=self.pps.sign_data_hiding, sao=param.sao,
+                lossless=param.lossless, device=self.device)
         tree = dict(deblock=param.deblock, search_range=param.me_range,
                     subme=param.subme, sign_hide=self.pps.sign_data_hiding,
                     sao=param.sao, device=self.device, rdoq=rdoq)
@@ -264,8 +284,8 @@ class Encoder:
         the QPs, so it is the reference's.  `encode_push` finishes each
         entry before the next is dispatched, as the JAX `encode_push`
         does."""
-        if (self.inter_enabled or self.use_lookahead or return_recon
-                or self.rc.mode != "cqp"):
+        if (not self.use_tree or self.inter_enabled or self.use_lookahead
+                or return_recon or self.rc.mode != "cqp"):
             q = deque()
             for e in self._entries(frames):
                 q.append(self._dispatch_entry(e, return_recon))
@@ -307,9 +327,7 @@ class Encoder:
 
             buf = []
             for fr in frames:
-                buf.append((_pad_to_ctu(np.asarray(fr[0]), 32),
-                            _pad_to_ctu(np.asarray(fr[1]), 16),
-                            _pad_to_ctu(np.asarray(fr[2]), 16)))
+                buf.append(self._pad(fr))
                 if len(buf) == bsz:
                     started = start_cabac(pending.popleft()) \
                         if pending else None
@@ -441,12 +459,16 @@ class Encoder:
             self._anchor_hist.append(anchor)
         return plan
 
+    def _pad(self, frame):
+        """A display frame's planes edge-padded to the CTU grid."""
+        return (_pad_to_ctu(np.asarray(frame[0]), self.ctu),
+                _pad_to_ctu(np.asarray(frame[1]), self.ctu // 2),
+                _pad_to_ctu(np.asarray(frame[2]), self.ctu // 2))
+
     def _push_display_frame(self, y, cb, cr) -> list[dict]:
         """Pad one display-order frame and admit it, through the lookahead
         when AQ or CU-tree is on (JAX `_push_display_frame` :374)."""
-        yp = _pad_to_ctu(np.asarray(y), 32)
-        cbp = _pad_to_ctu(np.asarray(cb), 16)
-        crp = _pad_to_ctu(np.asarray(cr), 16)
+        yp, cbp, crp = self._pad((y, cb, cr))
         if self.lookahead is None:
             return self._admit(yp, cbp, crp, False, None)
         self._la_store[self._la_next] = (yp, cbp, crp)
@@ -525,9 +547,10 @@ class Encoder:
         if st == "I":
             self._dpb = {}            # new CVS: POC numbering restarts
             qp = self.rc.frame_qp("I")
+            kw = dict(keep_recon=self.inter_enabled) if self.use_tree else {}
             handle = self.frame_encoder.encode_async(
                 yp, cbp, crp, qp, want_recon=return_recon,
-                keep_recon=self.inter_enabled, qp_offsets=qp_off)
+                qp_offsets=qp_off, **kw)
         elif st == "P":
             qp = self.rc.frame_qp("P")
             # the L0 list, filled cyclically to the active count while
@@ -547,11 +570,13 @@ class Encoder:
                 dist_scale_factor(poc, e["ref1"], e["ref0"]),
                 want_recon=return_recon, qp_offsets=qp_off)
         if self.pps.cu_qp_delta_enabled:
-            # the signalled per-16-cell map: the 2x2 replication of the
-            # per-CTB32 QPs the tree coded with (JAX :528-537)
+            # the signalled per-16-cell map: on the tree the 2x2
+            # replication of the per-CTB32 QPs it coded with, on the flat
+            # frame the per-CTB16 QPs (JAX :528-537)
             qp16 = derive_qp_maps(qp, qp_off, self.pad_h // 16,
                                   self.pad_w // 16)[0]
-            e["qp_map"] = np.repeat(np.repeat(qp32_of(qp16), 2, 0), 2, 1)
+            e["qp_map"] = np.repeat(np.repeat(qp32_of(qp16), 2, 0), 2, 1) \
+                if self.use_tree else qp16
         if self.inter_enabled and e["is_ref"]:
             self._dpb[poc] = handle["recon_dev"]
         if self.inter_enabled and e["last_in_gop"]:
@@ -572,7 +597,8 @@ class Encoder:
         qp_map = e.get("qp_map")
         if st == "I":
             res = self.frame_encoder.collect(pending["handle"])
-            payload, entry_offs = self._cabac_intra_tree(res, qp, qp_map)
+            payload, entry_offs = (self._cabac_intra_tree if self.use_tree
+                                   else self._cabac_intra)(res, qp, qp_map)
             nal_type = NAL_IDR_W_RADL
         elif st == "P":
             res = self.inter_encoder.collect(pending["handle"])
@@ -680,6 +706,19 @@ class Encoder:
             levels_cb=res.levels_cb, levels_cr=res.levels_cr,
             sao_luma=sl, sao_chroma=sc, sign_hide=self.pps.sign_data_hiding,
             **self._qp_args(qp_map))
+
+    def _cabac_intra(self, res, qp, qp_map=None):
+        """Slice payload of one flat CTB16 intra frame (JAX `_cabac_intra`
+        :1121 through `_native_slice` :1043; lossless slices, which the JAX
+        package codes with its Python syntax, code cu_transquant_bypass_flag
+        1 on every CU; a failure raises)."""
+        sl, sc = sao_pack(res.sao)
+        hc, wc = res.modes.shape
+        return encode_slice_native(
+            "I", 4, hc, wc, qp, modes=res.modes, levels_y=res.levels_y,
+            levels_cb=res.levels_cb, levels_cr=res.levels_cr, qp16=qp_map,
+            sao_luma=sl, sao_chroma=sc, sign_hide=self.pps.sign_data_hiding,
+            tq_bypass=1 if self.param.lossless else None)
 
     def _cabac_inter_tree(self, res, qp, qp_map=None):
         """Slice payload of one CTU32-tree P frame (JAX `_cabac_inter_tree`

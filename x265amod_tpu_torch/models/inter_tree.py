@@ -55,12 +55,12 @@ import torch
 
 from ..ops import cuda_lib
 from ..ops.commit import commit_intra
-from ..ops.deblock import deblock_frame_planes, inter_tree_bs_maps
+from ..ops.deblock import deblock_frame_planes
 from ..ops.estbits import intra_hdr_bits, tu_bits
 from ..ops.me import (check_window, hpel_plane, int_mv_argmin, mc_bi,
                       mc_chroma_qpel, mc_luma_qpel, mc_qpel_ref, me_ssd_grid,
                       mvd_bits, pick_ref, subpel_refine)
-from ..ops.metrics import plane_sse, ssim_plane
+from ..ops.metrics import frame_metrics
 from ..ops.pack import levels_for_host, levels_from_host
 from ..ops.rdoq import fma32
 from ..ops.residual import residual_chain
@@ -943,34 +943,23 @@ class InterTreeEncoder:
         and when not given), SAO when enabled (:747-760), then SSE and SSIM
         (:762-767) on the final recon.  Returns (recon planes, sse [4], SAO
         outputs {"sao0".."sao9": tensor})."""
-        h16, w16, hc, wc = self.h16, self.w16, self.hc, self.wc
         (y, cb, cr), (ry, rcb, rcr), (ly, lcb, lcr) = src, rec, levels
         if self.deblock:
-            intra = (kinds == 2).reshape(h16, w16)
-            nz_y = (ly != 0).any(-1).any(-1).reshape(h16, w16)
-            cbf32 = nz_y.reshape(hc, 2, wc, 2).any(3).any(1)
-            sp_rep = split.repeat_interleave(2, 0).repeat_interleave(2, 1)
-            cbf = torch.where(sp_rep, nz_y, cbf32.repeat_interleave(2, 0)
-                              .repeat_interleave(2, 1))
-            if ref0 is None:
-                ref0 = torch.zeros_like(intra, dtype=torch.int32)
-            bs = inter_tree_bs_maps(intra[None], cbf[None],
-                                    *(t[None] for t in motion), split[None],
-                                    ref0[None])
-            coded = (nz_y | (lcb != 0).any(-1).any(-1).reshape(h16, w16)
-                     | (lcr != 0).any(-1).any(-1).reshape(h16, w16))
+            inter = tuple(None if t is None else t.reshape(
+                (1, self.h16, self.w16) + t.shape[2:]) for t in
+                (kinds.reshape(self.h16, self.w16),) + tuple(motion) + (ref0,))
+            cells = tuple(t.reshape((1, self.h16, self.w16) + t.shape[-2:])
+                          for t in (ly, lcb, lcr))
             ry, rcb, rcr = (t[0] for t in deblock_frame_planes(
-                ry[None], rcb[None], rcr[None], split[None], coded[None],
-                maps["qp32_map"], qp, bs=bs))
+                ry[None], rcb[None], rcr[None], cells, maps["qp32_map"], qp,
+                split=split[None], inter=inter))
         sao = {}
         if self.sao:
             (ry, rcb, rcr), par = sao_filter_frame(y, cb, cr, ry, rcb, rcr,
                                                    maps["lam32"])
             sao = {f"sao{k}": t for k, t in enumerate(par)}
-        sse = torch.stack([plane_sse(y[None], ry[None])[0],
-                           plane_sse(cb[None], rcb[None])[0],
-                           plane_sse(cr[None], rcr[None])[0],
-                           ssim_plane(y[None], ry[None])[0]])
+        sse = frame_metrics((y[None], cb[None], cr[None]),
+                            (ry[None], rcb[None], rcr[None]))[0]
         return (ry, rcb, rcr), sse, sao
 
     # ---- one P frame ---------------------------------------------------------

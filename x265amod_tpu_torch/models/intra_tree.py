@@ -21,7 +21,8 @@ A batch of F frames goes through two device phases:
    :302-306); the chroma chains and the estimate run none, so RDOQ changes
    levels and recon, never a decision.  The loop filter (K4 `deblock`), SAO when
    enabled (K10 `sao_analyse`, K11 `sao_apply`, JAX `:638-650`) and
-   SSE/SSIM follow.
+   SSE/SSIM follow; on the card the loop filter's maps are K21
+   `deblock_maps` and SSE/SSIM K22 `frame_metrics`.
 
 At bit depth 10 (Main10 all-intra, JAX `bit_depth=10`) the same flow runs
 K1 and K2 at bit depth 10, the recon state starts at 512, and SSIM is not
@@ -41,27 +42,17 @@ from ..ops.commit import commit_intra
 from ..ops.deblock import deblock_frame_planes
 from ..ops.estbits import tu_bits
 from ..ops.intra import predict, satd35
-from ..ops.metrics import plane_sse, ssim_plane
+from ..ops.metrics import frame_metrics
 from ..ops.pack import levels_for_host, levels_from_host
 from ..ops.quant import chroma_qp_np, derive_qp_maps
 from ..ops.residual import residual_chain
 from ..ops.sao import sao_filter_frame
 from ..utils.lambdas import lambda2_of
-from .intra_frame import FrameResult, _diag_schedule
+from .intra_frame import (FrameResult, _bc, _blocks, _diag_schedule,
+                          _unblocks, intra_mode_bits)
 
 # SATD-scan shortlist size for the full RD stage (JAX RD_CANDS)
 RD_CANDS = 4
-
-
-def intra_mode_bits(left_mode):
-    """MPM-biased mode signalling cost [B, 35] f32 from the left
-    neighbour's mode [B] (JAX `models/intra_tree.py:88`)."""
-    small = left_mode < 2
-    mpm0 = torch.where(small, 0, left_mode)[:, None]
-    mpm2 = torch.where(small, 26, 0)[:, None]
-    m = torch.arange(35, device=left_mode.device)[None, :]
-    return torch.where(m == mpm0, 2.0, torch.where(
-        (m == 1) | (m == mpm2), 3.0, 6.0)).to(torch.float32)
 
 
 def intra_mode_bits_default() -> np.ndarray:
@@ -130,21 +121,6 @@ def ctu_maps(qp: int, qp_offsets, h16: int, w16: int) -> dict:
         return np.repeat(np.repeat(m, 2, 0), 2, 1)
     return dict(qp16=rep(qp32), qc16=rep(qc32), lam16=rep(lam32), qp32=qp32,
                 qc32=qc32, lam32=lam32)
-
-
-def _blocks(plane, bn):
-    """[F, H, W] -> [F, H/bn, W/bn, bn, bn]."""
-    f, h, w = plane.shape
-    return plane.reshape(f, h // bn, bn, w // bn, bn).permute(0, 1, 3, 2, 4)
-
-
-def _unblocks(blocks):
-    f, hb, wb, bn, _ = blocks.shape
-    return blocks.permute(0, 1, 3, 2, 4).reshape(f, hb * bn, wb * bn)
-
-
-def _bc(flag, n):
-    return flag[:, None].expand(-1, n)
 
 
 class IntraTreeEncoder:
@@ -525,10 +501,9 @@ class IntraTreeEncoder:
         rec_y, rec_cb, rec_cr, ly, lcb, lcr, modes_out = self._commit(
             y, cb, cr, maps, split, modes)
         if self.deblock:
-            coded16 = ((ly != 0).any(-1).any(-1) | (lcb != 0).any(-1).any(-1)
-                       | (lcr != 0).any(-1).any(-1))
             rec_y, rec_cb, rec_cr = deblock_frame_planes(
-                rec_y, rec_cb, rec_cr, split, coded16, maps["qp32"], qp)
+                rec_y, rec_cb, rec_cr, (ly, lcb, lcr), maps["qp32"], qp,
+                split=split)
         sao = {}
         if self.sao:
             # per frame, on the deblocked recon; the filtered planes are the
@@ -540,10 +515,8 @@ class IntraTreeEncoder:
                                      for k in range(3))
             sao = {f"sao{k}": torch.stack([r[1][k] for r in res])
                    for k in range(10)}
-        ssim = ssim_plane(y, rec_y) if self.bd == 8 else \
-            torch.zeros(y.shape[0], dtype=torch.float32, device=y.device)
-        sse = torch.stack([plane_sse(y, rec_y), plane_sse(cb, rec_cb),
-                           plane_sse(cr, rec_cr), ssim], 1)
+        sse = frame_metrics((y, cb, cr), (rec_y, rec_cb, rec_cr),
+                            ssim=self.bd == 8)
         out = dict(split=split.to(torch.int8),
                    modes=modes_out.to(torch.uint8), ly=ly, lcb=lcb, lcr=lcr,
                    sse=sse, **sao)

@@ -38,7 +38,7 @@ def get_cabac_lib():
         lib.hevc_cabac_set_layout3.argtypes = [i32p]
         lib.hevc_encode_slice.argtypes = (
             [ctypes.c_int32] * 4 + [i32p] * 16 + [i32p, ctypes.c_int32]
-            + [ctypes.c_int32] * 4 + [i32p, i32p,
+            + [ctypes.c_int32] * 5 + [i32p, i32p,
                                       ctypes.POINTER(ctypes.c_uint8),
                                       ctypes.c_int64])
         lib.hevc_encode_slice.restype = ctypes.c_int64
@@ -64,7 +64,7 @@ def get_cabac_lib():
         offs3 = np.array([
             CTX_OFFSET["split_cu_flag"], CTX_OFFSET["cu_qp_delta_abs"],
             CTX_OFFSET["sao_merge_flag"], CTX_OFFSET["sao_type_idx"],
-            CTX_OFFSET["ref_idx"],
+            CTX_OFFSET["ref_idx"], CTX_OFFSET["cu_transquant_bypass_flag"],
         ], dtype=np.int32)
         lib.hevc_cabac_set_layout3(offs3.ctypes.data_as(i32p))
         _lib = lib
@@ -78,10 +78,14 @@ def encode_slice_native(slice_type: str, ctb_log2: int, hc: int, wc: int,
                         levels_cr=None, qp16=None, qp32=None, sao_luma=None,
                         sao_chroma=None, max_merge: int = 2,
                         sign_hide: bool = False, ref0=None,
-                        num_ref0: int = 1):
-    """I-, P- and B-slice serializer for the CTU32 quadtree (the port's
-    subset of the JAX package's unified call,
-    `x265amod_tpu/native/__init__.py:115`: no WPP).  P slices take the
+                        num_ref0: int = 1, tq_bypass=None):
+    """I-, P- and B-slice serializer for the CTU32 quadtree (``ctb_log2``
+    5) and the flat CTB16 frame (4) (the port's subset of the JAX package's
+    unified call, `x265amod_tpu/native/__init__.py:115`: no WPP).
+    ``tq_bypass`` None codes no cu_transquant_bypass_flag (the PPS disables
+    it), else the flag every CU codes first (1 under `--lossless`, spec
+    7.3.8.5; the JAX package codes those slices with its Python syntax,
+    `cabac/syntax.py:encode_intra_ctu16`).  P slices take the
     per-cell kinds, merge indices, L0 MVDs and MVP indices; B slices also
     the inter directions and the L1 MVDs and MVP indices.  sao_luma
     [n_ctu, 7] and sao_chroma [n_ctu, 14] are `ops.sao.sao_pack`'s rows.
@@ -120,6 +124,7 @@ def encode_slice_native(slice_type: str, ctb_log2: int, hc: int, wc: int,
         c(sao_luma), c(sao_chroma),
         c(ref0), num_ref0,
         qp, max_merge, 0, 1 if sign_hide else 0,
+        -1 if tq_bypass is None else int(tq_bypass),
         states.ctypes.data_as(p), entry.ctypes.data_as(p),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap)
     if n < 0:

@@ -715,7 +715,7 @@ extern "C" int64_t hevc_encode_bslice_ctu16(
 // tests/test_native_cabac.py).
 
 struct CtxLayout3 {
-  int32_t split_cu, cu_qp_delta, sao_merge, sao_type, ref_idx;
+  int32_t split_cu, cu_qp_delta, sao_merge, sao_type, ref_idx, tq_bypass;
 };
 static CtxLayout3 g_layout3;
 
@@ -725,6 +725,7 @@ extern "C" void hevc_cabac_set_layout3(const int32_t* offs) {
   g_layout3.sao_merge = offs[2];
   g_layout3.sao_type = offs[3];
   g_layout3.ref_idx = offs[4];
+  g_layout3.tq_bypass = offs[5];
 }
 
 namespace {
@@ -741,6 +742,7 @@ struct SliceCtx {
   const int32_t *sao_l, *sao_c;
   int slice_qp, max_merge;
   int sbh;
+  int tqb;        // cu_transquant_bypass_flag of every CU, -1: not coded
   int qp_prev;
   int qg_coded;   // IsCuQpDeltaCoded for the current QG (== CTB)
   ScanTabs t32, t16, t8;
@@ -976,6 +978,8 @@ void code_inter_cu(Cabac& e, SliceCtx& s, int bx, int by, int cells,
 
 void code_cu(Cabac& e, SliceCtx& s, int bx, int by, int cells,
              int ct_depth, int32_t* buf) {
+  // cu_transquant_bypass_flag: the CU's first element (spec 7.3.8.5)
+  if (s.tqb >= 0) e.encode_bin(g_layout3.tq_bypass, s.tqb);
   if (s.st == 0) {
     code_intra_cu(e, s, bx, by, cells, false, buf);
     return;
@@ -1033,6 +1037,8 @@ void init_cabac(Cabac& e, const int32_t* init_states) {
 // overflow.  entry_sizes (len hc, used hc-1) receives per-substream
 // byte counts when wpp != 0.  NULLable: split (ctb16), kinds/merge (I),
 // idir/mvd1/mvp1 (I/P), qp16/qp32 (no AQ), sao_l/sao_c (no SAO).
+// tq_bypass: -1 when the PPS disables transquant bypass, else the
+// cu_transquant_bypass_flag every CU codes (1 under lossless).
 extern "C" int64_t hevc_encode_slice(
     int32_t slice_type, int32_t ctb_log2, int32_t hc, int32_t wc,
     const int32_t* split, const int32_t* kinds, const int32_t* modes,
@@ -1044,7 +1050,7 @@ extern "C" int64_t hevc_encode_slice(
     const int32_t* sao_luma, const int32_t* sao_chroma,
     const int32_t* ref0, int32_t num_ref0,
     int32_t slice_qp, int32_t max_merge, int32_t wpp, int32_t sbh,
-    const int32_t* init_states, int32_t* entry_sizes,
+    int32_t tq_bypass, const int32_t* init_states, int32_t* entry_sizes,
     uint8_t* out, int64_t out_cap) {
   SliceCtx s;
   s.st = slice_type;
@@ -1061,6 +1067,7 @@ extern "C" int64_t hevc_encode_slice(
   s.sao_l = sao_luma; s.sao_c = sao_chroma;
   s.slice_qp = slice_qp; s.max_merge = max_merge;
   s.sbh = sbh;
+  s.tqb = tq_bypass;
   s.qp_prev = slice_qp;
   s.qg_coded = 0;
   build_diag_scans(5, &s.t32);

@@ -1,5 +1,6 @@
-"""Kernel K20 `commit_intra`: the forced intra commit over the CTU32
-wavefront, shared by the intra tree (every CTU: its CU32 or its four CU16s
+"""The wavefront scans' kernels: K20 `commit_intra` and K23 `intra16_scan`.
+
+K20 is the forced intra commit over the CTU32 wavefront, shared by the intra tree (every CTU: its CU32 or its four CU16s
 by the forced split; JAX `models/intra_tree.py:_encode_frame` :308-596) and
 the P/B trees (the 16-cells the decide scan made intra; JAX
 `models/inter_tree.py:_commit_scan` :829-1044).
@@ -10,6 +11,12 @@ binds `csrc/commit_intra.cu`: one C call enqueues a launch per
 anti-diagonal (no host sync between them) and reports how many, which
 `LAUNCHES["commit_intra"]` counts.  Recon planes are updated in place;
 levels are written into raster 16-cells.
+
+K23 (`csrc/intra16_scan.cu`) is the flat CTB16 all-intra scan (JAX
+`models/intra_frame.py:_encode_frame` :183-236): per CTU16 the 35-mode RD
+decision, the chosen mode's luma and chroma coding and the reconstruction,
+one launch per anti-diagonal of the CTB16 grid, lossy or lossless.  Its
+plain version is `models.intra_frame.IntraFrameEncoder._scan_plain`.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import ctypes
 import torch
 
 from . import cuda_lib
+from .estbits import bit_consts_table
 from .residual import rdoq_table
 
 _P = ctypes.c_void_p
@@ -87,3 +95,68 @@ def commit_intra(src, rec, levels, modes, maps, *, split=None, kinds=None,
     rc = fn(ctypes.byref(a), int(bit_depth), int(bool(rdoq)),
             ctypes.byref(launches), _P(cuda_lib.stream_handle(y)))
     cuda_lib.launched("commit_intra", rc, launches.value)
+
+
+class ScanArgs(ctypes.Structure):
+    """`ScanArgs` of `csrc/intra16_scan.cu`, field for field."""
+    _fields_ = ([(k, ctypes.c_int) for k in (
+        "F", "W", "H", "wc", "hc", "sbh", "lossless")]
+        + [(k, _P) for k in (
+            "src_y", "src_cb", "src_cr", "rec_y", "rec_cb", "rec_cr", "ly",
+            "lcb", "lcr", "modes", "qp", "qpc", "lam", "bits")])
+
+
+_bits: dict = {}
+
+
+def intra16_scan(src, rec, levels, modes, maps, *, sbh=True, lossless=False):
+    """Launch K23 over a batch: src = (y [F, H, W], cb, cr [F, H/2, W/2])
+    int32; rec (same shapes, int32), levels = (ly [F, hc, wc, 16, 16], lcb,
+    lcr [F, hc, wc, 8, 8]) int16 and modes [F, hc, wc] int32 are written in
+    place; maps the per-CTU16 qp, qc and lam [hc, wc] (one frame's, shared
+    by the batch)."""
+    y = src[0]
+    f, h, w = y.shape
+    dev = y.device
+    keep = []
+
+    def p(t, dt=None):
+        t = t.contiguous() if dt is None else t.to(dt).contiguous()
+        keep.append(t)
+        return cuda_lib.ptr(t)
+    hc, wc = h // 16, w // 16
+    want = [(f, h, w), (f, h // 2, w // 2), (f, h // 2, w // 2)] * 2 + [
+        (f, hc, wc, 16, 16), (f, hc, wc, 8, 8), (f, hc, wc, 8, 8),
+        (f, hc, wc)]
+    got = [tuple(t.shape) for t in tuple(src) + tuple(rec) + tuple(levels)
+           + (modes,)]
+    if h % 16 or w % 16 or got != want or any(
+            tuple(maps[k].shape) != (hc, wc) for k in ("qp", "qc", "lam")):
+        raise ValueError("intra16_scan: bad shapes")
+    a = ScanArgs(F=f, W=w, H=h, wc=w // 16, hc=h // 16, sbh=int(sbh),
+                 lossless=int(lossless))
+    a.src_y, a.src_cb, a.src_cr = (p(t, torch.int32) for t in src)
+    outs = tuple(rec) + tuple(levels) + (modes,)
+    for k, t in zip(("rec_y", "rec_cb", "rec_cr", "ly", "lcb", "lcr",
+                     "modes"), outs):
+        if not t.is_contiguous():
+            raise ValueError("intra16_scan writes its outputs in place: "
+                             "they must be contiguous")
+        setattr(a, k, p(t))
+    if rec[0].dtype != torch.int32 or levels[0].dtype != torch.int16 or \
+            modes.dtype != torch.int32:
+        raise ValueError("intra16_scan: int32 recon and modes, int16 levels")
+    a.qp, a.qpc = p(maps["qp"], torch.int32), p(maps["qc"], torch.int32)
+    a.lam = p(maps["lam"], torch.float32)
+    if dev not in _bits:            # one upload per device
+        _bits[dev] = torch.as_tensor(bit_consts_table("I", 0), device=dev)
+    a.bits = p(_bits[dev])
+    cuda_lib.require_cuda(*keep)
+    fn = cuda_lib.lib("intra16_scan").intra16_scan
+    fn.argtypes = [ctypes.POINTER(ScanArgs), ctypes.POINTER(ctypes.c_int),
+                   _P]
+    fn.restype = ctypes.c_int
+    launches = ctypes.c_int(0)
+    rc = fn(ctypes.byref(a), ctypes.byref(launches),
+            _P(cuda_lib.stream_handle(y)))
+    cuda_lib.launched("intra16_scan", rc, launches.value)

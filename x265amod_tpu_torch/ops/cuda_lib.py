@@ -8,7 +8,8 @@ code.  Nothing here falls back to the plain PyTorch versions: a CUDA tensor
 either runs the kernel or raises.
 
 `LAUNCHES[name]` counts the launches of kernel `name` by its wrapper (one
-a call; K20 `commit_intra` enqueues one a diagonal in one call);
+a call; K20 `commit_intra` and K23 `intra16_scan` enqueue one a diagonal in
+one call);
 `LAUNCHES["intra_pred_lowres"]` counts K1's launches by the lookahead apart
 from the trees', `LAUNCHES["residual_chain_rdoq"]` K2's launches with its
 RDOQ stage apart from those without.
@@ -31,13 +32,14 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 # name -> extra nvcc flags.  tu_bits, subpel, sao_analyse, decide_p,
-# decide_b, pick_ref and the RDOQ stage of residual_chain (also in
-# commit_intra, through intra_chain.cuh) form f32 costs in a fixed order that
-# decides RD argmins, so the compiler must not contract them into FMAs (each
-# writes the FMAs XLA's order has itself); lowres_aq and cutree_prop repeat
-# the JAX f32 operations one by one, and resample writes the FMA chain of
-# XLA's dot itself.  Every file that includes a shared header (csrc/*.cuh)
-# builds with the header's flags.
+# decide_b, pick_ref, mv_argmin, intra16_scan and the RDOQ stage of
+# residual_chain (also in commit_intra, through intra_chain.cuh) form f32
+# costs in a fixed order that decides RD argmins, so the compiler must not
+# contract them into FMAs (each writes the FMAs XLA's order has itself);
+# lowres_aq and cutree_prop repeat the JAX f32 operations one by one,
+# resample writes the FMA chain of XLA's dot itself, and frame_metrics
+# repeats the plain SSIM's f32 operations.  Every file that includes a
+# shared header (csrc/*.cuh) builds with the header's flags.
 KERNELS = {
     "intra_pred": ["--fmad=false"],
     "residual_chain": ["--fmad=false"],
@@ -59,6 +61,10 @@ KERNELS = {
     "pick_ref": ["--fmad=false"],
     "decide_b": ["--fmad=false"],
     "commit_intra": ["--fmad=false"],
+    "deblock_maps": [],
+    "frame_metrics": ["--fmad=false"],
+    "mv_argmin": ["--fmad=false"],
+    "intra16_scan": ["--fmad=false"],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

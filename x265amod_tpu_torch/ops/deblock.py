@@ -1,12 +1,14 @@
-"""Deblocking for the CTU32 tree (spec 8.7.2): the boundary strength and QP
-maps in plain PyTorch, and kernel K4 `deblock` (the luma bS 1/2 filter and
-the chroma bS == 2 filter, vertical edges then horizontal) with its plain
-version.
+"""Deblocking (spec 8.7.2) for the CTU32 trees and the flat CTB16 intra
+frame: kernel K21 `deblock_maps` (the boundary strength maps, the decoded QP
+chain and the per-edge luma and chroma QPs, in one launch) and kernel K4
+`deblock` (the luma bS 1/2 filter and the chroma bS == 2 filter, vertical
+edges then horizontal), each beside its plain version.
 
 Counterparts in the JAX package's `ops/deblock.py`: `luma_params`,
 `intra_tree_bs_maps`, `_bs_pair`, `bs_maps`, `inter_tree_bs_maps`,
-`effective_qp16_tree`, `edge_qp_maps`, `deblock_luma_bs` and
-`deblock_chroma_bs`.  Every function here takes a
+`effective_qp_map`, `effective_qp16_tree`, `edge_qp_maps`,
+`deblock_luma_bs` and `deblock_chroma_bs`, and the all-bS-2 maps of the
+flat frame (`models/intra_frame.py` :252-277).  Every function here takes a
 leading frame dimension F.
 """
 
@@ -38,7 +40,7 @@ def luma_params(qp: int, beta_offset: int = 0, tc_offset: int = 0,
     return int(BETA_TABLE[beta_idx]), int(TC_TABLE[tc_idx])
 
 
-# ---- boundary strength and QP maps (plain torch on every device) ----------
+# ---- boundary strength and QP maps: the plain versions of K21 -------------
 
 def intra_tree_bs_maps(split32, h16: int, w16: int):
     """split32 [F, hc, wc] -> (bs_v [F, h16, w16-1], bs_h [F, h16-1, w16]):
@@ -141,6 +143,119 @@ def edge_qp_maps(qp_eff):
     qp_v = (qp_eff[:, :, :-1] + qp_eff[:, :, 1:] + 1) >> 1
     qp_h = (qp_eff[:, :-1, :] + qp_eff[:, 1:, :] + 1) >> 1
     return qp_v.to(torch.int32), qp_h.to(torch.int32)
+
+
+def coded_cells(levels):
+    """Per-16-cell flags of a frame batch's levels (ly [F, h16, w16, 16,
+    16], lcb, lcr [F, h16, w16, 8, 8]): (luma coded, any plane coded)."""
+    ly, lcb, lcr = levels
+    nz_y = (ly != 0).flatten(-2).any(-1)
+    return nz_y, nz_y | (lcb != 0).flatten(-2).any(-1) | \
+        (lcr != 0).flatten(-2).any(-1)
+
+
+def deblock_maps_plain(levels, slice_qp: int, qp_sig, split=None,
+                       inter=None):
+    """The loop filter's maps of F frames from their levels: (bs_v, qp_v,
+    qpc_v [F, h16, w16-1], bs_h, qp_h, qpc_h [F, h16-1, w16]) int32.
+
+    - ``split`` [F, hc, wc] given, ``inter`` None: the intra CTU32 tree
+      (`intra_tree_bs_maps`, `effective_qp16_tree` of qp_sig [hc, wc]);
+    - ``inter`` = (kinds, dir, mv0, mv1, ref0) too: the P/B trees
+      (`inter_tree_bs_maps` with the TU luma cbf, a TU32's over its four
+      cells); kinds [F, h16, w16] (2 = intra), dir None for L0 only, mv1
+      and ref0 None for zeros.  The motion of intra cells is never read
+      (their edges are bS 2 whatever it is);
+    - ``split`` None: the flat CTB16 frame, bS 2 on every edge and
+      `effective_qp_map` of qp_sig [h16, w16]."""
+    nz_y, coded = coded_cells(levels)
+    f, h16, w16 = coded.shape
+    dev = coded.device
+    if split is None:
+        bs_v = torch.full((f, h16, w16 - 1), 2, dtype=torch.int32,
+                          device=dev)
+        bs_h = torch.full((f, h16 - 1, w16), 2, dtype=torch.int32,
+                          device=dev)
+        eff = effective_qp_map(qp_sig, coded, slice_qp)
+    else:
+        eff = effective_qp16_tree(qp_sig, split, coded, slice_qp)
+        if inter is None:
+            bs_v, bs_h = intra_tree_bs_maps(split, h16, w16)
+        else:
+            kinds, dir_, mv0, mv1, ref0 = inter
+            hc, wc = h16 // 2, w16 // 2
+            cbf32 = nz_y.reshape(f, hc, 2, wc, 2).any(4).any(2)
+            sp = split.bool().repeat_interleave(2, 1).repeat_interleave(2, 2)
+            cbf = torch.where(sp, nz_y, cbf32.repeat_interleave(2, 1)
+                              .repeat_interleave(2, 2))
+            zeros = torch.zeros_like(coded, dtype=torch.int32)
+            mv0 = mv0.to(torch.int32)
+            bs_v, bs_h = inter_tree_bs_maps(
+                kinds == 2, cbf, zeros + 1 if dir_ is None else dir_,
+                mv0, torch.zeros_like(mv0) if mv1 is None else mv1, split,
+                zeros if ref0 is None else ref0)
+    qp_v, qp_h = edge_qp_maps(eff)
+    return bs_v, qp_v, chroma_qp_t(qp_v), bs_h, qp_h, chroma_qp_t(qp_h)
+
+
+class MapsArgs(ctypes.Structure):
+    """`MapsArgs` of `csrc/deblock_maps.cu`, field for field."""
+    _fields_ = ([(k, ctypes.c_int) for k in ("F", "h16", "w16", "mode",
+                                             "slice_qp")]
+                + [(k, ctypes.c_void_p) for k in (
+                    "ly", "lcb", "lcr", "split", "qp_sig", "kinds", "dir",
+                    "mv0", "mv1", "ref0", "bs_v", "bs_h", "qp_v", "qp_h",
+                    "qpc_v", "qpc_h", "scratch")])
+
+
+def deblock_maps(levels, slice_qp: int, qp_sig, split=None, inter=None):
+    """See deblock_maps_plain; CUDA levels launch K21
+    (`csrc/deblock_maps.cu`) once for the batch."""
+    if levels[0].device.type == "cpu":
+        return deblock_maps_plain(levels, slice_qp, qp_sig, split, inter)
+    ly = levels[0]
+    f, h16, w16 = ly.shape[:3]
+    dev = ly.device
+    keep = []
+
+    def p(t, dt=torch.int32):
+        if t is None:
+            return None
+        t = t.to(dt).contiguous()
+        keep.append(t)
+        return cuda_lib.ptr(t)
+    mode = 2 if split is None else (0 if inter is None else 1)
+    grid = (h16, w16) if split is None else (h16 // 2, w16 // 2)
+    bad = [t.shape for t, shp in zip(levels, ((16, 16), (8, 8), (8, 8)))
+           if tuple(t.shape) != (f, h16, w16) + shp]
+    if split is not None and tuple(split.shape) != (f,) + grid:
+        bad.append(split.shape)
+    if tuple(qp_sig.shape) != grid:
+        bad.append(qp_sig.shape)
+    for t, tail in zip(inter or (), ((), (), (2,), (2,), ())):
+        if t is not None and tuple(t.shape) != (f, h16, w16) + tail:
+            bad.append(t.shape)
+    if bad or (inter is not None and (inter[0] is None or inter[2] is None)):
+        raise ValueError(f"deblock_maps: bad shapes {bad}")
+    a = MapsArgs(F=f, h16=h16, w16=w16, mode=mode, slice_qp=int(slice_qp))
+    a.ly, a.lcb, a.lcr = (p(t, torch.int16) for t in levels)
+    a.split, a.qp_sig = p(split), p(qp_sig)
+    if inter is not None:
+        a.kinds, a.dir, a.mv0, a.mv1, a.ref0 = (p(t) for t in inter)
+    outs = [torch.empty((f, h16, w16 - 1) if k < 3 else (f, h16 - 1, w16),
+                        dtype=torch.int32, device=dev) for k in range(6)]
+    scratch = torch.empty((f, 2, h16 * w16), dtype=torch.int32, device=dev)
+    a.bs_v, a.qp_v, a.qpc_v, a.bs_h, a.qp_h, a.qpc_h = (
+        cuda_lib.ptr(t) for t in outs)
+    a.scratch = cuda_lib.ptr(scratch)
+    cuda_lib.require_cuda(*keep, *outs, scratch)
+    fn = cuda_lib.lib("deblock_maps").deblock_maps
+    fn.argtypes = [ctypes.POINTER(MapsArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(ctypes.byref(a), ctypes.c_void_p(cuda_lib.stream_handle(ly)))
+    cuda_lib.launched("deblock_maps", rc)
+    return tuple(outs)
+
 
 
 # ---- plain filters ----------------------------------------------------------
@@ -309,19 +424,15 @@ def deblock_chroma(plane, bs_v, bs_h, qpc_v, qpc_h):
                     bs_h, qpc_v, qpc_h)
 
 
-def deblock_frame_planes(rec_y, rec_cb, rec_cr, split32, coded16, qp32,
-                         slice_qp: int, bs=None):
-    """The CTU32-tree loop filter over F frames (the tail of the JAX
-    `_encode_frame` and of the P tree's `_encode`): the QP maps, then luma
-    and both chroma planes.  ``bs`` = (bs_v, bs_h); None takes the
-    all-intra maps of the split."""
-    f, h, w = rec_y.shape
-    h16, w16 = h // 16, w // 16
-    bs_v, bs_h = bs if bs is not None else intra_tree_bs_maps(split32, h16,
-                                                              w16)
-    eff16 = effective_qp16_tree(qp32, split32, coded16, slice_qp)
-    qp_v, qp_h = edge_qp_maps(eff16)
-    qpc_v, qpc_h = chroma_qp_t(qp_v), chroma_qp_t(qp_h)
+def deblock_frame_planes(rec_y, rec_cb, rec_cr, levels, qp_sig,
+                         slice_qp: int, split=None, inter=None):
+    """The loop filter over F frames (the tail of the JAX trees'
+    `_encode_frame`/`_encode` and of the flat `_encode_frame`): the maps
+    (`deblock_maps`: K21 on the card), then luma and both chroma planes
+    (K4).  ``levels``, ``qp_sig``, ``split`` and ``inter`` as in
+    `deblock_maps_plain`."""
+    bs_v, qp_v, qpc_v, bs_h, qp_h, qpc_h = deblock_maps(
+        levels, slice_qp, qp_sig, split, inter)
     return (deblock_luma(rec_y, bs_v, bs_h, qp_v, qp_h),
             deblock_chroma(rec_cb, bs_v, bs_h, qpc_v, qpc_h),
             deblock_chroma(rec_cr, bs_v, bs_h, qpc_v, qpc_h))

@@ -197,7 +197,7 @@ _SUBPEL_D = torch.tensor([[dx, dy] for dy in range(-2, 3)
                           for dx in range(-2, 3)], dtype=torch.int32)
 
 
-def int_mv_argmin(grid, lam, sr: int):
+def int_mv_argmin_plain(grid, lam, sr: int):
     """The integer MV of each block from its SSD grid [nb, S, S] (S = 2 sr +
     1, dy-major) and lambda [nb] f32 (JAX `models/inter_tree.py:best_mv`
     :227): the first minimum of ``fma(lam, mvd_bits(4 d), grid)``, the FMA
@@ -210,6 +210,29 @@ def int_mv_argmin(grid, lam, sr: int):
     cost = fma32(lam.to(torch.float32)[:, None, None], mvbits[None], grid)
     flat = torch.argmin(cost.reshape(cost.shape[0], -1), 1)
     return torch.stack([flat % s - sr, flat // s - sr], 1).to(torch.int32)
+
+
+def int_mv_argmin(grid, lam, sr: int):
+    """See int_mv_argmin_plain; a CUDA tensor launches
+    `csrc/mv_argmin.cu` (the FMA as __fmaf_rn, the first minimum)."""
+    if grid.device.type == "cpu":
+        return int_mv_argmin_plain(grid, lam, sr)
+    g = grid.to(torch.float32).contiguous()
+    la = lam.to(torch.float32).reshape(-1).contiguous()
+    nb = g.shape[0]
+    s = 2 * sr + 1
+    if g.shape != (nb, s, s) or la.shape != (nb,):
+        raise ValueError("int_mv_argmin: bad shapes")
+    cuda_lib.require_cuda(g, la)
+    out = torch.empty((nb, 2), dtype=torch.int32, device=g.device)
+    if nb:
+        fn = cuda_lib.lib("mv_argmin").mv_argmin
+        fn.argtypes = [_VP, _VP, _I, _I, _VP, _VP]
+        fn.restype = _I
+        rc = fn(cuda_lib.ptr(g), cuda_lib.ptr(la), nb, sr, cuda_lib.ptr(out),
+                _VP(cuda_lib.stream_handle(g)))
+        cuda_lib.launched("mv_argmin", rc)
+    return out
 
 
 def subpel_pick(ssd, lam, cand):

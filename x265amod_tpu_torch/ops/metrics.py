@@ -1,10 +1,17 @@
 """Quality metrics on the device (the JAX package's `ops/metrics.py`):
 8x8-window SSIM with the standard C1/C2 stabilizers, in float32, and the
-plane SSE in exact integers."""
+plane SSE in exact integers; kernel K22 `frame_metrics` gives both for a
+frame batch in one launch, beside its plain version."""
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from . import cuda_lib
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
 
 _C1 = (0.01 * 255) ** 2
 _C2 = (0.03 * 255) ** 2
@@ -37,3 +44,48 @@ def plane_sse(orig, rec):
     package's f32 sum is)."""
     d = rec.to(torch.int64) - orig.to(torch.int64)
     return (d * d).sum((1, 2)).to(torch.float32)
+
+
+def frame_metrics_plain(src, rec, ssim: bool = True):
+    """SSE of each plane and the luma SSIM of F frames: src and rec = (y [F,
+    H, W], cb, cr [F, H/2, W/2]) -> [F, 4] float32 (the trees' ``sse``
+    rows); column 3 is 0 without SSIM (Main10)."""
+    y = src[0]
+    s = ssim_plane(y, rec[0]) if ssim else \
+        torch.zeros(y.shape[0], dtype=torch.float32, device=y.device)
+    return torch.stack([plane_sse(a, b) for a, b in zip(src, rec)] + [s], 1)
+
+
+_counters: dict = {}
+
+
+def frame_metrics(src, rec, ssim: bool = True):
+    """See frame_metrics_plain; CUDA planes launch K22
+    (`csrc/frame_metrics.cu`) once for the batch.  SSE is exact; the SSIM
+    agrees with the plain version to about 1e-7 (another summation
+    order)."""
+    y = src[0]
+    if y.device.type == "cpu":
+        return frame_metrics_plain(src, rec, ssim)
+    planes = [t.to(torch.int32).contiguous() for t in tuple(src) + tuple(rec)]
+    f, h, w = planes[0].shape
+    if any(t.shape != (f, h, w) for t in (planes[0], planes[3])) or any(
+            t.shape != (f, h // 2, w // 2) for t in planes[1:3] + planes[4:]):
+        raise ValueError("frame_metrics: bad shapes")
+    dev = y.device
+    out = torch.empty((f, 4), dtype=torch.float32, device=dev)
+    partial = torch.empty((f, h // 8, 4), dtype=torch.float64, device=dev)
+    cnt = _counters.get(dev)
+    if cnt is None or cnt.shape[0] < f:
+        # zero once; the kernel's last block of a frame resets its counter
+        cnt = _counters[dev] = torch.zeros(max(f, 64), dtype=torch.int32,
+                                           device=dev)
+    cuda_lib.require_cuda(*planes, partial, cnt, out)
+    fn = cuda_lib.lib("frame_metrics").frame_metrics
+    fn.argtypes = [_VP] * 6 + [_I] * 4 + [_VP] * 4
+    fn.restype = _I
+    rc = fn(*(cuda_lib.ptr(t) for t in planes), f, h, w, int(ssim),
+            cuda_lib.ptr(partial), cuda_lib.ptr(cnt), cuda_lib.ptr(out),
+            _VP(cuda_lib.stream_handle(y)))
+    cuda_lib.launched("frame_metrics", rc)
+    return out

@@ -254,7 +254,7 @@ def _analyse_k10(planes, lam, ctu):
     cuda_lib.require_cuda(*ps, la)
     h, w = ps[0].shape
     if any(p.shape != (h, w) for p in ps) or h % ctu or w % ctu \
-            or ctu not in (16, 32):
+            or ctu not in (8, 16, 32):
         raise ValueError("sao_analyse: bad shapes")
     n = (h // ctu) * (w // ctu)
     if la.shape != (n,):
@@ -303,7 +303,7 @@ def sao_apply(rec, ty, eo_class, band_pos, offsets, ctu: int = 32):
                         band_pos.reshape(n, 1), offsets.reshape(n, 4)],
                        1).to(torch.int32).contiguous()
     cuda_lib.require_cuda(r, params)
-    if h % ctu or w % ctu or ctu not in (16, 32):
+    if h % ctu or w % ctu or ctu not in (8, 16, 32):
         raise ValueError("sao_apply: bad shapes")
     out = torch.empty((h, w), dtype=torch.int32, device=r.device)
     if h * w:
@@ -314,20 +314,22 @@ def sao_apply(rec, ty, eo_class, band_pos, offsets, ctu: int = 32):
     return out
 
 
-def sao_filter_frame(y, cb, cr, ry, rcb, rcr, lam32):
-    """The trees' SAO step (JAX `intra_tree.py:638-650`,
-    `inter_tree.py:747-760`): luma analysed and applied at CTU 32, cb and cr
-    jointly at CTU 16, against the deblocked planes ry, rcb, rcr; lam32 is
-    the per-CTU lambda [n].  Returns the filtered planes and the ten
-    parameter arrays (luma type, class, band position, offsets; chroma
-    type, class, cb band position and offsets, cr band position and
-    offsets)."""
-    lam = lam32.reshape(-1)
-    s_ty, s_cls, s_bp, s_off, _ = sao_analyse(y, ry, lam, 32)
-    ry = sao_apply(ry, s_ty, s_cls, s_bp, s_off, 32)
-    c = sao_analyse_chroma(cb, rcb, cr, rcr, lam, 16)
-    rcb = sao_apply(rcb, c[0], c[1], c[2], c[3], 16)
-    rcr = sao_apply(rcr, c[0], c[1], c[4], c[5], 16)
+def sao_filter_frame(y, cb, cr, ry, rcb, rcr, lam, ctu: int = 32):
+    """The SAO step of the trees (JAX `intra_tree.py:638-650`,
+    `inter_tree.py:747-760`; ``ctu`` 32) and of the flat CTB16 frame (JAX
+    `intra_frame.py:278-290`; ``ctu`` 16): luma analysed and applied at the
+    CTU size, cb and cr jointly at half of it, against the deblocked planes
+    ry, rcb, rcr; lam is the per-CTU lambda [n].  Returns the filtered
+    planes and the ten parameter arrays (luma type, class, band position,
+    offsets; chroma type, class, cb band position and offsets, cr band
+    position and offsets)."""
+    lam = lam.reshape(-1)
+    half = ctu // 2
+    s_ty, s_cls, s_bp, s_off, _ = sao_analyse(y, ry, lam, ctu)
+    ry = sao_apply(ry, s_ty, s_cls, s_bp, s_off, ctu)
+    c = sao_analyse_chroma(cb, rcb, cr, rcr, lam, half)
+    rcb = sao_apply(rcb, c[0], c[1], c[2], c[3], half)
+    rcr = sao_apply(rcr, c[0], c[1], c[4], c[5], half)
     return (ry, rcb, rcr), (s_ty, s_cls, s_bp, s_off) + tuple(c)
 
 

@@ -280,8 +280,9 @@ def check_params(p: Param) -> None:
     refuses (the same errors where that gate raises outright: subme,
     lookahead depth, --hrd without VBV) and, loudly, every setting the port
     does not run yet.  The port runs: all-intra, low-delay P with 1 to 4
-    references, or a B pyramid with one reference per list and b-adapt 0;
-    CTU32; AQ and CU-tree on or off (without B frames through the depth-1
+    references, or a B pyramid with one reference per list and b-adapt 0,
+    on the CTU32 tree; all-intra on the flat CTB16 frame (the JAX default
+    `ctu_size` 16), lossy or `--lossless`; AQ and CU-tree on or off (without B frames through the depth-1
     lookahead, as the reference does); RDOQ levels 0-2; SAO on or off; CQP,
     CRF, ABR, VBV (with its HRD signalling under --hrd) and 2-pass rate
     control; and Main10 all-intra at CQP (the reference's gate: CTU32,
@@ -316,11 +317,21 @@ def check_params(p: Param) -> None:
                        "no lossless)")
     if not 4 <= p.me_range <= 32:
         unwired.append(f"merange {p.me_range} (dense-grid ME takes 4..32)")
-    if p.ctu_size != 32:
+    if p.ctu_size not in (16, 32):
         unwired.append(f"ctu {p.ctu_size} (the port codes the CTU32 "
-                       "quadtree)")
-    if p.lossless:
-        unwired.append("--lossless")
+                       "quadtree and the flat CTB16 frame)")
+    elif p.ctu_size == 16 and p.keyint != 1:
+        # the flat CTB16 P and B pipelines (JAX models/inter_frame.py,
+        # models/b_frame.py) are not ported yet
+        unwired.append("ctu 16 with keyint != 1 (the flat CTB16 path runs "
+                       "all-intra; pass --ctu 32 for P and B frames)")
+    if p.lossless and p.ctu_size != 16:
+        # the JAX gate (utils/params.py:295-296): lossless is CTB16
+        unwired.append("ctu 32 with --lossless (lossless path is CTB16; "
+                       "pass --ctu 16)")
+    if p.rdoq_level and p.ctu_size != 32:
+        # the JAX gate (utils/params.py:325-326)
+        unwired.append("rdoq (wired for the CTU32 tree; pass --ctu 32)")
     if p.aq_mode not in (0, 1, 2):
         unwired.append(f"aq-mode {p.aq_mode} (variance modes 0-2 only)")
     if not 0 <= p.rdoq_level <= 2:
@@ -331,9 +342,10 @@ def check_params(p: Param) -> None:
     if p.internal_bit_depth not in (8, 10):
         unwired.append(f"internal-bit-depth {p.internal_bit_depth}")
     elif p.internal_bit_depth == 10 and (
-            p.keyint != 1 or p.deblock or p.sao or p.lossless):
+            p.ctu_size != 32 or p.keyint != 1 or p.deblock or p.sao
+            or p.lossless):
         # the reference's Main10 gate (JAX utils/params.py:300-306)
-        unwired.append("internal-bit-depth 10 needs --keyint 1, "
+        unwired.append("internal-bit-depth 10 needs --ctu 32, --keyint 1, "
                        "--no-deblock, no SAO")
     elif p.internal_bit_depth == 10 and p.rdoq_level > 0:
         # the reference's RDOQ prices at bit depth 8 whatever the input
