@@ -5,8 +5,9 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. the card's name and power limit; build of the twenty-four CUDA kernels
-     (nvcc for sm_90a, all started together) with their ptxas reports;
+  1. the card's name and power limit; build of the twenty-five CUDA kernel
+     libraries (nvcc for sm_90a, all started together) with their ptxas
+     reports;
   2. each kernel against its plain PyTorch version on the card, with its
      time, bound and the plain version's time: K1-K4 at the shapes of
      config 1's 16-frame batch, K5-K8 at config 2's per-frame shapes, K9-K11
@@ -52,6 +53,10 @@ Phases (any failure exits non-zero):
      the trees' plain commits on a config-1 batch, a Main10 batch, an
      intra batch with RDOQ, a config-2 P frame and a config-3 B frame with
      RDOQ 2 (the inter frames with a flat patch where intra cells win);
+     K24 and K25 (the flat CTB16 P and B decide scans, one launch a frame)
+     free and forced, K23 as the commit scan of a flat P and B frame and
+     K21's flat P/B maps, at one 1920x1088 P frame and one B frame (POC 1
+     between two CTB16 IDR recons), against their plain versions;
   3. BASELINE config 1 (640x360 all-intra ultrafast QP 30, CTU32) through
      `Encoder(device="cuda")`, 24 frames with the first 8 as warm-up; fps,
      PSNR-Y, kbps and the launch count of every kernel;
@@ -118,7 +123,18 @@ Phases (any failure exits non-zero):
   20. lossless at 1920x1080, 5 frames with the first as warm-up: the recon
      must equal the source; fps, kbps;
   21. card against CPU, byte for byte: CTB16 with AQ 2 and SAO, and
-     lossless, at 320x192 (3 frames each).
+     lossless, at 320x192 (3 frames each);
+  22. the flat CTB16 P frames: `Param(width=1920, height=1080)` (the JAX
+     defaults: an IDR and P frames, CQP 32) through `encode_pipelined`, 12
+     frames of the clip of seed 22 with the first 2 as warm-up: fps,
+     PSNR-Y, kbps, launches per frame (K24 once a P frame, K23 a diagonal
+     a frame), and no launch of the CTU32 trees' scans;
+  23. the flat B pyramid: `--preset medium` without `--ctu` at 1920x1080
+     (bframes 4, SAO, AQ 2, CU-tree, lookahead 20, CQP 32), 11 frames of
+     the clip of seed 23, all timed: fps, PSNR-Y, kbps, launches (K25 once
+     a B frame);
+  24. card against CPU, byte for byte: phases 22 and 23's configurations
+     at 320x192 (6 frames each).
 
 Prints one JSON line of kernel figures, then the card's name and power
 limit, then `{"ok": true, "device": {...}}` as the last line.
@@ -146,8 +162,13 @@ H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 CONFIG1_KERNELS = ("intra_pred", "residual_chain", "tu_bits", "deblock",
                    "pack_levels", "commit_intra", "deblock_maps",
                    "frame_metrics")
-# the flat CTB16 scan runs only on the CTB16 path (phases 19-21)
-FLAT_KERNELS = ("intra16_scan",)
+# the flat CTB16 scan (K23) and the flat decide scans (K24 P, K25 B) run
+# only on the CTB16 path (phases 19-24)
+FLAT_KERNELS = ("intra16_scan", "decide_flat", "decide_flat_b")
+# phase 22: the flat P frames (JAX defaults at 1920x1080), 2 warm-up;
+# phase 23: preset medium without --ctu (the flat B pyramid), all timed
+FLAT_P_FRAMES, FLAT_P_WARM = 12, 2
+FLAT_B_FRAMES = 11
 # phase 19: CTB16 all-intra at 1920x1080; phase 20: lossless at 1920x1080
 CTB16_FRAMES, CTB16_WARM = 20, 4
 LOSSLESS_FRAMES, LOSSLESS_WARM = 5, 1
@@ -895,7 +916,8 @@ def phase_kernels_flat(iters, dev="cuda"):
              "x265amod_tpu/ops/deblock.py:296 _bs_pair (+ :310 bs_maps, "
              ":330 intra_tree_bs_maps, :356 inter_tree_bs_maps, :384 "
              "effective_qp_map, :415 effective_qp16_tree, :454 "
-             "edge_qp_maps)", km),
+             "edge_qp_maps; the flat P/B maps of models/inter_frame.py:"
+             "472-501 and models/b_frame.py:562-588)", km),
             ("frame_metrics", "x265amod_tpu_torch/csrc/frame_metrics.cu",
              "x265amod_tpu/ops/metrics.py:24 ssim_plane (+ the plane SSE of "
              "each encoder's tail)", kq)]
@@ -987,7 +1009,9 @@ def phase_kernels_flat(iters, dev="cuda"):
         library_note="none: no single call codes a wavefront")
     rows.append(("intra16_scan", "x265amod_tpu_torch/csrc/intra16_scan.cu",
                  "x265amod_tpu/models/intra_frame.py:121 _encode_frame "
-                 "(scan body :183-234, lax.scan :236)", kz))
+                 "(scan body :183-234, lax.scan :236); the commit scans of "
+                 "models/inter_frame.py:394-458 (:457) and "
+                 "models/b_frame.py:489-548 (:547)", kz))
     return rows
 
 
@@ -2713,6 +2737,279 @@ def phase_card_vs_cpu_flat(w=320, h=192, n=3):
     return out
 
 
+# ---- phases 22-24: the flat CTB16 P and B frames -------------------------------
+
+def config_flat_p(w=1920, h=1080):
+    """`Param(width, height)`: the JAX package's defaults (CTU16, keyint
+    250, no B frames, CQP 32, deblocking on, SAO off)."""
+    from x265amod_tpu_torch.utils.params import Param
+    return Param(width=w, height=h, info=False)
+
+
+def config_flat_b(w=1920, h=1080):
+    """`--preset medium` without `--ctu`, as the JAX CLI runs it without
+    `--qp`/`--crf` (CQP 32): bframes 4 (the flat B pyramid), SAO, AQ 2,
+    CU-tree, lookahead 20, me_range 16, subme 2."""
+    from x265amod_tpu_torch.utils.params import param_default_preset
+    p = param_default_preset("medium")
+    p.width, p.height, p.info = w, h, False
+    return p
+
+
+def flat_decide_bytes(n, bidir, forced):
+    """Bytes one flat decide scan must move: free, per CTU its trial
+    distortion and rate (one or three), intra cost, lambda and ME MVs
+    read, two SSD-grid entries per list (the two skip candidates) read,
+    and its choice, MVs, MVDs, MVP indices and cost rows written; forced,
+    the given choice, MVDs and MVP indices read and the MVs written.  Its
+    arithmetic is a few hundred operations a CTU, far below the bytes."""
+    k = 2 if bidir else 1
+    if forced:
+        inp = n * (4 + k * 12)
+        out = n * k * 8 + (n * 4 if bidir else 0)
+    else:
+        inp = n * (8 * (3 if bidir else 1) + 8 + k * 8 + k * 2 * 4)
+        out = n * (4 + k * 20 + (4 if bidir else 0) + (24 if bidir else 16))
+    return inp + out
+
+
+def commit16_bytes_ops(kinds, h=1088, w=1920):
+    """(bytes, int32 operations) of K23 as the commit of a flat P/B frame:
+    the kinds read; per intra CTU16 the source read, the recon and levels
+    written and the references read, and 35 luma modes through the
+    transforms' 8 n^3 operations plus the two 8x8 chroma blocks at the
+    chosen mode."""
+    n_intra = int((kinds == 2).sum())
+    nbytes_ = kinds.numel() * 4 + n_intra * (384 * (4 + 4 + 2) + 4
+                                             + (65 + 2 * 33) * 4)
+    ops = n_intra * (35 * 8 * 16 ** 3 + 2 * 8 * 8 ** 3)
+    return nbytes_, ops
+
+
+def phase_kernels_flat_inter(iters, dev="cuda", w=1920, h=1080):
+    """K24 (the flat P decide scan), K25 (the flat B decide scan), K23 as
+    the commit of a flat P and B frame and K21's flat P/B maps against
+    their plain versions on the card, bit for bit, at one 1920x1088 P frame
+    (frame 1 of the clip of seed 22, with a flat patch, against the card's
+    CTB16 IDR recon of frame 0) and one B frame (frame 1 between the IDR
+    recons of frames 0 and 2, POC 1 of 2: dsf -256 for both lists), QP 32,
+    sr 16:
+    K24 and K25 free (decisions, MVs, MVDs, MVP indices and cost rows) and
+    forced (the plain scan's decisions replayed); K23 on the frame's kinds
+    and inter coding; K21 on its final levels and motion.  Times: CUDA
+    events, 20 calls after 2 warm-up (the plain scans once after a
+    warm-up).  Returns the K24 and K25 rows and the extra keys of the K23
+    and K21 rows."""
+    import torch
+    from x265amod_tpu_torch.models.b_frame import BFrameEncoder
+    from x265amod_tpu_torch.models.encoder import _pad_to_ctu
+    from x265amod_tpu_torch.models.inter_frame import InterFrameEncoder
+    from x265amod_tpu_torch.models.intra_frame import IntraFrameEncoder
+    from x265amod_tpu_torch.models.mvpred import dist_scale_factor
+    from x265amod_tpu_torch.ops import deblock
+    from x265amod_tpu_torch.ops import decide_flat as dfl
+    dev = torch.device(dev)
+    fr = synth_frames(w, h, 3, seed=22)
+    fr[1] = flat_patch(fr[1], 22, w, h)
+    pads = [[_pad_to_ctu(a, m) for a, m in zip(f, (16, 8, 8))] for f in fr]
+    h, w = pads[0][0].shape
+    idr = IntraFrameEncoder(w, h, device=dev)
+    recon = [idr.encode_async(*pads[i], 29, keep_recon=True)["recon_dev"]
+             for i in (0, 2)]
+    cur = tuple(torch.as_tensor(a, device=dev).to(torch.int32)
+                for a in pads[1])
+    rows, extra = [], dict(intra16_scan={}, deblock_maps={})
+    kz, km = extra["intra16_scan"], extra["deblock_maps"]
+    for bidir in (False, True):
+        enc = (BFrameEncoder if bidir else InterFrameEncoder)(w, h,
+                                                              device=dev)
+        maps = enc._maps(32)
+        lam = maps["lam"].reshape(-1)
+        n = enc.wc * enc.hc
+        tag = "_flat_b" if bidir else "_flat_p"
+        if bidir:
+            dsf = (dist_scale_factor(1, 0, 2), dist_scale_factor(1, 2, 0))
+            refs = [tuple(t.to(torch.int32) for t in r) for r in recon]
+            st1 = enc._phase1(cur[0], (refs[0][0], refs[1][0]), maps, [])
+            args = (enc.sch, st1["grids"], st1["d"], st1["rb"], st1["di"],
+                    st1["mv_me"], lam, enc.sr, dsf, enc.hdr_bits)
+            run, plain = dfl.decide_b, dfl.decide_b_plain
+            fkeys = ("choice", "mvd0", "mvp0", "mvd1", "mvp1")
+        else:
+            refs = [tuple(t.to(torch.int32) for t in recon[0])]
+            st1 = enc._phase1(cur[0], refs[0][0], maps)
+            args = (enc.sch, st1["grid"], st1["d"], st1["rb"], st1["di"],
+                    st1["mv_me"], lam, enc.sr, enc.hdr_bits)
+            run, plain = dfl.decide_p, dfl.decide_p_plain
+            fkeys = ("choice", "mvd", "mvp")
+        kd = dict(err=0.0)
+        got = run(*args, want_costs=True)
+        want = plain(*args, want_costs=True)
+        for k in want:
+            kd["err"] = max(kd["err"], check_exact(
+                f"decide{tag} free {k}", got[k], want[k]))
+        forced = tuple(want[k] for k in fkeys)
+        fargs = args[:1] + (None,) * 5 + (lam,) + args[7:]
+        got_f = run(*fargs, forced=forced)
+        want_f = plain(*fargs, forced=forced)
+        for k in want_f:
+            kd["err"] = max(kd["err"], check_exact(
+                f"decide{tag} forced {k}", got_f[k], want_f[k]))
+            check_exact(f"decide{tag} forced replays {k}", got_f[k], want[k])
+        kd["ms"] = time_ms(lambda: run(*args), iters)
+        kd["ms_forced"] = time_ms(lambda: run(*fargs, forced=forced), iters)
+        kd["plain_ms"] = time_once_ms(lambda: plain(*args))
+        kd["plain_ms_forced"] = time_once_ms(lambda: plain(*fargs,
+                                                           forced=forced))
+        kd["bound_ms"], kd["bound_by"] = bound_ms(
+            flat_decide_bytes(n, bidir, False), 0)
+        kd["bound_ms_forced"], kd["bound_by_forced"] = bound_ms(
+            flat_decide_bytes(n, bidir, True), 0)
+        choice = want["choice"]
+        kd.update(diagonals=len(enc.diags), lanes=enc.sch.bmax,
+                  library_ms=None,
+                  library_note="none: no single call makes the decision",
+                  choice_histogram=torch.bincount(
+                      choice, minlength=6 if bidir else 4).tolist(),
+                  shapes_note=("one 1920x1088 B frame, POC 1 between two "
+                               "CTB16 IDR recons (dsf %d, %d), sr 16, QP 32"
+                               % dsf) if bidir else (
+                      "one 1920x1088 P frame against a CTB16 IDR recon, sr "
+                      "16, QP 32"))
+        rows.append(("decide_flat_b" if bidir else "decide_flat",
+                     "x265amod_tpu_torch/csrc/decide_flat.cu",
+                     "x265amod_tpu/models/b_frame.py:242-390 decide_body "
+                     "(lax.scan :390)" if bidir else
+                     "x265amod_tpu/models/inter_frame.py:240-315 "
+                     "decide_body (lax.scan :314)", kd))
+        # K23 as the commit, on the frame's kinds and inter coding
+        kinds = torch.tensor(dfl.KIND_OF_CHOICE_B if bidir else
+                             dfl.KIND_OF_CHOICE_P, device=dev)[choice]
+        preds = enc._final_mc(refs[0], refs[1], want, []) if bidir else \
+            enc._final_mc(refs[0], want["mv"])
+        rec, lv = enc._final_code(*cur, preds, maps, kinds)
+        k3 = kinds.reshape(1, enc.hc, enc.wc)
+        st = "B" if bidir else "P"
+        src = tuple(t[None] for t in cur)
+
+        def commit(fn):
+            return fn(*src, maps, (k3, tuple(t.clone() for t in rec),
+                                   tuple(t.clone() for t in lv), st))
+        got = commit(enc._scan._scan_kernel)
+        want_c = commit(enc._scan._scan_plain)
+        for i, (g, w_) in enumerate(zip(got, want_c)):
+            kz["err"] = max(kz.get("err", 0.0), check_exact(
+                f"intra16_scan commit{tag} out{i}", g, w_))
+        kz[f"ms_commit{tag}"] = time_ms(
+            lambda: commit(enc._scan._scan_kernel), iters)
+        kz[f"plain_ms_commit{tag}"] = time_once_ms(
+            lambda: commit(enc._scan._scan_plain))
+        kz[f"bound_ms_commit{tag}"], kz[f"bound_by_commit{tag}"] = \
+            bound_ms(*commit16_bytes_ops(kinds))
+        kz[f"intra_cells_commit{tag}"] = int((kinds == 2).sum())
+        # K21's flat P/B maps on the final levels and motion
+        levels = got[3:6]
+        inter = (k3, want["dir"].reshape(k3.shape) if bidir else None,
+                 (want["mv0"] if bidir else want["mv"]).reshape(
+                     k3.shape + (2,)),
+                 want["mv1"].reshape(k3.shape + (2,)) if bidir else None,
+                 None)
+        got_m = deblock.deblock_maps(levels, 32, maps["qp"], None, inter)
+        want_m = deblock.deblock_maps_plain(levels, 32, maps["qp"], None,
+                                            inter)
+        for i, (g, w_) in enumerate(zip(got_m, want_m)):
+            km["err"] = max(km.get("err", 0.0), check_exact(
+                f"deblock_maps{tag} out{i}", g, w_))
+        km[f"ms{tag}"] = time_ms(lambda: deblock.deblock_maps(
+            levels, 32, maps["qp"], None, inter), iters)
+        km[f"plain_ms{tag}"] = time_ms(lambda: deblock.deblock_maps_plain(
+            levels, 32, maps["qp"], None, inter), iters)
+        ins = list(levels) + [maps["qp"]] + [t for t in inter
+                                             if t is not None]
+        km[f"bound_ms{tag}"], km[f"bound_by{tag}"] = bound_ms(
+            nbytes(*ins) + nbytes(*got_m), 0)
+        del st1, got, want_c, rec, lv
+    return rows, extra
+
+
+def phase_flat_inter(frames, warm, bidir):
+    """The flat CTB16 P frames (`config_flat_p`) or the flat B pyramid
+    (`config_flat_b`) through `Encoder(device="cuda")` and
+    `encode_pipelined`: the first ``warm`` frames as warm-up (the IDR and
+    a P frame), the rest timed; fps, PSNR-Y, kbps, the launches per frame;
+    every flat kernel of the path must launch (K24 once a P frame, K25
+    once a B frame, K23 a diagonal per frame) and no kernel of the CTU32
+    trees' scans."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from x265amod_tpu_torch.ops import cuda_lib
+    label = "flat B" if bidir else "flat P"
+    enc = Encoder(config_flat_b() if bidir else config_flat_p(),
+                  device="cuda")
+    if warm:
+        for _ in enc.encode_pipelined(frames[:warm]):
+            pass
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    outs = list(enc.encode_pipelined(frames[warm:]))
+    dt = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    n = len(frames) - warm
+    timed = enc.frame_stats[warm:]
+    types = [x.slice_type for x in timed]
+    if len(outs) != n or not all(o.nals for o in outs) or enc.ctu != 16:
+        raise AssertionError(f"{label}: missing encoded frames")
+    psnr = float(np.mean([x.psnr_y for x in timed]))
+    kbps = float(sum(x.bits for x in timed) * 25.0 / n / 1000.0)
+    if not np.isfinite(kbps) or not 30.0 < psnr < 60.0:
+        raise AssertionError(f"{label}: PSNR-Y {psnr}, kbps {kbps}")
+    n_p, n_b = types.count("P"), types.count("B")
+    want = ["me_ssd", "mv_argmin", "subpel", "mc_qpel", "intra_pred",
+            "residual_chain", "tu_bits", "intra16_scan", "decide_flat",
+            "deblock_maps", "deblock", "frame_metrics", "pack_levels"]
+    if bidir:
+        want += ["decide_flat_b", "mc_bi", "sao_analyse", "sao_apply",
+                 "lowres_aq", "lowres_me", "cutree_prop"]
+    tree = ("decide_p", "decide_b", "commit_intra", "hpel", "pick_ref")
+    missing = [k for k in want if launches[k] <= 0]
+    unexpected = [k for k in tree if launches[k] > 0]
+    if (missing or unexpected or launches["decide_flat"] != n_p
+            or launches["decide_flat_b"] != n_b or n_p < 1
+            or (bidir and n_b < 1)):
+        raise AssertionError(
+            f"{label}: did not launch {missing}, launched {unexpected}; "
+            f"K24 {launches['decide_flat']} for {n_p} P frames, K25 "
+            f"{launches['decide_flat_b']} for {n_b} B frames ({types})")
+    return dict(frames=n, seconds=dt, fps=n / dt, psnr_y=psnr, kbps=kbps,
+                ssim_y=float(np.mean([x.ssim_y for x in timed])),
+                slice_types="".join(types),
+                qps=sorted({x.qp for x in timed}),
+                launches_per_frame={k: launches[k] / n for k in want}), \
+        launches
+
+
+def phase_card_vs_cpu_flat_inter(w=320, h=192, n=6):
+    """The flat P frames (`config_flat_p`) and the flat B pyramid
+    (`config_flat_b`) at 320x192 on the card and on the CPU through
+    `encode_pipelined`: the streams must be identical byte for byte."""
+    from x265amod_tpu_torch.models.encoder import Encoder
+    out = {}
+    for label, cfg, seed in (("flat_p", config_flat_p, 24),
+                             ("flat_b", config_flat_b, 25)):
+        frames = synth_frames(w, h, n, seed=seed)
+        streams = {}
+        for dev in ("cuda", "cpu"):
+            e = Encoder(cfg(w, h), device=dev)
+            streams[dev] = b"".join(o.nals for o in e.encode_pipelined(
+                frames))
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"{label}: card and CPU streams differ")
+        out[label] = dict(bitstreams_identical=True,
+                          bytes=len(streams["cuda"]))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=24)
@@ -2787,9 +3084,23 @@ def main():
     rows += phase_kernels_scans(args.iters)
     # K21, K22, the ME argmin and K23 (the flat CTB16 scan)
     rows += phase_kernels_flat(args.iters)
+    # K24 and K25 (the flat decide scans), K23 as the flat P/B commit and
+    # K21's flat P/B maps
+    fi_rows, fi_extra = phase_kernels_flat_inter(args.iters)
+    rows += fi_rows
     by_name = {name: d for name, _, _, d in rows}
+    for name, ext in fi_extra.items():
+        by_name[name]["err"] = max(by_name[name]["err"], ext.pop("err"))
+        by_name[name].update(ext)
+    by_name["intra16_scan"]["shapes_note"] += (
+        "; _commit_flat_p / _commit_flat_b: K23 as the commit scan of "
+        "phase 2's flat P / B frame at 1920x1088 (its intra CTUs only)")
+    by_name["deblock_maps"]["shapes_note"] += (
+        "; _flat_p / _flat_b: the maps of phase 2's flat P / B frame at "
+        "1920x1088 (bS from kinds, directions and MVs)")
     for name in ("decide_b", "commit_intra", "deblock_maps",
-                 "frame_metrics", "mv_argmin", "intra16_scan"):
+                 "frame_metrics", "mv_argmin", "intra16_scan", "decide_flat",
+                 "decide_flat_b"):
         log(f"phase 2: {name} " + json.dumps(by_name[name]) + f" [{card}]")
     for name, _, _, d in rows:
         log(f"phase 2: {name} equal to plain (max abs err {d['err']}); "
@@ -2926,6 +3237,23 @@ def main():
     t0 = time.time()
     log("phase 21: " + json.dumps(phase_card_vs_cpu_flat()))
     seconds["21_ctb16_card_vs_cpu"] = time.time() - t0
+    t0 = time.time()
+    pf = synth_frames(1920, 1080, FLAT_P_FRAMES, seed=22)
+    flat_p_stats, launches22 = phase_flat_inter(pf, FLAT_P_WARM, False)
+    del pf
+    log("phase 22: " + json.dumps(dict(flat_p_stats, card=card,
+                                       launches=launches22)))
+    seconds["22_flat_p"] = time.time() - t0
+    t0 = time.time()
+    bf = synth_frames(1920, 1080, FLAT_B_FRAMES, seed=23)
+    flat_b_stats, launches23 = phase_flat_inter(bf, 0, True)
+    del bf
+    log("phase 23: " + json.dumps(dict(flat_b_stats, card=card,
+                                       launches=launches23)))
+    seconds["23_flat_b"] = time.time() - t0
+    t0 = time.time()
+    log("phase 24: " + json.dumps(phase_card_vs_cpu_flat_inter()))
+    seconds["24_flat_inter_card_vs_cpu"] = time.time() - t0
     log("seconds per phase: " + json.dumps(seconds))
 
     kernels = []
@@ -2935,7 +3263,13 @@ def main():
         config3_kernel = name in CONFIG3_KERNELS
         la_kernel = name in LOOKAHEAD_KERNELS
         main10_kernel = name != base
-        if name in FLAT_KERNELS:
+        if name == "decide_flat":
+            launches, shapes = launches22[name], (
+                "launches from the flat P frames (phase 22)")
+        elif name == "decide_flat_b":
+            launches, shapes = launches23[name], (
+                "launches from the flat B pyramid (phase 23)")
+        elif name in FLAT_KERNELS:
             launches, shapes = launches19[name], (
                 "one 1920x1088 CTB16 frame (1920x1080 padded), QP 32; "
                 "launches from CTB16 all-intra (phase 19)")
@@ -3001,7 +3335,7 @@ def main():
              "intra_cells_", "dsf", "cu32_share"))
             or k.startswith(("blocks", "ms_per_launch"))
             or k in ("ties", "level_bound_reached", "lanes", "maps_bytes",
-                     "ties_checked")}
+                     "ties_checked", "choice_histogram")}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches,
@@ -3016,6 +3350,8 @@ def main():
             launches_config2_ref3=launches17[base],
             launches_ctb16=launches19[base],
             launches_lossless=launches20[base],
+            launches_flat_p=launches22[base],
+            launches_flat_b=launches23[base],
             launches_per_frame_config3_aq=launches9[base] / CONFIG3_AQ_FRAMES,
             launches_per_frame_config3_rdoq=launches11[base]
             / CONFIG3_AQ_FRAMES,

@@ -5,12 +5,13 @@ slice (1920x1080 B pyramid with SAO, CQP 32, AQ and CU-tree off), config
 3 as bench.py builds it (the same with the lookahead, AQ and CU-tree: "4"),
 the ABR ladder ("5"), config 2 under VBV with HRD ("6"), Main10 all-intra
 ("7"), config 3 with RDOQ ("8"), config 2 at x265's default --ref 3
-("9") and the flat CTB16 all-intra path at 1920x1080, lossy and lossless
-("10").
+("9"), the flat CTB16 all-intra path at 1920x1080, lossy and lossless
+("10"), the flat CTB16 P frames of the JAX defaults ("11") and the flat B
+pyramid of preset medium without --ctu ("12") at 1920x1080.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 profile_port.py [--configs 1,2,3,4,5,6,7,8,9,10] [--batches 2]
+    python3 profile_port.py [--configs 1,2,...,12] [--batches 2]
         [--p-frames 4]
 
 Prints JSON lines:
@@ -68,6 +69,18 @@ Prints JSON lines:
     warm-up frames: the scan (K23), the loop filter (K21 + K4), SAO,
     SSE/SSIM (K22), level pack and D2H start, wait and unpack, CABAC, rate
     control; "ctb16_profile": torch.profiler over 8 CTB16 frames;
+  - "flat_p_stages": the flat CTB16 P frames (chip_smoke phase 22:
+    `Param(1920, 1080)`, QP 32) per P frame through encode_pipelined after
+    the IDR and a warm-up P frame: ME (K5, the argmin, K6), the inter trial
+    (K7, K2, K3), the intra trial (35 modes through K1, K2, K3) ("phase1_all"
+    holds all three; "me" and "intra_trial" again apart), the decide scan
+    (K24), final MC (K7) and residuals (K2), the commit scan (K23 on
+    the intra CTUs), loop filter (K21 + K4), SSE/SSIM (K22), level pack and
+    D2H, CABAC; "flat_p_profile": torch.profiler over 8 P frames;
+  - "flat_b_stages": the same stages per frame of the flat B pyramid
+    (chip_smoke phase 23: preset medium, 11 frames, I, P and B frames
+    together; the B trials in "phase1_all", K25 in "decide_scan", SAO and
+    the lookahead apart, the IDR's device step in "idr_step");
   - the card's name and power limit.
 """
 
@@ -514,6 +527,39 @@ def ctb16_stages(frames, lossless=False, warm=2):
     return st.per(len(frames) - warm, (time.perf_counter() - t0) * 1e3)
 
 
+def flat_stages(param, frames, warm):
+    """The flat CTB16 P/B path per frame (see the docstring)."""
+    import torch
+    from x265amod_tpu_torch.models import inter_frame
+    from x265amod_tpu_torch.models.encoder import Encoder
+    enc = Encoder(param, device="cuda")
+    list(enc.encode_pipelined(frames[:warm]))
+    st = StageTimer()
+    for fe in (enc.inter_encoder, enc.b_encoder):
+        if fe is None:
+            continue
+        for m, stage in (("_motion", "me"), ("_intra_trial", "intra_trial"),
+                         ("_phase1", "phase1_all"),
+                         ("_decide", "decide_scan"),
+                         ("_final_mc", "final_mc"),
+                         ("_final_code", "final_residuals")):
+            st.wrap(fe, m, stage)
+        st.wrap(fe._scan, "_scan", "commit_scan_k23")
+    for fn, stage in (("deblock_frame_planes", "loop_filter_k21_k4"),
+                      ("sao_filter_frame", "sao"),
+                      ("frame_metrics", "sse_ssim_k22")):
+        st.wrap(inter_frame, fn, stage)
+    for m in ("_cabac_inter", "_cabac_b", "_cabac_intra"):
+        st.wrap(enc, m, "cabac")
+    st.wrap(enc.frame_encoder, "_step", "idr_step")
+    st.wrap_encoder(enc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    list(enc.encode_pipelined(frames[warm:]))
+    torch.cuda.synchronize()
+    return st.per(len(frames) - warm, (time.perf_counter() - t0) * 1e3)
+
+
 def device_profile(run, n_frames):
     """torch.profiler over ``run()``: wall time, device kernel time, the
     device busy share and the kernels with the most device time."""
@@ -546,7 +592,7 @@ def device_profile(run, n_frames):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--configs", default="1,2,3,4,5,6,7,8,9,10")
+    ap.add_argument("--configs", default="1,2,3,4,5,6,7,8,9,10,11,12")
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--p-frames", type=int, default=4)
     args = ap.parse_args()
@@ -626,6 +672,20 @@ def main():
         list(cenc.encode_pipelined(cframes[:2]))
         print(json.dumps({"ctb16_profile": device_profile(
             lambda: list(cenc.encode_pipelined(cframes[2:])), 8)}))
+    if 11 in configs:
+        from chip_smoke import config_flat_p
+        fframes = synth_frames(1920, 1080, 10, seed=22)
+        print(json.dumps({"flat_p_stages": flat_stages(
+            config_flat_p(), fframes, warm=2)}))
+        fenc = Encoder(config_flat_p(), device="cuda")
+        list(fenc.encode_pipelined(fframes[:2]))
+        print(json.dumps({"flat_p_profile": device_profile(
+            lambda: list(fenc.encode_pipelined(fframes[2:])), 8)}))
+    if 12 in configs:
+        from chip_smoke import config_flat_b
+        print(json.dumps({"flat_b_stages": flat_stages(
+            config_flat_b(), synth_frames(1920, 1080, 11, seed=23),
+            warm=0)}))
     print(card_line())
 
 

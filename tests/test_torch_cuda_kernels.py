@@ -777,3 +777,144 @@ def test_intra16_scan_kernel(cuda_dev, lossless, aq, f):
     want = enc._scan_plain(y, cb, cr, maps)
     for g, wt in zip(got, want):
         assert g.dtype == wt.dtype and torch.equal(g, wt)
+
+
+def _moving(rng, f, h, w, dev, step=3):
+    """F frames of smooth content moving by ``step`` pixels a frame, with
+    noise and a flat patch (where intra wins): [F, H, W] and chroma."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = [[], [], []]
+    for t in range(f):
+        y = 128 + 70 * np.sin((xx + step * t) / 9.0) * np.cos((yy - t) / 7.0)
+        y = y + rng.normal(0, 3, (h, w))
+        y[h // 2:h // 2 + 16, w // 4:w // 4 + 32] = 40 + 20 * t
+        out[0].append(np.clip(y, 0, 255))
+        c = 128 + 30 * np.sin((xx[::2, ::2] + step * t) / 13.0)
+        out[1].append(c)
+        out[2].append(255 - c)
+    return tuple(torch.as_tensor(np.stack(p).astype(np.int32), device=dev)
+                 for p in out)
+
+
+@pytest.mark.parametrize("bidir,dsf", [(False, (0, 0)), (True, (-256, 256)),
+                                       (True, (-85, -768))])
+def test_decide_flat_kernels(cuda_dev, bidir, dsf):
+    """K24 (P) and K25 (B) against their plain versions on the card at
+    128x96 (sr 8, AQ offsets): free (choices, MVs, MVDs, MVP indices and
+    the cost rows) and forced with the plain scan's decisions."""
+    from x265amod_tpu_torch.models.b_frame import BFrameEncoder
+    from x265amod_tpu_torch.models.inter_frame import InterFrameEncoder
+    from x265amod_tpu_torch.ops import decide_flat as dfl
+    rng = np.random.default_rng(250 + bidir + abs(dsf[0]))
+    w, h = 128, 96
+    y, cb, cr = _moving(rng, 3, h, w, cuda_dev)
+    cls = BFrameEncoder if bidir else InterFrameEncoder
+    enc = cls(w, h, search_range=8, device=cuda_dev)
+    maps = enc._maps(30, rng.uniform(-6, 6, (h // 16, w // 16)))
+    lam = maps["lam"].reshape(-1)
+    if bidir:
+        st1 = enc._phase1(y[1], (y[0], y[2]), maps, [])
+        args = (enc.sch, st1["grids"], st1["d"], st1["rb"], st1["di"],
+                st1["mv_me"], lam, enc.sr, dsf, enc.hdr_bits)
+        run, plain = dfl.decide_b, dfl.decide_b_plain
+        fkeys = ("choice", "mvd0", "mvp0", "mvd1", "mvp1")
+    else:
+        st1 = enc._phase1(y[1], y[0], maps)
+        args = (enc.sch, st1["grid"], st1["d"], st1["rb"], st1["di"],
+                st1["mv_me"], lam, enc.sr, enc.hdr_bits)
+        run, plain = dfl.decide_p, dfl.decide_p_plain
+        fkeys = ("choice", "mvd", "mvp")
+    got = run(*args, want_costs=True)
+    want = plain(*args, want_costs=True)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert len(set(want["choice"].tolist())) >= 3
+    forced = tuple(want[k] for k in fkeys)
+    nones = (None,) * 5
+    fargs = args[:1] + nones + (lam,) + args[7:]
+    got = run(*fargs, forced=forced)
+    want_f = plain(*fargs, forced=forced)
+    for k in want_f:
+        assert torch.equal(got[k], want_f[k]), k
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("st", ["P", "B"])
+def test_intra16_scan_commit_kernel(cuda_dev, st):
+    """K23 as the commit of a flat P/B frame against the plain scan on the
+    card: 96x64, random kinds (about 40 % intra), inter recon and levels
+    given; recon, levels and modes bit-equal (inter cells untouched, mode
+    1 there)."""
+    from x265amod_tpu_torch.models.intra_frame import IntraFrameEncoder
+    rng = np.random.default_rng(260 + (st == "B"))
+    enc = IntraFrameEncoder(96, 64, deblock=False, device=cuda_dev)
+    y, cb, cr = _frames(rng, 1, 64, 96, cuda_dev)
+    rec = tuple(torch.clamp(t + torch.as_tensor(
+        rng.integers(-9, 10, t.shape).astype(np.int32), device=cuda_dev), 0,
+        255) for t in (y, cb, cr))
+    lv = tuple(torch.as_tensor(rng.integers(-3, 4, s).astype(np.int16),
+                               device=cuda_dev)
+               for s in ((1, 4, 6, 16, 16), (1, 4, 6, 8, 8), (1, 4, 6, 8, 8)))
+    kinds = torch.as_tensor(np.where(rng.random((1, 4, 6)) < 0.4, 2,
+                                     rng.integers(0, 2, (1, 4, 6)))
+                            .astype(np.int32), device=cuda_dev)
+    maps = enc._maps(27, rng.uniform(-6, 6, (4, 6)))
+    # the kernel updates its recon and levels in place: give it copies
+    got = enc._scan_kernel(y, cb, cr, maps, (
+        kinds, tuple(t.clone() for t in rec), tuple(t.clone() for t in lv),
+        st))
+    want = enc._scan_plain(y, cb, cr, maps, (kinds, rec, lv, st))
+    for g, wt in zip(got, want):
+        assert g.dtype == wt.dtype and torch.equal(g, wt)
+    inter_cells = (kinds[0] != 2)
+    assert torch.equal(got[3][0][inter_cells], lv[0][0][inter_cells])
+    assert (got[6][0][inter_cells] == 1).all()
+
+
+@pytest.mark.parametrize("bidir", [False, True])
+def test_deblock_maps_kernel_flat_inter(cuda_dev, bidir):
+    """K21's fourth shape (the flat CTB16 P/B frame: bS from kinds,
+    directions and MVs with each cell's luma cbf, the QP chain per CTB16)
+    against its plain version: 3 frames of 96x64 cells, random motion."""
+    from x265amod_tpu_torch.ops import deblock
+    rng = np.random.default_rng(270 + bidir)
+    f, h16, w16 = 3, 6, 8
+    lv = [torch.as_tensor((rng.random((f, h16, w16, n, n)) < 0.01)
+                          .astype(np.int16), device=cuda_dev)
+          for n in (16, 8, 8)]
+    qp_sig = torch.as_tensor(rng.integers(20, 45, (h16, w16))
+                             .astype(np.int32), device=cuda_dev)
+
+    def r(lo, hi, *s):
+        return torch.as_tensor(rng.integers(lo, hi, (f, h16, w16) + s)
+                               .astype(np.int32), device=cuda_dev)
+    inter = (r(0, 3), r(1, 4) if bidir else None, r(-9, 10, 2),
+             r(-9, 10, 2) if bidir else None, None)
+    got = deblock.deblock_maps(lv, 30, qp_sig, None, inter)
+    want = deblock.deblock_maps_plain(lv, 30, qp_sig, None, inter)
+    for g, wt in zip(got, want):
+        assert torch.equal(g, wt.to(torch.int32))
+
+
+@pytest.mark.parametrize("preset", [False, True])
+def test_flat_inter_stream_card_equals_cpu(cuda_dev, preset):
+    """`Encoder(Param(width, height))` (IDR + flat P) and preset medium
+    without --ctu (the flat B pyramid, SAO, AQ, CU-tree) at 96x64: the
+    card's stream equals the CPU's byte for byte."""
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from x265amod_tpu_torch.utils import params
+    rng = np.random.default_rng(280)
+    y, cb, cr = (t.cpu().numpy().astype(np.uint8)
+                 for t in _moving(rng, 6, 64, 96, "cpu"))
+    frames = list(zip(y, cb, cr))
+    streams = []
+    for dev in (cuda_dev, "cpu"):
+        if preset:
+            p = params.param_default_preset("medium")
+            p.width, p.height, p.rc_lookahead, p.info = 96, 64, 4, False
+        else:
+            p = params.Param(width=96, height=64, info=False)
+        streams.append(b"".join(o.nals for o in Encoder(
+            p, device=dev).encode_pipelined(frames)))
+    assert streams[0] == streams[1]

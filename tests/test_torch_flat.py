@@ -14,8 +14,8 @@ package on the CPU:
   96x64 byte-identical to the JAX `Encoder`'s (AQ 2 with SAO, CRF 28,
   lossless; 3 frames), decoded by the JAX decoder; lossless recon equal to
   the source;
-- the gate: what the slice runs admitted, CTU16 P/B, CTU16 RDOQ and
-  lossless at CTU32 refused.
+- the gate: what the flat path runs admitted (CTU16 P/B frames too), CTU16
+  with several references or RDOQ, and lossless at CTU32, refused.
 
 One module fixture compiles the JAX encoders the file needs (lossy with
 deblocking and SAO, lossless; AQ rides the same jits through the QP maps).
@@ -221,16 +221,20 @@ def test_stream_equals_the_jax_encoders(kw):
     (dict(keyint=1, sao=True, aq_mode=1), True),
     (dict(keyint=1, rc_mode="abr", bitrate=800), True),
     (dict(keyint=1, lossless=True), True),
-    (dict(keyint=250), False),
+    (dict(keyint=250), True),
+    (dict(keyint=250, ref=3), False),
+    (dict(keyint=250, rdoq_level=1), False),
     (dict(keyint=1, rdoq_level=1), False),
     (dict(keyint=1, lossless=True, ctu_size=32), False),
     (dict(keyint=1, internal_bit_depth=10, deblock=False), False),
     (dict(keyint=1, wpp=True), False),
 ])
 def test_the_gate(kw, admitted):
-    """The port admits the settings this slice runs, which the JAX gate
-    admits too; it refuses CTU16 with P/B frames (not ported), and, as the
-    JAX gate does, RDOQ and Main10 at CTU16 and lossless at CTU32."""
+    """The port admits the settings the flat CTB16 path runs, which the
+    JAX gate admits too: all-intra, lossless, and since the flat P and B
+    frames are ported, CTU16 with P/B frames (keyint 250); as the JAX gate
+    does, it refuses several references, RDOQ and Main10 at CTU16, and
+    lossless at CTU32."""
     d = dict(width=96, height=64, **kw)
     p = tparams.Param(**d)
     assert p.ctu_size == (kw.get("ctu_size") or 16)

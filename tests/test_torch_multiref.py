@@ -149,7 +149,8 @@ def test_gate_admits_ref_where_jax_does(ref, bframes, ctu):
     if ctu == 32:
         assert port_ok == jax_ok == (ref == 1 or (ref <= 4 and bframes == 0))
     else:
-        assert not port_ok                 # the port codes CTU32 only
+        # the flat CTB16 P and B frames take one reference per list
+        assert port_ok == jax_ok == (ref == 1)
 
 
 def test_all_intra_admits_and_ignores_ref():

@@ -50,12 +50,46 @@ def lowest_cpu_priority():
         renice(before)
 
 
+# JAX's persistent compilation cache of the port's test modules, in the
+# checkout (the repo's .gitignore lists it)
+JAX_CACHE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".jax_cache")
+
+
+@contextlib.contextmanager
+def shared_jax_compiles():
+    """Run the block with JAX's persistent compilation cache in
+    `JAX_CACHE`, every compile cached (the small op jits too), then restore
+    the process's settings.  The port's test modules compile the same JAX
+    trees and ops (one configuration at one shape) in several worker
+    processes of a parallel run and in several tests of one module; with
+    the cache each is compiled once and the others load the executable it
+    wrote.  A cache entry is the compiled executable itself, so a test runs
+    what it would have compiled; an entry that cannot be read is compiled
+    again (JAX warns)."""
+    import jax
+    from jax._src import compilation_cache
+    keys = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_compile_time_secs")
+    before = {k: getattr(jax.config, k) for k in keys}
+    for k, v in zip(keys, (JAX_CACHE, 0.0)):
+        jax.config.update(k, v)
+    compilation_cache.reset_cache()
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            jax.config.update(k, v)
+        compilation_cache.reset_cache()
+
+
 @pytest.fixture(scope="module", autouse=True)
 def yield_cpu():
     """The port's CPU test modules (which import this fixture) run at the
     lowest priority: in a parallel test run their JAX compiles take only
-    the cores that the JAX package's own, longer test files leave idle."""
-    with lowest_cpu_priority():
+    the cores that the JAX package's own, longer test files leave idle.
+    They also share their JAX compiles (`shared_jax_compiles`)."""
+    with lowest_cpu_priority(), shared_jax_compiles():
         yield
 
 

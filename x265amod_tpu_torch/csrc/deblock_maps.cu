@@ -7,16 +7,21 @@
 // bs_maps (:310), intra_tree_bs_maps (:330), inter_tree_bs_maps (:356),
 // effective_qp_map (:384), effective_qp16_tree (:415), edge_qp_maps
 // (:454), and the all-bS-2 maps of the flat CTB16 intra frame
-// (models/intra_frame.py :252-277), with quant.py's chroma QP table.
+// (models/intra_frame.py :252-277) and of the flat CTB16 P and B frames
+// (models/inter_frame.py :472-501, models/b_frame.py :562-588), with
+// quant.py's chroma QP table.
 //
-// Three shapes (`mode`):
+// Four shapes (`mode`):
 //   0  the intra CTU32 tree: bS 2 on every TU edge, 0 on the internal
 //      16-edges of an unsplit CTU; QP chain per CTB32 (z-order in a CTB);
 //   1  the P/B CTU32 trees: spec 8.7.2.4 bS from the per-cell kinds
 //      (2 = intra), directions, MVs and L0 reference indices, with the TU
 //      luma cbf (a TU32's over its four cells), internal 16-edges of an
 //      unsplit CTU zeroed; the same QP chain;
-//   2  the flat CTB16 intra frame: bS 2 on every edge; QP chain per CTB16.
+//   2  the flat CTB16 intra frame: bS 2 on every edge; QP chain per CTB16;
+//   3  the flat CTB16 P/B frame: spec 8.7.2.4 bS from the per-cell kinds,
+//      directions and MVs (reference index 0) with the cell's own luma cbf,
+//      every 16-edge a CU and TU edge; mode 2's QP chain.
 // The QP chain (spec 8.6.1, QG == CTB): a CTB's QpY is its signalled QP
 // where it codes coefficients, else the previous CTB's in raster order,
 // from SliceQpY; in a CTB32 the cells before the first coded cell in
@@ -43,11 +48,11 @@ struct MapsArgs {
   int F, h16, w16, mode, slice_qp;
   // levels [F, h16, w16, 256] and [F, h16, w16, 64] (int16)
   const int16_t *ly, *lcb, *lcr;
-  // modes 0, 1: split per CTB32 [F, h16/2, w16/2]; null in mode 2
+  // modes 0, 1: split per CTB32 [F, h16/2, w16/2]; null in modes 2, 3
   const int32_t* split;
   // signalled QP per CTB: [h16/2, w16/2] (modes 0, 1) or [h16, w16] (2)
   const int32_t* qp_sig;
-  // mode 1: kinds [F, h16, w16] (2 = intra); dir (null: 1, L0 only), mv0,
+  // modes 1, 3: kinds [F, h16, w16] (2 = intra); dir (null: 1, L0 only), mv0,
   // mv1 (null: 0) [F, h16, w16, 2] qpel, ref0 (null: 0) [F, h16, w16]
   const int32_t *kinds, *dir, *mv0, *mv1, *ref0;
   // outputs [F, h16, w16 - 1] and [F, h16 - 1, w16]
@@ -123,6 +128,10 @@ __device__ int tu_cbf(const MapsArgs& a, const Frame& fr, int r, int c) {
 __device__ int edge_bs(const MapsArgs& a, const Frame& fr, int r, int c,
                        int rq, int cq, bool internal) {
   if (a.mode == 2) return 2;
+  if (a.mode == 3)
+    return bs_pair(a, fr, r * a.w16 + c, rq * a.w16 + cq,
+                   (fr.flags(r * a.w16 + c) >> 1) & 1,
+                   (fr.flags(rq * a.w16 + cq) >> 1) & 1);
   const int wc = a.w16 / 2;
   const int sp = a.split[(size_t)fr.fi * (a.h16 / 2) * wc + (rq / 2) * wc +
                          cq / 2];
@@ -175,7 +184,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   // 2. the QP chain over the CTBs in raster order
-  const bool flat = a.mode == 2;
+  const bool flat = a.mode >= 2;
   const int wc = flat ? a.w16 : a.w16 / 2;
   const int nctb = flat ? n16 : n16 / 4;
   auto ctb_coded = [&](int k) -> int {
@@ -250,11 +259,12 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int deblock_maps(const MapsArgs* args, cudaStream_t stream) {
   const MapsArgs& a = *args;
-  if (a.F < 1 || a.h16 < 1 || a.w16 < 1 || a.mode < 0 || a.mode > 2)
+  if (a.F < 1 || a.h16 < 1 || a.w16 < 1 || a.mode < 0 || a.mode > 3)
     return (int)cudaErrorInvalidValue;
-  if (a.mode != 2 && (a.split == nullptr || a.h16 % 2 || a.w16 % 2))
+  if (a.mode < 2 && (a.split == nullptr || a.h16 % 2 || a.w16 % 2))
     return (int)cudaErrorInvalidValue;
-  if (a.mode == 1 && (a.kinds == nullptr || a.mv0 == nullptr))
+  if ((a.mode == 1 || a.mode == 3) &&
+      (a.kinds == nullptr || a.mv0 == nullptr))
     return (int)cudaErrorInvalidValue;
   maps_kernel<<<a.F, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();

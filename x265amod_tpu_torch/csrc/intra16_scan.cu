@@ -1,10 +1,17 @@
 // Kernel K23 `intra16_scan`: the flat CTB16 all-intra wavefront scan, for a
 // batch of F frames: per CTU16 the 35-mode RD decision on true
 // reconstructed references, the chosen mode's luma and DM chroma coding,
-// and the reconstruction the next CTUs predict from.
+// and the reconstruction the next CTUs predict from.  Also the commit scan
+// of the flat P and B frames: given per-CTU kinds, only the intra CTUs
+// (kind 2) run; every other block returns at once.
 //
 // Replaces, from the JAX package: models/intra_frame.py, the scan body of
-// `_encode_frame` (:183-234, `lax.scan` at :236).  Per CTU (lane):
+// `_encode_frame` (:183-234, `lax.scan` at :236); and the commit scans of
+// models/inter_frame.py (:394-458, `lax.scan` at :457) and
+// models/b_frame.py (:489-548, :547), whose inter cells the wrapper has
+// already written (their recon and levels, mode 1, so that a left inter
+// neighbour reads as mode 1: JAX `left_intra` :403-405) and whose rates
+// read the P or B rows of the tu_bits table.  Per CTU (lane):
 //   - the raw neighbours from the recon planes (:144-155) with the flat
 //     grid's availability (left iff cx > 0, top iff cy > 0, top-right iff
 //     also cx < wc - 1, below-left never), the spec 8.4.4.2.2 substitution
@@ -62,8 +69,10 @@ struct ScanArgs {
   // per-CTU QP, chroma QP and lambda [hc, wc] (shared by the batch)
   const int32_t *qp, *qpc;
   const float* lam;
-  // tu_bits table [52 * 13] f32: I-slice luma rows
+  // tu_bits table [52 * 13] f32: luma rows at the slice type's states
   const float* bits;
+  // per-CTU kinds [F, hc, wc] (2 = intra), or null: every CTU is intra
+  const int32_t* kinds;
 };
 }
 
@@ -177,6 +186,8 @@ __global__ void __launch_bounds__(kThreads)
   const int W = a.W, H = a.H, Wc = W / 2, Hc = H / 2;
   const int ctu = cy * a.wc + cx;
   const size_t nctu = (size_t)a.wc * a.hc;
+  // a P/B commit codes only the intra CTUs (uniform over the block)
+  if (a.kinds != nullptr && a.kinds[(size_t)fi * nctu + ctu] != 2) return;
   const int32_t* sy = a.src_y + (size_t)fi * H * W;
   int32_t* ry = a.rec_y + (size_t)fi * H * W;
   const Avail av{cy > 0, cy > 0 && cx < a.wc - 1, cx > 0, cx > 0 && cy > 0};

@@ -10,11 +10,16 @@ SEI on each IDR and a pic-timing SEI on every frame) or 2-pass
 planes in and out, profile 2 in the SPS, PSNR at the 10-bit peak, no loop
 filters and no RDOQ (the reference's gate).
 
-`ctu_size` 16 (the `Param` default, as in the JAX package) codes all-intra
-on the flat CTB16 frame (`models/intra_frame.py`; SPS CTB 16, TB 16), lossy
-or `--lossless` (transquant bypass in the PPS and on every CU, no sign
-hiding, no loop filters, recon equal to the source), one frame a device
-step through the per-frame path, as the JAX `Encoder` runs it.
+`ctu_size` 16 (the `Param` default, as in the JAX package) codes on the
+flat CTB16 frame (SPS CTB 16, TB 16), one frame a device step through the
+per-frame path, as the JAX `Encoder` runs it: I frames on
+`models/intra_frame.py`, lossy or `--lossless` (all-intra: transquant
+bypass in the PPS and on every CU, no sign hiding, no loop filters, recon
+equal to the source); P frames on `models/inter_frame.py` and B frames on
+`models/b_frame.py` (one reference per list), with the CTU32 tree's GOP
+planning, DPB and rate control.  So `Encoder(Param(width, height))` (an IDR
+and flat P frames) and the JAX CLI's `--preset medium` without `--ctu` (the
+flat B pyramid with SAO, AQ and CU-tree) run here as they run in JAX.
 
 All-intra `encode_pipelined` runs the batched path of the JAX package's
 `models/encoder.py:_encode_intra_batched`: BATCH_FRAMES frames per device
@@ -63,7 +68,8 @@ from ..native import encode_slice_native
 from ..ops.quant import derive_qp_maps
 from ..ops.sao import sao_pack
 from ..utils.params import Param, check_params
-from .inter_frame import MAX_MERGE
+from .b_frame import BFrameEncoder
+from .inter_frame import MAX_MERGE, InterFrameEncoder
 from .inter_tree import BTreeEncoder, InterTreeEncoder
 from .intra_frame import IntraFrameEncoder
 from .intra_tree import IntraTreeEncoder, qp32_of
@@ -117,7 +123,8 @@ def resolve_device(device=None) -> torch.device:
 
 class Encoder:
     """x265_encoder_open/encode/close analog for BASELINE configs 1, 2 and 3
-    (RDOQ off or on, every rate-control mode) and Main10 all-intra."""
+    (RDOQ off or on, every rate-control mode), Main10 all-intra, and the
+    JAX package's flat CTB16 defaults (all-intra, lossless, P and B)."""
 
     BATCH_FRAMES = 16
 
@@ -211,12 +218,18 @@ class Encoder:
                 self.pad_w, self.pad_h, deblock=param.deblock,
                 sign_hide=self.pps.sign_data_hiding, sao=param.sao,
                 lossless=param.lossless, device=self.device)
-        tree = dict(deblock=param.deblock, search_range=param.me_range,
-                    subme=param.subme, sign_hide=self.pps.sign_data_hiding,
-                    sao=param.sao, device=self.device, rdoq=rdoq)
-        self.inter_encoder = InterTreeEncoder(self.pad_w, self.pad_h, **tree) \
+        # P and B frames on the CTU32 tree, or on the flat CTB16 frame (JAX
+        # :216-240)
+        kw = dict(deblock=param.deblock, search_range=param.me_range,
+                  subme=param.subme, sign_hide=self.pps.sign_data_hiding,
+                  sao=param.sao, device=self.device)
+        if self.use_tree:
+            kw["rdoq"] = rdoq
+        p_cls, b_cls = (InterTreeEncoder, BTreeEncoder) if self.use_tree \
+            else (InterFrameEncoder, BFrameEncoder)
+        self.inter_encoder = p_cls(self.pad_w, self.pad_h, **kw) \
             if self.inter_enabled else None
-        self.b_encoder = BTreeEncoder(self.pad_w, self.pad_h, **tree) \
+        self.b_encoder = b_cls(self.pad_w, self.pad_h, **kw) \
             if self.bframes else None
         self.rc = RateControl(param)
         self.total_bits = 0
@@ -547,10 +560,9 @@ class Encoder:
         if st == "I":
             self._dpb = {}            # new CVS: POC numbering restarts
             qp = self.rc.frame_qp("I")
-            kw = dict(keep_recon=self.inter_enabled) if self.use_tree else {}
             handle = self.frame_encoder.encode_async(
                 yp, cbp, crp, qp, want_recon=return_recon,
-                qp_offsets=qp_off, **kw)
+                qp_offsets=qp_off, keep_recon=self.inter_enabled)
         elif st == "P":
             qp = self.rc.frame_qp("P")
             # the L0 list, filled cyclically to the active count while
@@ -561,7 +573,10 @@ class Encoder:
             handle = self.inter_encoder.encode_async(
                 yp, cbp, crp, [self._dpb[q] for q in ref_pocs], qp,
                 want_recon=return_recon, qp_offsets=qp_off,
-                ref_pocs=ref_pocs, poc=poc)
+                ref_pocs=ref_pocs, poc=poc) if self.use_tree else \
+                self.inter_encoder.encode_async(
+                    yp, cbp, crp, self._dpb[e["ref0"]], qp,
+                    want_recon=return_recon, qp_offsets=qp_off)
         else:
             qp = self.rc.frame_qp("B" if e["is_ref"] else "b")
             handle = self.b_encoder.encode_async(
@@ -602,11 +617,13 @@ class Encoder:
             nal_type = NAL_IDR_W_RADL
         elif st == "P":
             res = self.inter_encoder.collect(pending["handle"])
-            payload, entry_offs = self._cabac_inter_tree(res, qp, qp_map)
+            payload, entry_offs = (self._cabac_inter_tree if self.use_tree
+                                   else self._cabac_inter)(res, qp, qp_map)
             nal_type = NAL_TRAIL_R
         else:
             res = self.b_encoder.collect(pending["handle"])
-            payload, entry_offs = self._cabac_b_tree(res, qp, qp_map)
+            payload, entry_offs = (self._cabac_b_tree if self.use_tree
+                                   else self._cabac_b)(res, qp, qp_map)
             nal_type = NAL_TRAIL_R if e["is_ref"] else NAL_TRAIL_N
         bw = write_slice_header(
             self.sps, self.pps, st, qp, nal_type, poc=e["poc"],
@@ -732,6 +749,32 @@ class Encoder:
             levels_cr=res.levels_cr, sao_luma=sl, sao_chroma=sc,
             max_merge=MAX_MERGE, sign_hide=self.pps.sign_data_hiding,
             ref0=res.ref0, num_ref0=self.num_ref_p, **self._qp_args(qp_map))
+
+    def _cabac_inter(self, res, qp, qp_map=None):
+        """Slice payload of one flat CTB16 P frame (JAX `_cabac_inter`
+        :1208 through `_native_slice` :1043: CTB 16, the per-CTB16 QP map;
+        a failure raises)."""
+        sl, sc = sao_pack(res.sao)
+        hc, wc = res.kinds.shape
+        return encode_slice_native(
+            "P", 4, hc, wc, qp, kinds=res.kinds, modes=res.modes,
+            merge_idx=res.merge_idx, mvd0=res.mvd, mvp0=res.mvp_idx,
+            levels_y=res.levels_y, levels_cb=res.levels_cb,
+            levels_cr=res.levels_cr, qp16=qp_map, sao_luma=sl, sao_chroma=sc,
+            max_merge=MAX_MERGE, sign_hide=self.pps.sign_data_hiding)
+
+    def _cabac_b(self, res, qp, qp_map=None):
+        """Slice payload of one flat CTB16 B frame (JAX `_cabac_b` :1315;
+        a failure raises)."""
+        sl, sc = sao_pack(res.sao)
+        hc, wc = res.kinds.shape
+        return encode_slice_native(
+            "B", 4, hc, wc, qp, kinds=res.kinds, modes=res.modes,
+            merge_idx=res.merge_idx, inter_dir=res.inter_dir, mvd0=res.mvd0,
+            mvp0=res.mvp0, mvd1=res.mvd1, mvp1=res.mvp1,
+            levels_y=res.levels_y, levels_cb=res.levels_cb,
+            levels_cr=res.levels_cr, qp16=qp_map, sao_luma=sl, sao_chroma=sc,
+            max_merge=MAX_MERGE, sign_hide=self.pps.sign_data_hiding)
 
     def _cabac_b_tree(self, res, qp, qp_map=None):
         """Slice payload of one CTU32-tree B frame (JAX `_cabac_b_tree`

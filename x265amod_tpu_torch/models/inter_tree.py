@@ -56,17 +56,20 @@ import torch
 from ..ops import cuda_lib
 from ..ops.commit import commit_intra
 from ..ops.deblock import deblock_frame_planes
+from ..ops.decide_flat import B_ORDER, PRUNE_A, PRUNE_B, amvp_b
+from ..ops.decide_flat import scale_mv_vec as _scale_mv_vec
 from ..ops.estbits import intra_hdr_bits, tu_bits
 from ..ops.me import (check_window, hpel_plane, int_mv_argmin, mc_bi,
-                      mc_chroma_qpel, mc_luma_qpel, mc_qpel_ref, me_ssd_grid,
+                      mc_luma_qpel, mc_qpel_ref, mc_select, me_ssd_grid,
                       mvd_bits, pick_ref, subpel_refine)
 from ..ops.metrics import frame_metrics
-from ..ops.pack import levels_for_host, levels_from_host
+from ..ops.pack import (levels_for_host, levels_from_host,
+                        start_host_copy)
 from ..ops.rdoq import fma32
 from ..ops.residual import residual_chain
 from ..ops.sao import sao_filter_frame
 from .b_frame import BFrameResult
-from .inter_frame import InterFrameResult
+from .inter_frame import InterFrameResult, sao_of_host
 from .intra_frame import _diag_schedule
 from .intra_tree import ctu_maps, eval_luma, forced_chain, intra_mode_bits
 from .mvpred import ref_list_tables
@@ -76,10 +79,6 @@ from .mvpred import ref_list_tables
 _INTRA_HDR_BITS = float(np.float32(intra_hdr_bits("P")))
 # choice index (skip merge 0, skip merge 1, AMVP, intra) -> kind
 _KIND_OF_CHOICE = (0, 0, 1, 2)
-# merge pruning pairs over the candidates (A1, B1, B0, B2): B1 vs A1,
-# B0 vs B1, B2 vs A1, B2 vs B1
-_PRUNE_B = [1, 2, 3, 3]
-_PRUNE_A = [0, 1, 0, 1]
 
 
 _P = ctypes.c_void_p
@@ -144,12 +143,6 @@ def _bc(flag, n):
     return flag[:, None].expand(-1, n)
 
 
-def _sao_of(host):
-    """The ten SAO parameter arrays of a collected frame, or None."""
-    return tuple(host[f"sao{k}"] for k in range(10)) if "sao0" in host \
-        else None
-
-
 class InterTreeEncoder:
     """Per-resolution P-frame CTU32 quadtree encoder on one device."""
 
@@ -186,8 +179,8 @@ class InterTreeEncoder:
         # index tensors on the device: indexing a CUDA tensor with a Python
         # list copies the list to the card from pageable memory, which
         # stalls the host until the stream reaches the copy
-        self._prune_a = torch.tensor(_PRUNE_A, device=dev)
-        self._prune_b = torch.tensor(_PRUNE_B, device=dev)
+        self._prune_a = torch.tensor(PRUNE_A, device=dev)
+        self._prune_b = torch.tensor(PRUNE_B, device=dev)
         self._skip_bins = torch.tensor([2.0, 3.0], device=dev)
         self._hdr_bits = torch.tensor(_INTRA_HDR_BITS, dtype=torch.float32,
                                       device=dev)
@@ -1027,17 +1020,8 @@ class InterTreeEncoder:
         costs = dev.pop("costs", None)
         dense = [dev.pop(k)[None] for k in ("ly", "lcb", "lcr")]
         dev.update(levels_for_host(dense, 8))
-        handle = dict(event=None, recon_dev=recon_dev, costs=costs,
-                      dense=dense)
-        if self.device.type != "cuda":
-            return dict(handle, host=dev)
-        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                for k, v in dev.items()}
-        for k, v in dev.items():
-            host[k].copy_(v, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return dict(handle, host=host, event=event)
+        return dict(recon_dev=recon_dev, costs=costs, dense=dense,
+                    **start_host_copy(dev, self.device))
 
     def _ref_list(self, ref_dev, ref_pocs, poc):
         """The L0 list as stacked int32 planes (luma, cb, cr) [R, H, W] and
@@ -1116,7 +1100,7 @@ class InterTreeEncoder:
             *levels_from_host(h, 0, handle["dense"]), h["sse"],
             recon_dev=handle["recon_dev"],
             split=h["split"].astype(np.int32),
-            ref0=h["ref"].astype(np.int32), sao=_sao_of(h))
+            ref0=h["ref"].astype(np.int32), sao=sao_of_host(h))
         if "rec_y" in h:
             res.recon_y, res.recon_cb, res.recon_cr = (
                 h["rec_y"], h["rec_cb"], h["rec_cr"])
@@ -1132,19 +1116,6 @@ class InterTreeEncoder:
 # candidate's direction)
 _KIND_OF_CHOICE_B = (0, 0, 1, 1, 1, 2)
 _DIR_OF_CHOICE_B = (0, 0, 1, 2, 3, 0)
-# the AMVP B candidates in spec order (B0, B1, B2) among (A1, B1, B0, B2)
-_B_ORDER = [2, 1, 3]
-
-
-def _scale_mv_vec(mv, dsf):
-    """Spec 8.5.3.2.8 MV scaling (JAX `inter_tree.py:_scale_mv_vec`
-    :1175): ``sign(x) ((|x| + 127) >> 8)`` of x = dsf mv, clipped to 16
-    bits; mv [..., 2] int32 qpel; dsf an int or an int32 tensor that
-    broadcasts against mv (one factor per lane)."""
-    x = mv.to(torch.int32) * (dsf.to(torch.int32)
-                              if isinstance(dsf, torch.Tensor) else int(dsf))
-    mag = (x.abs() + 127) >> 8
-    return torch.clamp(torch.sign(x) * mag, -32768, 32767).to(torch.int32)
 
 
 class BTreeEncoder(InterTreeEncoder):
@@ -1179,7 +1150,7 @@ class BTreeEncoder(InterTreeEncoder):
         self._kind_of_choice_b = torch.tensor(_KIND_OF_CHOICE_B, device=dev)
         self._dir_of_choice_b = torch.tensor(_DIR_OF_CHOICE_B,
                                              dtype=torch.int32, device=dev)
-        self._b_order = torch.tensor(_B_ORDER, device=dev)
+        self._b_order = torch.tensor(B_ORDER, device=dev)
 
     # ---- phase 1 -------------------------------------------------------------
 
@@ -1229,33 +1200,6 @@ class BTreeEncoder(InterTreeEncoder):
 
     # ---- phase 2: decide scan --------------------------------------------------
 
-    def _amvp_b(self, av, dirs, own, other, li: int, dsf: int):
-        """AMVP pair of list ``li`` (JAX `amvp` :1370): A from A1 (its own
-        MV, or its other list's scaled by dsf), B the first of B0, B1, B2
-        holding list li unscaled, else the first available scaled; pruned
-        and zero-filled."""
-        has = ((dirs >> li) & 1) == 1                         # [L, 4]
-        mvp = torch.where(has[..., None], own, _scale_mv_vec(other, dsf))
-        a1v = av[:, 0]
-        order = self._b_order
-        bav, bhas = av[:, order], has[:, order]
-        hasx = bav & bhas
-        ownx, mvpx = own[:, order], mvp[:, order]
-        bp1_v = hasx.any(1)
-        bp1 = torch.where(hasx[:, 0, None], ownx[:, 0], torch.where(
-            hasx[:, 1, None], ownx[:, 1], ownx[:, 2]))
-        bs_v = bav.any(1)
-        bs = torch.where(bav[:, 0, None], mvpx[:, 0], torch.where(
-            bav[:, 1, None], mvpx[:, 1], mvpx[:, 2]))
-        c0 = torch.where(a1v[:, None], mvp[:, 0], torch.where(
-            bp1_v[:, None], bp1, torch.where(bs_v[:, None], bs, 0)))
-        c1raw = torch.where(a1v[:, None],
-                            torch.where(bp1_v[:, None], bp1, 0),
-                            torch.where((bp1_v & bs_v)[:, None], bs, 0))
-        c1_v = torch.where(a1v, bp1_v, bp1_v & bs_v)
-        dup = c1_v & (c1raw == c0).all(-1)
-        return c0, torch.where((c1_v & ~dup)[:, None], c1raw, 0)
-
     def _decide_cu_b(self, av, dirs, mv0s, mv1s, x, row, ngrid, dsf,
                      forced=None):
         """One B CU decision per lane (JAX `decide_cu` :1336) from its
@@ -1282,8 +1226,8 @@ class BTreeEncoder(InterTreeEncoder):
             1, dtype=torch.int32)                                     # [L,2,2]
         mrg_v1 = (mv1s[:, :, None, :] * sel[..., None]).sum(
             1, dtype=torch.int32)
-        a0 = self._amvp_b(av, dirs, mv0s, mv1s, 0, dsf[0])
-        a1 = self._amvp_b(av, dirs, mv1s, mv0s, 1, dsf[1])
+        a0 = amvp_b(av, dirs, mv0s, mv1s, 0, dsf[0], self._b_order)
+        a1 = amvp_b(av, dirs, mv1s, mv0s, 1, dsf[1], self._b_order)
         if forced is not None:
             choice, mvd0, mvp0, mvd1, mvp1 = forced
             mv0me = torch.where((mvp0 == 1)[:, None], a0[1], a0[0]) + mvd0
@@ -1559,24 +1503,9 @@ class BTreeEncoder(InterTreeEncoder):
     # ---- phase 3 ---------------------------------------------------------------
 
     def _final_mc_b(self, refs0, refs1, cell, excess):
-        """`mc_select` (JAX :1610-1624): each list's uni prediction (K7) and
-        the bi-prediction (K9, where both lists are used, its window check
-        appended to ``excess``), per plane."""
-        d = cell["dir"]
-        use0, use1 = (d & 1) == 1, (d & 2) == 2
-        both = (use0 & use1)[:, None, None]
-        u0 = use0[:, None, None]
-        out = []
-        for r0, r1, n, chroma in ((refs0[0], refs1[0], 16, False),
-                                  (refs0[1], refs1[1], 8, True),
-                                  (refs0[2], refs1[2], 8, True)):
-            mc = mc_chroma_qpel if chroma else mc_luma_qpel
-            mm = self.sr // 2 + 2 if chroma else self.sr + 2
-            bi = mc_bi(r0, r1, cell["mv0"], cell["mv1"], n, chroma, mm,
-                       excess)
-            out.append(torch.where(both, bi, torch.where(
-                u0, mc(r0, cell["mv0"], n), mc(r1, cell["mv1"], n))))
-        return tuple(out)
+        """`mc_select` (JAX :1610-1624) at the cells' final motion."""
+        return mc_select(refs0, refs1, cell["dir"], cell["mv0"], cell["mv1"],
+                         self.sr, excess)
 
     # ---- one B frame -------------------------------------------------------------
 
@@ -1690,7 +1619,7 @@ class BTreeEncoder(InterTreeEncoder):
             i32("kinds"), i32("merge"), i32("dir"), i32("mvd0"), i32("mvp0"),
             i32("mvd1"), i32("mvp1"), i32("modes"),
             *levels_from_host(h, 0, handle["dense"]), h["sse"], recon_dev=handle["recon_dev"],
-            split=i32("split"), sao=_sao_of(h))
+            split=i32("split"), sao=sao_of_host(h))
         if "rec_y" in h:
             res.recon_y, res.recon_cb, res.recon_cr = (
                 h["rec_y"], h["rec_cb"], h["rec_cr"])

@@ -24,7 +24,12 @@ One device step codes a batch of F frames (the encoder sends one):
    enabled (:278-290) at CTU 16 luma and 8 chroma (K10, K11); SSE and SSIM
    (:291-296, K22 `frame_metrics`).
 3. The D2H: the levels packed (K15), as the trees pack theirs; lossless
-   levels copy dense (they overflow the pack).
+   levels copy dense (they overflow the pack).  With ``keep_recon`` (an IDR
+   that seeds the P/B frames) the loop-filtered recon stays on the device.
+
+The scan is also the commit scan of the flat P and B frames
+(`models/inter_frame.py`, `models/b_frame.py`): given their kinds, only the
+intra CTUs are coded, on the inter recon and levels already in place.
 
 The recon lives in raster planes: JAX's block layout with a dummy row is a
 TPU device, not a contract.
@@ -42,7 +47,8 @@ from ..ops.deblock import deblock_frame_planes
 from ..ops.estbits import tu_bits
 from ..ops.intra import predict
 from ..ops.metrics import frame_metrics
-from ..ops.pack import levels_for_host, levels_from_host
+from ..ops.pack import (levels_for_host, levels_from_host,
+                        start_host_copy)
 from ..ops.quant import derive_qp_maps
 from ..ops.rdoq import fma32
 from ..ops.residual import residual_chain
@@ -116,6 +122,20 @@ def _bc(flag, n):
     return flag[:, None].expand(-1, n)
 
 
+def flat_maps(cache: dict, qp: int, qp_offsets, hc: int, wc: int, device):
+    """Per-CTU16 QP, chroma QP and lambda [hc, wc] on ``device`` (JAX
+    `derive_qp_maps`, QG == CTB16), keys qp, qc, lam; uniform maps (no
+    offsets) are kept in ``cache`` per QP."""
+    if qp_offsets is None and qp in cache:
+        return cache[qp]
+    qpm, qc, _, lam = derive_qp_maps(qp, qp_offsets, hc, wc)
+    maps = {k: torch.as_tensor(v, device=device)
+            for k, v in dict(qp=qpm, qc=qc, lam=lam).items()}
+    if qp_offsets is None:
+        cache[qp] = maps
+    return maps
+
+
 class IntraFrameEncoder:
     """Per-resolution flat CTB16 wavefront encoder on one device."""
 
@@ -142,29 +162,36 @@ class IntraFrameEncoder:
     def _maps(self, qp: int, qp_offsets=None):
         """Per-CTU16 QP, chroma QP and lambda [hc, wc] on the device (JAX
         `derive_qp_maps`); uniform maps are kept per QP."""
-        if qp_offsets is None and qp in self._maps_cache:
-            return self._maps_cache[qp]
-        qpm, qc, _, lam = derive_qp_maps(qp, qp_offsets, self.hc, self.wc)
-        maps = {k: torch.as_tensor(v, device=self.device)
-                for k, v in dict(qp=qpm, qc=qc, lam=lam).items()}
-        if qp_offsets is None:
-            self._maps_cache[qp] = maps
-        return maps
+        return flat_maps(self._maps_cache, qp, qp_offsets, self.hc, self.wc,
+                         self.device)
 
     # ---- the wavefront scan -------------------------------------------------
 
-    def _scan(self, y, cb, cr, maps):
+    def _scan(self, y, cb, cr, maps, inter=None):
         """The scan over F frames (int32 planes): on the card K23, on the CPU
         its plain version.  Returns the recon planes (before the loop
         filter, int32), the raster levels ly [F, hc, wc, 16, 16], lcb, lcr
-        [F, hc, wc, 8, 8] (int16) and the modes [F, hc, wc] (int32)."""
+        [F, hc, wc, 8, 8] (int16) and the modes [F, hc, wc] (int32).
+        ``inter`` = (kinds [F, hc, wc], recon planes, levels, slice type):
+        the commit scan of flat P/B frames, which codes only the kind-2 CTUs
+        on the given inter recon and levels (updated in place on the card)
+        and leaves mode 1 on every other CTU."""
         if self.device.type == "cpu":
-            return self._scan_plain(y, cb, cr, maps)
-        return self._scan_kernel(y, cb, cr, maps)
+            return self._scan_plain(y, cb, cr, maps, inter)
+        return self._scan_kernel(y, cb, cr, maps, inter)
 
-    def _scan_kernel(self, y, cb, cr, maps):
+    def _scan_kernel(self, y, cb, cr, maps, inter=None):
         f = y.shape[0]
         dev = y.device
+        if inter is not None:
+            kinds, rec, lv, st = inter
+            rec = tuple(t.to(torch.int32).contiguous() for t in rec)
+            lv = tuple(t.to(torch.int16).contiguous() for t in lv)
+            modes = torch.ones((f, self.hc, self.wc), dtype=torch.int32,
+                               device=dev)
+            intra16_scan((y, cb, cr), rec, lv, modes, maps, sbh=self.sbh,
+                         kinds=kinds, st=st)
+            return rec + lv + (modes,)
         rec = tuple(torch.empty_like(t, dtype=torch.int32)
                     for t in (y, cb, cr))
         lv = (torch.empty((f, self.hc, self.wc, 16, 16), dtype=torch.int16,
@@ -224,24 +251,38 @@ class IntraFrameEncoder:
                                 device=pred.device))
         return residual_chain(orig, pred, qp, self.sbh)
 
-    def _scan_plain(self, y, cb, cr, maps):
+    def _scan_plain(self, y, cb, cr, maps, inter=None):
         """The scan as a Python loop over the diagonals (the plain version
-        of K23)."""
+        of K23); with ``inter``, over each diagonal's intra CTUs."""
         f = y.shape[0]
         dev = y.device
         hc, wc = self.hc, self.wc
         oy, ocb, ocr = _blocks(y, 16), _blocks(cb, 8), _blocks(cr, 8)
-        yb = torch.full((f, hc, wc, 16, 16), 128, dtype=torch.int32,
-                        device=dev)
-        cbb = torch.full((f, hc, wc, 8, 8), 128, dtype=torch.int32,
-                         device=dev)
-        crb = torch.full_like(cbb, 128)
-        ly = torch.zeros((f, hc, wc, 16, 16), dtype=torch.int16, device=dev)
-        lcb = torch.zeros((f, hc, wc, 8, 8), dtype=torch.int16, device=dev)
-        lcr = torch.zeros_like(lcb)
+        st = "I"
+        if inter is None:
+            yb = torch.full((f, hc, wc, 16, 16), 128, dtype=torch.int32,
+                            device=dev)
+            cbb = torch.full((f, hc, wc, 8, 8), 128, dtype=torch.int32,
+                             device=dev)
+            crb = torch.full_like(cbb, 128)
+            ly = torch.zeros((f, hc, wc, 16, 16), dtype=torch.int16,
+                             device=dev)
+            lcb = torch.zeros((f, hc, wc, 8, 8), dtype=torch.int16,
+                              device=dev)
+            lcr = torch.zeros_like(lcb)
+        else:
+            kinds, rec, lv, st = inter
+            yb, cbb, crb = (_blocks(t.to(torch.int32), n).clone()
+                            for t, n in zip(rec, (16, 8, 8)))
+            ly, lcb, lcr = (t.to(torch.int16).clone() for t in lv)
         modes = torch.ones((f, hc, wc), dtype=torch.int32, device=dev)
         all35 = torch.arange(35, device=dev)[None]
         for fi, cx, cy in self._diag_lanes(f):
+            if inter is not None:
+                m = kinds[fi, cy, cx] == 2
+                if not bool(m.any()):
+                    continue
+                fi, cx, cy = fi[m], cx[m], cy[m]
             nl = fi.shape[0]
             lane = torch.arange(nl, device=dev)
             qp, qc, lam = (maps[k][cy, cx] for k in ("qp", "qc", "lam"))
@@ -249,7 +290,7 @@ class IntraFrameEncoder:
             pred = predict(*self._refs(yb, fi, cx, cy, 16),
                            all35.expand(nl, 35), 16, 0)
             lv, rec, ssd = self._chain(orig, pred, qp)
-            rbits = tu_bits(lv, 0, qp[:, None], "I")
+            rbits = tu_bits(lv, 0, qp[:, None], st)
             left = torch.where(cx > 0, modes[fi, cy, torch.clamp(cx - 1,
                                                                  min=0)], 1)
             best = torch.argmin(scan_cost(ssd, lam, intra_mode_bits(left),
@@ -271,7 +312,8 @@ class IntraFrameEncoder:
     def _step(self, y, cb, cr, qp: int, want_recon=False, qp_offsets=None):
         """Scan + loop filter + SAO + metrics for y [F, H, W], cb/cr [F, H/2,
         W/2] (uint8) on the device, with the per-CTU16 QP offsets [hc, wc]
-        of AQ when given.  Returns a dict of device tensors."""
+        of AQ when given.  Returns a dict of device tensors and the final
+        recon planes (uint8)."""
         maps = self._maps(qp, qp_offsets)
         y, cb, cr = (t.to(torch.int32) for t in (y, cb, cr))
         rec_y, rec_cb, rec_cr, ly, lcb, lcr, modes = self._scan(y, cb, cr,
@@ -291,30 +333,23 @@ class IntraFrameEncoder:
         sse = frame_metrics((y, cb, cr), (rec_y, rec_cb, rec_cr))
         out = dict(modes=modes.to(torch.uint8), ly=ly, lcb=lcb, lcr=lcr,
                    sse=sse, **sao)
+        rec8 = tuple(t.to(torch.uint8) for t in (rec_y, rec_cb, rec_cr))
         if want_recon:
-            out.update(rec_y=rec_y.to(torch.uint8),
-                       rec_cb=rec_cb.to(torch.uint8),
-                       rec_cr=rec_cr.to(torch.uint8))
-        return out
+            out.update(rec_y=rec8[0], rec_cb=rec8[1], rec_cr=rec8[2])
+        return out, rec8
 
-    def _to_host(self, dev: dict):
+    def _to_host(self, dev: dict, recon_dev=None):
         """Pack each frame's levels (K15; lossless levels stay dense), then
         start the D2H copy of every output (pinned memory, non-blocking on
-        the card).  Returns a handle for `collect_batch`."""
+        the card).  Returns a handle for `collect_batch`, with the device
+        recon ``recon_dev`` when given (the DPB entry of an IDR)."""
         dense = [dev.pop(k) for k in ("ly", "lcb", "lcr")]
         if self.lossless:
             dev.update(ly=dense[0], lcb=dense[1], lcr=dense[2])
         else:
             dev.update(levels_for_host(dense, 16))
-        if self.device.type != "cuda":
-            return dict(host=dev, event=None, dense=dense)
-        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                for k, v in dev.items()}
-        for k, v in dev.items():
-            host[k].copy_(v, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return dict(host=host, event=event, dense=dense)
+        return dict(dense=dense, recon_dev=recon_dev,
+                    **start_host_copy(dev, self.device))
 
     def encode_batch_async(self, ys, cbs, crs, qp: int, want_recon=False,
                            qp_offsets=None):
@@ -322,16 +357,23 @@ class IntraFrameEncoder:
         planes) through one device step; returns a handle."""
         def up(a):
             return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
-        return self._to_host(self._step(up(ys), up(cbs), up(crs), qp,
-                                        want_recon=want_recon,
-                                        qp_offsets=qp_offsets))
+        out, _ = self._step(up(ys), up(cbs), up(crs), qp,
+                            want_recon=want_recon, qp_offsets=qp_offsets)
+        return self._to_host(out)
 
     def encode_async(self, y, cb, cr, qp: int, want_recon=False,
-                     qp_offsets=None):
+                     qp_offsets=None, keep_recon=False):
         """One frame (JAX `encode_async` :314): numpy planes in, a handle
-        out; `collect` waits for it."""
-        return self.encode_batch_async(y[None], cb[None], cr[None], qp,
-                                       want_recon, qp_offsets)
+        out; `collect` waits for it.  ``keep_recon`` leaves the recon planes
+        (y, cb, cr) on the device as handle["recon_dev"], the reference of
+        the P/B frames after an IDR."""
+        def up(a):
+            return torch.as_tensor(np.ascontiguousarray(a[None]),
+                                   device=self.device)
+        out, rec8 = self._step(up(y), up(cb), up(cr), qp,
+                               want_recon=want_recon, qp_offsets=qp_offsets)
+        return self._to_host(out, tuple(t[0] for t in rec8)
+                             if keep_recon else None)
 
     @staticmethod
     def wait(handle) -> None:

@@ -43,7 +43,8 @@ from ..ops.deblock import deblock_frame_planes
 from ..ops.estbits import tu_bits
 from ..ops.intra import predict, satd35
 from ..ops.metrics import frame_metrics
-from ..ops.pack import levels_for_host, levels_from_host
+from ..ops.pack import (levels_for_host, levels_from_host,
+                        start_host_copy)
 from ..ops.quant import chroma_qp_np, derive_qp_maps
 from ..ops.residual import residual_chain
 from ..ops.sao import sao_filter_frame
@@ -536,15 +537,7 @@ class IntraTreeEncoder:
         handle for `collect_batch`."""
         dense = [dev.pop(k) for k in ("ly", "lcb", "lcr")]
         dev.update(levels_for_host(dense, 16))
-        if self.device.type != "cuda":
-            return dict(host=dev, event=None, dense=dense)
-        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                for k, v in dev.items()}
-        for k, v in dev.items():
-            host[k].copy_(v, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return dict(host=host, event=event, dense=dense)
+        return dict(dense=dense, **start_host_copy(dev, self.device))
 
     def _upload(self, a):
         """numpy planes to the device; 10-bit uint16 samples go up as int16

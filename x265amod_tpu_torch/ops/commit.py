@@ -15,7 +15,9 @@ levels are written into raster 16-cells.
 K23 (`csrc/intra16_scan.cu`) is the flat CTB16 all-intra scan (JAX
 `models/intra_frame.py:_encode_frame` :183-236): per CTU16 the 35-mode RD
 decision, the chosen mode's luma and chroma coding and the reconstruction,
-one launch per anti-diagonal of the CTB16 grid, lossy or lossless.  Its
+one launch per anti-diagonal of the CTB16 grid, lossy or lossless; given
+the kinds of a flat P or B frame, the commit scan of its intra CTUs (JAX
+`models/inter_frame.py` :394-458, `models/b_frame.py` :489-548).  Its
 plain version is `models.intra_frame.IntraFrameEncoder._scan_plain`.
 """
 
@@ -103,18 +105,21 @@ class ScanArgs(ctypes.Structure):
         "F", "W", "H", "wc", "hc", "sbh", "lossless")]
         + [(k, _P) for k in (
             "src_y", "src_cb", "src_cr", "rec_y", "rec_cb", "rec_cr", "ly",
-            "lcb", "lcr", "modes", "qp", "qpc", "lam", "bits")])
+            "lcb", "lcr", "modes", "qp", "qpc", "lam", "bits", "kinds")])
 
 
 _bits: dict = {}
 
 
-def intra16_scan(src, rec, levels, modes, maps, *, sbh=True, lossless=False):
+def intra16_scan(src, rec, levels, modes, maps, *, sbh=True, lossless=False,
+                 kinds=None, st="I"):
     """Launch K23 over a batch: src = (y [F, H, W], cb, cr [F, H/2, W/2])
     int32; rec (same shapes, int32), levels = (ly [F, hc, wc, 16, 16], lcb,
     lcr [F, hc, wc, 8, 8]) int16 and modes [F, hc, wc] int32 are written in
     place; maps the per-CTU16 qp, qc and lam [hc, wc] (one frame's, shared
-    by the batch)."""
+    by the batch).  ``kinds`` [F, hc, wc] (the commit of a flat P or B
+    frame, slice type ``st``): only the kind-2 CTUs are coded; rec, levels
+    and modes must already hold every other CTU's (modes 1 there)."""
     y = src[0]
     f, h, w = y.shape
     dev = y.device
@@ -130,6 +135,9 @@ def intra16_scan(src, rec, levels, modes, maps, *, sbh=True, lossless=False):
         (f, hc, wc)]
     got = [tuple(t.shape) for t in tuple(src) + tuple(rec) + tuple(levels)
            + (modes,)]
+    if kinds is not None:
+        got.append(tuple(kinds.shape))
+        want.append((f, hc, wc))
     if h % 16 or w % 16 or got != want or any(
             tuple(maps[k].shape) != (hc, wc) for k in ("qp", "qc", "lam")):
         raise ValueError("intra16_scan: bad shapes")
@@ -148,9 +156,13 @@ def intra16_scan(src, rec, levels, modes, maps, *, sbh=True, lossless=False):
         raise ValueError("intra16_scan: int32 recon and modes, int16 levels")
     a.qp, a.qpc = p(maps["qp"], torch.int32), p(maps["qc"], torch.int32)
     a.lam = p(maps["lam"], torch.float32)
-    if dev not in _bits:            # one upload per device
-        _bits[dev] = torch.as_tensor(bit_consts_table("I", 0), device=dev)
-    a.bits = p(_bits[dev])
+    if (st, dev) not in _bits:      # one upload per slice type and device
+        _bits[st, dev] = torch.as_tensor(bit_consts_table(st, 0), device=dev)
+    a.bits = p(_bits[st, dev])
+    if kinds is not None:
+        if lossless:
+            raise ValueError("intra16_scan: a P/B commit is lossy")
+        a.kinds = p(kinds, torch.int32)
     cuda_lib.require_cuda(*keep)
     fn = cuda_lib.lib("intra16_scan").intra16_scan
     fn.argtypes = [ctypes.POINTER(ScanArgs), ctypes.POINTER(ctypes.c_int),

@@ -12,7 +12,9 @@ a call; K20 `commit_intra` and K23 `intra16_scan` enqueue one a diagonal in
 one call);
 `LAUNCHES["intra_pred_lowres"]` counts K1's launches by the lookahead apart
 from the trees', `LAUNCHES["residual_chain_rdoq"]` K2's launches with its
-RDOQ stage apart from those without.
+RDOQ stage apart from those without, and `LAUNCHES["decide_flat_b"]` the B
+scan K25 of `csrc/decide_flat.cu` apart from its P scan K24
+(`LAUNCHES["decide_flat"]`).
 """
 
 from __future__ import annotations
@@ -32,12 +34,12 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 # name -> extra nvcc flags.  tu_bits, subpel, sao_analyse, decide_p,
-# decide_b, pick_ref, mv_argmin, intra16_scan and the RDOQ stage of
-# residual_chain (also in commit_intra, through intra_chain.cuh) form f32
-# costs in a fixed order that decides RD argmins, so the compiler must not
-# contract them into FMAs (each writes the FMAs XLA's order has itself);
-# lowres_aq and cutree_prop repeat the JAX f32 operations one by one,
-# resample writes the FMA chain of XLA's dot itself, and frame_metrics
+# decide_b, pick_ref, mv_argmin, intra16_scan, decide_flat and the RDOQ
+# stage of residual_chain (also in commit_intra, through intra_chain.cuh)
+# form f32 costs in a fixed order that decides RD argmins, so the compiler
+# must not contract them into FMAs (each writes the FMAs XLA's order has
+# itself); lowres_aq and cutree_prop repeat the JAX f32 operations one by
+# one, resample writes the FMA chain of XLA's dot itself, and frame_metrics
 # repeats the plain SSIM's f32 operations.  Every file that includes a
 # shared header (csrc/*.cuh) builds with the header's flags.
 KERNELS = {
@@ -65,11 +67,13 @@ KERNELS = {
     "frame_metrics": ["--fmad=false"],
     "mv_argmin": ["--fmad=false"],
     "intra16_scan": ["--fmad=false"],
+    "decide_flat": ["--fmad=false"],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES["intra_pred_lowres"] = 0
 LAUNCHES["residual_chain_rdoq"] = 0
+LAUNCHES["decide_flat_b"] = 0
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -7,8 +7,10 @@ edges then horizontal), each beside its plain version.
 Counterparts in the JAX package's `ops/deblock.py`: `luma_params`,
 `intra_tree_bs_maps`, `_bs_pair`, `bs_maps`, `inter_tree_bs_maps`,
 `effective_qp_map`, `effective_qp16_tree`, `edge_qp_maps`,
-`deblock_luma_bs` and `deblock_chroma_bs`, and the all-bS-2 maps of the
-flat frame (`models/intra_frame.py` :252-277).  Every function here takes a
+`deblock_luma_bs` and `deblock_chroma_bs`, and the maps of the flat frames
+(all bS 2 on the intra frame, `models/intra_frame.py` :252-277; `bs_maps`
+on the P and B frames, `models/inter_frame.py` :472-501, `models/b_frame.py`
+:562-588).  Every function here takes a
 leading frame dimension F.
 """
 
@@ -166,12 +168,23 @@ def deblock_maps_plain(levels, slice_qp: int, qp_sig, split=None,
       cells); kinds [F, h16, w16] (2 = intra), dir None for L0 only, mv1
       and ref0 None for zeros.  The motion of intra cells is never read
       (their edges are bS 2 whatever it is);
-    - ``split`` None: the flat CTB16 frame, bS 2 on every edge and
-      `effective_qp_map` of qp_sig [h16, w16]."""
+    - ``split`` None: the flat CTB16 frame, `effective_qp_map` of qp_sig
+      [h16, w16]; bS 2 on every edge of the intra frame (``inter`` None),
+      else `bs_maps` on every 16-edge with each cell's luma cbf (the flat
+      P/B frame)."""
     nz_y, coded = coded_cells(levels)
     f, h16, w16 = coded.shape
     dev = coded.device
-    if split is None:
+    if split is None and inter is not None:
+        kinds, dir_, mv0, mv1, ref0 = inter
+        zeros = torch.zeros_like(coded, dtype=torch.int32)
+        mv0 = mv0.to(torch.int32)
+        bs_v, bs_h = bs_maps(
+            kinds == 2, nz_y, zeros + 1 if dir_ is None else dir_, mv0,
+            torch.zeros_like(mv0) if mv1 is None else mv1,
+            zeros if ref0 is None else ref0)
+        eff = effective_qp_map(qp_sig, coded, slice_qp)
+    elif split is None:
         bs_v = torch.full((f, h16, w16 - 1), 2, dtype=torch.int32,
                           device=dev)
         bs_h = torch.full((f, h16 - 1, w16), 2, dtype=torch.int32,
@@ -224,7 +237,8 @@ def deblock_maps(levels, slice_qp: int, qp_sig, split=None, inter=None):
         t = t.to(dt).contiguous()
         keep.append(t)
         return cuda_lib.ptr(t)
-    mode = 2 if split is None else (0 if inter is None else 1)
+    mode = (2 if inter is None else 3) if split is None else \
+        (0 if inter is None else 1)
     grid = (h16, w16) if split is None else (h16 // 2, w16 // 2)
     bad = [t.shape for t, shp in zip(levels, ((16, 16), (8, 8), (8, 8)))
            if tuple(t.shape) != (f, h16, w16) + shp]

@@ -511,6 +511,28 @@ def mc_bi(ref0, ref1, mv0, mv1, n: int, chroma: bool, max_mv: int,
     return out
 
 
+def mc_select(refs0, refs1, dir_, mv0, mv1, sr: int, excess):
+    """The final prediction of a B frame's blocks, per plane (y, cb, cr of
+    the two references' planes): the bi-prediction (K9, its window check
+    appended to ``excess``, MVs within +-(sr + 2) luma and sr / 2 + 2
+    chroma) where ``dir_`` uses both lists, else the used list's uni
+    prediction (K7), list 1's where it uses none (JAX `mc_select`,
+    `models/inter_tree.py:1610-1624` and `models/b_frame.py:407-418`)."""
+    use0, use1 = (dir_ & 1) == 1, (dir_ & 2) == 2
+    both = (use0 & use1)[:, None, None]
+    u0 = use0[:, None, None]
+    out = []
+    for r0, r1, n, chroma in ((refs0[0], refs1[0], 16, False),
+                              (refs0[1], refs1[1], 8, True),
+                              (refs0[2], refs1[2], 8, True)):
+        mc = mc_chroma_qpel if chroma else mc_luma_qpel
+        mm = sr // 2 + 2 if chroma else sr + 2
+        bi = mc_bi(r0, r1, mv0, mv1, n, chroma, mm, excess)
+        out.append(torch.where(both, bi, torch.where(
+            u0, mc(r0, mv0, n), mc(r1, mv1, n))))
+    return tuple(out)
+
+
 def hpel_plane(ref):
     """See hpel_plane_plain; a CUDA tensor launches `csrc/hpel.cu`."""
     if ref.device.type == "cpu":

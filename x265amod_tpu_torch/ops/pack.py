@@ -127,6 +127,22 @@ def levels_for_host(levels, frac: int) -> dict:
     return dict(bm=bm, vals=vals, nnz=nnz, fits=fits)
 
 
+def start_host_copy(dev: dict, device) -> dict:
+    """Start the D2H copy of every tensor of ``dev`` into pinned host
+    memory, non-blocking on the card, and record the event `collect` waits
+    on: {"host": copies, "event": event}; on the CPU the tensors are the
+    host's already (event None)."""
+    if device.type != "cuda":
+        return dict(host=dev, event=None)
+    host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            for k, v in dev.items()}
+    for k, v in dev.items():
+        host[k].copy_(v, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return dict(host=host, event=event)
+
+
 def levels_from_host(host: dict, i: int, dense) -> list[np.ndarray]:
     """Frame i's int32 levels, shaped as the dense tensors [B, ...]: from its
     packed copy when it fits, else from its dense device levels (copied

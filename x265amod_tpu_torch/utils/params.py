@@ -281,8 +281,9 @@ def check_params(p: Param) -> None:
     lookahead depth, --hrd without VBV) and, loudly, every setting the port
     does not run yet.  The port runs: all-intra, low-delay P with 1 to 4
     references, or a B pyramid with one reference per list and b-adapt 0,
-    on the CTU32 tree; all-intra on the flat CTB16 frame (the JAX default
-    `ctu_size` 16), lossy or `--lossless`; AQ and CU-tree on or off (without B frames through the depth-1
+    on the CTU32 tree; the same GOPs with one reference on the flat CTB16
+    frame (the JAX default `ctu_size` 16), and all-intra `--lossless`
+    there; AQ and CU-tree on or off (without B frames through the depth-1
     lookahead, as the reference does); RDOQ levels 0-2; SAO on or off; CQP,
     CRF, ABR, VBV (with its HRD signalling under --hrd) and 2-pass rate
     control; and Main10 all-intra at CQP (the reference's gate: CTU32,
@@ -320,11 +321,11 @@ def check_params(p: Param) -> None:
     if p.ctu_size not in (16, 32):
         unwired.append(f"ctu {p.ctu_size} (the port codes the CTU32 "
                        "quadtree and the flat CTB16 frame)")
-    elif p.ctu_size == 16 and p.keyint != 1:
-        # the flat CTB16 P and B pipelines (JAX models/inter_frame.py,
-        # models/b_frame.py) are not ported yet
-        unwired.append("ctu 16 with keyint != 1 (the flat CTB16 path runs "
-                       "all-intra; pass --ctu 32 for P and B frames)")
+    if p.lossless and p.keyint != 1:
+        # the JAX gate admits it and the JAX Encoder then asserts
+        # (models/encoder.py:159-161): lossless is all-intra
+        unwired.append("--lossless with keyint != 1 (lossless codes "
+                       "all-intra; pass --keyint 1)")
     if p.lossless and p.ctu_size != 16:
         # the JAX gate (utils/params.py:295-296): lossless is CTB16
         unwired.append("ctu 32 with --lossless (lossless path is CTB16; "
