@@ -29,9 +29,12 @@ Phases (any failure exits non-zero):
      K21 (the loop filter's bS/QP maps) and K22 (SSE/SSIM) at a config-1
      batch, a config-2 P frame, a config-3 B frame and a 1080p CTB16 frame;
      the ME argmin on K5's grids of a config-2 P frame and a 1080p B frame
-     (and crafted near-ties); K23 (the flat CTB16 scan, one launch a
-     diagonal) at one 1920x1088 frame, lossy and lossless, and a 16-frame
-     batch of 640x368;
+     (and crafted near-ties); K23 (the flat CTB16 scan, two launches a
+     call: its ticket list, held to `scan_tickets`, and the scan) at one
+     1920x1088 frame, lossy and lossless, a 16-frame batch of 640x368,
+     and as the commit of a 1920x1088 P frame on adversarial kinds maps
+     (all intra, none, one column, one diagonal chain, a checkerboard, a
+     336-CTU patch);
      K15 (the level pack) at a config-1 batch, a config-2 P frame and a
      config-3 B frame, with an overflow and int16 extremes, and the packed
      D2H against the dense one; K16 (the resampler) at 1080p -> 720p and ->
@@ -119,7 +122,7 @@ Phases (any failure exits non-zero):
   19. CTB16 all-intra at 1920x1080 (the JAX package's defaults: `Param()`
      with keyint 1, CQP 32, deblocking on, SAO off) through
      `encode_pipelined`, 20 frames with the first 4 as warm-up: fps,
-     PSNR-Y, kbps, K23's launches (a diagonal each);
+     PSNR-Y, kbps, K23's launches (two a frame);
   20. lossless at 1920x1080, 5 frames with the first as warm-up: the recon
      must equal the source; fps, kbps;
   21. card against CPU, byte for byte: CTB16 with AQ 2 and SAO, and
@@ -127,8 +130,8 @@ Phases (any failure exits non-zero):
   22. the flat CTB16 P frames: `Param(width=1920, height=1080)` (the JAX
      defaults: an IDR and P frames, CQP 32) through `encode_pipelined`, 12
      frames of the clip of seed 22 with the first 2 as warm-up: fps,
-     PSNR-Y, kbps, launches per frame (K24 once a P frame, K23 a diagonal
-     a frame), and no launch of the CTU32 trees' scans;
+     PSNR-Y, kbps, launches per frame (K24 once a P frame, K23 twice a
+     frame), and no launch of the CTU32 trees' scans;
   23. the flat B pyramid: `--preset medium` without `--ctu` at 1920x1080
      (bframes 4, SAO, AQ 2, CU-tree, lookahead 20, CQP 32), 11 frames of
      the clip of seed 23, all timed: fps, PSNR-Y, kbps, launches (K25 once
@@ -247,6 +250,18 @@ def time_ms(fn, iters):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def butterfly_mults(n):
+    """Multiplies of one n-point partial butterfly (x265's
+    partialButterfly): the odd half's (n/2)^2 and the even half's."""
+    return 1 if n == 1 else (n // 2) ** 2 + butterfly_mults(n // 2)
+
+
+def chain_ops(n):
+    """int32 operations of one n x n residual chain as K2, K20 and K23 run
+    it: four passes of n partial butterflies, a multiply and an add each."""
+    return 4 * n * 2 * butterfly_mults(n)
 
 
 def bound_ms(nbytes, ops):
@@ -394,7 +409,7 @@ def phase_kernels(f, h16, w16, iters, dev="cuda", bd=8):
             orig, pred, qp, False, want_recon=want_recon, bit_depth=bd), 2)
         k2["bytes"] += nbytes(orig, pred, qp) + b * k * n * n * 2 \
             + (b * k * n * n * 4 if want_recon else 0) + b * k * 4
-        k2["ops"] += b * k * 8 * n ** 3
+        k2["ops"] += b * k * chain_ops(n)
         qk = qp[:, None].expand(b, k)
         dense = torch.as_tensor(
             (rng.integers(-300, 301, (b, n, n)) *
@@ -602,7 +617,7 @@ def phase_kernels_rdoq(iters, dev="cuda"):
                              2)
             nbytes_ += nbytes(orig, pred, qp, lam) + b * n * n * (2 + 4) \
                 + b * 4
-            int_ops += b * 8 * n ** 3
+            int_ops += b * chain_ops(n)
             # per coefficient: two costs (sub, mul, rate add, mul, fma) and
             # its share of the group pass (3 products, the rate, two lane
             # sums, the zero chain's fma)
@@ -820,15 +835,141 @@ def flat_levels(rng, f, h16, w16, dev):
 def scan_bytes_ops(f, h, w, lossless):
     """(bytes, int32 operations) of the flat CTB16 scan of F frames: the
     source planes read, the recon planes, levels and modes written, the
-    maps read; 35 luma modes a CTU16 through the transforms' 8 n^3
-    operations (four n-point matrix products of multiply-adds: forward and
-    inverse) and the two 8x8 chroma blocks at the chosen mode (none under
-    lossless)."""
+    maps read; 35 luma modes a CTU16 through the residual chain's partial
+    butterflies (`chain_ops`) and the two 8x8 chroma blocks at the chosen
+    mode (none under lossless)."""
     npix = f * h * w * 1.5
     nctu = f * (h // 16) * (w // 16)
     nbytes_ = npix * (4 + 4 + 2) + nctu * 4 + (h // 16) * (w // 16) * 12
-    ops = 0 if lossless else nctu * (35 * 8 * 16 ** 3 + 2 * 8 * 8 ** 3)
+    ops = 0 if lossless else nctu * (35 * chain_ops(16) + 2 * chain_ops(8))
     return nbytes_, ops
+
+
+def scan_chain(kinds, hc, wc):
+    """The longest chain of coded CTUs in which each reads the one before
+    it (left, top-left, top or top-right neighbour): K23's critical path
+    in CTUs (all coded: the anti-diagonals d = cx + 2 cy)."""
+    coded = np.ones((hc, wc), bool) if kinds is None else kinds == 2
+    depth = np.zeros((hc, wc), np.int64)
+    for d in range(wc + 2 * (hc - 1)):
+        for cy in range(max(0, -(-(d - wc + 1) // 2)), min(hc - 1, d // 2)
+                        + 1):
+            cx = d - 2 * cy
+            if not coded[cy, cx]:
+                continue
+            best = 0
+            for ny, nx in ((cy, cx - 1), (cy - 1, cx - 1), (cy - 1, cx),
+                           (cy - 1, cx + 1)):
+                if 0 <= ny and 0 <= nx < wc:
+                    best = max(best, depth[ny, nx])
+            depth[cy, cx] = best + 1
+    return int(depth.max()) if depth.size else 0
+
+
+def k23_launches(fn):
+    """The launches one K23 call enqueues."""
+    from x265amod_tpu_torch.ops import cuda_lib
+    before = cuda_lib.LAUNCHES["intra16_scan"]
+    fn()
+    return cuda_lib.LAUNCHES["intra16_scan"] - before
+
+
+def check_tickets(enc, y, cb, cr, maps, kinds, lossless, label):
+    """K23's first launch (its ticket list) against `scan_tickets`, and
+    two launches a call."""
+    import torch
+    from x265amod_tpu_torch.ops import commit
+    f = y.shape[0]
+    hc, wc = enc.hc, enc.wc
+    dev = y.device
+    rec = tuple(torch.zeros_like(t) for t in (y, cb, cr))
+    lv = (torch.zeros((f, hc, wc, 16, 16), dtype=torch.int16, device=dev),
+          torch.zeros((f, hc, wc, 8, 8), dtype=torch.int16, device=dev),
+          torch.zeros((f, hc, wc, 8, 8), dtype=torch.int16, device=dev))
+    modes = torch.ones((f, hc, wc), dtype=torch.int32, device=dev)
+    n = k23_launches(lambda: commit.intra16_scan(
+        (y, cb, cr), rec, lv, modes, maps, sbh=enc.sbh, lossless=lossless,
+        kinds=kinds, st="P"))
+    sched = commit.intra16_scan((y, cb, cr), rec, lv, modes, maps,
+                                sbh=enc.sbh, lossless=lossless, kinds=kinds,
+                                st="P").cpu().numpy()
+    want = commit.scan_tickets(None if kinds is None else
+                               kinds.cpu().numpy(), f, wc, hc)
+    if n != 2 or sched[0] != len(want) or \
+            sched[2:2 + len(want)].tolist() != want:
+        raise AssertionError(f"intra16_scan {label}: {n} launches, ticket "
+                             f"list of {sched[0]} != scan_tickets' "
+                             f"{len(want)}")
+
+
+COMMIT_KINDS = ("all", "none", "column", "diagonal", "checker", "patch")
+
+
+def commit_kinds(name, rng, hc, wc):
+    """A flat P frame's kinds map [1, hc, wc] (2 intra, 0 skip, 1 inter):
+    all intra, no intra, one intra column, one chain of intra CTUs each
+    the top-right of the next, a checkerboard, or the 24 x 14 patch of
+    phase 2's flat P frame (336 of 8160 CTUs at 1920x1088)."""
+    k = rng.integers(0, 2, (1, hc, wc))
+    yy, xx = np.mgrid[0:hc, 0:wc]
+    if name == "all":
+        k[:] = 2
+    elif name == "column":
+        k[0, :, wc // 3] = 2
+    elif name == "diagonal":
+        k[0, (xx + yy) == wc // 2] = 2
+    elif name == "checker":
+        k[0, (xx + yy) % 2 == 0] = 2
+    elif name == "patch":
+        k[0, 27:41, 48:72] = 2
+    return k.astype(np.int32)
+
+
+def k23_commit_kinds(kz, iters, dev):
+    """K23 as the commit of a 1920x1088 P frame (the bench clip of seed 22,
+    QP 32, random inter recon and levels in place) on `COMMIT_KINDS`,
+    against the plain scan on the card, with its ticket list; time, bound
+    and critical chain per map into kz."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import _pad_to_ctu
+    from x265amod_tpu_torch.models.intra_frame import IntraFrameEncoder
+    fr = synth_frames(1920, 1080, 1, seed=22)[0]
+    y, cb, cr = (torch.as_tensor(_pad_to_ctu(x, 16 if k == 0 else 8),
+                                 device=dev)[None].to(torch.int32)
+                 for k, x in enumerate(fr))
+    enc = IntraFrameEncoder(1920, 1088, device=dev)
+    hc, wc = enc.hc, enc.wc
+    rng = np.random.default_rng(24)
+    rec = tuple(torch.clamp(t + torch.as_tensor(rng.integers(
+        -9, 10, t.shape).astype(np.int32), device=dev), 0, 255)
+        for t in (y, cb, cr))
+    lv = tuple(torch.as_tensor(rng.integers(-3, 4, sh).astype(np.int16),
+                               device=dev)
+               for sh in ((1, hc, wc, 16, 16), (1, hc, wc, 8, 8),
+                          (1, hc, wc, 8, 8)))
+    maps = enc._maps(32)
+    for name in COMMIT_KINDS:
+        kinds = torch.as_tensor(commit_kinds(name, rng, hc, wc), device=dev)
+
+        def commit(fn):
+            return fn(y, cb, cr, maps, (kinds, tuple(t.clone() for t in rec),
+                                        tuple(t.clone() for t in lv), "P"))
+        got = commit(enc._scan_kernel)
+        want = commit(enc._scan_plain)
+        for i, (g, w_) in enumerate(zip(got, want)):
+            kz["err"] = max(kz["err"], check_exact(
+                f"intra16_scan commit {name} out{i}", g, w_))
+        check_tickets(enc, y, cb, cr, maps, kinds, False, f"commit {name}")
+        kz[f"ms_commit_{name}"] = time_ms(lambda: commit(enc._scan_kernel),
+                                          iters)
+        kz[f"plain_ms_commit_{name}"] = time_once_ms(
+            lambda: commit(enc._scan_plain))
+        kz[f"bound_ms_commit_{name}"], kz[f"bound_by_commit_{name}"] = \
+            bound_ms(*commit16_bytes_ops(kinds))
+        kz[f"intra_cells_commit_{name}"] = int((kinds == 2).sum())
+        kz[f"chain_commit_{name}"] = scan_chain(kinds[0].cpu().numpy(), hc,
+                                                wc)
+        del got, want
 
 
 def phase_kernels_flat(iters, dev="cuda"):
@@ -999,13 +1140,18 @@ def phase_kernels_flat(iters, dev="cuda"):
             lambda: enc._scan_plain(y, cb, cr, maps))
         kz[f"bound_ms{key}"], kz[f"bound_by{key}"] = bound_ms(
             *scan_bytes_ops(f, y.shape[1], y.shape[2], lossless))
-        kz[f"diagonals{key}"] = len(enc.diags)
-        kz[f"ms_per_launch{key}"] = kz[f"ms{key}"] / len(enc.diags)
+        kz[f"chain{key}"] = scan_chain(None, enc.hc, enc.wc)
+        kz[f"launches_per_call{key}"] = k23_launches(
+            lambda: enc._scan_kernel(y, cb, cr, maps))
+        check_tickets(enc, y, cb, cr, maps, None, lossless, f"{key or '1080p'}")
         del y, cb, cr, got, want
+    k23_commit_kinds(kz, iters, dev)
     kz.update(library_ms=None, shapes_note=(
         "keys without suffix: one 1920x1088 frame at QP 32; _lossless the "
         "same frame under transquant bypass; _batch16_640x368 16 frames; "
-        "launches = diagonals"),
+        "_commit_<map>: the commit of a 1920x1088 P frame on adversarial "
+        "kinds maps; two launches a call (the ticket list, the scan); "
+        "chain: the longest chain of dependent CTUs"),
         library_note="none: no single call codes a wavefront")
     rows.append(("intra16_scan", "x265amod_tpu_torch/csrc/intra16_scan.cu",
                  "x265amod_tpu/models/intra_frame.py:121 _encode_frame "
@@ -2260,9 +2406,9 @@ def commit_bytes_ops(split=None, kinds=None, f=1, h=1088, w=1920):
     """(bytes, int32 operations) the forced intra commit must spend: the
     source read and the recon and levels written of every coded cell (the
     intra tree: every sample; the P/B commit: its intra cells, and the
-    kinds read), the references of each block read, and the transforms' 8
-    n^3 operations a block (four n-point matrix products of multiply-adds)
-    of each luma block and its two chroma blocks."""
+    kinds read), the references of each block read, and the residual
+    chain's partial butterflies (`chain_ops`) of each luma block and its
+    two chroma blocks."""
     if split is not None:
         n32 = int((split == 0).sum())
         n16 = 4 * int((split != 0).sum())
@@ -2273,8 +2419,8 @@ def commit_bytes_ops(split=None, kinds=None, f=1, h=1088, w=1920):
         n16 = int((kinds == 2).sum())
         nbytes_ = kinds.numel() * 4 + n16 * 384 * (4 + 4 + 2 + 4)
     refs = n16 * (65 + 2 * 33) + n32 * (129 + 2 * 65)
-    ops = n16 * (8 * 16 ** 3 + 2 * 8 * 8 ** 3) \
-        + n32 * (8 * 32 ** 3 + 2 * 8 * 16 ** 3)
+    ops = n16 * (chain_ops(16) + 2 * chain_ops(8)) \
+        + n32 * (chain_ops(32) + 2 * chain_ops(16))
     return nbytes_ + refs * 4, ops
 
 
@@ -2666,8 +2812,9 @@ def config_ctb16(w=1920, h=1080, **kw):
 def phase_ctb16(frames, warm, lossless=False):
     """CTB16 all-intra (or lossless) through `Encoder(device="cuda")` and
     `encode_pipelined` (the per-frame path): the first ``warm`` frames as
-    warm-up, the rest timed.  fps, PSNR-Y, kbps, K23's launches per frame;
-    lossless: the recon must equal the source."""
+    warm-up, the rest timed.  fps, PSNR-Y, kbps, K23's launches (two a
+    frame: its ticket list and its scan); lossless: the recon must equal
+    the source."""
     import torch
     from x265amod_tpu_torch.models.encoder import Encoder
     from x265amod_tpu_torch.ops import cuda_lib
@@ -2704,11 +2851,10 @@ def phase_ctb16(frames, warm, lossless=False):
                                       "pack_levels") if lossless else ())
                   if launches[k] > 0]
     diags = len(enc.frame_encoder.diags)
-    if missing or unexpected or launches["intra16_scan"] != n * diags:
+    if missing or unexpected or launches["intra16_scan"] != 2 * n:
         raise AssertionError(f"{label}: did not launch {missing}, launched "
                              f"{unexpected}, K23 {launches['intra16_scan']}"
-                             f" launches for {n} frames of {diags} "
-                             "diagonals")
+                             f" launches for {n} frames (two a frame)")
     return dict(frames=n, seconds=dt, fps=n / dt, psnr_y=psnr, kbps=kbps,
                 ssim_y=float(np.mean([x.ssim_y for x in timed])),
                 qp=timed[0].qp, diagonals=diags,
@@ -2777,12 +2923,12 @@ def commit16_bytes_ops(kinds, h=1088, w=1920):
     """(bytes, int32 operations) of K23 as the commit of a flat P/B frame:
     the kinds read; per intra CTU16 the source read, the recon and levels
     written and the references read, and 35 luma modes through the
-    transforms' 8 n^3 operations plus the two 8x8 chroma blocks at the
-    chosen mode."""
+    residual chain's partial butterflies (`chain_ops`) plus the two 8x8
+    chroma blocks at the chosen mode."""
     n_intra = int((kinds == 2).sum())
     nbytes_ = kinds.numel() * 4 + n_intra * (384 * (4 + 4 + 2) + 4
                                              + (65 + 2 * 33) * 4)
-    ops = n_intra * (35 * 8 * 16 ** 3 + 2 * 8 * 8 ** 3)
+    ops = n_intra * (35 * chain_ops(16) + 2 * chain_ops(8))
     return nbytes_, ops
 
 
@@ -2938,8 +3084,9 @@ def phase_flat_inter(frames, warm, bidir):
     `encode_pipelined`: the first ``warm`` frames as warm-up (the IDR and
     a P frame), the rest timed; fps, PSNR-Y, kbps, the launches per frame;
     every flat kernel of the path must launch (K24 once a P frame, K25
-    once a B frame, K23 a diagonal per frame) and no kernel of the CTU32
-    trees' scans."""
+    once a B frame, K23 twice a frame: its ticket list and its scan, for
+    the IDR's all-intra scan and every P/B frame's commit) and no kernel
+    of the CTU32 trees' scans."""
     import torch
     from x265amod_tpu_torch.models.encoder import Encoder
     from x265amod_tpu_torch.ops import cuda_lib
@@ -2976,11 +3123,12 @@ def phase_flat_inter(frames, warm, bidir):
     unexpected = [k for k in tree if launches[k] > 0]
     if (missing or unexpected or launches["decide_flat"] != n_p
             or launches["decide_flat_b"] != n_b or n_p < 1
-            or (bidir and n_b < 1)):
+            or (bidir and n_b < 1) or launches["intra16_scan"] != 2 * n):
         raise AssertionError(
             f"{label}: did not launch {missing}, launched {unexpected}; "
             f"K24 {launches['decide_flat']} for {n_p} P frames, K25 "
-            f"{launches['decide_flat_b']} for {n_b} B frames ({types})")
+            f"{launches['decide_flat_b']} for {n_b} B frames ({types}), "
+            f"K23 {launches['intra16_scan']} for {n} frames")
     return dict(frames=n, seconds=dt, fps=n / dt, psnr_y=psnr, kbps=kbps,
                 ssim_y=float(np.mean([x.ssim_y for x in timed])),
                 slice_types="".join(types),
@@ -3332,7 +3480,8 @@ def main():
                 "sr 16)"
         extra = {k: v for k, v in d.items() if k.startswith(
             ("ms_", "plain_ms_", "bound_ms_", "bound_by_", "diagonals",
-             "intra_cells_", "dsf", "cu32_share"))
+             "intra_cells_", "dsf", "cu32_share", "chain",
+             "launches_per_call"))
             or k.startswith(("blocks", "ms_per_launch"))
             or k in ("ties", "level_bound_reached", "lanes", "maps_bytes",
                      "ties_checked", "choice_histogram")}

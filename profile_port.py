@@ -7,12 +7,13 @@ the ABR ladder ("5"), config 2 under VBV with HRD ("6"), Main10 all-intra
 ("7"), config 3 with RDOQ ("8"), config 2 at x265's default --ref 3
 ("9"), the flat CTB16 all-intra path at 1920x1080, lossy and lossless
 ("10"), the flat CTB16 P frames of the JAX defaults ("11") and the flat B
-pyramid of preset medium without --ctu ("12") at 1920x1080.
+pyramid of preset medium without --ctu ("12") at 1920x1080; K23, K2 and
+K20 alone ("13"); the end-to-end fps of the flat paths ("14").
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 profile_port.py [--configs 1,2,...,12] [--batches 2]
-        [--p-frames 4]
+    python3 profile_port.py [--configs 1,2,...,14] [--batches 2]
+        [--p-frames 4] [--iters 20] [--root DIR]
 
 Prints JSON lines:
   - "stages": host wall time of each stage of a config 1 16-frame batch,
@@ -81,23 +82,44 @@ Prints JSON lines:
     (chip_smoke phase 23: preset medium, 11 frames, I, P and B frames
     together; the B trials in "phase1_all", K25 in "decide_scan", SAO and
     the lookahead apart, the IDR's device step in "idr_step");
+  - "kernel_times" ("13"): K23, K2 and K20 alone at the main path's shapes,
+    CUDA events over --iters calls after 2 warm-up: K23 on one 1920x1088
+    CTB16 frame at QP 32 (the bench clip of seed 19), lossless, a 16-frame
+    640x368 batch, and as the commit of a 1920x1088 P frame whose intra
+    CTUs are a 24 x 14 patch (336 of 8160); K2 at a config-1 batch's four
+    calls (16 frames at 640x384), the flat intra trial (35 modes of 8160
+    CTU16s) and a Main10 batch's four calls (16 frames at 1920x1088); K20
+    as the commit of a config-1 and a Main10 batch (chip_smoke phase 2's).  With
+    --root DIR the port package is imported from DIR (an unpacked earlier
+    tree), so that two designs are timed by one script in one call;
+  - "e2e_fps": chip_smoke phases 19, 20 and 22 timed as those phases time
+    them (a new Encoder, their warm-up frames, then one encode_pipelined
+    call over the rest, host wall clock): CTB16 all-intra (16 frames),
+    lossless (4) and the flat P frames (10) at 1920x1080, the three in
+    turn, E2E_REPS times, every fps listed; with --root DIR an earlier
+    tree's port, so that two trees alternate in one call (parent, change,
+    change, parent);
   - the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from chip_smoke import (card_line, config1, config2, config2_ref, config3,
-                        synth_frames)
+                        synth_frames, time_ms)
 
 # P frames that run every stage before the P breakdowns' clock starts
 P_WARM = 2
+# rounds of the end-to-end fps runs ("14")
+E2E_REPS = 5
 
 
 def stage_breakdown(enc, frames, batches):
@@ -560,6 +582,177 @@ def flat_stages(param, frames, warm):
     return st.per(len(frames) - warm, (time.perf_counter() - t0) * 1e3)
 
 
+def k23_trace(y, cb, cr, maps, enc):
+    """K23's per-CTU stage stamps on one frame (`intra16_scan(trace=)`),
+    as mean microseconds per CTU: waiting for the luma neighbours (from the
+    ticket), reading the references, the 7 modes of a CTA (prediction,
+    chain, rate, cost), the cluster barrier and the decision, writing and
+    publishing the luma, the chroma CTA's wait and its Cb chain; mode 6's
+    prediction, chain, rate counts and cost (the last group of the first
+    CTA); the hand-off (a CTU's acquire after the last of its neighbours
+    published,
+    over the CTUs that had to wait), the luma step (publish to publish
+    along a chain) and the span of the whole scan."""
+    import torch
+    from x265amod_tpu_torch.ops import commit
+    f, h, w = y.shape
+    hc, wc = h // 16, w // 16
+    dev = y.device
+    rec = tuple(torch.empty_like(t) for t in (y, cb, cr))
+    lv = (torch.empty((f, hc, wc, 16, 16), dtype=torch.int16, device=dev),
+          torch.empty((f, hc, wc, 8, 8), dtype=torch.int16, device=dev),
+          torch.empty((f, hc, wc, 8, 8), dtype=torch.int16, device=dev))
+    modes = torch.empty((f, hc, wc), dtype=torch.int32, device=dev)
+    tr = torch.zeros((f * hc * wc, 12), dtype=torch.int64, device=dev)
+    for _ in range(3):               # the last of three warm calls
+        commit.intra16_scan((y, cb, cr), rec, lv, modes, maps, sbh=enc.sbh,
+                            lossless=enc.lossless, trace=tr)
+    torch.cuda.synchronize()
+    t = tr.cpu().numpy().astype(np.float64).reshape(f, hc, wc, 12) / 1e3
+    t -= t[..., 0].min()
+    pub = t[..., 5]
+    last = np.full((f, hc, wc), -np.inf)
+    for dy, dx in ((0, -1), (-1, -1), (-1, 0), (-1, 1)):
+        sh = np.full((f, hc, wc), -np.inf)
+        ys, xs = slice(max(0, -dy), hc), slice(max(0, -dx), wc - max(0, dx))
+        sh[:, ys, xs] = pub[:, max(0, -dy) + dy:hc + dy,
+                            max(0, -dx) + dx:wc - max(0, dx) + dx]
+        last = np.maximum(last, sh)
+    waited = np.isfinite(last) & (t[..., 0] < last)
+    d = np.diff(t[..., :8], axis=-1)
+    sub = np.diff(t[..., [2, 8, 9, 10, 11]], axis=-1)
+    return dict(
+        mode6_pred=float(sub[..., 0].mean()),
+        mode6_chain=float(sub[..., 1].mean()),
+        mode6_rate_counts=float(sub[..., 2].mean()),
+        mode6_bits_cost=float(sub[..., 3].mean()),
+        wait_luma=float(d[..., 0].mean()), refs=float(d[..., 1].mean()),
+        modes=float(d[..., 2].mean()), decide=float(d[..., 3].mean()),
+        publish_luma=float(d[..., 4].mean()),
+        wait_cb=float((t[..., 6] - t[..., 4]).mean()),
+        chain_cb=float(d[..., 6].mean()),
+        handoff=float((t[..., 1] - last)[waited].mean()),
+        luma_step=float((pub - last)[waited].mean()),
+        waited_ctus=int(waited.sum()), span=float(t[..., 5:8].max()))
+
+
+def kernel_times(iters):
+    """K23, K2 and K20 alone at the main path's shapes (see the
+    docstring)."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import _pad_to_ctu
+    from x265amod_tpu_torch.models.intra_frame import IntraFrameEncoder
+    from x265amod_tpu_torch.ops import commit, residual
+    dev = torch.device("cuda")
+    out = {}
+
+    def planes(w, h, n, seed):
+        fr = synth_frames(w, h, n, seed=seed)
+        return tuple(torch.stack([torch.as_tensor(
+            _pad_to_ctu(x[k], 16 if k == 0 else 8), device=dev)
+            for x in fr]).to(torch.int32) for k in range(3))
+    y, cb, cr = planes(1920, 1080, 1, 19)
+    for key, lossless in (("k23_1080p", False), ("k23_lossless", True)):
+        enc = IntraFrameEncoder(1920, 1088, lossless=lossless, device=dev)
+        maps = enc._maps(32)
+        out[key] = time_ms(lambda: enc._scan_kernel(y, cb, cr, maps),
+                              iters)
+    enc = IntraFrameEncoder(1920, 1088, device=dev)
+    maps = enc._maps(32)
+    # an earlier tree's K23 (--root) may take no stamps
+    if "trace" in inspect.signature(commit.intra16_scan).parameters:
+        out["k23_1080p_stages_us"] = k23_trace(y, cb, cr, maps, enc)
+    kinds = torch.zeros((1, 68, 120), dtype=torch.int32, device=dev)
+    kinds[0, 27:41, 48:72] = 2
+    rng = np.random.default_rng(5)
+    rec = tuple(torch.clamp(t + torch.as_tensor(rng.integers(
+        -9, 10, t.shape).astype(np.int32), device=dev), 0, 255)
+        for t in (y, cb, cr))
+    lv = tuple(torch.as_tensor(rng.integers(-3, 4, s).astype(np.int16),
+                               device=dev)
+               for s in ((1, 68, 120, 16, 16), (1, 68, 120, 8, 8),
+                         (1, 68, 120, 8, 8)))
+    out["k23_commit_patch336"] = time_ms(lambda: enc._scan_kernel(
+        y, cb, cr, maps, (kinds, tuple(t.clone() for t in rec),
+                          tuple(t.clone() for t in lv), "P")), iters)
+    yb, cbb, crb = planes(640, 360, 16, 3)
+    benc = IntraFrameEncoder(640, 368, device=dev)
+    bmaps = benc._maps(32)
+    out["k23_batch16_640x368"] = time_ms(
+        lambda: benc._scan_kernel(yb, cbb, crb, bmaps), iters)
+    # K2: a config-1 batch's calls, the flat intra trial, a Main10 batch's
+    rng = np.random.default_rng(1)
+    for key, f, h16, w16, bd in (("k2_config1", 16, 24, 40, 8),
+                                 ("k2_main10", 16, 68, 120, 10)):
+        b16, b32 = f * h16 * w16, f * h16 * w16 // 4
+        total = 0.0
+        for n, b, k in ((16, b16, 4), (8, 2 * b16, 1), (32, b32, 4),
+                        (16, 2 * b32, 1)):
+            maxv = (1 << bd) - 1
+            orig = rng.integers(0, maxv + 1, (b, n, n)).astype(np.int32)
+            pred = np.clip(orig[:, None] + rng.integers(
+                -40, 41, (b, k, n, n)) * (maxv // 255), 0, maxv)
+            o, p_ = (torch.as_tensor(a.astype(np.int32), device=dev)
+                     for a in (orig, pred))
+            q = torch.as_tensor(rng.choice([22, 27, 30], b).astype(
+                np.int32), device=dev)
+            total += time_ms(lambda: residual.residual_chain(
+                o, p_, q, False, want_recon=k == 1, bit_depth=bd), iters)
+        out[key] = total
+    orig = torch.as_tensor(_pad_to_ctu(synth_frames(1920, 1080, 1, 22)[0][0],
+                                       16).astype(np.int32), device=dev)
+    o = orig.reshape(68, 16, 120, 16).permute(0, 2, 1, 3).reshape(-1, 16, 16)
+    o = o.contiguous()
+    p_ = torch.clamp(o[:, None] + torch.as_tensor(rng.integers(
+        -30, 31, (8160, 35, 16, 16)).astype(np.int32), device=dev), 0, 255)
+    q = torch.full((8160,), 32, dtype=torch.int32, device=dev)
+    out["k2_flat_intra_trial"] = time_ms(lambda: residual.residual_chain(
+        o, p_, q, False, want_recon=False), iters)
+    # K20: the intra tree's commit of a config-1 batch and a Main10 batch
+    from chip_smoke import synth_frames10
+    from x265amod_tpu_torch.models.intra_tree import IntraTreeEncoder
+    for key, w, h, bd in (("k20_config1", 640, 360, 8),
+                          ("k20_main10", 1920, 1080, 10)):
+        fr = synth_frames(w, h, 16) if bd == 8 else synth_frames10(w, h, 16)
+        y, cb, cr = (torch.stack([torch.as_tensor(_pad_to_ctu(
+            x[k].view(np.int16) if bd == 10 else x[k], 32 if k == 0 else 16),
+            device=dev) for x in fr]).to(torch.int32) for k in range(3))
+        itree = IntraTreeEncoder(y.shape[2], y.shape[1], deblock=bd == 8,
+                                 device=dev, bit_depth=bd)
+        imaps = itree._maps(30)
+        split, modes = itree._estimate(y, cb, cr, imaps)
+        out[key] = time_ms(lambda: itree._commit_kernel(
+            y, cb, cr, imaps, split, modes), iters)
+    return out
+
+
+def e2e_fps():
+    """fps of chip_smoke phases 19, 20 and 22 (see the docstring)."""
+    import torch
+    from chip_smoke import (CTB16_FRAMES, CTB16_WARM, FLAT_P_FRAMES,
+                            FLAT_P_WARM, LOSSLESS_FRAMES, LOSSLESS_WARM,
+                            config_ctb16, config_flat_p)
+    from x265amod_tpu_torch.models.encoder import Encoder
+    cframes = synth_frames(1920, 1080, CTB16_FRAMES, seed=19)
+    pframes = synth_frames(1920, 1080, FLAT_P_FRAMES, seed=22)
+    runs = (("ctb16", config_ctb16(), cframes, CTB16_WARM),
+            ("lossless", config_ctb16(lossless=True),
+             cframes[:LOSSLESS_FRAMES], LOSSLESS_WARM),
+            ("flat_p", config_flat_p(), pframes, FLAT_P_WARM))
+    out = {key: [] for key, *_ in runs}
+    for _ in range(E2E_REPS):
+        for key, param, frames, warm in runs:
+            enc = Encoder(param, device="cuda")
+            for _ in enc.encode_pipelined(frames[:warm]):
+                pass
+            torch.cuda.synchronize()
+            t0 = time.time()
+            n = len(list(enc.encode_pipelined(
+                frames[warm:], return_recon=key == "lossless")))
+            out[key].append(n / (time.time() - t0))
+    return out
+
+
 def device_profile(run, n_frames):
     """torch.profiler over ``run()``: wall time, device kernel time, the
     device busy share and the kernels with the most device time."""
@@ -592,17 +785,25 @@ def device_profile(run, n_frames):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--configs", default="1,2,3,4,5,6,7,8,9,10,11,12")
+    ap.add_argument("--configs",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14")
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--p-frames", type=int, default=4)
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--root", default=None,
+                    help="import the port package from this tree")
     args = ap.parse_args()
     configs = {int(c) for c in args.configs.split(",")}
+    if args.root:
+        import sys
+        sys.path.insert(0, os.path.abspath(args.root))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: no CUDA device")
     from x265amod_tpu_torch.models.encoder import Encoder
     from x265amod_tpu_torch.ops import cuda_lib
-    cuda_lib.build_all()
+    if configs - {13}:
+        cuda_lib.build_all()
     if 1 in configs:
         frames = synth_frames(640, 360, 16 * max(args.batches, 2))
         enc = Encoder(config1(), device="cuda")
@@ -686,6 +887,12 @@ def main():
         print(json.dumps({"flat_b_stages": flat_stages(
             config_flat_b(), synth_frames(1920, 1080, 11, seed=23),
             warm=0)}))
+    if 13 in configs:
+        print(json.dumps({"kernel_times": dict(
+            kernel_times(args.iters), root=args.root or ".")}))
+    if 14 in configs:
+        print(json.dumps({"e2e_fps": dict(e2e_fps(),
+                                          root=args.root or ".")}))
     print(card_line())
 
 

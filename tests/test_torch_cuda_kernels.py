@@ -918,3 +918,156 @@ def test_flat_inter_stream_card_equals_cpu(cuda_dev, preset):
         streams.append(b"".join(o.nals for o in Encoder(
             p, device=dev).encode_pipelined(frames)))
     assert streams[0] == streams[1]
+
+
+def _texture(rng, f, h, w, dev):
+    """F frames of smooth texture with noise, a flat band and a hard edge,
+    so that the 35 modes and the QPs spread the decisions."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = [[], [], []]
+    for t in range(f):
+        y = 128 + 90 * np.sin((xx + 5 * t) / (7.0 + t)) * np.cos(yy / 9.0)
+        y = y + rng.normal(0, 6, (h, w))
+        y[h // 3:h // 3 + 32] = 30 + 7 * t
+        y[:, w // 2:w // 2 + 3] = 255
+        out[0].append(np.clip(y, 0, 255))
+        c = 128 + 40 * np.sin((xx[::2, ::2] - 3 * t) / 11.0)
+        out[1].append(np.clip(c + rng.normal(0, 3, c.shape), 0, 255))
+        out[2].append(255 - c)
+    return tuple(torch.as_tensor(np.stack(p).astype(np.int32), device=dev)
+                 for p in out)
+
+
+def _check_tickets(sched, kinds, f, wc, hc):
+    from x265amod_tpu_torch.ops.commit import scan_tickets
+    want = scan_tickets(None if kinds is None else kinds.cpu().numpy(), f,
+                        wc, hc)
+    s = sched.cpu().numpy()
+    assert s[0] == len(want) and s[1] >= len(want)
+    assert s[2:2 + len(want)].tolist() == want
+
+
+@pytest.mark.parametrize("w,h,f,qp,lossless", [
+    (1920, 1088, 1, 32, False), (1920, 1088, 1, 0, False),
+    (1920, 1088, 1, 51, False), (1920, 1088, 1, 32, True),
+    (640, 368, 16, 32, False)])
+def test_intra16_scan_ticketed_kernel(cuda_dev, w, h, f, qp, lossless):
+    """K23 at the main path's shapes against the plain scan on the card: a
+    1920x1088 frame at QP 32, 0 and 51 and lossless, and a 16-frame batch
+    at 640x368; two launches a call, the ticket list equal to
+    `scan_tickets`."""
+    from x265amod_tpu_torch.models.intra_frame import IntraFrameEncoder
+    from x265amod_tpu_torch.ops import commit, cuda_lib
+    rng = np.random.default_rng(qp + 7 * f + lossless)
+    enc = IntraFrameEncoder(w, h, deblock=False, lossless=lossless,
+                            device=cuda_dev)
+    y, cb, cr = _texture(rng, f, h, w, cuda_dev)
+    maps = enc._maps(qp)
+    before = cuda_lib.LAUNCHES["intra16_scan"]
+    got = enc._scan_kernel(y, cb, cr, maps)
+    assert cuda_lib.LAUNCHES["intra16_scan"] == before + 2
+    want = enc._scan_plain(y, cb, cr, maps)
+    for g, wt in zip(got, want):
+        assert g.dtype == wt.dtype and torch.equal(g, wt)
+    rec = tuple(torch.empty_like(t) for t in (y, cb, cr))
+    lv = tuple(torch.empty_like(t) for t in got[3:6])
+    sched = commit.intra16_scan((y, cb, cr), rec, lv,
+                                torch.empty_like(got[6]), maps,
+                                lossless=lossless)
+    _check_tickets(sched, None, f, w // 16, h // 16)
+
+
+def _commit_kinds(name, rng, hc, wc):
+    k = rng.integers(0, 2, (1, hc, wc))
+    yy, xx = np.mgrid[0:hc, 0:wc]
+    if name == "all":
+        k[:] = 2
+    elif name == "column":
+        k[0, :, wc // 3] = 2
+    elif name == "diagonal":            # a chain through top-right links
+        k[0, (xx + yy) == wc // 2] = 2
+    elif name == "checker":
+        k[0, (xx + yy) % 2 == 0] = 2
+    elif name == "patch":               # 336 of 8160 CTUs at 1920x1088
+        k[0, 27:41, 48:72] = 2
+    return k.astype(np.int32)
+
+
+@pytest.mark.parametrize("name", ["all", "none", "column", "diagonal",
+                                  "checker", "patch"])
+def test_intra16_scan_ticketed_commit(cuda_dev, name):
+    """K23 as the commit of a flat P frame (1920x1088) against the plain
+    scan on the card, on adversarial kinds maps: all intra, no intra, one
+    intra column, one intra diagonal chain, a checkerboard, and PERF.md's
+    336-CTU patch; inter recon and levels in place, untouched."""
+    from x265amod_tpu_torch.models.intra_frame import IntraFrameEncoder
+    from x265amod_tpu_torch.ops import commit
+    rng = np.random.default_rng(len(name))
+    w, h = 1920, 1088
+    hc, wc = h // 16, w // 16
+    enc = IntraFrameEncoder(w, h, deblock=False, device=cuda_dev)
+    y, cb, cr = _texture(rng, 1, h, w, cuda_dev)
+    rec = tuple(torch.clamp(t + torch.as_tensor(
+        rng.integers(-9, 10, t.shape).astype(np.int32), device=cuda_dev), 0,
+        255) for t in (y, cb, cr))
+    lv = tuple(torch.as_tensor(rng.integers(-3, 4, s).astype(np.int16),
+                               device=cuda_dev)
+               for s in ((1, hc, wc, 16, 16), (1, hc, wc, 8, 8),
+                         (1, hc, wc, 8, 8)))
+    kinds = torch.as_tensor(_commit_kinds(name, rng, hc, wc),
+                            device=cuda_dev)
+    maps = enc._maps(32, rng.uniform(-6, 6, (hc, wc)))
+    got = enc._scan_kernel(y, cb, cr, maps, (
+        kinds, tuple(t.clone() for t in rec), tuple(t.clone() for t in lv),
+        "P"))
+    want = enc._scan_plain(y, cb, cr, maps, (kinds, rec, lv, "P"))
+    for g, wt in zip(got, want):
+        assert g.dtype == wt.dtype and torch.equal(g, wt)
+    inter_cells = kinds[0] != 2
+    assert torch.equal(got[3][0][inter_cells], lv[0][0][inter_cells])
+    sched = commit.intra16_scan(
+        (y, cb, cr), tuple(t.clone() for t in rec),
+        tuple(t.clone() for t in lv), torch.ones_like(got[6]), maps,
+        kinds=kinds, st="P")
+    _check_tickets(sched, kinds, 1, wc, hc)
+
+
+@pytest.mark.parametrize("rdoq", [False, True])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_residual_chain_lane_groups(cuda_dev, n, bd, rdoq):
+    """K2's lane-group design against the plain chain: n 8, 16 and 32, bit
+    depth 8 and 10, RDOQ off and on, intra and inter rounding, QP 0 and
+    51, residuals at +-255 / +-1023 (flat 0 against a flat peak and back),
+    and the candidate counts the path uses (1, 3, 4 and 35: several blocks
+    a thread block, and several rounds of groups) over a block count that
+    no thread block size divides."""
+    from x265amod_tpu_torch.ops import residual
+    rng = np.random.default_rng(n + bd + rdoq)
+    peak = (1 << bd) - 1
+    b = 37
+    for k in (1, 3, 4, 35):
+        orig = rng.integers(0, peak + 1, (b, n, n)).astype(np.int32)
+        pred = np.clip(orig[:, None] + rng.integers(
+            -60, 61, (b, k, n, n)) * (peak // 255), 0, peak).astype(np.int32)
+        orig[0], pred[0] = 0, peak            # residual -peak
+        orig[1], pred[1] = peak, 0            # residual +peak
+        orig[2], pred[2] = 77, 77             # all-zero levels
+        qp = rng.choice(np.array([0, 51, 12, 22, 27, 32, 37, 45], np.int32),
+                        b)
+        qp[:4] = (0, 51, 0, 51)
+        lam = (10.0 ** rng.uniform(-1, 4, b)).astype(np.float32)
+        o, p, q, la = (torch.as_tensor(a, device=cuda_dev)
+                       for a in (orig, pred, qp, lam))
+        for intra in (True, False):
+            for sbh in (False, True):
+                kw = dict(intra=intra, bit_depth=bd, rdoq=rdoq,
+                          lam=la if rdoq else None, st="P" if intra else "B")
+                got = residual.residual_chain(o, p, q, sbh, **kw)
+                want = residual.residual_chain_plain(o, p, q, sbh, **kw)
+                for g, wt in zip(got, want):
+                    assert g.dtype == wt.dtype and torch.equal(g, wt)
+                lv, _, ssd = residual.residual_chain(o, p, q, sbh,
+                                                     want_recon=False, **kw)
+                assert torch.equal(lv, want[0]) and torch.equal(ssd, want[2])
+        assert int(want[0].abs().max()) > 0

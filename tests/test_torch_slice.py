@@ -6,8 +6,10 @@ off on both sides, since its text names each encoder)."""
 
 import contextlib
 import dataclasses
+import fcntl
 import os
 import resource
+import subprocess
 
 import numpy as np
 import pytest
@@ -23,6 +25,40 @@ from x265amod_tpu_torch.utils.params import param_from_dict
 # The port's CPU ops are small: one intra-op thread keeps torch's idle
 # threads from spinning on cores that parallel test workers need.
 torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def build_jax_native_once():
+    """Build the JAX package's native CABAC library (`x265amod_tpu.native`)
+    once for all the processes of a parallel test run, while they collect
+    the tests.  Its loader builds it in place at first use (`g++ -o` the
+    library itself), so in a fresh checkout one worker could load a library
+    that another worker's linker was still writing ("file too short") and
+    then keep None for the rest of its run, failing the tests that need the
+    library.  Here the first process builds it under a lock, into a
+    temporary file renamed into place; the others find it up to date and
+    the loader never builds.  A build that fails is left to the loader."""
+    from x265amod_tpu import native
+    so, src = native._SO, native._SRC
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with open(os.path.join(REPO, "build", "jax_native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(
+                src):
+            return
+        tmp = so[:-3] + f".tmp{os.getpid()}.so"
+        try:
+            subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                            "-o", tmp, src], check=True, capture_output=True,
+                           timeout=300)
+            os.replace(tmp, so)
+        except (OSError, subprocess.SubprocessError):
+            with contextlib.suppress(OSError):
+                os.remove(tmp)
+
+
+build_jax_native_once()
 
 
 @contextlib.contextmanager
@@ -52,8 +88,7 @@ def lowest_cpu_priority():
 
 # JAX's persistent compilation cache of the port's test modules, in the
 # checkout (the repo's .gitignore lists it)
-JAX_CACHE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), ".jax_cache")
+JAX_CACHE = os.path.join(REPO, ".jax_cache")
 
 
 @contextlib.contextmanager

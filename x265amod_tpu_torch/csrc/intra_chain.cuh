@@ -1,16 +1,15 @@
-// Device functions of the intra chain, shared by K1 (`intra_pred.cu`), K2
-// (`residual_chain.cu`) and K20 (`commit_intra.cu`): K1's reference
-// substitution (spec 8.4.4.2.2), [1 2 1] smoothing and prediction sample of
-// every intra mode (JAX ops/intra.py substitute_refs_general,
-// predict_modes_batch), and K2's residual chain: forward DCT, quant, the
-// RDOQ stage, sign-bit hiding, dequant, inverse DCT and reconstruction
-// (JAX ops/transforms.py, ops/quant.py, ops/rdoq.py, ops/sbh.py), templated
-// on the bit depth (8 or 10) and RDOQ.  Each thread block runs one block's
-// chain; the functions loop over the samples with the block's threads.
-// Header only; each kernel is its own library.  The RDOQ arithmetic is
-// XLA's f32 order operation for operation (every product and sum an _rn
-// intrinsic, __fmaf_rn where XLA fuses), so the files that include this
-// build with --fmad=false.
+// Device functions of the intra chain, shared by K1 (`intra_pred.cu`), K20
+// (`commit_intra.cu`), K23 (`intra16_scan.cu`) and, through
+// chain_lanes.cuh, K2 (`residual_chain.cu`): K1's reference substitution
+// (spec 8.4.4.2.2), [1 2 1] smoothing and prediction sample of every intra
+// mode (JAX ops/intra.py substitute_refs_general, predict_modes_batch), and
+// the residual chain's tables and scalar steps: quant and dequant scales,
+// rounding shifts, and the RDOQ stage's rate and cost (JAX ops/quant.py,
+// ops/rdoq.py, ops/sbh.py).  The chain itself is chain_lanes.cuh's
+// `group_chain`.  Header only; each kernel is its own library.  The RDOQ
+// arithmetic is XLA's f32 order operation for operation (every product and
+// sum an _rn intrinsic, __fmaf_rn where XLA fuses), so the files that
+// include this build with --fmad=false.
 
 #pragma once
 
@@ -58,34 +57,41 @@ __device__ __forceinline__ bool filter_flag(int mode, int n, int c_idx) {
 }
 
 // Spec 8.4.4.2.2 substitution of the reference scan s[0 .. 4n] whose
-// availability (0 / 1) is in f (one thread, sequentially, exactly as the
+// availability (0 / 1) is in f, by one thread, sequentially, exactly as the
 // spec: an unavailable sample takes the previous one, a leading run the
-// first available one, nothing available mid-grey 1 << (bd - 1)), then the
-// [1 2 1] smoothing of it into f (all threads).  Every thread of the block
-// must call it.
+// first available one, nothing available mid-grey 1 << (bd - 1).
+template <int BD>
+__device__ void substitute_serial(int* s, const int* f, int n) {
+  const int m = 4 * n + 1;
+  int first = -1;
+  for (int i = 0; i < m && first < 0; ++i)
+    if (f[i]) first = i;
+  if (first < 0) {
+    for (int i = 0; i < m; ++i) s[i] = 1 << (BD - 1);
+  } else {
+    int prev = s[first];   // a leading run takes the first sample
+    for (int i = 0; i < m; ++i) {
+      if (!f[i]) s[i] = prev;
+      prev = s[i];
+    }
+  }
+}
+
+// The [1 2 1] smoothing of the substituted scan s into f, entry i.
+__device__ __forceinline__ int smooth_121(const int* s, int m, int i) {
+  return (i == 0 || i == m - 1) ? s[i]
+                                : (s[i - 1] + 2 * s[i] + s[i + 1] + 2) >> 2;
+}
+
+// The substitution (one thread), then the smoothing (all threads).  Every
+// thread of the block must call it.
 template <int BD>
 __device__ void substitute_smooth(int* s, int* f, int n) {
   const int m = 4 * n + 1;
-  if (threadIdx.x == 0) {
-    int first = -1;
-    for (int i = 0; i < m && first < 0; ++i)
-      if (f[i]) first = i;
-    if (first < 0) {
-      for (int i = 0; i < m; ++i) s[i] = 1 << (BD - 1);
-    } else {
-      int prev = s[first];   // a leading run takes the first sample
-      for (int i = 0; i < m; ++i) {
-        if (!f[i]) s[i] = prev;
-        prev = s[i];
-      }
-    }
-  }
+  if (threadIdx.x == 0) substitute_serial<BD>(s, f, n);
   __syncthreads();
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    f[i] = (i == 0 || i == m - 1)
-               ? s[i]
-               : (s[i - 1] + 2 * s[i] + s[i + 1] + 2) >> 2;
-  }
+  for (int i = threadIdx.x; i < m; i += blockDim.x)
+    f[i] = smooth_121(s, m, i);
   __syncthreads();
 }
 
@@ -179,25 +185,14 @@ __device__ __forceinline__ int dc_value(const int* s, int n, int log2n) {
   return (acc + n) >> (log2n + 1);
 }
 
-// ---- K2: the residual chain -------------------------------------------
+// ---- the residual chain's tables and scalar steps ------------------------
 
-__constant__ int kC32[32] = {64, 90, 90, 90, 89, 88, 87, 85, 83, 82, 80,
-                             78, 75, 73, 70, 67, 64, 61, 57, 54, 50, 46,
-                             43, 38, 36, 31, 25, 22, 18, 13, 9, 4};
 __constant__ int kQuantScale[6] = {26214, 23302, 20560, 18396, 16384,
                                    14564};
 __constant__ int kInvQuantScale[6] = {40, 45, 51, 57, 64, 72};
 // (y * 4 + x) -> position in the 4x4 up-right diagonal scan
 __constant__ int kDiagPos[16] = {0, 2, 5, 9, 1, 4, 8, 12,
                                  3, 7, 11, 14, 6, 10, 13, 15};
-
-__device__ __forceinline__ int tuned_cos(int m) {
-  m &= 127;
-  if (m <= 32) return m < 32 ? kC32[m] : 0;
-  if (m <= 64) return (64 - m) < 32 ? -kC32[64 - m] : 0;
-  if (m <= 96) return (m - 64) < 32 ? -kC32[m - 64] : 0;
-  return kC32[128 - m];
-}
 
 __device__ __forceinline__ int round_shift(int x, int s) {
   return (x + (1 << (s - 1))) >> s;
@@ -247,183 +242,6 @@ __device__ __forceinline__ float coeff_cost(const RdoqRow& t, float q,
   const float d = __fsub_rn(q, (float)l);
   return __fmaf_rn(t.step, __fmul_rn(d, d),
                    __fmul_rn(t.lam, level_rate(t, l)));
-}
-
-// Per-block shared memory of the residual chain.
-template <bool RDOQ>
-struct ChainSmem {
-  int T[kMaxN * kMaxN];
-  int A[kMaxN * kMaxN];
-  int Bm[kMaxN * kMaxN];
-  float Q[RDOQ ? kMaxN * kMaxN : 1];
-  int ssd;
-};
-
-// The residual chain of one n x n block by the whole thread block: forward
-// DCT of orig - pred, quant (intra 171 or inter 85 rounding), the RDOQ
-// stage (with RDOQ: K2's table rdoq_tab, lambda lam), SBH, dequant, inverse
-// DCT, + pred, clip to the bit depth.  orig / pred are read at row strides
-// os / ps; level_out(i, v) and recon_out(i, v) take the levels and the
-// reconstruction at raster index i = y n + x; sm.ssd holds the SSD of the
-// reconstruction on return.  Every thread of the block must call it.  sm
-// is a ChainSmem (with RDOQ, a ChainSmem<true>).
-template <int BD, bool RDOQ, class Smem, class LevelOut, class ReconOut>
-__device__ void chain(Smem& sm, const int32_t* o, int os,
-                      const int32_t* p, int ps, int n, int qp, int sbh,
-                      int intra, const float* rdoq_tab, float lam,
-                      LevelOut level_out, ReconOut recon_out) {
-  int* T = sm.T;
-  int* A = sm.A;
-  int* Bm = sm.Bm;
-  float* Q = sm.Q;
-  const int nn = n * n;
-  const int log2n = 31 - __clz(n);
-  const int step = 32 / n;
-  if (threadIdx.x == 0) sm.ssd = 0;
-  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-    const int k = i / n, j = i % n;
-    T[i] = tuned_cos((k * step) * (2 * j + 1));
-    A[i] = o[k * os + j] - p[k * ps + j];
-  }
-  __syncthreads();
-  // forward stage 1: tmp[y][u] = rs(sum_x resi[y][x] * T[u][x], log2n+bd-9)
-  const int s1 = log2n + BD - 9;
-  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-    const int y = i / n, u = i % n;
-    int acc = 0;
-    for (int x = 0; x < n; ++x) acc += A[y * n + x] * T[u * n + x];
-    Bm[i] = round_shift(acc, s1);
-  }
-  __syncthreads();
-  // forward stage 2: coeff[u][k] = rs(sum_y T[u][y] * tmp[y][k], log2n+6)
-  const int qbits = 14 + qp / 6 + 15 - BD - log2n;
-  // RDOQ's unrounded level uses the 8-bit shift (JAX ops/rdoq.py:106)
-  const float q_div = (float)(1 << (14 + qp / 6 + 15 - 8 - log2n));
-  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-    const int u = i / n, k = i % n;
-    int acc = 0;
-    for (int y = 0; y < n; ++y) acc += T[u * n + y] * Bm[y * n + k];
-    const int c = round_shift(acc, log2n + 6);
-    // quant: offset (171 intra, 85 inter) << (qbits - 9), flat scaling
-    const long long mag =
-        ((long long)abs(c) * kQuantScale[qp % 6] +
-         ((long long)(intra ? 171 : 85) << (qbits - 9))) >> qbits;
-    A[i] = clip16(c < 0 ? -mag : (c > 0 ? mag : 0));
-    if (RDOQ)
-      Q[i] = __fdiv_rn(__fmul_rn((float)abs(c), (float)kQuantScale[qp % 6]),
-                       q_div);
-  }
-  __syncthreads();
-  if (RDOQ) {
-    RdoqRow t;
-    t.step = rdoq_tab[qp];
-    t.r0 = rdoq_tab[52 + qp];
-    t.r1 = rdoq_tab[104 + qp];
-    t.r2 = rdoq_tab[156 + qp];
-    t.r3 = rdoq_tab[208 + qp];
-    t.csb0 = rdoq_tab[260];
-    t.csb1 = rdoq_tab[261];
-    t.lam = lam;
-    // each coefficient: |l| or |l| - 1, a tie keeps |l|
-    for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-      const int v = A[i];
-      const int a = abs(v);
-      if (a > 0 && coeff_cost(t, Q[i], a - 1) < coeff_cost(t, Q[i], a))
-        A[i] = v > 0 ? a - 1 : 1 - a;
-    }
-    __syncthreads();
-    // each 4x4 group: zero it when j_zero < j_code (sums in XLA's order)
-    const int g4 = n / 4;
-    for (int g = threadIdx.x; g < g4 * g4; g += blockDim.x) {
-      const int base = (g / g4) * 4 * n + (g % g4) * 4;
-      float dsq[16], zsq[16], rr[16];
-      bool nz = false;
-      for (int k = 0; k < 16; ++k) {
-        const int idx = base + (k >> 2) * n + (k & 3);
-        const int l = abs(A[idx]);
-        const float q = Q[idx];
-        const float d = __fsub_rn(q, (float)l);
-        dsq[k] = __fmul_rn(d, d);
-        zsq[k] = __fmul_rn(q, q);
-        rr[k] = level_rate(t, l);
-        nz |= l > 0;
-      }
-      if (!nz) continue;
-      float ld[8], lr[8];
-      for (int k = 0; k < 8; ++k) {
-        ld[k] = __fmaf_rn(t.step, dsq[k + 8], __fmul_rn(t.step, dsq[k]));
-        lr[k] = __fadd_rn(rr[k], rr[k + 8]);
-      }
-      const float d_code = lanes_tree(ld);
-      const float r_code = lanes_tree(lr);
-      float d_zero = __fmul_rn(t.step, zsq[0]);
-      for (int k = 1; k < 16; ++k) d_zero = __fmaf_rn(t.step, zsq[k], d_zero);
-      const float j_code = __fmaf_rn(t.lam, __fadd_rn(r_code, t.csb1), d_code);
-      const float j_zero = __fadd_rn(d_zero, __fmul_rn(t.lam, t.csb0));
-      if (j_zero < j_code) {
-        for (int k = 0; k < 16; ++k) A[base + (k >> 2) * n + (k & 3)] = 0;
-      }
-    }
-    __syncthreads();
-  }
-  if (sbh) {
-    const int g4 = n / 4;
-    for (int g = threadIdx.x; g < g4 * g4; g += blockDim.x) {
-      const int gy = g / g4, gx = g % g4;
-      int first = 16, last = -1, first_v = 0, last_i = 0, sum = 0;
-      for (int q = 0; q < 16; ++q) {
-        const int idx = (gy * 4 + q / 4) * n + gx * 4 + q % 4;
-        const int v = A[idx];
-        if (v != 0) {
-          const int ps_ = kDiagPos[q];
-          if (ps_ < first) { first = ps_; first_v = v; }
-          if (ps_ > last) { last = ps_; last_i = idx; }
-          sum += abs(v);
-        }
-      }
-      if (last - first > 3 && (sum & 1) != (first_v < 0 ? 1 : 0)) {
-        const int v = A[last_i];
-        const int sg = v > 0 ? 1 : -1;
-        A[last_i] = v + (abs(v) >= 2 ? -sg : sg);
-      }
-    }
-    __syncthreads();
-  }
-  // levels out; dequant (spec 8.6.3, m = 16) into Bm
-  {
-    const int bd_shift = BD + log2n - 5;
-    const long long scale = (long long)(kInvQuantScale[qp % 6] * 16)
-                            << (qp / 6);
-    for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-      level_out(i, A[i]);
-      Bm[i] = clip16(((long long)A[i] * scale + (1 << (bd_shift - 1))) >>
-                     bd_shift);
-    }
-  }
-  __syncthreads();
-  // inverse stage 1: g[y][x] = clip16(rs(sum_k T[k][y] * coeff[k][x], 7))
-  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-    const int y = i / n, x = i % n;
-    int acc = 0;
-    for (int k = 0; k < n; ++k) acc += T[k * n + y] * Bm[k * n + x];
-    A[i] = clip16(round_shift(acc, 7));
-  }
-  __syncthreads();
-  // inverse stage 2: r[y][x] = clip16(rs(sum_u g[y][u] * T[u][x], 20 - bd))
-  constexpr int kMaxV = (1 << BD) - 1;
-  int local = 0;
-  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-    const int y = i / n, x = i % n;
-    int acc = 0;
-    for (int u = 0; u < n; ++u) acc += A[y * n + u] * T[u * n + x];
-    int rec = p[y * ps + x] + clip16(round_shift(acc, 20 - BD));
-    rec = rec < 0 ? 0 : (rec > kMaxV ? kMaxV : rec);
-    recon_out(i, rec);
-    const int d = rec - o[y * os + x];
-    local += d * d;
-  }
-  atomicAdd(&sm.ssd, local);
-  __syncthreads();
 }
 
 }  // namespace intra_chain

@@ -7,7 +7,8 @@
 //
 // A TU's 4x4 coefficient groups are counted one per call of `group_counts`
 // (any thread), the counts meeting in a `TuCounts` through integer atomics,
-// which is exact and order-independent; `total_bits` then prices them.
+// or of `group_counts_lanes` (one group a lane, warp reductions), both
+// exact and order-independent; `total_bits` then prices them.
 // Every fractional family is summed in integer units of 2^-15 bit,
 // converted once (round to nearest), and the nine families are added in the
 // JAX expression's order with __fadd_rn / __fmul_rn, so the files that
@@ -55,12 +56,14 @@ __device__ __forceinline__ long long units(float v) {
   return (long long)__float2ll_rn(__fmul_rn(v, 32768.0f));
 }
 
-// Counts of coefficient group g of the n x n levels lv (row stride n) into
-// c (shared; integer atomics).
+// Counts of coefficient group g of the n x n levels lv (row stride n)
+// alone (all zero when the group codes nothing).
 template <class T>
-__device__ void group_counts(const T* lv, int n, int g, TuCounts* c) {
+__device__ __forceinline__ TuCounts group_local(const T* lv, int n, int g) {
   const int g4 = n / 4;
   const int gy = g / g4, gx = g % g4;
+  TuCounts c;
+  clear(&c);
   int a[16];
   int cg_sum = 0, cnt = 0, mx = 0, my = 0;
 #pragma unroll
@@ -75,24 +78,23 @@ __device__ void group_counts(const T* lv, int n, int g, TuCounts* c) {
       my = y > my ? y : my;
     }
   }
-  if (!cnt) return;
+  if (!cnt) return c;
   int k = bitlen(cg_sum) - 5;
   k = k < 0 ? 0 : (k > 4 ? 4 : k);
-  int l_n1 = 0, l_n0 = 0, l_g11 = 0, l_g10 = 0, l_g2 = 0, l_rem = 0,
-      l_over = 0, rank = 0;
+  int rank = 0;
 #pragma unroll
   for (int q = 0; q < 16; ++q) {
     const bool dc = g == 0 && q == 0;
     if (!dc) {
-      if (a[q]) ++l_n1; else ++l_n0;
+      if (a[q]) ++c.n1; else ++c.n0;
     }
     if (!a[q]) continue;
     ++rank;
     const bool take = rank <= 8;
     if (take) {
-      if (a[q] > 1) { ++l_g11; l_g2 = 1; } else { ++l_g10; }
+      if (a[q] > 1) { ++c.g1_1; c.g2 = 1; } else { ++c.g1_0; }
     } else {
-      l_over += 1 + k;
+      c.over8 += 1 + k;
     }
     const int base = take ? (a[q] < 3 ? a[q] : 3) : 1;
     const int rem = a[q] - base;
@@ -101,24 +103,65 @@ __device__ void group_counts(const T* lv, int n, int g, TuCounts* c) {
       int m = rem - (2 << k);
       m = m < 1 ? 1 : m;
       const int esc = bitlen(m) - k;
-      l_rem += pref < 3 ? pref + 1 + k : 3 + 2 * esc + k;
+      c.rem_i += pref < 3 ? pref + 1 + k : 3 + 2 * esc + k;
     }
   }
+  c.n_cod = 1;
+  c.nnz = cnt;
+  c.lx = mx;
+  c.ly = my;
+  if (g == 0) {
+    c.cg0_cod = 1;
+    c.dc_nz = a[0] > 0;
+  }
+  return c;
+}
+
+// Counts of coefficient group g of the n x n levels lv (row stride n) into
+// c (shared; integer atomics).
+template <class T>
+__device__ void group_counts(const T* lv, int n, int g, TuCounts* c) {
+  const TuCounts l = group_local(lv, n, g);
+  if (!l.nnz) return;
   atomicAdd(&c->n_cod, 1);
-  atomicAdd(&c->n1, l_n1);
-  atomicAdd(&c->n0, l_n0);
-  atomicAdd(&c->g1_1, l_g11);
-  atomicAdd(&c->g1_0, l_g10);
-  atomicAdd(&c->g2, l_g2);
-  atomicAdd(&c->rem_i, l_rem);
-  atomicAdd(&c->over8, l_over);
-  atomicAdd(&c->nnz, cnt);
-  atomicMax(&c->lx, mx);
-  atomicMax(&c->ly, my);
+  atomicAdd(&c->n1, l.n1);
+  atomicAdd(&c->n0, l.n0);
+  atomicAdd(&c->g1_1, l.g1_1);
+  atomicAdd(&c->g1_0, l.g1_0);
+  atomicAdd(&c->g2, l.g2);
+  atomicAdd(&c->rem_i, l.rem_i);
+  atomicAdd(&c->over8, l.over8);
+  atomicAdd(&c->nnz, l.nnz);
+  atomicMax(&c->lx, l.lx);
+  atomicMax(&c->ly, l.ly);
   if (g == 0) {
     c->cg0_cod = 1;
-    c->dc_nz = a[0] > 0;
+    c->dc_nz = l.dc_nz;
   }
+}
+
+// The counts of a TU whose groups the lanes of `mask` hold, group g each
+// (every lane of the mask calls it, with every group of the TU among
+// them): warp reductions instead of atomics, the sums in every lane.
+template <class T>
+__device__ __forceinline__ TuCounts group_counts_lanes(const T* lv, int n,
+                                                       int g, unsigned mask) {
+  const TuCounts l = group_local(lv, n, g);
+  TuCounts c;
+  c.n_cod = __reduce_add_sync(mask, l.n_cod);
+  c.n1 = __reduce_add_sync(mask, l.n1);
+  c.n0 = __reduce_add_sync(mask, l.n0);
+  c.g1_1 = __reduce_add_sync(mask, l.g1_1);
+  c.g1_0 = __reduce_add_sync(mask, l.g1_0);
+  c.g2 = __reduce_add_sync(mask, l.g2);
+  c.rem_i = __reduce_add_sync(mask, l.rem_i);
+  c.over8 = __reduce_add_sync(mask, l.over8);
+  c.nnz = __reduce_add_sync(mask, l.nnz);
+  c.lx = __reduce_max_sync(mask, l.lx);
+  c.ly = __reduce_max_sync(mask, l.ly);
+  c.cg0_cod = __reduce_max_sync(mask, l.cg0_cod);
+  c.dc_nz = __reduce_max_sync(mask, l.dc_nz);
+  return c;
 }
 
 // The bits of a TU of size n from its counts and its table row.

@@ -21,10 +21,10 @@ as the JAX `_encode` (:137) does:
    frame) on the card, its plain version on the CPU.
 5. Final MC and residuals (:324-348): K7 for luma and chroma at the final
    MVs, K2 with inter rounding and SBH; skip cells code no residual.
-6. The commit scan (:350-459): K23 with the frame's kinds (one launch a
-   diagonal) re-codes the intra CTUs from the true reconstruction (35-mode
-   RD at P states, DM chroma); the inter recon and levels are written
-   first, so each intra CTU reads final neighbours.
+6. The commit scan (:350-459): K23 with the frame's kinds (only the intra
+   CTUs get tickets) re-codes the intra CTUs from the true reconstruction
+   (35-mode RD at P states, DM chroma); the inter recon and levels are
+   written first, so each intra CTU reads final neighbours.
 7. The loop filter (:472-501: K21's flat P/B maps, K4), SAO at CTU 16 (K10,
    K11), SSE and SSIM (K22); the D2H packs the levels (K15).
 

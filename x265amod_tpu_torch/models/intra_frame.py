@@ -10,9 +10,11 @@ One device step codes a batch of F frames (the encoder sends one):
    its left, top, top-left and top-right neighbours (earlier diagonals).
    Per CTU: all 35 luma modes through the residual chain, SSD + lambda x
    (tu_bits + MPM bins) at I-slice states, the first minimum, then DM chroma
-   at that mode.  On the card K23 `intra16_scan` (one launch a diagonal);
-   on the CPU `_scan_plain`, a Python loop over the diagonals through K1
-   `predict`, K2 `residual_chain` and K3 `tu_bits`.  The object code of
+   at that mode.  On the card K23 `intra16_scan` (two launches a call: a
+   ticket list, then clusters that take the CTUs in wavefront order and
+   wait on their neighbours' done flags); on the CPU `_scan_plain`, a
+   Python loop over the diagonals through K1 `predict`, K2
+   `residual_chain` and K3 `tu_bits`.  The object code of
    XLA's argmin fusion for the scan (`iota_reduce_fusion`) has two
    vfmadd231ss: the cost, fma(lam, rbits + mbits, ssd), which the port forms
    the same way, and tu_bits' first step, cbf1 + (last-position bins) *

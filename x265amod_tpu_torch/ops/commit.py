@@ -15,16 +15,20 @@ levels are written into raster 16-cells.
 K23 (`csrc/intra16_scan.cu`) is the flat CTB16 all-intra scan (JAX
 `models/intra_frame.py:_encode_frame` :183-236): per CTU16 the 35-mode RD
 decision, the chosen mode's luma and chroma coding and the reconstruction,
-one launch per anti-diagonal of the CTB16 grid, lossy or lossless; given
-the kinds of a flat P or B frame, the commit scan of its intra CTUs (JAX
-`models/inter_frame.py` :394-458, `models/b_frame.py` :489-548).  Its
-plain version is `models.intra_frame.IntraFrameEncoder._scan_plain`.
+lossy or lossless; given the kinds of a flat P or B frame, the commit scan
+of its intra CTUs (JAX `models/inter_frame.py` :394-458,
+`models/b_frame.py` :489-548).  Two launches a call: the ticket list (the
+CTUs to code in wavefront order, `scan_tickets` is its plain version),
+then one persistent launch of clusters that take tickets and wait on
+their neighbours' done flags.  Its plain version is
+`models.intra_frame.IntraFrameEncoder._scan_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import cuda_lib
@@ -105,21 +109,47 @@ class ScanArgs(ctypes.Structure):
         "F", "W", "H", "wc", "hc", "sbh", "lossless")]
         + [(k, _P) for k in (
             "src_y", "src_cb", "src_cr", "rec_y", "rec_cb", "rec_cr", "ly",
-            "lcb", "lcr", "modes", "qp", "qpc", "lam", "bits", "kinds")])
+            "lcb", "lcr", "modes", "qp", "qpc", "lam", "bits", "kinds",
+            "sched", "flags")]
+        + [("trace", _P)])
 
 
 _bits: dict = {}
 
 
+def scan_tickets(kinds, f: int, wc: int, hc: int) -> list[int]:
+    """K23's ticket list (its first launch), plainly: the raster CTU
+    indices fi * hc * wc + cy * wc + cx to code, in wavefront order (the
+    anti-diagonal d = cx + 2 cy, then the frame, then cy); every CTU, or
+    with ``kinds`` [F, hc, wc] the kind-2 ones."""
+    k = None if kinds is None else np.asarray(kinds).reshape(f, hc, wc)
+    out = []
+    for d in range(wc + 2 * (hc - 1)):
+        lo = max(0, -(-(d - wc + 1) // 2))
+        for fi in range(f):
+            for cy in range(lo, min(hc - 1, d // 2) + 1):
+                if k is None or k[fi, cy, d - 2 * cy] == 2:
+                    out.append((fi * hc + cy) * wc + d - 2 * cy)
+    return out
+
+
 def intra16_scan(src, rec, levels, modes, maps, *, sbh=True, lossless=False,
-                 kinds=None, st="I"):
+                 kinds=None, st="I", trace=None):
     """Launch K23 over a batch: src = (y [F, H, W], cb, cr [F, H/2, W/2])
     int32; rec (same shapes, int32), levels = (ly [F, hc, wc, 16, 16], lcb,
     lcr [F, hc, wc, 8, 8]) int16 and modes [F, hc, wc] int32 are written in
     place; maps the per-CTU16 qp, qc and lam [hc, wc] (one frame's, shared
     by the batch).  ``kinds`` [F, hc, wc] (the commit of a flat P or B
     frame, slice type ``st``): only the kind-2 CTUs are coded; rec, levels
-    and modes must already hold every other CTU's (modes 1 there)."""
+    and modes must already hold every other CTU's (modes 1 there).
+    ``trace`` (int64 [F hc wc, 12], or None) takes each CTU's global-timer
+    stamps in ns (`ScanArgs.trace` of the source: ticket, luma neighbours
+    acquired, references read, costs out, decision, luma published, Cb
+    neighbours acquired, Cb published; then one mode group's prediction,
+    chain, rate counts and cost).
+    Returns the ticket list [2 + F hc wc] int32 (count, next ticket, then
+    the coded CTUs in order: `scan_tickets`), valid once the stream has
+    run it."""
     y = src[0]
     f, h, w = y.shape
     dev = y.device
@@ -163,6 +193,15 @@ def intra16_scan(src, rec, levels, modes, maps, *, sbh=True, lossless=False,
         if lossless:
             raise ValueError("intra16_scan: a P/B commit is lossy")
         a.kinds = p(kinds, torch.int32)
+    n = f * hc * wc       # scratch: K23's first launch fills both
+    sched = torch.empty(2 + n, dtype=torch.int32, device=dev)
+    a.sched = p(sched)
+    a.flags = p(torch.empty(3 * n, dtype=torch.int32, device=dev))
+    if trace is not None:
+        if trace.dtype != torch.int64 or tuple(trace.shape) != (n, 12):
+            raise ValueError("intra16_scan: trace must be int64 "
+                             "[F hc wc, 12]")
+        a.trace = p(trace)
     cuda_lib.require_cuda(*keep)
     fn = cuda_lib.lib("intra16_scan").intra16_scan
     fn.argtypes = [ctypes.POINTER(ScanArgs), ctypes.POINTER(ctypes.c_int),
@@ -172,3 +211,4 @@ def intra16_scan(src, rec, levels, modes, maps, *, sbh=True, lossless=False,
     rc = fn(ctypes.byref(a), ctypes.byref(launches),
             _P(cuda_lib.stream_handle(y)))
     cuda_lib.launched("intra16_scan", rc, launches.value)
+    return sched

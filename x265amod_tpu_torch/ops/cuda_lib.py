@@ -8,8 +8,8 @@ code.  Nothing here falls back to the plain PyTorch versions: a CUDA tensor
 either runs the kernel or raises.
 
 `LAUNCHES[name]` counts the launches of kernel `name` by its wrapper (one
-a call; K20 `commit_intra` and K23 `intra16_scan` enqueue one a diagonal in
-one call);
+a call; K20 `commit_intra` enqueues one a diagonal in one call, K23
+`intra16_scan` two: its ticket list and its scan);
 `LAUNCHES["intra_pred_lowres"]` counts K1's launches by the lookahead apart
 from the trees', `LAUNCHES["residual_chain_rdoq"]` K2's launches with its
 RDOQ stage apart from those without, and `LAUNCHES["decide_flat_b"]` the B
@@ -35,7 +35,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 # name -> extra nvcc flags.  tu_bits, subpel, sao_analyse, decide_p,
 # decide_b, pick_ref, mv_argmin, intra16_scan, decide_flat and the RDOQ
-# stage of residual_chain (also in commit_intra, through intra_chain.cuh)
+# stage of residual_chain (also in commit_intra, through chain_lanes.cuh)
 # form f32 costs in a fixed order that decides RD argmins, so the compiler
 # must not contract them into FMAs (each writes the FMAs XLA's order has
 # itself); lowres_aq and cutree_prop repeat the JAX f32 operations one by
