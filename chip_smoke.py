@@ -15,7 +15,12 @@ Phases (any failure exits non-zero):
      lowres blocks at one config-3 frame's lookahead shapes (1920x1088
      planes, 960x544 lowres, 120x68 blocks; K14 also run twice, bit-equal),
      and K1-K8 checked again at the B frame's shapes (one 1920x1088 frame,
-     sr 16); K2 with its RDOQ stage (row 21) at one diagonal of config 1's
+     sr 16); K1's predict at the flat intra trial's shape (8160 CU16s x 35
+     modes) and K5 at 1920x1088, sr 16 (bn 16 and 32 on the integer and
+     the half-pel plane, whose values reach -263 and 518), checked and
+     timed; K1's bound counts its Hadamard at the f16 and K5's
+     correlation at the int8 tensor-core rate (`bound_ms_int32`: the int32
+     ALUs alone); K2 with its RDOQ stage (row 21) at one diagonal of config 1's
      commit and at one 1920x1088 B and P frame's final coding, timed with
      and without the stage, with lambdas within 4 ulps of hi/lo and
      group-kill ties and levels at +-32767; K1-K3 at bit depth 10 at the
@@ -159,6 +164,10 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 # counts two operations) = half the data sheet's 67 TFLOP/s fp32 rate
 H100_INT32_OPS_PER_S = 33.5e12
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
+# dense tensor-core rates (data sheet): int8 products (K5's correlation) and
+# f16 products with f32 accumulation (K1's Hadamard)
+H100_INT8_OPS_PER_S = 1979e12
+H100_F16_FLOPS = 989e12
 # the kernels config 1 (all-intra) runs; config 2 runs K1-K8, the config-3
 # slice K1-K11, config 3 with AQ and CU-tree also the lookahead's (K12-K14
 # and K1 on the lowres blocks, counted apart)
@@ -270,6 +279,68 @@ def bound_ms(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def bound_tc_ms(nbytes, int32_ops=0, int8_ops=0, f16_flops=0):
+    """The least time counted with the units a tensor-core design maps its
+    work onto: bytes over HBM against the int8 products at 1,979 TOP/s,
+    the f16 products at 989 TFLOP/s and the rest on the int32 ALUs.  The
+    tensor cores run beside the int32 pipes, so the operations take the
+    longest of the three times, not their sum."""
+    tb = nbytes / H100_BYTES_PER_S * 1e3
+    to = max(int32_ops / H100_INT32_OPS_PER_S, int8_ops / H100_INT8_OPS_PER_S,
+             f16_flops / H100_F16_FLOPS) * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# DC and the modes whose angle is 0 or +-32 (2, 10, 18, 26, 34) copy
+# reference samples: no interpolation
+K1_COPY_MODES = (1, 2, 10, 18, 26, 34)
+
+
+def k1_ops(b, n, bd, modes=None):
+    """K1's work for b CUs as its design maps it: satd35 (modes None)
+    predicts 35 n x n blocks, 5 int32 operations a sample for planar and
+    the interpolating angular modes (two taps, a multiply-add, the rounding
+    shift; none for DC and the copy modes), takes the difference and sums
+    |.| (3 more), and transforms each 8x8 block with two 8x8x8 f16 products
+    (32 flops a sample; 48 at bit depth 10, whose second stage takes two);
+    predict forms the blocks of `modes` ([b, k]), 5 operations a sample of
+    an interpolating mode.  Returns (int32 ops, f16 flops, the int32-only
+    count of the design before: 16 and 8 a sample of every mode)."""
+    if modes is None:
+        interp = 35 - len(K1_COPY_MODES)
+        return (b * n * n * (5 * interp + 3 * 35),
+                b * 35 * n * n * (32 if bd == 8 else 48),
+                b * 35 * n * n * 16)
+    m = np.asarray(modes.cpu() if hasattr(modes, "cpu") else modes)
+    interp = int((~np.isin(m, K1_COPY_MODES)).sum())
+    return interp * n * n * 5, 0, m.size * n * n * 8
+
+
+def k5_split_blocks(plane, bn, sr):
+    """The blocks of a K5 call whose window (read at clamped coordinates)
+    holds a sample outside [0, 255], so that the kernel's vote takes the
+    byte split's second product."""
+    import torch
+    import torch.nn.functional as F
+    out = ((plane < 0) | (plane > 255)).float()[None, None]
+    out = F.pad(out, (sr, sr, sr, sr), mode="replicate")
+    return int(F.max_pool2d(out, bn + 2 * sr, bn).sum().item())
+
+
+def k5_ops(nb, bn, sr, split=0):
+    """K5's work for nb blocks: the correlation's S^2 bn^2 multiply-adds
+    as int8 products (twice for the `split` blocks whose window needs the
+    byte split), the box sums of the window energies (4 int32 operations
+    an entry of the (bn + 2 sr) x S row sums and of the S x S column sums,
+    4 for the combination) and c2 (2 a sample).  Returns (int32 ops, int8
+    ops, the int32-only count of the design before: 3 a multiply-add)."""
+    s = 2 * sr + 1
+    ws = bn + 2 * sr
+    return (nb * (4 * ws * s + 8 * s * s + 2 * bn * bn),
+            (nb + split) * 2 * s * s * bn * bn,
+            nb * s * s * bn * bn * 3)
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -330,7 +401,9 @@ def phase_kernels(f, h16, w16, iters, dev="cuda", bd=8):
     rows = []
 
     # K1 intra_pred: satd35 at B16/B32 and predict of the top-4 shortlist
-    k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0, ops=0, err=0.0)
+    k1 = dict(ms=0.0, plain_ms=0.0, bytes=0, err=0.0, ms_satd35=0.0,
+              ms_predict=0.0)
+    k1_int = k1_f16 = k1_old = 0
     for n, b in ((16, b16), (32, b32)):
         refs = ref_inputs(rng, b, n, dev, maxv)
         orig = rng.integers(0, maxv + 1, (b, n, n)).astype(np.int32)
@@ -351,19 +424,28 @@ def phase_kernels(f, h16, w16, iters, dev="cuda", bd=8):
             k1["err"] = max(k1["err"], check_equal(
                 f"predict n={n} c={c_idx} bd={bd}", got, want))
         del got, want
-        k1["ms"] += time_ms(lambda: intra.satd35(orig, *refs, n, 0,
-                                                 bit_depth=bd), iters)
-        k1["ms"] += time_ms(lambda: intra.predict(*refs, modes, n, 0,
-                                                  bit_depth=bd), iters)
+        ms_s = time_ms(lambda: intra.satd35(orig, *refs, n, 0,
+                                            bit_depth=bd), iters)
+        ms_p = time_ms(lambda: intra.predict(*refs, modes, n, 0,
+                                             bit_depth=bd), iters)
+        k1["ms"] += ms_s + ms_p
+        k1["ms_satd35"] += ms_s
+        k1["ms_predict"] += ms_p
         k1["plain_ms"] += time_ms(
             lambda: intra.satd35_plain(orig, *refs, n, 0, bd), 2)
         k1["plain_ms"] += time_ms(
             lambda: intra.predict_plain(*refs, modes, n, 0, bd), 2)
         io = nbytes(orig, *refs) + b * 35 * 4 + nbytes(*refs, modes) \
             + b * 4 * n * n * 4
-        ops = b * 35 * n * n * 16 + b * 4 * n * n * 8
+        for ops in (k1_ops(b, n, bd), k1_ops(b, n, bd, modes)):
+            k1_int += ops[0]
+            k1_f16 += ops[1]
+            k1_old += ops[2]
         k1["bytes"] += io
-        k1["ops"] += ops
+    k1["bound_ms"], k1["bound_by"] = bound_tc_ms(k1["bytes"], k1_int,
+                                                 f16_flops=k1_f16)
+    k1["bound_ms_int32"], k1["bound_by_int32"] = bound_ms(k1["bytes"],
+                                                          k1_old)
     rows.append(("intra_pred" + tag, "x265amod_tpu_torch/csrc/intra_pred.cu",
                  "x265amod_tpu/ops/intra.py:133 predict_all_modes_batch "
                  "(+ :250 predict_modes_batch, :340 substitute_refs_general,"
@@ -439,8 +521,6 @@ def phase_kernels(f, h16, w16, iters, dev="cuda", bd=8):
     rows.append(("tu_bits" + tag, "x265amod_tpu_torch/csrc/tu_bits.cu",
                  "x265amod_tpu/ops/estbits.py:114 tu_bits", k3))
     if bd == 10:          # the Main10 path runs no loop filter
-        for _, _, _, d in rows:
-            d["bound_ms"], d["bound_by"] = bound_ms(d["bytes"], d["ops"])
         cuda_lib.reset_launches()
         return rows
 
@@ -487,11 +567,10 @@ def phase_kernels(f, h16, w16, iters, dev="cuda", bd=8):
         k4["bytes"] += reps * (2 * nbytes(plane) + nbytes(bs_v, bs_h, qv,
                                                           qh))
         k4["ops"] += reps * plane.numel() * 4
+    k4["bound_ms"], k4["bound_by"] = bound_ms(k4["bytes"], k4["ops"])
     rows.append(("deblock", "x265amod_tpu_torch/csrc/deblock.cu",
                  "x265amod_tpu/ops/deblock.py:494 deblock_luma_bs "
                  "(+ :529 deblock_chroma_bs)", k4))
-    for _, _, _, d in rows:
-        d["bound_ms"], d["bound_by"] = bound_ms(d["bytes"], d["ops"])
     cuda_lib.reset_launches()
     return rows
 
@@ -734,11 +813,14 @@ def phase_kernels_p(iters, dev="cuda", w=1280, h=736, sr=8):
 
     # K5 me_ssd_grid: bn 16 and 32, on the reference and the hpel plane
     d = dict(err=0.0, ms=0.0, plain_ms=0.0)
-    nbytes_, ops = 0, 0
+    nbytes_, ops, int32_ops, int8_ops = 0, 0, 0, 0
     for bn in (16, 32):
         cb = blocks(bn)
         nb = cb.shape[0]
         for plane in (ref_t, hp):
+            k5 = k5_ops(nb, bn, sr, k5_split_blocks(plane, bn, sr))
+            int32_ops += k5[0]
+            int8_ops += k5[1]
             d["err"] = max(d["err"], check_equal(
                 f"me_ssd_grid bn={bn}", me.me_ssd_grid(cb, plane, sr, bn),
                 me.me_ssd_grid_plain(cb, plane, sr, bn)))
@@ -747,8 +829,10 @@ def phase_kernels_p(iters, dev="cuda", w=1280, h=736, sr=8):
             d["plain_ms"] += time_ms(
                 lambda: me.me_ssd_grid_plain(cb, plane, sr, bn), 2)
             nbytes_ += nbytes(cb, plane) + nb * s * s * 4
-            ops += nb * s * s * bn * bn * 3
-    d["bound_ms"], d["bound_by"] = bound_ms(nbytes_, ops)
+            ops += k5[2]
+    d["bound_ms"], d["bound_by"] = bound_tc_ms(nbytes_, int32_ops,
+                                               int8_ops=int8_ops)
+    d["bound_ms_int32"], d["bound_by_int32"] = bound_ms(nbytes_, ops)
     d["library_ms"] = None
     d["library_note"] = ("none: the SSD grid is two grouped convolutions "
                          "and an add, no single call")
@@ -1599,9 +1683,13 @@ def phase_kernels_la(iters, dev="cuda", w=1920, h=1088):
     d["ms"] = time_ms(lambda: la.lowres_intra_cost(lr), iters)
     d["plain_ms"] = time_ms(lambda: intra.satd35_plain(orig, *refs, 8, 0)
                             .amin(1), 2)
+    d["ms_satd35"] = time_ms(lambda: intra.satd35(orig, *refs, 8, 0),
+                             iters)
     nb = hb * wb
-    d["bound_ms"], d["bound_by"] = bound_ms(
-        nbytes(lr) + nbytes(*refs) + nb * 4, nb * 35 * 64 * 16)
+    io = nbytes(lr) + nbytes(*refs) + nb * 4
+    k1 = k1_ops(nb, 8, 8)
+    d["bound_ms"], d["bound_by"] = bound_tc_ms(io, k1[0], f16_flops=k1[1])
+    d["bound_ms_int32"], d["bound_by_int32"] = bound_ms(io, k1[2])
     d["library_ms"] = None
     d["library_note"] = "none: no call predicts intra modes"
     rows.append(("intra_pred_lowres", "x265amod_tpu_torch/csrc/intra_pred.cu",
@@ -1609,6 +1697,117 @@ def phase_kernels_la(iters, dev="cuda", w=1920, h=1088):
                  "(+ :56 satd8, ops/intra.py:379 substitute_refs, :133 "
                  "predict_all_modes_batch)", d))
     return rows
+
+
+def hpel_extremes(ref):
+    """Plants in an 8-bit plane (in place) the two 8x8 patches of 0 and 255
+    whose (1/2, 1/2) 8-tap value is K8's largest (518) and smallest (-263),
+    at the plane's top-right and bottom-left; returns their positions."""
+    from x265amod_tpu_torch.ops import me
+    import torch
+    t = np.outer(me.LUMA_FILTERS[2], me.LUMA_FILTERS[2])
+    h, w = ref.shape
+    at = {518: (16, w - 24), -263: (h - 24, 16)}
+    for v, (y, x) in at.items():
+        patch = (t > 0) if v > 0 else (t < 0)
+        ref[y - 3:y + 5, x - 3:x + 5] = torch.as_tensor(
+            patch.astype(np.int32) * 255, device=ref.device)
+    return at
+
+
+def phase_kernels_k1_k5_1080p(iters, dev="cuda", w=1920, h=1088, sr=16):
+    """K1 and K5 where the flat and B paths spend their time, each against
+    its plain version bit for bit: K1's predict at the flat intra trial's
+    shape (8160 CU16s x 35 modes, frame-border availability, the
+    references of a 1080p source); K5 at 1920x1088, sr 16, bn 16 on the
+    integer plane (the flat P call) and bn 16 and 32 on the integer and the
+    half-pel plane (a config-3 B frame's calls per reference).  The
+    reference holds 0 and 255 regions and the two patches whose half-pel
+    values are -263 and 518; the grids cover MVs at +-sr on the border
+    blocks.  Returns the keys added to the `intra_pred` and `me_ssd`
+    rows."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import _pad_to_ctu
+    from x265amod_tpu_torch.ops import intra, me
+    dev = torch.device(dev)
+    rng = np.random.default_rng(12)
+    k1, k5 = dict(err=0.0), dict(err=0.0)
+
+    # K1 predict: the flat intra trial (models/inter_frame.py:150-176)
+    src = torch.as_tensor(_pad_to_ctu(synth_frames(w, h - 8, 1, seed=22)
+                                      [0][0], 16).astype(np.int32),
+                          device=dev)
+    hc, wc = h // 16, w // 16
+    oy = src.reshape(hc, 16, wc, 16).permute(0, 2, 1, 3)
+    n = hc * wc
+    i = torch.arange(n, device=dev)
+    cy, cx = i // wc, i % wc
+    cyu, cxl = torch.clamp(cy - 1, min=0), torch.clamp(cx - 1, min=0)
+    cxr = torch.clamp(cx + 1, max=wc - 1)
+    left0 = oy[cy, cxl, :, 15]
+
+    def bc(flag):
+        return flag[:, None].expand(-1, 16)
+    refs = [t.contiguous() for t in (
+        torch.cat([oy[cyu, cx, 15, :], oy[cyu, cxr, 15, :]], 1),
+        torch.cat([left0, left0], 1), oy[cyu, cxl, 15, 15],
+        torch.cat([bc(cy > 0), bc((cy > 0) & (cx < wc - 1))], 1),
+        torch.cat([bc(cx > 0), bc(cx < 0)], 1), (cx > 0) & (cy > 0))]
+    modes = torch.arange(35, dtype=torch.int32, device=dev)[None] \
+        .expand(n, 35).contiguous()
+    got = intra.predict(*refs, modes, 16, 0)
+    k1["err"] = check_equal("predict flat trial", got,
+                            intra.predict_plain(*refs, modes, 16, 0))
+    del got
+    k1["ms_flat_trial_predict"] = time_ms(
+        lambda: intra.predict(*refs, modes, 16, 0), iters)
+    k1["plain_ms_flat_trial_predict"] = time_ms(
+        lambda: intra.predict_plain(*refs, modes, 16, 0), 2)
+    io = nbytes(*refs, modes) + n * 35 * 16 * 16 * 4
+    ops = k1_ops(n, 16, 8, modes)
+    k1["bound_ms_flat_trial_predict"], k1["bound_by_flat_trial_predict"] = \
+        bound_tc_ms(io, ops[0])
+    k1["bound_ms_int32_flat_trial_predict"] = bound_ms(io, ops[2])[0]
+    torch.cuda.empty_cache()
+
+    # K5 at 1920x1088, sr 16
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+    ref = torch.as_tensor(np.clip(
+        128 + 80 * np.sin(xx / 11.0) * np.cos(yy / 7.0)
+        + rng.normal(0, 4, (h, w)), 0, 255).astype(np.int32), device=dev)
+    ref[:64, :64] = 0
+    ref[-64:, -64:] = 255
+    at = hpel_extremes(ref)
+    cur = torch.clamp(torch.roll(ref, (3, -5), (0, 1)) + torch.as_tensor(
+        rng.integers(-6, 7, (h, w)).astype(np.int32), device=dev), 0, 255)
+    hp = me.hpel_plane(ref)
+    for v, (y, x) in at.items():
+        if int(hp[y, x]) != v:
+            raise AssertionError(f"half-pel plane: {int(hp[y, x])} at "
+                                 f"{(y, x)}, expected {v}")
+    k5["hpel_range"] = [int(hp.min()), int(hp.max())]
+    for bn, plane, key in ((16, ref, "bn16_int"), (16, hp, "bn16_hpel"),
+                           (32, ref, "bn32_int"), (32, hp, "bn32_hpel")):
+        cb = cur.reshape(h // bn, bn, w // bn, bn).permute(0, 2, 1, 3) \
+            .reshape(-1, bn, bn).contiguous()
+        nb = cb.shape[0]
+        k5["err"] = max(k5["err"], check_equal(
+            f"me_ssd_grid 1080p sr {sr} {key}",
+            me.me_ssd_grid(cb, plane, sr, bn),
+            me.me_ssd_grid_plain(cb, plane, sr, bn)))
+        k5[f"ms_1080p_sr16_{key}"] = time_ms(
+            lambda: me.me_ssd_grid(cb, plane, sr, bn), iters)
+        k5[f"plain_ms_1080p_sr16_{key}"] = time_ms(
+            lambda: me.me_ssd_grid_plain(cb, plane, sr, bn), 2)
+        s = 2 * sr + 1
+        io = nbytes(cb, plane) + nb * s * s * 4
+        split = k5_split_blocks(plane, bn, sr)
+        k5[f"split_blocks_1080p_sr16_{key}"] = split
+        ops = k5_ops(nb, bn, sr, split)
+        k5[f"bound_ms_1080p_sr16_{key}"], k5[f"bound_by_1080p_sr16_{key}"] \
+            = bound_tc_ms(io, ops[0], int8_ops=ops[1])
+        k5[f"bound_ms_int32_1080p_sr16_{key}"] = bound_ms(io, ops[2])[0]
+    return {"intra_pred": k1, "me_ssd": k5}
 
 
 def config3(w=1920, h=1080, aq=False, rdoq=0):
@@ -3220,6 +3419,23 @@ def main():
         by_name[name]["checked_at_config3_shapes"] = True
         log(f"phase 2: {name} equal to plain at 1920x1088 (max abs err "
             f"{d['err']})")
+    # K1 at the flat intra trial's shape, K5 at 1920x1088 sr 16
+    for name, ext in phase_kernels_k1_k5_1080p(args.iters).items():
+        by_name[name]["err"] = max(by_name[name]["err"], ext.pop("err"))
+        by_name[name].update(ext)
+        log(f"phase 2: {name} at 1920x1088 " + json.dumps(ext)
+            + f" [{card}]")
+    by_name["intra_pred"]["shapes_note"] = (
+        "also checked at one B frame's shapes (1920x1088, sr 16); "
+        "_satd35 / _predict: the row's two entry points apart; "
+        "_flat_trial_predict: predict of 8160 CU16s x 35 modes (the flat "
+        "intra trial at 1920x1088, frame-border availability); "
+        "bound_ms_int32*: the bound on int32 ALUs alone")
+    by_name["me_ssd"]["shapes_note"] = (
+        "also checked at one B frame's shapes (1920x1088, sr 16); "
+        "_1080p_sr16_bn16_int: the flat P frame's grid; _bn16/32_int/hpel:"
+        " a config-3 B frame's four grids per reference (1920x1088, sr "
+        "16); bound_ms_int32*: the bound on int32 ALUs alone")
     # K17 at config 3's P-anchor shapes (also the ladder's 1080p rung)
     dec1080 = phase_kernels_decide_1080p(args.iters)
     dec = by_name["decide_p"]
@@ -3482,9 +3698,9 @@ def main():
             ("ms_", "plain_ms_", "bound_ms_", "bound_by_", "diagonals",
              "intra_cells_", "dsf", "cu32_share", "chain",
              "launches_per_call"))
-            or k.startswith(("blocks", "ms_per_launch"))
+            or k.startswith(("blocks", "ms_per_launch", "split_blocks"))
             or k in ("ties", "level_bound_reached", "lanes", "maps_bytes",
-                     "ties_checked", "choice_histogram")}
+                     "ties_checked", "choice_histogram", "hpel_range")}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches,

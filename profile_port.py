@@ -7,13 +7,17 @@ the ABR ladder ("5"), config 2 under VBV with HRD ("6"), Main10 all-intra
 ("7"), config 3 with RDOQ ("8"), config 2 at x265's default --ref 3
 ("9"), the flat CTB16 all-intra path at 1920x1080, lossy and lossless
 ("10"), the flat CTB16 P frames of the JAX defaults ("11") and the flat B
-pyramid of preset medium without --ctu ("12") at 1920x1080; K23, K2 and
-K20 alone ("13"); the end-to-end fps of the flat paths ("14").
+pyramid of preset medium without --ctu ("12") at 1920x1080; K1, K5, K23,
+K2 and K20 alone ("13"); the end-to-end fps of the flat paths ("14").
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 profile_port.py [--configs 1,2,...,14] [--batches 2]
         [--p-frames 4] [--iters 20] [--root DIR]
+
+and, anywhere, to compare runs of two trees (one output file per run):
+
+    python3 profile_port.py --summarize OUT... --root PARENT_DIR
 
 Prints JSON lines:
   - "stages": host wall time of each stage of a config 1 16-frame batch,
@@ -82,8 +86,17 @@ Prints JSON lines:
     (chip_smoke phase 23: preset medium, 11 frames, I, P and B frames
     together; the B trials in "phase1_all", K25 in "decide_scan", SAO and
     the lookahead apart, the IDR's device step in "idr_step");
-  - "kernel_times" ("13"): K23, K2 and K20 alone at the main path's shapes,
-    CUDA events over --iters calls after 2 warm-up: K23 on one 1920x1088
+  - "kernel_times" ("13"): K1, K5, K23, K2 and K20 alone at the main
+    path's shapes, CUDA events over --iters calls after 2 warm-up.  K1
+    and K5 (lists of KT_REPS timings): "k1_satd35_*" and "k1_predict_*"
+    at a config-1 batch's calls (16 frames at 640x384: 15360 CU16s and
+    3840 CU32s, predict of a top-4 shortlist) and a Main10 batch's (16
+    frames at 1920x1088), satd35 on the lookahead's 8160 lowres blocks,
+    predict of the flat intra trial (8160 CU16s x 35 modes); K5's four
+    grids of a config-2 P frame (1280x736, sr 8: bn 16 and 32 on the
+    integer and the half-pel plane), the flat P frame's grid (1920x1088,
+    sr 16, bn 16) and a config-3 B frame's four grids per reference
+    (1920x1088, sr 16), on the bench clip.  K23 on one 1920x1088
     CTB16 frame at QP 32 (the bench clip of seed 19), lossless, a 16-frame
     640x368 batch, and as the commit of a 1920x1088 P frame whose intra
     CTUs are a 24 x 14 patch (336 of 8160); K2 at a config-1 batch's four
@@ -99,6 +112,10 @@ Prints JSON lines:
     turn, E2E_REPS times, every fps listed; with --root DIR an earlier
     tree's port, so that two trees alternate in one call (parent, change,
     change, parent);
+  - with --summarize: for every "kernel_times" and "e2e_fps" key, the
+    median, min and max of each tree's runs and the verdict: "faster" only
+    where every change run beats every parent run, "slower" the other way
+    round, else "unresolved";
   - the card's name and power limit.
 """
 
@@ -120,6 +137,8 @@ from chip_smoke import (card_line, config1, config2, config2_ref, config3,
 P_WARM = 2
 # rounds of the end-to-end fps runs ("14")
 E2E_REPS = 5
+# timings of each K1 and K5 key in one process ("13")
+KT_REPS = 3
 
 
 def stage_breakdown(enc, frames, batches):
@@ -636,15 +655,83 @@ def k23_trace(y, cb, cr, maps, enc):
         waited_ctus=int(waited.sum()), span=float(t[..., 5:8].max()))
 
 
+def k1_k5_times(iters, dev):
+    """K1 and K5 alone at the shapes where the paths spend their time (see
+    the docstring), each KT_REPS times."""
+    import torch
+    from chip_smoke import ref_inputs
+    from x265amod_tpu_torch.models.encoder import _pad_to_ctu
+    from x265amod_tpu_torch.ops import intra, me
+    rng = np.random.default_rng(1)
+    out = {}
+
+    def reps(fn):
+        return [time_ms(fn, iters) for _ in range(KT_REPS)]
+
+    def total(fns):
+        per = [reps(fn) for fn in fns]
+        return [sum(t) for t in zip(*per)]
+    for key, f, h16, w16, bd in (("config1", 16, 24, 40, 8),
+                                 ("main10", 16, 68, 120, 10)):
+        sat, pre = [], []
+        for n, b in ((16, f * h16 * w16), (32, f * h16 * w16 // 4)):
+            maxv = (1 << bd) - 1
+            refs = ref_inputs(rng, b, n, dev, maxv)
+            orig = torch.as_tensor(rng.integers(0, maxv + 1, (b, n, n))
+                                   .astype(np.int32), device=dev)
+            modes = torch.as_tensor(rng.integers(0, 35, (b, 4))
+                                    .astype(np.int32), device=dev)
+            sat.append(lambda o=orig, r=refs, n=n, bd=bd: intra.satd35(
+                o, *r, n, 0, bit_depth=bd))
+            pre.append(lambda r=refs, m=modes, n=n, bd=bd: intra.predict(
+                *r, m, n, 0, bit_depth=bd))
+        out[f"k1_satd35_{key}"] = total(sat)
+        out[f"k1_predict_{key}"] = total(pre)
+    # the lookahead's lowres blocks (960x544: 120 x 68 blocks of 8x8)
+    refs = ref_inputs(rng, 8160, 8, dev)
+    orig = torch.as_tensor(rng.integers(0, 256, (8160, 8, 8)).astype(
+        np.int32), device=dev)
+    out["k1_satd35_lowres"] = reps(lambda: intra.satd35(orig, *refs, 8, 0))
+    # the flat intra trial: 8160 CU16s x 35 modes
+    refs = ref_inputs(rng, 8160, 16, dev)
+    modes = torch.arange(35, dtype=torch.int32, device=dev)[None] \
+        .expand(8160, 35).contiguous()
+    out["k1_predict_flat_trial"] = reps(
+        lambda: intra.predict(*refs, modes, 16, 0))
+    torch.cuda.empty_cache()
+
+    # K5: config 2's four grids (1280x736, sr 8), the flat P grid and a
+    # config-3 B frame's four grids per reference (1920x1088, sr 16)
+    def grids(w, h, seed, sr, shapes):
+        src = [torch.as_tensor(_pad_to_ctu(x[0], 32).astype(np.int32),
+                               device=dev)
+               for x in synth_frames(w, h, 2, seed=seed)]
+        ref, cur = src
+        hp = me.hpel_plane(ref)
+        fns = []
+        for bn, half in shapes:
+            hh, ww = cur.shape
+            cb = cur.reshape(hh // bn, bn, ww // bn, bn) \
+                .permute(0, 2, 1, 3).reshape(-1, bn, bn).contiguous()
+            fns.append(lambda cb=cb, p=hp if half else ref, bn=bn:
+                       me.me_ssd_grid(cb, p, sr, bn))
+        return total(fns)
+    four = ((16, False), (16, True), (32, False), (32, True))
+    out["k5_sr8_config2"] = grids(1280, 720, 2, 8, four)
+    out["k5_sr16_flat_p"] = grids(1920, 1080, 22, 16, ((16, False),))
+    out["k5_sr16_b_frame_per_ref"] = grids(1920, 1080, 4, 16, four)
+    return out
+
+
 def kernel_times(iters):
-    """K23, K2 and K20 alone at the main path's shapes (see the
+    """K1, K5, K23, K2 and K20 alone at the main path's shapes (see the
     docstring)."""
     import torch
     from x265amod_tpu_torch.models.encoder import _pad_to_ctu
     from x265amod_tpu_torch.models.intra_frame import IntraFrameEncoder
     from x265amod_tpu_torch.ops import commit, residual
     dev = torch.device("cuda")
-    out = {}
+    out = k1_k5_times(iters, dev)
 
     def planes(w, h, n, seed):
         fr = synth_frames(w, h, n, seed=seed)
@@ -783,6 +870,47 @@ def device_profile(run, n_frames):
                      for us, k, c in rows[:12]])
 
 
+def summarize(paths, parent_root):
+    """Medians and spreads of the "kernel_times" (ms, lower is better) and
+    "e2e_fps" (higher is better) lines in the files ``paths``, split by
+    tree: the lines whose root is ``parent_root`` against the others.  A
+    gain is "faster" only where every change run beats every parent run,
+    "slower" where every parent run beats every change run, otherwise
+    "unresolved"."""
+    runs = {}
+    for path in paths:
+        with open(path) as fh:
+            for line in fh:
+                line = line.strip()
+                if not line.startswith("{"):
+                    continue
+                rec = json.loads(line)
+                for kind in ("kernel_times", "e2e_fps"):
+                    if kind not in rec:
+                        continue
+                    tree = ("parent" if rec[kind].get("root") == parent_root
+                            else "change")
+                    for key, v in rec[kind].items():
+                        if isinstance(v, (int, float)):
+                            v = [v]
+                        if isinstance(v, list):
+                            runs.setdefault((kind, key), {}).setdefault(
+                                tree, []).extend(v)
+    out = {}
+    for (kind, key), trees in sorted(runs.items()):
+        row = {tree: dict(median=float(np.median(v)), min=min(v),
+                          max=max(v), n=len(v))
+               for tree, v in trees.items()}
+        if len(trees) == 2:
+            p, c = trees["parent"], trees["change"]
+            if kind == "e2e_fps":
+                p, c = [-x for x in p], [-x for x in c]
+            row["verdict"] = ("faster" if max(c) < min(p) else "slower"
+                              if max(p) < min(c) else "unresolved")
+        out[f"{kind}.{key}"] = row
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--configs",
@@ -792,7 +920,13 @@ def main():
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--root", default=None,
                     help="import the port package from this tree")
+    ap.add_argument("--summarize", nargs="+", default=None,
+                    help="print the parent/change comparison of these "
+                    "output files (--root names the parent's tree)")
     args = ap.parse_args()
+    if args.summarize:
+        print(json.dumps(summarize(args.summarize, args.root)))
+        return
     configs = {int(c) for c in args.configs.split(",")}
     if args.root:
         import sys

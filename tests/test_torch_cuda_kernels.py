@@ -139,6 +139,48 @@ def test_me_ssd_grid_kernel(cuda_dev, bn, sr):
                        me.me_ssd_grid_plain(cur, ref, sr, bn))
 
 
+def _step_plane8(rng, h, w, dev):
+    """An 8-bit plane of 0 / 255 steps with texture between them."""
+    p = rng.integers(0, 256, (h, w))
+    p[: h // 2, : w // 3] = 0
+    p[h // 2:, w // 3: 2 * w // 3] = 255
+    p[:, -5:] = 255
+    p[-3:, :] = 0
+    return torch.as_tensor(p.astype(np.int32), device=dev)
+
+
+@pytest.mark.parametrize("sr", [1, 8, 16, 32])
+@pytest.mark.parametrize("bn", [16, 32])
+def test_me_ssd_grid_tensor_core_kernel(cuda_dev, bn, sr):
+    """K5's tensor-core correlation, bit for bit: on a plane of 0 / 255
+    steps (one u8 product), on K8's half-pel plane of it (the byte split,
+    two products), on a 10-bit window (the split with h up to 3), with a
+    10-bit block (the exact int32 loop); at sr 32 S^2 = 4225 offsets; and
+    on a frame smaller than the window (one block)."""
+    from x265amod_tpu_torch.ops import me
+    rng = np.random.default_rng(10 * bn + sr)
+    h, w = 96, 128
+    ref = _step_plane8(rng, h, w, cuda_dev)
+    cur8 = _step_plane8(rng, h, w, cuda_dev)
+
+    def blocks(p, hh, ww):
+        return p.reshape(hh // bn, bn, ww // bn, bn).permute(0, 2, 1, 3) \
+            .reshape(-1, bn, bn).contiguous()
+    hp = me.hpel_plane(ref)
+    assert int(hp.min()) < 0 and int(hp.max()) > 255
+    ref10 = _plane(rng, h, w, cuda_dev, hi=1024)
+    cur10 = blocks(_plane(rng, h, w, cuda_dev, hi=1024), h, w)
+    for cur, plane in ((blocks(cur8, h, w), ref), (blocks(cur8, h, w), hp),
+                       (blocks(cur8, h, w), ref10), (cur10, ref10)):
+        assert torch.equal(me.me_ssd_grid(cur, plane, sr, bn),
+                           me.me_ssd_grid_plain(cur, plane, sr, bn))
+    small = ref[:bn, :bn].contiguous()
+    cur = blocks(cur8[:bn, :bn], bn, bn)
+    for plane in (small, me.hpel_plane(small)):
+        assert torch.equal(me.me_ssd_grid(cur, plane, sr, bn),
+                           me.me_ssd_grid_plain(cur, plane, sr, bn))
+
+
 @pytest.mark.parametrize("n", [16, 32])
 def test_subpel_refine_kernel(cuda_dev, n):
     from x265amod_tpu_torch.ops import me
@@ -416,6 +458,56 @@ def test_residual_chain_rdoq_stage(cuda_dev, n):
     assert cuda_lib.LAUNCHES["residual_chain_rdoq"] == \
         before["residual_chain_rdoq"] + 4
     assert cuda_lib.LAUNCHES["residual_chain"] == before["residual_chain"]
+
+
+def _k1_refs(rng, b, n, maxv, dev):
+    """Raw refs with availability: random, nothing present, the corner
+    only, the left only, and flat 0 and maxv content."""
+    top = rng.integers(0, maxv + 1, (b, 2 * n))
+    left = rng.integers(0, maxv + 1, (b, 2 * n))
+    cor = rng.integers(0, maxv + 1, b)
+    at = rng.random((b, 2 * n)) < 0.7
+    al = rng.random((b, 2 * n)) < 0.7
+    ac = rng.random(b) < 0.7
+    at[0], al[0], ac[0] = False, False, False          # nothing
+    at[1], al[1], ac[1] = False, False, True           # the corner only
+    at[2], al[2], ac[2] = False, True, False           # the left only
+    at[3, n:], al[3, n:] = False, False                # no top-right, below
+    for i, v in ((4, 0), (5, maxv)):                   # flat 0, flat maxv
+        top[i], left[i], cor[i] = v, v, v
+        at[i], al[i], ac[i] = True, True, True
+    return [torch.as_tensor(a, device=dev) for a in (
+        top.astype(np.int32), left.astype(np.int32), cor.astype(np.int32),
+        at, al, ac)]
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("c_idx", [0, 1])
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_intra_pred_kernel_every_mode(cuda_dev, n, c_idx, bd):
+    """Both entry points of K1 against their plain versions, bit for bit:
+    37 CUs (a partial last thread block at every n), all 35 modes through
+    satd35, and predict at K 1, 4 and 35 (every mode of every CU, in a
+    random order), with flat blocks at 0 and at the largest sample."""
+    from x265amod_tpu_torch.ops import intra
+    rng = np.random.default_rng(1000 * bd + 10 * n + c_idx)
+    maxv = (1 << bd) - 1
+    b = 37
+    refs = _k1_refs(rng, b, n, maxv, cuda_dev)
+    orig = rng.integers(0, maxv + 1, (b, n, n)).astype(np.int32)
+    orig[4], orig[5], orig[6] = 0, maxv, maxv
+    orig = torch.as_tensor(orig, device=cuda_dev)
+    assert torch.equal(intra.satd35(orig, *refs, n, c_idx, bit_depth=bd),
+                       intra.satd35_plain(orig, *refs, n, c_idx, bd))
+    every = np.stack([rng.permutation(35) for _ in range(b)])
+    for k in (1, 4, 35):
+        modes = every[:, :k].astype(np.int32)
+        if k == 4:
+            modes[:, 1], modes[:, 2] = 10, 26      # the clipped edge filters
+        modes = torch.as_tensor(modes, device=cuda_dev)
+        assert torch.equal(
+            intra.predict(*refs, modes, n, c_idx, bit_depth=bd),
+            intra.predict_plain(*refs, modes, n, c_idx, bd))
 
 
 @pytest.mark.parametrize("n,c_idx", [(8, 1), (16, 0), (32, 0)])

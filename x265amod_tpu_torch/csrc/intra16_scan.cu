@@ -15,8 +15,9 @@
 //   - the raw neighbours from the recon planes (:144-155) with the flat
 //     grid's availability (left iff cx > 0, top iff cy > 0, top-right iff
 //     also cx < wc - 1, below-left never), the spec 8.4.4.2.2 substitution
-//     and the [1 2 1] smoothing, and all 35 luma predictions (K1's
-//     prediction sample of intra_chain.cuh, a row at a time: `pred_rows`);
+//     and the [1 2 1] smoothing, and all 35 luma predictions (the
+//     prediction arithmetic of intra_chain.cuh, a row at a time:
+//     `pred_rows`);
 //   - for every mode the residual chain: forward DCT, quant (intra
 //     rounding), sign-bit hiding, dequant, inverse DCT, clip (K2's group
 //     chain, chain_lanes.cuh), the SSD, and the rate `tu_bits` at the
@@ -282,84 +283,40 @@ __device__ int warp_refs(const int32_t* rec, int pw, int x0, int y0, int n,
   return (acc + n) >> (log2n + 1);
 }
 
-// Row l of the N x N prediction at `mode` by lane l of a group (K1's
-// pred_sample for every x, spec 8.4.4.2.6): planar and DC directly; an
-// angular mode first lays out its reference line ref(i), i in [-N, 2N +
-// 1] (the main side, the corner and the side projected through the
-// inverse angle), a few entries a lane, then every sample is one
-// two-tap interpolation of that line; the edge filters of modes 10 and 26.
-// line: the group's [3N + 2] scratch; every lane of the group (mask) must
-// call it.
+// Row l of the N x N prediction at `mode` by lane l of a group, from
+// intra_chain.cuh's parts, the mode's part chosen once for the row: an
+// angular mode first lays out its reference line (line_at, i in [-N, 2N +
+// 1]), a few entries a lane, then every sample is two taps of that line
+// (taps_at), the edge filters of modes 10 and 26 overriding them.  line:
+// the group's [3N + 2] scratch; every lane of the group (mask) must call
+// it.
 template <int N>
 __device__ __forceinline__ void pred_rows(const RefView& r, int mode,
                                           int c_idx, int dc, int l,
                                           unsigned mask, int* line,
                                           int* out) {
   constexpr int LOG2N = N == 8 ? 3 : 4;
-  const int* u = r.s;
   const int* R = filter_flag(mode, N, c_idx) ? r.f : r.s;
   const bool edge = c_idx == 0;
   if (mode == 0) {
 #pragma unroll
-    for (int x = 0; x < N; ++x)
-      out[x] = ((N - 1 - x) * left_at(R, N, l) + (x + 1) * top_at(R, N, N) +
-                (N - 1 - l) * top_at(R, N, x) + (l + 1) * left_at(R, N, N) +
-                N) >> (LOG2N + 1);
+    for (int x = 0; x < N; ++x) out[x] = planar_at(R, N, LOG2N, l, x);
     return;
   }
   if (mode == 1) {
 #pragma unroll
-    for (int x = 0; x < N; ++x) {
-      int v = dc;
-      if (edge) {
-        if (x == 0 && l == 0)
-          v = (left_at(u, N, 0) + 2 * dc + top_at(u, N, 0) + 2) >> 2;
-        else if (l == 0)
-          v = (top_at(u, N, x) + 3 * dc + 2) >> 2;
-        else if (x == 0)
-          v = (left_at(u, N, l) + 3 * dc + 2) >> 2;
-      }
-      out[x] = v;
-    }
+    for (int x = 0; x < N; ++x) out[x] = dc_at(r.s, dc, N, edge, l, x);
     return;
   }
-  const bool vertical = mode >= 18;
-  const int angle = kAngle[mode];
-  for (int e = l; e < 3 * N + 2; e += N) {
-    const int i = e - N;
-    int v;
-    if (i == 0) {
-      v = R[2 * N];
-    } else if (i >= 1) {
-      const int t = i <= 2 * N ? i - 1 : 2 * N - 1;
-      v = vertical ? top_at(R, N, t) : left_at(R, N, t);
-    } else {
-      int k = ((i * kInvAngle[mode] + 128) >> 8) - 1;
-      if (k < 0) {
-        v = R[2 * N];
-      } else {
-        k = k > 2 * N - 1 ? 2 * N - 1 : k;
-        v = vertical ? left_at(R, N, k) : top_at(R, N, k);
-      }
-    }
-    line[e] = v;
-  }
+  for (int e = l; e < 3 * N + 2; e += N)
+    line[e] = line_at(R, N, mode, e - N);
   __syncwarp(mask);
+  const int* L = line + N;
 #pragma unroll
   for (int x = 0; x < N; ++x) {
-    const int k = vertical ? l : x, j = vertical ? x : l;
-    const int pos = (k + 1) * angle;
-    const int fr = pos & 31;
-    const int i0 = (pos >> 5) + 1 + j + N;
-    int v = ((32 - fr) * line[i0] + fr * line[i0 + 1] + 16) >> 5;
-    if (edge && mode == 26 && x == 0) {
-      v = top_at(u, N, 0) + ((left_at(u, N, l) - u[2 * N]) >> 1);
-      v = v < 0 ? 0 : (v > 255 ? 255 : v);
-    }
-    if (edge && mode == 10 && l == 0) {
-      v = left_at(u, N, 0) + ((top_at(u, N, x) - u[2 * N]) >> 1);
-      v = v < 0 ? 0 : (v > 255 ? 255 : v);
-    }
+    int v = taps_at(mode, [L](int i) { return L[i]; }, l, x);
+    if (edge && mode == 26 && x == 0) v = edge26_at<8>(r.s, N, l);
+    if (edge && mode == 10 && l == 0) v = edge10_at<8>(r.s, N, x);
     out[x] = v;
   }
   __syncwarp(mask);

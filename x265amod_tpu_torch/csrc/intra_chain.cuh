@@ -1,8 +1,11 @@
 // Device functions of the intra chain, shared by K1 (`intra_pred.cu`), K20
 // (`commit_intra.cu`), K23 (`intra16_scan.cu`) and, through
-// chain_lanes.cuh, K2 (`residual_chain.cu`): K1's reference substitution
-// (spec 8.4.4.2.2), [1 2 1] smoothing and prediction sample of every intra
-// mode (JAX ops/intra.py substitute_refs_general, predict_modes_batch), and
+// chain_lanes.cuh, K2 (`residual_chain.cu`): the angle tables, the serial
+// reference substitution (spec 8.4.4.2.2; K1 runs its own, a warp's
+// segmented fill), the [1 2 1] smoothing, an angular mode's reference
+// line and the prediction sample of every intra mode, one copy for K1,
+// K20 and K23 (JAX ops/intra.py substitute_refs_general,
+// predict_modes_batch), and
 // the residual chain's tables and scalar steps: quant and dequant scales,
 // rounding shifts, and the RDOQ stage's rate and cost (JAX ops/quant.py,
 // ops/rdoq.py, ops/sbh.py).  The chain itself is chain_lanes.cuh's
@@ -83,100 +86,116 @@ __device__ __forceinline__ int smooth_121(const int* s, int m, int i) {
                                 : (s[i - 1] + 2 * s[i] + s[i + 1] + 2) >> 2;
 }
 
-// The substitution (one thread), then the smoothing (all threads).  Every
-// thread of the block must call it.
-template <int BD>
-__device__ void substitute_smooth(int* s, int* f, int n) {
-  const int m = 4 * n + 1;
-  if (threadIdx.x == 0) substitute_serial<BD>(s, f, n);
-  __syncthreads();
-  for (int i = threadIdx.x; i < m; i += blockDim.x)
-    f[i] = smooth_121(s, m, i);
-  __syncthreads();
-}
-
-// Load raw refs of block b from K1's arrays into the scan (s: samples, f:
-// availability), then substitute and smooth.
-template <int BD>
-__device__ void load_refs(const int32_t* top_raw, const int32_t* left_raw,
-                          const int32_t* corner_raw, const uint8_t* av_top,
-                          const uint8_t* av_left, const uint8_t* av_corner,
-                          int b, int n, int* s, int* f) {
-  const int m = 4 * n + 1;
-  const int32_t* tr = top_raw + (size_t)b * 2 * n;
-  const int32_t* lr = left_raw + (size_t)b * 2 * n;
-  const uint8_t* at = av_top + (size_t)b * 2 * n;
-  const uint8_t* al = av_left + (size_t)b * 2 * n;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    if (i < 2 * n) {
-      f[i] = al[2 * n - 1 - i];
-      s[i] = lr[2 * n - 1 - i];
-    } else if (i == 2 * n) {
-      f[i] = av_corner[b];
-      s[i] = corner_raw[b];
-    } else {
-      f[i] = at[i - 2 * n - 1];
-      s[i] = tr[i - 2 * n - 1];
-    }
+// Entry i in [-n, 2n + 1] of an angular mode's reference line (spec
+// 8.4.4.2.6): the corner at 0, the main side from 1 on (its last sample
+// repeated past 2n), the other side projected through the inverse angle
+// below 0.  R is the scan the mode reads (filtered or not).
+__device__ __forceinline__ int line_at(const int* R, int n, int mode, int i) {
+  const bool vertical = mode >= 18;
+  if (i == 0) return R[2 * n];
+  if (i >= 1) {
+    const int t = i <= 2 * n ? i - 1 : 2 * n - 1;
+    return vertical ? top_at(R, n, t) : left_at(R, n, t);
   }
-  __syncthreads();
-  substitute_smooth<BD>(s, f, n);
+  int e = ((i * kInvAngle[mode] + 128) >> 8) - 1;
+  if (e < 0) return R[2 * n];
+  if (e > 2 * n - 1) e = 2 * n - 1;
+  return vertical ? left_at(R, n, e) : top_at(R, n, e);
 }
 
-// Sample (y, x) of mode `mode`; dc is the DC value of the unfiltered refs.
+// The prediction arithmetic, one copy for K1, K20 and K23, in parts, so
+// that a kernel whose mode is fixed over a loop calls one part in it and
+// composes the angular parts in the order its code runs fastest (K23's
+// rows: the two taps, then the edge filters as overrides; K1: the edge
+// filters as early returns, `angular_at`; each order measured faster on
+// its kernel).  u is the substituted (unfiltered) scan, R the scan the
+// mode reads, dc the DC value of u, edge the DC and mode 10/26 edge
+// filters (luma below n 32), clipped to (1 << BD) - 1.
+
+// Planar (mode 0) sample (y, x).
+__device__ __forceinline__ int planar_at(const int* R, int n, int log2n,
+                                         int y, int x) {
+  return ((n - 1 - x) * left_at(R, n, y) + (x + 1) * top_at(R, n, n) +
+          (n - 1 - y) * top_at(R, n, x) + (y + 1) * left_at(R, n, n) + n) >>
+         (log2n + 1);
+}
+
+// DC (mode 1) sample (y, x).
+__device__ __forceinline__ int dc_at(const int* u, int dc, int n, bool edge,
+                                     int y, int x) {
+  int v = dc;
+  if (edge) {
+    if (x == 0 && y == 0)
+      v = (left_at(u, n, 0) + 2 * dc + top_at(u, n, 0) + 2) >> 2;
+    else if (y == 0)
+      v = (top_at(u, n, x) + 3 * dc + 2) >> 2;
+    else if (x == 0)
+      v = (left_at(u, n, y) + 3 * dc + 2) >> 2;
+  }
+  return v;
+}
+
+// v clipped to [0, (1 << BD) - 1]
+template <int BD>
+__device__ __forceinline__ int clip_bd(int v) {
+  return v < 0 ? 0 : (v > (1 << BD) - 1 ? (1 << BD) - 1 : v);
+}
+
+// The edge filter of mode 26 at (y, 0) and of mode 10 at (0, x).
+template <int BD>
+__device__ __forceinline__ int edge26_at(const int* u, int n, int y) {
+  return clip_bd<BD>(top_at(u, n, 0) + ((left_at(u, n, y) - u[2 * n]) >> 1));
+}
+template <int BD>
+__device__ __forceinline__ int edge10_at(const int* u, int n, int x) {
+  return clip_bd<BD>(left_at(u, n, 0) + ((top_at(u, n, x) - u[2 * n]) >> 1));
+}
+
+// Angular (mode >= 2) sample (y, x) before the edge filters: two taps of
+// the mode's reference line L(i), i in [-n, 2n + 1] (line_at, or a copy).
+template <class Line>
+__device__ __forceinline__ int taps_at(int mode, const Line& L, int y,
+                                       int x) {
+  const bool vertical = mode >= 18;
+  const int k = vertical ? y : x;
+  const int j = vertical ? x : y;
+  const int pos = (k + 1) * kAngle[mode];
+  const int fr = pos & 31;
+  const int i0 = (pos >> 5) + 1 + j;
+  return ((32 - fr) * L(i0) + fr * L(i0 + 1) + 16) >> 5;
+}
+
+// Angular (mode >= 2) sample (y, x).
+template <int BD, class Line>
+__device__ __forceinline__ int angular_at(int mode, bool edge, const int* u,
+                                          const Line& L, int n, int y,
+                                          int x) {
+  if (edge && mode == 26 && x == 0) return edge26_at<BD>(u, n, y);
+  if (edge && mode == 10 && y == 0) return edge10_at<BD>(u, n, x);
+  return taps_at(mode, L, y, x);
+}
+
+// Sample (y, x) of any mode.
+template <int BD, class Line>
+__device__ __forceinline__ int sample_at(int mode, bool edge, const int* u,
+                                         const int* R, const Line& L, int dc,
+                                         int n, int log2n, int y, int x) {
+  if (mode == 0) return planar_at(R, n, log2n, y, x);
+  if (mode == 1) return dc_at(u, dc, n, edge, y, x);
+  return angular_at<BD>(mode, edge, u, L, n, y, x);
+}
+
+// Sample (y, x) of mode `mode` straight from the scans (the line entries
+// it reads computed in place); dc is the DC value of the unfiltered refs.
 template <int BD>
 __device__ __forceinline__ int pred_sample(const RefView& r, int mode,
                                            int c_idx, int log2n, int dc,
                                            int y, int x) {
   const int n = r.n;
-  const int* u = r.s;
   const int* R = filter_flag(mode, n, c_idx) ? r.f : r.s;
-  const bool edge = c_idx == 0 && n < 32;
-  if (mode == 0) {
-    return ((n - 1 - x) * left_at(R, n, y) + (x + 1) * top_at(R, n, n) +
-            (n - 1 - y) * top_at(R, n, x) + (y + 1) * left_at(R, n, n) +
-            n) >> (log2n + 1);
-  }
-  if (mode == 1) {
-    if (edge) {
-      if (x == 0 && y == 0)
-        return (left_at(u, n, 0) + 2 * dc + top_at(u, n, 0) + 2) >> 2;
-      if (y == 0) return (top_at(u, n, x) + 3 * dc + 2) >> 2;
-      if (x == 0) return (left_at(u, n, y) + 3 * dc + 2) >> 2;
-    }
-    return dc;
-  }
-  if (edge && mode == 26 && x == 0) {
-    int v = top_at(u, n, 0) + ((left_at(u, n, y) - u[2 * n]) >> 1);
-    return v < 0 ? 0 : (v > (1 << BD) - 1 ? (1 << BD) - 1 : v);
-  }
-  if (edge && mode == 10 && y == 0) {
-    int v = left_at(u, n, 0) + ((top_at(u, n, x) - u[2 * n]) >> 1);
-    return v < 0 ? 0 : (v > (1 << BD) - 1 ? (1 << BD) - 1 : v);
-  }
-  const bool vertical = mode >= 18;
-  const int angle = kAngle[mode];
-  const int k = vertical ? y : x;
-  const int j = vertical ? x : y;
-  const int pos = (k + 1) * angle;
-  const int idx = pos >> 5;
-  const int fr = pos & 31;
-  // reference line position i in [-n, 2n + 1] -> sample
-  auto ref = [&](int i) -> int {
-    if (i == 0) return R[2 * n];
-    if (i >= 1) {
-      int t = i <= 2 * n ? i - 1 : 2 * n - 1;
-      return vertical ? top_at(R, n, t) : left_at(R, n, t);
-    }
-    int e = ((i * kInvAngle[mode] + 128) >> 8) - 1;
-    if (e < 0) return R[2 * n];
-    if (e > 2 * n - 1) e = 2 * n - 1;
-    return vertical ? left_at(R, n, e) : top_at(R, n, e);
-  };
-  const int i0 = idx + 1 + j;
-  const int a = ref(i0);
-  const int bb = fr ? ref(i0 + 1) : a;
-  return ((32 - fr) * a + fr * bb + 16) >> 5;
+  return sample_at<BD>(
+      mode, c_idx == 0 && n < 32, r.s, R,
+      [&](int i) { return line_at(R, n, mode, i); }, dc, n, log2n, y, x);
 }
 
 __device__ __forceinline__ int dc_value(const int* s, int n, int log2n) {

@@ -18,7 +18,10 @@ spec 8.4.4.2.2 substitution itself):
   the predictions never leave the kernel.
 - `predict`: the predictions of K given modes per block -> [B, K, n, n].
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+which is exact for samples (source and references) in [0, 2^bit_depth - 1]:
+its Hadamard runs as f16 products on the tensor cores, exact for such
+differences (`csrc/intra_pred.cu`).
 """
 
 from __future__ import annotations

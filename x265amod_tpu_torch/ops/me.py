@@ -323,7 +323,16 @@ def _plane_arg(plane):
 
 
 def me_ssd_grid(cur, ref, sr: int, bn: int = 16):
-    """See me_ssd_grid_plain; a CUDA tensor launches `csrc/me_ssd.cu`."""
+    """See me_ssd_grid_plain; a CUDA tensor launches `csrc/me_ssd.cu`.
+
+    The kernel's SSD is the exact sum modulo 2^32 read as an int32 (equal
+    to the plain version wherever the sum stays below 2^31: always for
+    8-bit samples, at most 1024 * 255^2), converted to f32 once.  Its
+    correlation runs on the tensor cores as 8-bit products for blocks in
+    [0, 255] against windows in [-2048, 2047] (an 8-bit plane: one
+    product; K8's half-pel plane of one, in [-263, 518]: two, through the
+    byte split); a block whose samples or window lie beyond takes the
+    kernel's exact int32 loop."""
     if ref.device.type == "cpu":
         return me_ssd_grid_plain(cur, ref, sr, bn)
     r = _plane_arg(ref)
