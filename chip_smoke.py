@@ -64,7 +64,9 @@ Phases (any failure exits non-zero):
      K24 and K25 (the flat CTB16 P and B decide scans, one launch a frame)
      free and forced, K23 as the commit scan of a flat P and B frame and
      K21's flat P/B maps, at one 1920x1088 P frame and one B frame (POC 1
-     between two CTB16 IDR recons), against their plain versions;
+     between two CTB16 IDR recons), against their plain versions, and K3
+     on that P frame's two calls (its intra trial's 8160 x 35 TUs of 16x16
+     and its inter trial's 8160), recorded from the frame's phase 1;
   3. BASELINE config 1 (640x360 all-intra ultrafast QP 30, CTU32) through
      `Encoder(device="cuda")`, 24 frames with the first 8 as warm-up; fps,
      PSNR-Y, kbps and the launch count of every kernel;
@@ -259,6 +261,34 @@ def time_ms(fn, iters):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+# bytes written between the launches that time_cold_ms times: more than
+# the H100's 50 MB of L2
+L2_FLUSH_BYTES = 128 << 20
+
+
+def time_cold_ms(fn, iters):
+    """Mean ms of ``fn`` on the card with L2 flushed before each call (a
+    128 MB fill, then a spin of the card that lets the host enqueue ``fn``
+    before its start event), as a frame's flow finds its inputs after
+    other kernels' traffic; after 2 warm-up calls."""
+    import torch
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    for _ in range(2):
+        fn()
+    ev = []
+    for _ in range(iters):
+        buf.fill_(1)
+        torch.cuda._sleep(1_000_000)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        ev.append((t0, t1))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / iters
 
 
 def butterfly_mults(n):
@@ -3131,6 +3161,64 @@ def commit16_bytes_ops(kinds, h=1088, w=1920):
     return nbytes_, ops
 
 
+def flat_inter_inputs(dev, w=1920, h=1080):
+    """Phase 2's flat P/B frames: the clip of seed 22 at w x h padded to
+    CTB16 (frame 1 with a flat patch), the card's CTB16 IDR recons of
+    frames 0 and 2 (int32 planes) and frame 1's planes on ``dev``.
+    Returns (padded w, padded h, [recon 0, recon 2], frame 1)."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import _pad_to_ctu
+    from x265amod_tpu_torch.models.intra_frame import IntraFrameEncoder
+    fr = synth_frames(w, h, 3, seed=22)
+    fr[1] = flat_patch(fr[1], 22, w, h)
+    pads = [[_pad_to_ctu(a, m) for a, m in zip(f, (16, 8, 8))] for f in fr]
+    h, w = pads[0][0].shape
+    idr = IntraFrameEncoder(w, h, device=dev)
+    recon = [tuple(t.to(torch.int32) for t in idr.encode_async(
+        *pads[i], 29, keep_recon=True)["recon_dev"]) for i in (0, 2)]
+    cur = tuple(torch.as_tensor(a, device=dev).to(torch.int32)
+                for a in pads[1])
+    return w, h, recon, cur
+
+
+def traced_tu_bits(module, fn):
+    """``fn()`` with ``module.tu_bits`` (K3 as a model module imports it)
+    recording each call's arguments.  Returns (fn's result, the calls)."""
+    calls = []
+    inner = module.tu_bits
+
+    def spy(*a, **k):
+        calls.append((a, k))
+        return inner(*a, **k)
+    module.tu_bits = spy
+    try:
+        return fn(), calls
+    finally:
+        module.tu_bits = inner
+
+
+def k3_call_keys(calls, iters, label_of):
+    """K3 against its plain version on recorded calls (bit for bit) and
+    timed: per call label, ms, plain ms (one call), bound, TU count."""
+    from x265amod_tpu_torch.ops import estbits
+    out = dict(err=0.0)
+    for a, k in calls:
+        lv = a[0]
+        tus = lv[..., 0, 0].numel()
+        key = label_of(tus)
+        out["err"] = max(out["err"], check_exact(
+            f"tu_bits {key}", estbits.tu_bits(*a, **k),
+            estbits.tu_bits_plain(*a, **k)))
+        out[f"ms_{key}"] = time_ms(lambda: estbits.tu_bits(*a, **k), iters)
+        out[f"plain_ms_{key}"] = time_once_ms(
+            lambda: estbits.tu_bits_plain(*a, **k))
+        n = lv.shape[-1]
+        out[f"bound_ms_{key}"], out[f"bound_by_{key}"] = bound_ms(
+            nbytes(lv) + tus * 4 * 2, tus * n * n * 12)
+        out[f"tus_{key}"] = tus
+    return out
+
+
 def phase_kernels_flat_inter(iters, dev="cuda", w=1920, h=1080):
     """K24 (the flat P decide scan), K25 (the flat B decide scan), K23 as
     the commit of a flat P and B frame and K21's flat P/B maps against
@@ -3141,28 +3229,21 @@ def phase_kernels_flat_inter(iters, dev="cuda", w=1920, h=1080):
     sr 16:
     K24 and K25 free (decisions, MVs, MVDs, MVP indices and cost rows) and
     forced (the plain scan's decisions replayed); K23 on the frame's kinds
-    and inter coding; K21 on its final levels and motion.  Times: CUDA
-    events, 20 calls after 2 warm-up (the plain scans once after a
-    warm-up).  Returns the K24 and K25 rows and the extra keys of the K23
-    and K21 rows."""
+    and inter coding; K21 on its final levels and motion; K3 on the P
+    frame's two calls (the inter trial's 8160 TUs and the intra trial's
+    8160 x 35 TUs of 16x16, recorded from `_phase1`).  Times: CUDA events,
+    20 calls after 2 warm-up (the plain scans once after a warm-up).
+    Returns the K24 and K25 rows and the extra keys of the K23, K21 and
+    K3 rows."""
     import torch
+    import x265amod_tpu_torch.models.inter_frame as mif
     from x265amod_tpu_torch.models.b_frame import BFrameEncoder
-    from x265amod_tpu_torch.models.encoder import _pad_to_ctu
     from x265amod_tpu_torch.models.inter_frame import InterFrameEncoder
-    from x265amod_tpu_torch.models.intra_frame import IntraFrameEncoder
     from x265amod_tpu_torch.models.mvpred import dist_scale_factor
     from x265amod_tpu_torch.ops import deblock
     from x265amod_tpu_torch.ops import decide_flat as dfl
     dev = torch.device(dev)
-    fr = synth_frames(w, h, 3, seed=22)
-    fr[1] = flat_patch(fr[1], 22, w, h)
-    pads = [[_pad_to_ctu(a, m) for a, m in zip(f, (16, 8, 8))] for f in fr]
-    h, w = pads[0][0].shape
-    idr = IntraFrameEncoder(w, h, device=dev)
-    recon = [idr.encode_async(*pads[i], 29, keep_recon=True)["recon_dev"]
-             for i in (0, 2)]
-    cur = tuple(torch.as_tensor(a, device=dev).to(torch.int32)
-                for a in pads[1])
+    w, h, recon, cur = flat_inter_inputs(dev, w, h)
     rows, extra = [], dict(intra16_scan={}, deblock_maps={})
     kz, km = extra["intra16_scan"], extra["deblock_maps"]
     for bidir in (False, True):
@@ -3174,15 +3255,19 @@ def phase_kernels_flat_inter(iters, dev="cuda", w=1920, h=1080):
         tag = "_flat_b" if bidir else "_flat_p"
         if bidir:
             dsf = (dist_scale_factor(1, 0, 2), dist_scale_factor(1, 2, 0))
-            refs = [tuple(t.to(torch.int32) for t in r) for r in recon]
+            refs = recon
             st1 = enc._phase1(cur[0], (refs[0][0], refs[1][0]), maps, [])
             args = (enc.sch, st1["grids"], st1["d"], st1["rb"], st1["di"],
                     st1["mv_me"], lam, enc.sr, dsf, enc.hdr_bits)
             run, plain = dfl.decide_b, dfl.decide_b_plain
             fkeys = ("choice", "mvd0", "mvp0", "mvd1", "mvp1")
         else:
-            refs = [tuple(t.to(torch.int32) for t in recon[0])]
-            st1 = enc._phase1(cur[0], refs[0][0], maps)
+            refs = recon[:1]
+            st1, calls = traced_tu_bits(mif, lambda: enc._phase1(
+                cur[0], refs[0][0], maps))
+            extra["tu_bits"] = k3_call_keys(
+                calls, iters, lambda tus: "flat_intra_trial"
+                if tus == 35 * n else "flat_inter_trial")
             args = (enc.sch, st1["grid"], st1["d"], st1["rb"], st1["di"],
                     st1["mv_me"], lam, enc.sr, enc.hdr_bits)
             run, plain = dfl.decide_p, dfl.decide_p_plain
@@ -3202,6 +3287,7 @@ def phase_kernels_flat_inter(iters, dev="cuda", w=1920, h=1080):
                 f"decide{tag} forced {k}", got_f[k], want_f[k]))
             check_exact(f"decide{tag} forced replays {k}", got_f[k], want[k])
         kd["ms"] = time_ms(lambda: run(*args), iters)
+        kd["ms_l2_cold"] = time_cold_ms(lambda: run(*args), iters)
         kd["ms_forced"] = time_ms(lambda: run(*fargs, forced=forced), iters)
         kd["plain_ms"] = time_once_ms(lambda: plain(*args))
         kd["plain_ms_forced"] = time_once_ms(lambda: plain(*fargs,
@@ -3462,9 +3548,13 @@ def main():
     by_name["deblock_maps"]["shapes_note"] += (
         "; _flat_p / _flat_b: the maps of phase 2's flat P / B frame at "
         "1920x1088 (bS from kinds, directions and MVs)")
+    by_name["tu_bits"]["shapes_note"] = (
+        "ms: a config-1 batch's four calls; _flat_intra_trial / "
+        "_flat_inter_trial: the two calls of phase 2's flat P frame at "
+        "1920x1088 (8160 x 35 and 8160 TUs of 16x16)")
     for name in ("decide_b", "commit_intra", "deblock_maps",
                  "frame_metrics", "mv_argmin", "intra16_scan", "decide_flat",
-                 "decide_flat_b"):
+                 "decide_flat_b", "tu_bits"):
         log(f"phase 2: {name} " + json.dumps(by_name[name]) + f" [{card}]")
     for name, _, _, d in rows:
         log(f"phase 2: {name} equal to plain (max abs err {d['err']}); "
@@ -3697,7 +3787,7 @@ def main():
         extra = {k: v for k, v in d.items() if k.startswith(
             ("ms_", "plain_ms_", "bound_ms_", "bound_by_", "diagonals",
              "intra_cells_", "dsf", "cu32_share", "chain",
-             "launches_per_call"))
+             "launches_per_call", "tus_"))
             or k.startswith(("blocks", "ms_per_launch", "split_blocks"))
             or k in ("ties", "level_bound_reached", "lanes", "maps_bytes",
                      "ties_checked", "choice_histogram", "hpel_range")}

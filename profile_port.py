@@ -7,13 +7,15 @@ the ABR ladder ("5"), config 2 under VBV with HRD ("6"), Main10 all-intra
 ("7"), config 3 with RDOQ ("8"), config 2 at x265's default --ref 3
 ("9"), the flat CTB16 all-intra path at 1920x1080, lossy and lossless
 ("10"), the flat CTB16 P frames of the JAX defaults ("11") and the flat B
-pyramid of preset medium without --ctu ("12") at 1920x1080; K1, K5, K23,
-K2 and K20 alone ("13"); the end-to-end fps of the flat paths ("14").
+pyramid of preset medium without --ctu ("12") at 1920x1080; K1, K5, K24,
+K3, K23, K2 and K20 alone ("13"); the end-to-end fps of the flat paths
+("14").
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 profile_port.py [--configs 1,2,...,14] [--batches 2]
         [--p-frames 4] [--iters 20] [--root DIR]
+        [--kernels k1k5,k24,k3,k23,k2k20]
 
 and, anywhere, to compare runs of two trees (one output file per run):
 
@@ -86,7 +88,7 @@ Prints JSON lines:
     (chip_smoke phase 23: preset medium, 11 frames, I, P and B frames
     together; the B trials in "phase1_all", K25 in "decide_scan", SAO and
     the lookahead apart, the IDR's device step in "idr_step");
-  - "kernel_times" ("13"): K1, K5, K23, K2 and K20 alone at the main
+  - "kernel_times" ("13"): K1, K5, K24, K3, K23, K2 and K20 alone at the main
     path's shapes, CUDA events over --iters calls after 2 warm-up.  K1
     and K5 (lists of KT_REPS timings): "k1_satd35_*" and "k1_predict_*"
     at a config-1 batch's calls (16 frames at 640x384: 15360 CU16s and
@@ -96,15 +98,24 @@ Prints JSON lines:
     grids of a config-2 P frame (1280x736, sr 8: bn 16 and 32 on the
     integer and the half-pel plane), the flat P frame's grid (1920x1088,
     sr 16, bn 16) and a config-3 B frame's four grids per reference
-    (1920x1088, sr 16), on the bench clip.  K23 on one 1920x1088
+    (1920x1088, sr 16), on the bench clip.  K24 and K3 (lists of KT_REPS
+    timings): "k24_flat_p_1080p" and "k24_flat_p_1080p_forced" (the flat
+    P frame of chip_smoke phase 2, free and replaying its own decisions;
+    "_l2_cold": free, L2 flushed before each call, as the frame's flow
+    finds the grids after the intra trial's traffic),
+    "k3_flat_intra_trial" and "k3_flat_inter_trial" (that frame's two
+    calls: 8160 x 35 and 8160 TUs of 16x16), "k3_config1" and "k3_main10"
+    (a batch's four calls on K2's levels).  K23 on one 1920x1088
     CTB16 frame at QP 32 (the bench clip of seed 19), lossless, a 16-frame
     640x368 batch, and as the commit of a 1920x1088 P frame whose intra
     CTUs are a 24 x 14 patch (336 of 8160); K2 at a config-1 batch's four
     calls (16 frames at 640x384), the flat intra trial (35 modes of 8160
     CTU16s) and a Main10 batch's four calls (16 frames at 1920x1088); K20
-    as the commit of a config-1 and a Main10 batch (chip_smoke phase 2's).  With
-    --root DIR the port package is imported from DIR (an unpacked earlier
-    tree), so that two designs are timed by one script in one call;
+    as the commit of a config-1 and a Main10 batch (chip_smoke phase 2's).
+    With --root DIR the port package is imported from DIR (an unpacked
+    earlier tree), so that two designs are timed by one script in one
+    call; --kernels names the groups timed ("k1k5", "k24", "k3", "k23",
+    "k2k20"; all by default);
   - "e2e_fps": chip_smoke phases 19, 20 and 22 timed as those phases time
     them (a new Encoder, their warm-up frames, then one encode_pipelined
     call over the rest, host wall clock): CTB16 all-intra (16 frames),
@@ -131,7 +142,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from chip_smoke import (card_line, config1, config2, config2_ref, config3,
-                        synth_frames, time_ms)
+                        synth_frames, time_cold_ms, time_ms)
 
 # P frames that run every stage before the P breakdowns' clock starts
 P_WARM = 2
@@ -723,27 +734,111 @@ def k1_k5_times(iters, dev):
     return out
 
 
-def kernel_times(iters):
-    """K1, K5, K23, K2 and K20 alone at the main path's shapes (see the
-    docstring)."""
+def k3_k24_times(iters, dev, groups):
+    """K24 and K3 (as ``groups`` names them) alone at the shapes where the
+    paths spend their time (see the docstring), each KT_REPS times."""
+    import torch
+    import x265amod_tpu_torch.models.inter_frame as mif
+    from chip_smoke import flat_inter_inputs, traced_tu_bits
+    from x265amod_tpu_torch.ops import decide_flat, estbits, residual
+    out = {}
+
+    def reps(fn):
+        return [time_ms(fn, iters) for _ in range(KT_REPS)]
+    # the flat P frame of chip_smoke phase 2 (1920x1088, sr 16, QP 32)
+    w, h, recon, cur = flat_inter_inputs(dev)
+    enc = mif.InterFrameEncoder(w, h, device=dev)
+    maps = enc._maps(32)
+    lam = maps["lam"].reshape(-1)
+    st1, calls = traced_tu_bits(mif, lambda: enc._phase1(
+        cur[0], recon[0][0], maps))
+    args = (enc.sch, st1["grid"], st1["d"], st1["rb"], st1["di"],
+            st1["mv_me"], lam, enc.sr, enc.hdr_bits)
+    if "k24" in groups:
+        out["k24_flat_p_1080p"] = reps(lambda: decide_flat.decide_p(*args))
+        out["k24_flat_p_1080p_l2_cold"] = [
+            time_cold_ms(lambda: decide_flat.decide_p(*args), iters)
+            for _ in range(KT_REPS)]
+        dec = decide_flat.decide_p(*args)
+        forced = (dec["choice"], dec["mvd"], dec["mvp"])
+        fargs = args[:1] + (None,) * 5 + args[6:]
+        out["k24_flat_p_1080p_forced"] = reps(
+            lambda: decide_flat.decide_p(*fargs, forced=forced))
+    if "k3" not in groups:
+        return out
+    for a, k in calls:
+        key = ("k3_flat_intra_trial" if a[0].dim() == 4
+               else "k3_flat_inter_trial")
+        out[key] = reps(lambda a=a, k=k: estbits.tu_bits(*a, **k))
+    del st1, calls, args
+    # the estimate's four calls of a config-1 and a Main10 batch, on the
+    # levels of K2 at random predictions (K2's keys' inputs)
+    rng = np.random.default_rng(1)
+    for key, f, h16, w16, bd in (("k3_config1", 16, 24, 40, 8),
+                                 ("k3_main10", 16, 68, 120, 10)):
+        b16, b32 = f * h16 * w16, f * h16 * w16 // 4
+        fns = []
+        for n, b, k, c_idx in ((16, b16, 4, 0), (8, 2 * b16, 1, 1),
+                               (32, b32, 4, 0), (16, 2 * b32, 1, 1)):
+            maxv = (1 << bd) - 1
+            orig = rng.integers(0, maxv + 1, (b, n, n)).astype(np.int32)
+            pred = np.clip(orig[:, None] + rng.integers(
+                -40, 41, (b, k, n, n)) * (maxv // 255), 0, maxv)
+            o, p_ = (torch.as_tensor(v.astype(np.int32), device=dev)
+                     for v in (orig, pred))
+            q = torch.as_tensor(rng.choice([22, 27, 30], b).astype(
+                np.int32), device=dev)
+            lv = residual.residual_chain(o, p_, q, False, want_recon=False,
+                                         bit_depth=bd)[0]
+            qk = q[:, None].expand(b, k)
+            fns.append(lambda lv=lv, c=c_idx, qk=qk: estbits.tu_bits(
+                lv, c, qk))
+        per = [reps(fn) for fn in fns]
+        out[key] = [sum(t) for t in zip(*per)]
+    torch.cuda.empty_cache()
+    return out
+
+
+# the kernel groups of "13", each timed by its own part of kernel_times
+KERNEL_GROUPS = ("k1k5", "k24", "k3", "k23", "k2k20")
+
+
+def kernel_times(iters, groups=KERNEL_GROUPS):
+    """K1, K5, K24, K3, K23, K2 and K20 alone at the main path's shapes
+    (see the docstring), the groups named in ``groups``."""
     import torch
     from x265amod_tpu_torch.models.encoder import _pad_to_ctu
-    from x265amod_tpu_torch.models.intra_frame import IntraFrameEncoder
-    from x265amod_tpu_torch.ops import commit, residual
     dev = torch.device("cuda")
-    out = k1_k5_times(iters, dev)
+    out = {}
+    if "k1k5" in groups:
+        out.update(k1_k5_times(iters, dev))
+    if "k24" in groups or "k3" in groups:
+        out.update(k3_k24_times(iters, dev, groups))
 
     def planes(w, h, n, seed):
         fr = synth_frames(w, h, n, seed=seed)
         return tuple(torch.stack([torch.as_tensor(
             _pad_to_ctu(x[k], 16 if k == 0 else 8), device=dev)
             for x in fr]).to(torch.int32) for k in range(3))
+    if "k23" in groups:
+        out.update(k23_times(iters, dev, planes))
+    if "k2k20" in groups:
+        out.update(k2_k20_times(iters, dev))
+    return out
+
+
+def k23_times(iters, dev, planes):
+    """K23 alone (see the docstring)."""
+    import torch
+    from x265amod_tpu_torch.models.intra_frame import IntraFrameEncoder
+    from x265amod_tpu_torch.ops import commit
+    out = {}
     y, cb, cr = planes(1920, 1080, 1, 19)
     for key, lossless in (("k23_1080p", False), ("k23_lossless", True)):
         enc = IntraFrameEncoder(1920, 1088, lossless=lossless, device=dev)
         maps = enc._maps(32)
         out[key] = time_ms(lambda: enc._scan_kernel(y, cb, cr, maps),
-                              iters)
+                           iters)
     enc = IntraFrameEncoder(1920, 1088, device=dev)
     maps = enc._maps(32)
     # an earlier tree's K23 (--root) may take no stamps
@@ -767,6 +862,15 @@ def kernel_times(iters):
     bmaps = benc._maps(32)
     out["k23_batch16_640x368"] = time_ms(
         lambda: benc._scan_kernel(yb, cbb, crb, bmaps), iters)
+    return out
+
+
+def k2_k20_times(iters, dev):
+    """K2 and K20 alone (see the docstring)."""
+    import torch
+    from x265amod_tpu_torch.models.encoder import _pad_to_ctu
+    from x265amod_tpu_torch.ops import residual
+    out = {}
     # K2: a config-1 batch's calls, the flat intra trial, a Main10 batch's
     rng = np.random.default_rng(1)
     for key, f, h16, w16, bd in (("k2_config1", 16, 24, 40, 8),
@@ -920,6 +1024,9 @@ def main():
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--root", default=None,
                     help="import the port package from this tree")
+    ap.add_argument("--kernels", default=",".join(KERNEL_GROUPS),
+                    help="the kernel groups \"13\" times: "
+                    + ", ".join(KERNEL_GROUPS))
     ap.add_argument("--summarize", nargs="+", default=None,
                     help="print the parent/change comparison of these "
                     "output files (--root names the parent's tree)")
@@ -1023,7 +1130,8 @@ def main():
             warm=0)}))
     if 13 in configs:
         print(json.dumps({"kernel_times": dict(
-            kernel_times(args.iters), root=args.root or ".")}))
+            kernel_times(args.iters, args.kernels.split(",")),
+            root=args.root or ".")}))
     if 14 in configs:
         print(json.dumps({"e2e_fps": dict(e2e_fps(),
                                           root=args.root or ".")}))

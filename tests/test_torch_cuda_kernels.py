@@ -1163,3 +1163,104 @@ def test_residual_chain_lane_groups(cuda_dev, n, bd, rdoq):
                                                      want_recon=False, **kw)
                 assert torch.equal(lv, want[0]) and torch.equal(ssd, want[2])
         assert int(want[0].abs().max()) > 0
+
+
+def _flat_p_inputs(rng, wc, hc, sr, dev):
+    """Synthetic flat P decide inputs: MVs that repeat (the merge pruning
+    bites), some beyond the +-sr window (1e18 lookups), costs that let
+    every choice win somewhere."""
+    n, s = wc * hc, 2 * sr + 1
+    mv = rng.integers(-2, 3, (n, 2)) * 4 + rng.integers(0, 2, (n, 2)) * 2
+    far = rng.random(n) < 0.1
+    mv[far] = rng.integers(-8 * sr, 8 * sr + 1, (int(far.sum()), 2))
+    return [torch.as_tensor(a, device=dev) for a in (
+        rng.uniform(0, 3000, (n, s, s)).astype(np.float32),
+        rng.uniform(0, 3000, n).astype(np.float32),
+        rng.uniform(0, 60, n).astype(np.float32),
+        rng.uniform(500, 4000, n).astype(np.float32), mv.astype(np.int32),
+        rng.uniform(2, 40, n).astype(np.float32))]
+
+
+@pytest.mark.parametrize("wc,hc", [(120, 68), (1, 32), (32, 1), (9, 35)])
+def test_decide_flat_p_row_walk(cuda_dev, wc, hc):
+    """K24 (a thread a CTU row) against `decide_p_plain` on synthetic
+    inputs passed straight to `decide_p`: 1920x1088 (68 rows across two
+    warp boundaries) and grids of one column, one row and 9 x 35; free
+    (choices, MVs, MVDs, MVP indices, cost rows) and forced with the
+    plain scan's decisions."""
+    from x265amod_tpu_torch.ops import cuda_lib
+    from x265amod_tpu_torch.ops import decide_flat as dfl
+    rng = np.random.default_rng(wc * 1000 + hc)
+    sr, hdr = 16, 9.5
+    grid, d, rb, di, me, lam = _flat_p_inputs(rng, wc, hc, sr, cuda_dev)
+    sch = dfl.Schedule(wc, hc, cuda_dev)
+    cuda_lib.reset_launches()
+    got = dfl.decide_p(sch, grid, d, rb, di, me, lam, sr, hdr,
+                       want_costs=True)
+    assert cuda_lib.LAUNCHES["decide_flat"] == 1
+    want = dfl.decide_p_plain(sch, grid, d, rb, di, me, lam, sr, hdr,
+                              want_costs=True)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k],
+                                                             want[k]), k
+    if wc * hc > 100:
+        assert len(set(want["choice"].tolist())) == 4
+    forced = (want["choice"], want["mvd"], want["mvp"])
+    got_f = dfl.decide_p(sch, None, None, None, None, None, lam, sr, hdr,
+                         forced=forced)
+    want_f = dfl.decide_p_plain(sch, None, None, None, None, None, lam, sr,
+                                hdr, forced=forced)
+    for k in want_f:
+        assert torch.equal(got_f[k], want_f[k]), k
+        assert torch.equal(got_f[k], want[k]), k
+
+
+def _k3_levels(rng, t, n):
+    """TUs of every kind K3 meets: zero, a DC level, dense with more than 8
+    nonzeros a group, remainders past the escape, +-32767."""
+    lv = (rng.integers(-40, 41, (t, n, n))
+          * (rng.random((t, n, n)) < 0.3)).astype(np.int64)
+    lv[0::5] = 0
+    lv[1::5] = 0
+    lv[1::5, 0, 0] = rng.integers(1, 4, lv[1::5].shape[0])
+    lv[2::5, :4, :4] = rng.integers(1, 4, (lv[2::5].shape[0], 4, 4))
+    lv[3::5, 1, 2] = rng.choice([300, -2000, 9000], lv[3::5].shape[0])
+    lv[4::7] = rng.choice([32767, -32767, 0, 1], (lv[4::7].shape[0], n, n))
+    return torch.as_tensor(lv.astype(np.int16))
+
+
+@pytest.mark.parametrize("st", ["I", "P", "B"])
+@pytest.mark.parametrize("n,t", [(8, 2053), (16, 1031), (32, 517)])
+def test_tu_bits_lane_groups(cuda_dev, n, t, st):
+    """K3 (a lane a 4x4 group, warp reductions, persistent blocks) against
+    `tu_bits_plain` bit for bit, at TU counts that fill no whole block
+    (64, 32 and 8 TUs a block), luma and chroma, on QPs 0..51 and past."""
+    from x265amod_tpu_torch.ops import estbits
+    rng = np.random.default_rng(n * 10 + len(st))
+    lv = _k3_levels(rng, t, n).to(cuda_dev)
+    qp = torch.as_tensor(rng.integers(-3, 56, t).astype(np.int32),
+                         device=cuda_dev)
+    for c_idx in (0, 1):
+        got = estbits.tu_bits(lv, c_idx, qp, st)
+        want = estbits.tu_bits_plain(lv, c_idx, qp, st)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    # a view that starts 2 bytes into a TU: the wrapper realigns it
+    odd = lv.reshape(-1)[1:1 + (t - 1) * n * n].reshape(t - 1, n, n)
+    assert torch.equal(estbits.tu_bits(odd, 0, qp[:t - 1], st),
+                       estbits.tu_bits_plain(odd, 0, qp[:t - 1], st))
+
+
+def test_tu_bits_flat_intra_trial_count(cuda_dev):
+    """K3 at the flat intra trial's 8160 x 35 TUs of 16x16 (many trips of
+    the grid-stride loop), the qp broadcast over the 35 modes."""
+    from x265amod_tpu_torch.ops import estbits
+    rng = np.random.default_rng(35)
+    lv = torch.as_tensor((rng.integers(-9, 10, (8160, 35, 16, 16))
+                          * (rng.random((8160, 35, 16, 16)) < 0.1)).astype(
+                              np.int16), device=cuda_dev)
+    qp = torch.as_tensor(rng.integers(22, 40, 8160).astype(np.int32),
+                         device=cuda_dev)[:, None].expand(-1, 35)
+    got = estbits.tu_bits(lv, 0, qp, "P")
+    assert got.shape == (8160, 35)
+    assert torch.equal(got, estbits.tu_bits_plain(lv, 0, qp, "P"))

@@ -1,7 +1,8 @@
 """Numpy models of the tensor-core arithmetic of K1 (`csrc/intra_pred.cu`)
-and K5 (`csrc/me_ssd.cu`), lane by lane as the kernels form it, held
-against the port's plain PyTorch versions on the CPU.  The kernels
-themselves run only on the card (`tests/test_torch_cuda_kernels.py`);
+and K5 (`csrc/me_ssd.cu`) and of K3's lanes (`csrc/tu_bits.cu`), lane by
+lane as the kernels form them, held against the port's plain PyTorch
+versions on the CPU.  The kernels themselves run only on the card
+(`tests/test_torch_cuda_kernels.py`);
 these check what the card tests cannot show, the fragment arithmetic and
 the exactness arguments that the kernels rest on, with plain numpy and no
 JAX:
@@ -18,13 +19,19 @@ JAX:
   every operand rounded to f16 and checked exact, with the 64 hi + lo
   split of stage 1 at bit depth 10 -> `_hadamard8_sum`, and the ranges
   that make each stage exact at bit depth 8 and 10.
+- K3 (`csrc/tu_bits.cu`): the lane mapping (8-byte row pieces to 4x4
+  groups, one or two groups a lane), the counts from bit masks and
+  popcounts, the lanes' sums and maxima and the pricing in f32 ->
+  `tu_bits_plain`, at n = 8, 16 and 32 on the I, P and B tables: all-zero
+  TUs, a lone DC level, groups with more than 8 nonzero levels,
+  remainders past the escape and levels of +-32767.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from x265amod_tpu_torch.ops import intra, me
+from x265amod_tpu_torch.ops import estbits, intra, me
 
 torch.set_num_threads(1)
 
@@ -279,3 +286,162 @@ def test_k1_f16_stage_ranges(bd):
             lo = np.float32(v) - 64 * hi
             assert 64 * hi + lo == v and abs(hi) <= 128 and 0 <= lo < 64
             assert _f16(hi) == hi and _f16(lo) == lo
+
+
+# ---- K3 ---------------------------------------------------------------------
+
+def _bitlen(v):
+    return int(v).bit_length() if v > 0 else 0
+
+
+def _popc(m):
+    return bin(m).count("1")
+
+
+def k3_group_count(v, n, g):
+    """`tu_bits.cuh:group_count`: the counts of group g (16 levels v in
+    raster order inside the group) of a TU of size n, as a dict, from bit
+    masks as the kernel forms them: nonzero and beyond-1 masks, the first
+    8 nonzero levels as the lowest 8 set bits, popcounts for the flags,
+    Golomb-Rice remainders where a level is beyond 1."""
+    g4 = n // 4
+    gy, gx = divmod(g, g4)
+    c = dict.fromkeys(("n_cod", "n1", "n0", "dc_nz", "cg0_cod", "g1_1",
+                       "g1_0", "g2", "rem_i", "over8", "nnz", "lx", "ly"),
+                      0)
+    a = [abs(int(x)) for x in v]
+    nz = sum(1 << q for q in range(16) if a[q])
+    gt1 = sum(1 << q for q in range(16) if a[q] > 1)
+    if not nz:
+        return c
+    k = min(max(_bitlen(sum(a)) - 5, 0), 4)
+    rest = nz
+    for _ in range(8):
+        rest &= rest - 1
+    take = nz ^ rest
+    c["g1_1"] = _popc(take & gt1)
+    c["g1_0"] = _popc(take) - c["g1_1"]
+    c["g2"] = int(c["g1_1"] > 0)
+    c["over8"] = _popc(rest) * (1 + k)
+    c["n1"] = _popc(nz & ~1 if g == 0 else nz)
+    c["n0"] = (15 if g == 0 else 16) - c["n1"]
+    for q in range(16):
+        rem = a[q] - (3 if (take >> q) & 1 else 1)
+        if (gt1 >> q) & 1 and rem > 0:
+            pref = rem >> k
+            esc = _bitlen(max(rem - (2 << k), 1)) - k
+            c["rem_i"] += pref + 1 + k if pref < 3 else 3 + 2 * esc + k
+    cols = (nz | nz >> 4 | nz >> 8 | nz >> 12) & 15
+    rows = sum(1 << i for i in range(4) if (nz >> (4 * i)) & 15)
+    c.update(n_cod=1, nnz=_popc(nz), lx=gx * 4 + cols.bit_length() - 1,
+             ly=gy * 4 + rows.bit_length() - 1)
+    if g == 0:
+        c.update(cg0_cod=1, dc_nz=nz & 1)
+    return c
+
+
+def k3_total_bits(c, n, row):
+    """`tu_bits.cuh:total_bits` in f32, the families in integer units of
+    2^-15 bit."""
+    f = np.float32
+    if c["nnz"] == 0:
+        return row[0]
+    ncg = (n // 4) ** 2
+    u = [int(np.rint(f(x) * f(32768))) for x in row]
+    csb_u = u[3] * c["n_cod"] + u[2] * (ncg - c["n_cod"]) - u[3]
+    sig_u = (c["n1"] * u[7] + c["n0"] * u[6]
+             + ((u[5] if c["dc_nz"] else u[4]) if c["cg0_cod"] else 0))
+    g1_u = c["g1_1"] * u[9] + c["g1_0"] * u[8]
+    g2_u = c["g2"] * u[10]
+    sc = f(1.0 / 32768.0)
+    csb = max(f(f(csb_u) * sc) + f(0.0), f(0.0))
+    lp = estbits.group_idx_bins(32)
+    total = f(row[1]) + f(f(lp[c["lx"]] + lp[c["ly"]]) * f(row[11]))
+    for term in (csb, f(sig_u) * sc, f(g1_u) * sc, f(g2_u) * sc,
+                 f(c["rem_i"]), f(c["over8"]), f(c["nnz"])):
+        total = f(total + f(term))
+    return total
+
+
+def k3_model(levels, n, qp, table):
+    """K3 (`csrc/tu_bits.cu:tu_bits_lanes`) lane by lane: n 8 a lane a
+    4x4 group (4 lanes a TU), 16 and 32 two groups a lane (8 lanes, group
+    rows gy and gy + 2; 32 lanes, gy and gy + 4), each group read as four
+    8-byte row pieces (two little-endian
+    words, unpacked to four int16 levels), the lane's counts combined,
+    summed and maxed over the TU's lanes, priced by its first lane.  Also
+    checks that the pieces tile the TU, each byte read once, and that the
+    lanes of one group row read one contiguous run."""
+    g4, ng = n // 4, (n // 4) ** 2
+    lanes = 4 if n == 8 else ng // 2
+    out = np.zeros(len(levels), np.float32)
+    for t, tu in enumerate(levels):
+        raw = np.ascontiguousarray(tu, np.int16).view(np.uint8).ravel()
+        seen = np.zeros(raw.size, int)
+        runs = {}
+        per_lane = []
+        for ln in range(lanes):
+            cs = []
+            for g in range(ln, ng, lanes):
+                gy, gx = divmod(g, g4)
+                v = []
+                for i in range(4):
+                    off = 2 * ((4 * gy + i) * n + 4 * gx)
+                    assert off % 8 == 0
+                    seen[off:off + 8] += 1
+                    runs.setdefault((gy, i), []).append(off)
+                    w = raw[off:off + 8].view("<u4")
+                    for word in w:
+                        lo, hi = int(word) & 0xffff, int(word) >> 16
+                        v += [lo - 65536 if lo > 32767 else lo,
+                              hi - 65536 if hi > 32767 else hi]
+                cs.append(k3_group_count(v, n, g))
+            per_lane.append({k: (max if k in ("lx", "ly", "cg0_cod", "dc_nz")
+                                 else sum)(c[k] for c in cs)
+                             for k in cs[0]})
+        assert np.all(seen == 1)
+        for offs in runs.values():
+            offs = sorted(offs)
+            assert offs == list(range(offs[0], offs[0] + 8 * len(offs), 8))
+        tot = {k: (max if k in ("lx", "ly", "cg0_cod", "dc_nz") else sum)(
+            c[k] for c in per_lane) for k in per_lane[0]}
+        out[t] = k3_total_bits(tot, n, table[min(max(int(qp[t]), 0), 51)])
+    return out
+
+
+def _k3_levels(rng, n, kind):
+    t = 6
+    lv = np.zeros((t, n, n), np.int64)
+    if kind == "dc":
+        lv[:, 0, 0] = rng.integers(-5, 6, t) | 1
+    elif kind == "over8":                  # more than 8 nonzeros a group
+        lv[:, :4, :4] = rng.integers(1, 4, (t, 4, 4)) * rng.choice([-1, 1],
+                                                                   (t, 4, 4))
+        lv[:, n - 4:, n - 4:] = rng.integers(-2, 3, (t, 4, 4))
+    elif kind == "escape":                 # remainders past the escape
+        lv[:] = rng.integers(-40, 41, (t, n, n)) * (rng.random((t, n, n))
+                                                    < 0.4)
+        lv[:, 1, 1] = rng.choice([300, -2000, 9000], t)
+    elif kind == "extremes":
+        lv[:] = rng.choice([32767, -32767, 0, 1], (t, n, n))
+        lv[0] = 32767
+        lv[1] = -32767
+    return lv.astype(np.int16)
+
+
+def test_k3_lane_model():
+    """One case for every size, kind and table (kept to one test: this
+    file stays among the short ones that the parallel run hands out after
+    its longest file)."""
+    for n in (8, 16, 32):
+        for kind in ("zeros", "dc", "over8", "escape", "extremes"):
+            rng = np.random.default_rng(n * 7 + len(kind))
+            lv = _k3_levels(rng, n, kind)
+            qp = rng.choice([0, 22, 32, 51, 60], len(lv)).astype(np.int32)
+            for st in ("I", "P", "B"):
+                table = estbits.bit_consts_table(st, 0)
+                want = estbits.tu_bits_plain(torch.as_tensor(lv), 0,
+                                             torch.as_tensor(qp), st).numpy()
+                got = k3_model(lv, n, qp, table)
+                assert np.array_equal(got.view(np.uint32),
+                                      want.view(np.uint32)), (n, kind, st)

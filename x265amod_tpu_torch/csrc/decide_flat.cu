@@ -27,19 +27,45 @@
 //   intra   = fma(lam, intra header bins, intra trial cost)
 // The file is built with --fmad=false so that nothing else contracts.
 //
-// Design (K17's and K19's): one thread block; thread j is lane j of the
-// current diagonal (one CTU16: at most 60 lanes at 1920x1088, 254
-// diagonals).  The block loops over the diagonals with __syncthreads()
-// between them; the committed motion (direction, MV0, MV1 per CTU, int32
-// each: 20 bytes a CTU, 163 KB at 1920x1088) lives in a global scratch the
-// wrapper allocates, which the one SM's L1 holds.  Every input and output
-// is raster.  A forced mode replays given decisions (choice, MVDs and MVP
-// indices) through the same candidate derivation: an AMVP cell's MV is its
-// predictor plus its MVD.
-//
 // What bounds it on an H100: neither bytes nor operations (a CTU reads two
-// grid entries per list of its [S, S] grids); its time is the latency of
-// one thread's chain of dependent steps per diagonal times the diagonals.
+// grid entries per list of its [S, S] grids and does a few hundred
+// operations); its time is the latency of the dependent chain of one CTU
+// times the number of wavefront steps (254 at 1920x1088).
+//
+// K24's design (`decide_rows_p`): one thread block, a thread a CTU row.
+// Thread r walks row r left to right and decides CTU (t - 2 r, r) at step
+// t, the same wavefront as the diagonals, so the same decisions.  What a
+// CTU reads is then in registers or one shared-memory word away:
+//   - A1 is the thread's own commit of step t - 1;
+//   - B0, B1, B2 are row r - 1's commits of steps t - 1, t - 2, t - 3: a
+//     three-entry register window, fed each step from a shared-memory
+//     slot the upper row writes (one barrier a step);
+//   - the inputs that do not depend on the neighbours (lambda, the ME MV,
+//     the trial distortion, rate and intra cost; forced: the given choice,
+//     MVD and MVP index) are loaded a step ahead, the next CTU of a row
+//     being the next raster index;
+//   - the grid entries at the four neighbours' final MVs and at the zero
+//     MV are read as the step starts (the window holds the MVs), beside
+//     the merge and AMVP derivation; the pruning then picks two of them.
+// So one grid read is the only memory round trip on a step's chain: an L2
+// hit when the grids are warm (0.16 ms a 1080p frame), a device-memory
+// read in the frame's flow, where the intra trial's traffic has evicted
+// them (0.25 ms).  Three ways of taking it off the chain were slower on
+// the H100 (PERF.md, PR 13): reading every entry a step ahead at each MV
+// a neighbour may end on (its mrg0, mrg1 or ME MV), with the row above's
+// three handed down through a second barrier a step; a bulk L2 prefetch
+// of each CTU's grid row two steps ahead; and single-line L2 prefetches
+// of those entries a step ahead.  Each cost more on the one thread's
+// chain than the read it hid.
+// A forced mode replays given decisions (choice, MVD, MVP index) through
+// the same candidate derivation, without lookups.  Every input and output
+// is raster.
+//
+// K25 (`decide_kernel<true>`, launch name `decide_flat_b`) is still one
+// thread a lane of the current diagonal, with __syncthreads() between the
+// 254 diagonals and the committed motion (direction, MV0, MV1 per CTU) in a
+// global scratch the wrapper allocates; the row walk above is the design
+// it, K17 and K19 can take next.
 //
 // Entry point (plain C, caller's stream, returns cudaGetLastError()):
 //   decide_flat(const FlatArgs* args, int bidir, cudaStream_t stream)
@@ -61,8 +87,8 @@ struct FlatArgs {
   const float *d, *rb, *di, *lam;
   const int32_t *me0, *me1;
   float intra_hdr_bits;
-  // wavefront schedule: slot -> raster CTU, diagonal k holds slots
-  // diag_off[k] .. diag_off[k + 1] - 1
+  // K25's wavefront schedule: slot -> raster CTU, diagonal k holds slots
+  // diag_off[k] .. diag_off[k + 1] - 1 (K24 walks rows and reads neither)
   const int32_t *slot_ctu, *diag_off;
   // forced mode (null when free): choice, MVD and MVP index of each list
   const int32_t *f_ch, *f_mvd0, *f_mvp0, *f_mvd1, *f_mvp1;
@@ -71,7 +97,7 @@ struct FlatArgs {
   int32_t *choice, *dir, *mv0, *mv1, *mvd0, *mvp0, *mvd1, *mvp1;
   // optional cost rows [n, 4] (P) or [n, 6] (B)
   float* js;
-  // global scratch, 5 n int32: direction (P: 1 inter), MV0, MV1
+  // K25's global scratch, 5 n int32: direction, MV0, MV1 (K24: null)
   int32_t* maps;
 };
 }
@@ -176,15 +202,18 @@ __device__ void amvp_b(const Cand c[4], int li, int dsf, int p[4]) {
 }
 
 // P AMVP pair (JAX :271-278): A = A1; B = the first of B0, B1, B2, pruned
-// against A
-__device__ void amvp_p(const Cand c[4], int p[4]) {
-  const Cand& b = c[2].av ? c[2] : (c[1].av ? c[1] : c[3]);
+// against A (selected by value: a reference chosen at run time would put
+// the candidates in local memory)
+__device__ __forceinline__ void amvp_p(const Cand c[4], int p[4]) {
+  const int bx = c[2].av ? c[2].m0x : (c[1].av ? c[1].m0x : c[3].m0x);
+  const int by = c[2].av ? c[2].m0y : (c[1].av ? c[1].m0y : c[3].m0y);
   const bool avb = c[1].av || c[2].av || c[3].av;
-  const bool avb2 = avb && !(c[0].av && same_p(b, c[0]));
-  p[0] = c[0].av ? c[0].m0x : (avb2 ? b.m0x : 0);
-  p[1] = c[0].av ? c[0].m0y : (avb2 ? b.m0y : 0);
-  p[2] = c[0].av && avb2 ? b.m0x : 0;
-  p[3] = c[0].av && avb2 ? b.m0y : 0;
+  const bool avb2 =
+      avb && !(c[0].av && bx == c[0].m0x && by == c[0].m0y);
+  p[0] = c[0].av ? c[0].m0x : (avb2 ? bx : 0);
+  p[1] = c[0].av ? c[0].m0y : (avb2 ? by : 0);
+  p[2] = c[0].av && avb2 ? bx : 0;
+  p[3] = c[0].av && avb2 ? by : 0;
 }
 
 // the MVD against the predictor with fewer bins (A on a tie): mvd, index,
@@ -199,6 +228,184 @@ __device__ __forceinline__ float pick_mvp(int mx, int my, const int p[4],
   dy = idx ? d1y : d0y;
   return b1 < b0 ? b1 : b0;
 }
+
+// ---- K24: a thread a CTU row -------------------------------------------
+
+// the most CTU rows K24 takes (8192 luma rows)
+constexpr int kMaxRows = 512;
+
+// What a CTU of the row above (or the thread's own previous CTU) committed:
+// inter or not and its final MV.  An idle step commits nothing (inter 0).
+struct Commit {
+  int inter, x, y;
+};
+
+// A CTU's inputs that do not depend on its neighbours, loaded a step ahead:
+// free, lambda, trial distortion and rate, intra cost and ME MV; forced,
+// the given choice, MVD and MVP index.
+struct RowIn {
+  float lam, d, rb, di;
+  int mx, my, ch, mvp;
+};
+
+template <bool FORCED>
+__device__ __forceinline__ RowIn row_in(const FlatArgs& a, int ctu) {
+  RowIn v;
+  if (FORCED) {
+    v.lam = v.d = v.rb = v.di = 0.0f;
+    v.ch = a.f_ch[ctu];
+    v.mx = a.f_mvd0[2 * ctu];
+    v.my = a.f_mvd0[2 * ctu + 1];
+    v.mvp = a.f_mvp0[ctu];
+  } else {
+    v.lam = a.lam[ctu];
+    v.d = a.d[ctu];
+    v.rb = a.rb[ctu];
+    v.di = a.di[ctu];
+    v.mx = a.me0[2 * ctu];
+    v.my = a.me0[2 * ctu + 1];
+    v.ch = v.mvp = 0;
+  }
+  return v;
+}
+
+// the row state between steps: A1 (own previous commit) and the upper
+// row's window B0, B1, B2 (its commits of the last three steps)
+struct RowState {
+  Commit A, U0, U1, U2;
+};
+
+// Step t of row r: decide CTU (t - 2 r, r) from the window and `cur` (its
+// inputs, loaded a step ahead), load the next CTU's inputs into `nxt`,
+// exchange commits with the rows around (two slots by the step's parity:
+// a row may write its next commit before the row below has read this
+// one).
+template <bool FORCED>
+__device__ __forceinline__ void row_step(const FlatArgs& a, int t, int r,
+                                         RowState& st, const RowIn& cur,
+                                         RowIn& nxt,
+                                         int4 (&com)[2][kMaxRows]) {
+  const int wc = a.wc, sr = a.sr;
+  const bool row = r < a.hc;
+  const int x = t - 2 * r;
+  const bool act = row && x >= 0 && x < wc;
+  const int ctu = r * wc + x;
+  const Commit none{0, 0, 0};
+  if (row && x + 1 >= 0 && x + 1 < wc) nxt = row_in<FORCED>(a, ctu + 1);
+  Commit mine = none;
+  if (act) {
+    const Commit& A = st.A;
+    // candidates in the order A1, B1, B0, B2 (an idle step commits no
+    // inter CTU, so the frame borders need no test)
+    const Cand c[4] = {{A.inter != 0, 1, A.x, A.y, 0, 0},
+                       {st.U1.inter != 0, 1, st.U1.x, st.U1.y, 0, 0},
+                       {st.U0.inter != 0, 1, st.U0.x, st.U0.y, 0, 0},
+                       {st.U2.inter != 0, 1, st.U2.x, st.U2.y, 0, 0}};
+    // every grid entry a merge candidate may take, read at once: the
+    // neighbours' final MVs are known when the step starts (a neighbour
+    // that is not inter reads the zero MV's entry, unused: unconditional
+    // reads measured faster than reads behind the availability test)
+    float gv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      gv[i] = FORCED ? 0.0f : lookup(a.grid0, ctu, sr, c[i].m0x, c[i].m0y);
+    const float gz = FORCED ? 0.0f : lookup(a.grid0, ctu, sr, 0, 0);
+    bool m_av[4];
+    m_av[0] = c[0].av;
+    m_av[1] = c[1].av && !(c[0].av && same_p(c[1], c[0]));
+    m_av[2] = c[2].av && !(c[1].av && same_p(c[2], c[1]));
+    m_av[3] = c[3].av && !(c[0].av && same_p(c[3], c[0])) &&
+              !(c[1].av && same_p(c[3], c[1]));
+    int m0x = 0, m0y = 0, m1x = 0, m1y = 0, k2 = 0;
+    float g0 = gz, g1 = gz;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (m_av[i]) {
+        if (k2 == 0) {
+          m0x = c[i].m0x;
+          m0y = c[i].m0y;
+          g0 = gv[i];
+        } else if (k2 == 1) {
+          m1x = c[i].m0x;
+          m1y = c[i].m0y;
+          g1 = gv[i];
+        }
+        ++k2;
+      }
+    }
+    int p0[4];
+    amvp_p(c, p0);
+    int ch, mvdx, mvdy, mvp, mex, mey;
+    if (FORCED) {
+      ch = cur.ch;
+      mvdx = cur.mx;
+      mvdy = cur.my;
+      mvp = cur.mvp;
+      mex = (mvp == 1 ? p0[2] : p0[0]) + mvdx;
+      mey = (mvp == 1 ? p0[3] : p0[1]) + mvdy;
+    } else {
+      mex = cur.mx;
+      mey = cur.my;
+      const float bits = pick_mvp(mex, mey, p0, mvdx, mvdy, mvp);
+      float js[4];
+      js[0] = __fmaf_rn(cur.lam, 2.0f, g0);
+      js[1] = __fmaf_rn(cur.lam, 3.0f, g1);
+      js[2] = __fmaf_rn(cur.lam, __fadd_rn(__fadd_rn(cur.rb, bits), 6.0f),
+                        cur.d);
+      js[3] = __fmaf_rn(cur.lam, a.intra_hdr_bits, cur.di);
+      ch = 0;
+      float best = js[0];
+#pragma unroll
+      for (int i = 1; i < 4; ++i) {
+        if (js[i] < best) {
+          best = js[i];
+          ch = i;
+        }
+      }
+      if (a.js != nullptr)
+        reinterpret_cast<float4*>(a.js)[ctu] =
+            make_float4(js[0], js[1], js[2], js[3]);
+    }
+    // the final MV: the merge candidate, or the ME MV (an intra cell
+    // outputs it too; the row's commit holds it only for an inter cell)
+    const int vx = ch == 0 ? m0x : (ch == 1 ? m1x : mex);
+    const int vy = ch == 0 ? m0y : (ch == 1 ? m1y : mey);
+    a.choice[ctu] = ch;
+    reinterpret_cast<int2*>(a.mv0)[ctu] = make_int2(vx, vy);
+    reinterpret_cast<int2*>(a.mvd0)[ctu] = make_int2(mvdx, mvdy);
+    a.mvp0[ctu] = mvp;
+    if (ch <= 2) mine = Commit{1, vx, vy};
+  }
+  // publish this step's commit; take the upper row's
+  int4* slot = com[t & 1];
+  if (row) slot[r] = make_int4(mine.inter, mine.x, mine.y, 0);
+  __syncthreads();
+  st.U2 = st.U1;
+  st.U1 = st.U0;
+  if (row && r > 0) {
+    const int4 u = slot[r - 1];
+    st.U0 = Commit{u.x, u.y, u.z};
+  }
+  st.A = mine;
+}
+
+// K24: thread r walks row r (see the file's head).  Step -1 only loads the
+// first CTU of row 0; the two input buffers swap roles each step.
+template <bool FORCED>
+__global__ void decide_rows_p(const FlatArgs a) {
+  __shared__ int4 com[2][kMaxRows];
+  const int r = threadIdx.x;
+  const int steps = a.wc + 2 * (a.hc - 1);
+  const Commit none{0, 0, 0};
+  RowState st{none, none, none, none};
+  RowIn b0{}, b1{};
+  for (int t = -1; t < steps; t += 2) {
+    row_step<FORCED>(a, t, r, st, b0, b1, com);
+    row_step<FORCED>(a, t + 1, r, st, b1, b0, com);
+  }
+}
+
+// ---- K25: a thread a lane of the current diagonal ----------------------
 
 template <bool BIDIR>
 __global__ void decide_kernel(const FlatArgs a) {
@@ -368,12 +575,17 @@ __global__ void decide_kernel(const FlatArgs a) {
 extern "C" int decide_flat(const FlatArgs* args, int bidir,
                            cudaStream_t stream) {
   const FlatArgs& a = *args;
-  if (a.bmax < 1 || a.bmax > 1024 || a.sr < 1 || a.wc < 1 || a.hc < 1)
+  if (a.bmax < 1 || a.bmax > 1024 || a.sr < 1 || a.wc < 1 || a.hc < 1 ||
+      a.hc > kMaxRows)
     return (int)cudaErrorInvalidValue;
-  const int threads = ((a.bmax + 31) / 32) * 32;
-  if (bidir)
-    decide_kernel<true><<<1, threads, 0, stream>>>(a);
-  else
-    decide_kernel<false><<<1, threads, 0, stream>>>(a);
+  if (bidir) {
+    decide_kernel<true><<<1, ((a.bmax + 31) / 32) * 32, 0, stream>>>(a);
+  } else {
+    const int threads = ((a.hc + 31) / 32) * 32;
+    if (a.f_ch != nullptr)
+      decide_rows_p<true><<<1, threads, 0, stream>>>(a);
+    else
+      decide_rows_p<false><<<1, threads, 0, stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }

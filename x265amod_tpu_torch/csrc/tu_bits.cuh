@@ -5,10 +5,11 @@
 // row of the [52, 13] QP-indexed table of the slice type (JAX
 // ops/estbits.py tu_bits).
 //
-// A TU's 4x4 coefficient groups are counted one per call of `group_counts`
-// (any thread), the counts meeting in a `TuCounts` through integer atomics,
-// or of `group_counts_lanes` (one group a lane, warp reductions), both
-// exact and order-independent; `total_bits` then prices them.
+// A TU's 4x4 coefficient groups are counted one per call of `group_count`
+// (from the group's 16 levels in registers) or `group_local` (from a
+// pointer), then met by `combine` inside a lane and by warp reductions
+// (`reduce_lanes`, `group_counts_lanes`), exact and order-independent;
+// `total_bits` then prices them.
 // Every fractional family is summed in integer units of 2^-15 bit,
 // converted once (round to nearest), and the nine families are added in the
 // JAX expression's order with __fadd_rn / __fmul_rn, so the files that
@@ -56,97 +57,114 @@ __device__ __forceinline__ long long units(float v) {
   return (long long)__float2ll_rn(__fmul_rn(v, 32768.0f));
 }
 
-// Counts of coefficient group g of the n x n levels lv (row stride n)
-// alone (all zero when the group codes nothing).
-template <class T>
-__device__ __forceinline__ TuCounts group_local(const T* lv, int n, int g) {
+// Bins of a Golomb-Rice remainder rem > 0 at Rice parameter k: the prefix
+// and suffix, escaping to Exp-Golomb beyond a prefix of 3.
+__device__ __forceinline__ int golomb_len(int rem, int k) {
+  const int pref = rem >> k;
+  int m = rem - (2 << k);
+  m = m < 1 ? 1 : m;
+  return pref < 3 ? pref + 1 + k : 3 + 2 * (bitlen(m) - k) + k;
+}
+
+// Counts of coefficient group g of a TU of size n from its 16 levels v
+// (raster order inside the group) alone (all zero when the group codes
+// nothing).  One pass takes the magnitudes, their sum and two bit masks
+// (nonzero, beyond 1); the flags follow from the masks by popcounts: the
+// first 8 nonzero levels in scan order (the lowest 8 set bits) carry a
+// greater1 flag, the others 1 + k bypass bins each; a second pass prices
+// the remainders, only where a level is beyond 1 (taken beyond 3: a - 3;
+// the others: a - 1).
+__device__ __forceinline__ TuCounts group_count(const int v[16], int n,
+                                                int g) {
   const int g4 = n / 4;
   const int gy = g / g4, gx = g % g4;
   TuCounts c;
   clear(&c);
   int a[16];
-  int cg_sum = 0, cnt = 0, mx = 0, my = 0;
+  int cg_sum = 0;
+  unsigned nz = 0, gt1 = 0;
 #pragma unroll
   for (int q = 0; q < 16; ++q) {
-    const int y = gy * 4 + q / 4, x = gx * 4 + q % 4;
-    const int v = lv[y * n + x];
-    a[q] = v < 0 ? -v : v;
+    a[q] = v[q] < 0 ? -v[q] : v[q];
     cg_sum += a[q];
-    if (a[q]) {
-      ++cnt;
-      mx = x > mx ? x : mx;
-      my = y > my ? y : my;
-    }
+    nz |= (unsigned)(a[q] != 0) << q;
+    gt1 |= (unsigned)(a[q] > 1) << q;
   }
-  if (!cnt) return c;
+  if (!nz) return c;
   int k = bitlen(cg_sum) - 5;
   k = k < 0 ? 0 : (k > 4 ? 4 : k);
-  int rank = 0;
+  unsigned rest = nz;
 #pragma unroll
-  for (int q = 0; q < 16; ++q) {
-    const bool dc = g == 0 && q == 0;
-    if (!dc) {
-      if (a[q]) ++c.n1; else ++c.n0;
-    }
-    if (!a[q]) continue;
-    ++rank;
-    const bool take = rank <= 8;
-    if (take) {
-      if (a[q] > 1) { ++c.g1_1; c.g2 = 1; } else { ++c.g1_0; }
-    } else {
-      c.over8 += 1 + k;
-    }
-    const int base = take ? (a[q] < 3 ? a[q] : 3) : 1;
-    const int rem = a[q] - base;
-    if (rem > 0) {
-      const int pref = rem >> k;
-      int m = rem - (2 << k);
-      m = m < 1 ? 1 : m;
-      const int esc = bitlen(m) - k;
-      c.rem_i += pref < 3 ? pref + 1 + k : 3 + 2 * esc + k;
+  for (int i = 0; i < 8; ++i) rest &= rest - 1;
+  const unsigned take = nz ^ rest;
+  c.g1_1 = __popc(take & gt1);
+  c.g1_0 = __popc(take) - c.g1_1;
+  c.g2 = c.g1_1 > 0;
+  c.over8 = __popc(rest) * (1 + k);
+  // group 0's DC is priced apart from the other positions
+  c.n1 = __popc(g == 0 ? nz & ~1u : nz);
+  c.n0 = (g == 0 ? 15 : 16) - c.n1;
+  if (gt1) {
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int rem = a[q] - ((take >> q) & 1 ? 3 : 1);
+      if (((gt1 >> q) & 1) && rem > 0) c.rem_i += golomb_len(rem, k);
     }
   }
+  const unsigned cols = (nz | nz >> 4 | nz >> 8 | nz >> 12) & 0xfu;
+  const unsigned rows = (unsigned)((nz & 0xfu) != 0) |
+                        (unsigned)((nz & 0xf0u) != 0) << 1 |
+                        (unsigned)((nz & 0xf00u) != 0) << 2 |
+                        (unsigned)((nz & 0xf000u) != 0) << 3;
   c.n_cod = 1;
-  c.nnz = cnt;
-  c.lx = mx;
-  c.ly = my;
+  c.nnz = __popc(nz);
+  c.lx = gx * 4 + 31 - __clz(cols);
+  c.ly = gy * 4 + 31 - __clz(rows);
   if (g == 0) {
     c.cg0_cod = 1;
-    c.dc_nz = a[0] > 0;
+    c.dc_nz = nz & 1u;
   }
   return c;
 }
 
-// Counts of coefficient group g of the n x n levels lv (row stride n) into
-// c (shared; integer atomics).
+// Counts of coefficient group g of the n x n levels lv (row stride n)
+// alone.
 template <class T>
-__device__ void group_counts(const T* lv, int n, int g, TuCounts* c) {
-  const TuCounts l = group_local(lv, n, g);
-  if (!l.nnz) return;
-  atomicAdd(&c->n_cod, 1);
-  atomicAdd(&c->n1, l.n1);
-  atomicAdd(&c->n0, l.n0);
-  atomicAdd(&c->g1_1, l.g1_1);
-  atomicAdd(&c->g1_0, l.g1_0);
-  atomicAdd(&c->g2, l.g2);
-  atomicAdd(&c->rem_i, l.rem_i);
-  atomicAdd(&c->over8, l.over8);
-  atomicAdd(&c->nnz, l.nnz);
-  atomicMax(&c->lx, l.lx);
-  atomicMax(&c->ly, l.ly);
-  if (g == 0) {
-    c->cg0_cod = 1;
-    c->dc_nz = l.dc_nz;
-  }
+__device__ __forceinline__ TuCounts group_local(const T* lv, int n, int g) {
+  const int g4 = n / 4;
+  const int gy = g / g4, gx = g % g4;
+  int v[16];
+#pragma unroll
+  for (int q = 0; q < 16; ++q)
+    v[q] = lv[(gy * 4 + q / 4) * n + gx * 4 + q % 4];
+  return group_count(v, n, g);
 }
 
-// The counts of a TU whose groups the lanes of `mask` hold, group g each
-// (every lane of the mask calls it, with every group of the TU among
-// them): warp reductions instead of atomics, the sums in every lane.
-template <class T>
-__device__ __forceinline__ TuCounts group_counts_lanes(const T* lv, int n,
-                                                       int g, unsigned mask) {
-  const TuCounts l = group_local(lv, n, g);
+// The counts of two sets of groups of one TU taken together.
+__device__ __forceinline__ TuCounts combine(const TuCounts& a,
+                                           const TuCounts& b) {
+  TuCounts c;
+  c.n_cod = a.n_cod + b.n_cod;
+  c.n1 = a.n1 + b.n1;
+  c.n0 = a.n0 + b.n0;
+  c.g1_1 = a.g1_1 + b.g1_1;
+  c.g1_0 = a.g1_0 + b.g1_0;
+  c.g2 = a.g2 + b.g2;
+  c.rem_i = a.rem_i + b.rem_i;
+  c.over8 = a.over8 + b.over8;
+  c.nnz = a.nnz + b.nnz;
+  c.lx = a.lx > b.lx ? a.lx : b.lx;
+  c.ly = a.ly > b.ly ? a.ly : b.ly;
+  c.cg0_cod = a.cg0_cod | b.cg0_cod;
+  c.dc_nz = a.dc_nz | b.dc_nz;
+  return c;
+}
+
+// The counts of a TU whose groups the lanes of `mask` hold, each lane's
+// counts in l (every lane of the mask calls it, with every group of the TU
+// among them): warp reductions instead of atomics, the sums in every lane.
+__device__ __forceinline__ TuCounts reduce_lanes(const TuCounts& l,
+                                                 unsigned mask) {
   TuCounts c;
   c.n_cod = __reduce_add_sync(mask, l.n_cod);
   c.n1 = __reduce_add_sync(mask, l.n1);
@@ -162,6 +180,13 @@ __device__ __forceinline__ TuCounts group_counts_lanes(const T* lv, int n,
   c.cg0_cod = __reduce_max_sync(mask, l.cg0_cod);
   c.dc_nz = __reduce_max_sync(mask, l.dc_nz);
   return c;
+}
+
+// The counts of a TU whose groups the lanes of `mask` hold, group g each.
+template <class T>
+__device__ __forceinline__ TuCounts group_counts_lanes(const T* lv, int n,
+                                                       int g, unsigned mask) {
+  return reduce_lanes(group_local(lv, n, g), mask);
 }
 
 // The bits of a TU of size n from its counts and its table row.

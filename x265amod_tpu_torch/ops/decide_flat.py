@@ -29,7 +29,11 @@ decision (choice, MVDs and MVP indices) replays through the same candidate
 derivation: an AMVP cell's MV is its predictor plus its MVD.  A CPU tensor
 takes the plain version (a Python loop over the diagonals); a CUDA tensor
 launches the kernel (one launch a frame), `LAUNCHES["decide_flat"]` (K24)
-and `LAUNCHES["decide_flat_b"]` (K25) counting them.
+and `LAUNCHES["decide_flat_b"]` (K25) counting them.  K24 walks the grid a
+thread a CTU row (CTU (t - 2 r, r) at step t, the same wavefront), its
+neighbours' commits in registers and one shared-memory slot, its inputs
+loaded a step ahead (`csrc/decide_flat.cu`); K25 is a thread a lane of each
+diagonal.
 """
 
 from __future__ import annotations
@@ -396,9 +400,10 @@ def _launch(sch, bidir: bool, ins: dict, forced, want_costs, sr, dsf, hdr):
                                 device=dev)
     for k, v in out.items():
         setattr(a, k, p(v))
-    # the committed motion the scan reads back: direction (P: inter flag),
-    # MV0 and MV1 per CTU, int32 each
-    a.maps = p(torch.empty(5 * n, dtype=i32, device=dev))
+    # K25's committed motion, read back by later diagonals: direction, MV0
+    # and MV1 per CTU, int32 each (K24 keeps its rows' commits on chip)
+    if bidir:
+        a.maps = p(torch.empty(5 * n, dtype=i32, device=dev))
     cuda_lib.require_cuda(*keep)
     name = "decide_flat_b" if bidir else "decide_flat"
     f = cuda_lib.lib("decide_flat").decide_flat

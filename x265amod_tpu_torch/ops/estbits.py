@@ -178,12 +178,15 @@ _tables: dict = {}
 
 def tu_bits(levels, c_idx: int, qp, slice_type: str = "I"):
     """See tu_bits_plain; a CUDA tensor launches `csrc/tu_bits.cu` with the
-    slice type's [52, 13] table."""
+    slice type's [52, 13] table (lane groups: one or two 4x4 coefficient
+    groups a lane, warp reductions per TU, persistent blocks)."""
     if levels.device.type == "cpu":
         return tu_bits_plain(levels, c_idx, qp, slice_type)
     n = levels.shape[-1]
     lead = levels.shape[:-2]
     lv = levels.to(torch.int16).reshape(-1, n, n).contiguous()
+    if lv.data_ptr() % 8:             # K3 reads 8-byte row pieces
+        lv = lv.clone()
     q = torch.broadcast_to(qp, lead).reshape(-1).to(torch.int32) \
         .contiguous()
     key = (slice_type, 1 if c_idx else 0, lv.device)
