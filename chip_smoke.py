@@ -2665,7 +2665,8 @@ def phase_kernels_scans(iters, dev="cuda"):
     config-2 P frame (1280x736) and a config-3 B frame with RDOQ 2
     (1920x1088, luma and chroma RDOQ), the two inter frames with a flat
     patch where intra cells win.  Times: CUDA events, 20 launches after 2
-    warm-up, wrapper included; the plain versions once after a warm-up."""
+    warm-up, wrapper included (K19 also with L2 flushed before each
+    launch, the _l2_cold keys); the plain versions once after a warm-up."""
     import torch
     from x265amod_tpu_torch.models.encoder import Encoder, _pad_to_ctu
     from x265amod_tpu_torch.models.intra_tree import IntraTreeEncoder
@@ -2699,6 +2700,8 @@ def phase_kernels_scans(iters, dev="cuda"):
         kb[f"dsf{key}"] = list(dsf)
         kb[f"ms{key}"] = time_ms(lambda: tree._decide_b_kernel(st1, maps,
                                                                dsf), iters)
+        kb[f"ms_l2_cold{key}"] = time_cold_ms(
+            lambda: tree._decide_b_kernel(st1, maps, dsf), iters)
         kb[f"ms_forced{key}"] = time_ms(lambda: tree._decide_b_kernel(
             None, maps, dsf, forced=forced), iters)
         kb[f"plain_ms{key}"] = time_once_ms(
@@ -2709,9 +2712,7 @@ def phase_kernels_scans(iters, dev="cuda"):
               bound_ms_forced=bound_ms(decide_b_bytes(tree, True), 0)[0],
               bound_by="bytes", library_ms=None,
               library_note="none: no single call makes the decision",
-              lanes=tree._bmax,
-              diagonals=len(tree.diags),
-              maps_bytes=20 * tree.h16 * tree.w16)
+              rows=tree.hc, steps=tree.wc + 2 * (tree.hc - 1))
     rows = [("decide_b", "x265amod_tpu_torch/csrc/decide_b.cu",
              "x265amod_tpu/models/inter_tree.py:1317-1570 B decide_body "
              "(lax.scan :1568)", kb)]
@@ -3297,7 +3298,7 @@ def phase_kernels_flat_inter(iters, dev="cuda", w=1920, h=1080):
         kd["bound_ms_forced"], kd["bound_by_forced"] = bound_ms(
             flat_decide_bytes(n, bidir, True), 0)
         choice = want["choice"]
-        kd.update(diagonals=len(enc.diags), lanes=enc.sch.bmax,
+        kd.update(rows=enc.hc, steps=enc.wc + 2 * (enc.hc - 1),
                   library_ms=None,
                   library_note="none: no single call makes the decision",
                   choice_histogram=torch.bincount(
@@ -3790,6 +3791,7 @@ def main():
              "launches_per_call", "tus_"))
             or k.startswith(("blocks", "ms_per_launch", "split_blocks"))
             or k in ("ties", "level_bound_reached", "lanes", "maps_bytes",
+                     "rows", "steps",
                      "ties_checked", "choice_histogram", "hpel_range")}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,

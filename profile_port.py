@@ -8,14 +8,14 @@ the ABR ladder ("5"), config 2 under VBV with HRD ("6"), Main10 all-intra
 ("9"), the flat CTB16 all-intra path at 1920x1080, lossy and lossless
 ("10"), the flat CTB16 P frames of the JAX defaults ("11") and the flat B
 pyramid of preset medium without --ctu ("12") at 1920x1080; K1, K5, K24,
-K3, K23, K2 and K20 alone ("13"); the end-to-end fps of the flat paths
-("14").
+K3, K23, K2, K20, K19 and K25 alone ("13"); the end-to-end fps of the flat
+paths ("14").
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 profile_port.py [--configs 1,2,...,14] [--batches 2]
         [--p-frames 4] [--iters 20] [--root DIR]
-        [--kernels k1k5,k24,k3,k23,k2k20]
+        [--kernels k1k5,k24,k3,k23,k2k20,k19k25]
 
 and, anywhere, to compare runs of two trees (one output file per run):
 
@@ -43,7 +43,7 @@ Prints JSON lines:
     frames coded between the IDR and the P anchor of the first mini-GOP,
     after one uncounted warm-up pass of the first B frame;
   - "b_profile": torch.profiler over one mini-GOP (P + 3 B) of config 3
-    through encode_push;
+    through encode_push (its 30 kernels with the most device time);
   - "la_stages": the lookahead of config 3 per pushed frame (upload, K12
     lowres plane + AQ, K1 lowres intra cost, K13 lowres motion search, the
     host copies of the small maps, scene-cut decision, CU-tree over the
@@ -88,6 +88,9 @@ Prints JSON lines:
     (chip_smoke phase 23: preset medium, 11 frames, I, P and B frames
     together; the B trials in "phase1_all", K25 in "decide_scan", SAO and
     the lookahead apart, the IDR's device step in "idr_step");
+    "flat_b_profile": torch.profiler over the same 11 frames coded again
+    by a new encoder (its 40 kernels with the most device time, each with
+    its calls);
   - "kernel_times" ("13"): K1, K5, K24, K3, K23, K2 and K20 alone at the main
     path's shapes, CUDA events over --iters calls after 2 warm-up.  K1
     and K5 (lists of KT_REPS timings): "k1_satd35_*" and "k1_predict_*"
@@ -111,11 +114,17 @@ Prints JSON lines:
     CTUs are a 24 x 14 patch (336 of 8160); K2 at a config-1 batch's four
     calls (16 frames at 640x384), the flat intra trial (35 modes of 8160
     CTU16s) and a Main10 batch's four calls (16 frames at 1920x1088); K20
-    as the commit of a config-1 and a Main10 batch (chip_smoke phase 2's).
+    as the commit of a config-1 and a Main10 batch (chip_smoke phase 2's);
+    K25 and K19 (lists of KT_REPS timings): "k25_flat_b_1080p" (the flat
+    B frame of chip_smoke phase 2: 1920x1088, POC 1 between two CTB16 IDR
+    recons, sr 16) and "k19_config3_b_1080p" (config 3's POC 2 between the
+    card's recons of the IDR and the P anchor, 1920x1088, sr 16), each
+    also "_forced" (replaying its own decisions) and "_l2_cold" (L2
+    flushed before each call).
     With --root DIR the port package is imported from DIR (an unpacked
     earlier tree), so that two designs are timed by one script in one
     call; --kernels names the groups timed ("k1k5", "k24", "k3", "k23",
-    "k2k20"; all by default);
+    "k2k20", "k19k25"; all by default);
   - "e2e_fps": chip_smoke phases 19, 20 and 22 timed as those phases time
     them (a new Encoder, their warm-up frames, then one encode_pipelined
     call over the rest, host wall clock): CTB16 all-intra (16 frames),
@@ -123,10 +132,12 @@ Prints JSON lines:
     turn, E2E_REPS times, every fps listed; with --root DIR an earlier
     tree's port, so that two trees alternate in one call (parent, change,
     change, parent);
-  - with --summarize: for every "kernel_times" and "e2e_fps" key, the
-    median, min and max of each tree's runs and the verdict: "faster" only
-    where every change run beats every parent run, "slower" the other way
-    round, else "unresolved";
+  - with --summarize: for every number of the "kernel_times", "e2e_fps",
+    "b_stages", "b_profile", "flat_b_stages" and "flat_b_profile" lines
+    (each tagged with its tree's root), the median, min and max of each
+    tree's runs and the verdict: "faster" only where every change run
+    beats every parent run (ms and shares lower, fps higher), "slower" the
+    other way round, else "unresolved";
   - the card's name and power limit.
 """
 
@@ -799,13 +810,80 @@ def k3_k24_times(iters, dev, groups):
     return out
 
 
+def k19_k25_times(iters, dev, w=1920, h=1080):
+    """K25 and K19 alone (see the docstring), each KT_REPS times: free,
+    replaying their own decisions, and free with L2 flushed before each
+    call; at w x h (the keys name 1080p)."""
+    import torch
+    from chip_smoke import flat_inter_inputs
+    from x265amod_tpu_torch.models.b_frame import BFrameEncoder
+    from x265amod_tpu_torch.models.encoder import Encoder, _pad_to_ctu
+    from x265amod_tpu_torch.models.mvpred import dist_scale_factor
+    from x265amod_tpu_torch.ops import decide_flat
+    out = {}
+
+    def keys(name, run, run_forced):
+        out[name] = [time_ms(run, iters) for _ in range(KT_REPS)]
+        out[name + "_l2_cold"] = [time_cold_ms(run, iters)
+                                  for _ in range(KT_REPS)]
+        out[name + "_forced"] = [time_ms(run_forced, iters)
+                                 for _ in range(KT_REPS)]
+    # K25: the flat B frame of chip_smoke phase 2 (1920x1088, POC 1 between
+    # the IDR recons of frames 0 and 2, sr 16, QP 32)
+    fw, fh, recon, cur = flat_inter_inputs(dev, w, h)
+    enc = BFrameEncoder(fw, fh, device=dev)
+    maps = enc._maps(32)
+    lam = maps["lam"].reshape(-1)
+    dsf = (dist_scale_factor(1, 0, 2), dist_scale_factor(1, 2, 0))
+    st1 = enc._phase1(cur[0], (recon[0][0], recon[1][0]), maps, [])
+    args = (enc.sch, st1["grids"], st1["d"], st1["rb"], st1["di"],
+            st1["mv_me"], lam, enc.sr, dsf, enc.hdr_bits)
+    dec = decide_flat.decide_b(*args)
+    forced = tuple(dec[k] for k in ("choice", "mvd0", "mvp0", "mvd1",
+                                    "mvp1"))
+    fargs = args[:1] + (None,) * 5 + args[6:]
+    keys("k25_flat_b_1080p", lambda: decide_flat.decide_b(*args),
+         lambda: decide_flat.decide_b(*fargs, forced=forced))
+    del st1, args, dec
+    # K19: config 3's first mini-GOP's POC 2 (chip_smoke phase 2's frame:
+    # 1920x1088, sr 16, between the card's recons of the IDR and the P
+    # anchor, dsf -256 both ways)
+    frames = synth_frames(w, h, 5, seed=4)
+    cenc = Encoder(config3(w, h), device=dev)
+    for fr in frames[:4]:
+        cenc.encode_push(*fr)
+    refs0 = tuple(t.to(torch.int32) for t in cenc._dpb[0])
+    cenc.encode_push(*frames[4])
+    refs1 = tuple(t.to(torch.int32) for t in cenc._dpb[4])
+    tree = cenc.b_encoder
+    tmaps = tree._maps(33)
+    y = torch.as_tensor(_pad_to_ctu(frames[2][0], 32),
+                        device=dev).to(torch.int32)
+    bdsf = (dist_scale_factor(2, 0, 4), dist_scale_factor(2, 4, 0))
+    bst1 = tree._phase1_b(y, (refs0[0], refs1[0]), tmaps, [])
+    want = tree._decide_b_kernel(bst1, tmaps, bdsf)
+    cells = tree._cell_decisions_b(want)
+    kinds = cells["kinds"]
+    choice = torch.where(kinds == 0, cells["merge"], torch.where(
+        kinds == 1, 1 + cells["dir"].long(), 5))
+    c16 = (choice, cells["mvd0"], cells["mvp0"], cells["mvd1"],
+           cells["mvp1"])
+    bforced = dict(c16=c16, c32=[v[tree._q0_cell] for v in c16],
+                   split=want["split"].reshape(-1))
+    keys("k19_config3_b_1080p",
+         lambda: tree._decide_b_kernel(bst1, tmaps, bdsf),
+         lambda: tree._decide_b_kernel(None, tmaps, bdsf, forced=bforced))
+    torch.cuda.empty_cache()
+    return out
+
+
 # the kernel groups of "13", each timed by its own part of kernel_times
-KERNEL_GROUPS = ("k1k5", "k24", "k3", "k23", "k2k20")
+KERNEL_GROUPS = ("k1k5", "k24", "k3", "k23", "k2k20", "k19k25")
 
 
 def kernel_times(iters, groups=KERNEL_GROUPS):
-    """K1, K5, K24, K3, K23, K2 and K20 alone at the main path's shapes
-    (see the docstring), the groups named in ``groups``."""
+    """K1, K5, K24, K3, K23, K2, K20, K19 and K25 alone at the main path's
+    shapes (see the docstring), the groups named in ``groups``."""
     import torch
     from x265amod_tpu_torch.models.encoder import _pad_to_ctu
     dev = torch.device("cuda")
@@ -814,6 +892,8 @@ def kernel_times(iters, groups=KERNEL_GROUPS):
         out.update(k1_k5_times(iters, dev))
     if "k24" in groups or "k3" in groups:
         out.update(k3_k24_times(iters, dev, groups))
+    if "k19k25" in groups:
+        out.update(k19_k25_times(iters, dev))
 
     def planes(w, h, n, seed):
         fr = synth_frames(w, h, n, seed=seed)
@@ -944,9 +1024,9 @@ def e2e_fps():
     return out
 
 
-def device_profile(run, n_frames):
+def device_profile(run, n_frames, top=12):
     """torch.profiler over ``run()``: wall time, device kernel time, the
-    device busy share and the kernels with the most device time."""
+    device busy share and the ``top`` kernels with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -971,16 +1051,22 @@ def device_profile(run, n_frames):
                 device_kernel_ms=dev_total / 1e3,
                 device_busy_share=dev_total / 1e3 / wall,
                 top=[dict(name=k[:80], ms=us / 1e3, calls=c)
-                     for us, k, c in rows[:12]])
+                     for us, k, c in rows[:top]])
+
+
+# the output lines --summarize reads: their numbers (ms or shares) are
+# better lower, e2e_fps's higher
+SUMMARIZED = ("kernel_times", "e2e_fps", "b_stages", "b_profile",
+              "flat_b_stages", "flat_b_profile")
 
 
 def summarize(paths, parent_root):
-    """Medians and spreads of the "kernel_times" (ms, lower is better) and
-    "e2e_fps" (higher is better) lines in the files ``paths``, split by
-    tree: the lines whose root is ``parent_root`` against the others.  A
-    gain is "faster" only where every change run beats every parent run,
-    "slower" where every parent run beats every change run, otherwise
-    "unresolved"."""
+    """Medians and spreads of the numbers of the `SUMMARIZED` lines in the
+    files ``paths`` (a profile's: its wall and device kernel ms and busy
+    share), split by tree: the lines whose root is ``parent_root`` against
+    the others.  A gain is "faster" only where every change run beats every
+    parent run, "slower" where every parent run beats every change run,
+    otherwise "unresolved"."""
     runs = {}
     for path in paths:
         with open(path) as fh:
@@ -989,7 +1075,7 @@ def summarize(paths, parent_root):
                 if not line.startswith("{"):
                     continue
                 rec = json.loads(line)
-                for kind in ("kernel_times", "e2e_fps"):
+                for kind in SUMMARIZED:
                     if kind not in rec:
                         continue
                     tree = ("parent" if rec[kind].get("root") == parent_root
@@ -997,7 +1083,8 @@ def summarize(paths, parent_root):
                     for key, v in rec[kind].items():
                         if isinstance(v, (int, float)):
                             v = [v]
-                        if isinstance(v, list):
+                        if isinstance(v, list) and all(
+                                isinstance(x, (int, float)) for x in v):
                             runs.setdefault((kind, key), {}).setdefault(
                                 tree, []).extend(v)
     out = {}
@@ -1035,6 +1122,7 @@ def main():
         print(json.dumps(summarize(args.summarize, args.root)))
         return
     configs = {int(c) for c in args.configs.split(",")}
+    root = args.root or "."
     if args.root:
         import sys
         sys.path.insert(0, os.path.abspath(args.root))
@@ -1068,13 +1156,14 @@ def main():
     if 3 in configs:
         bframes = synth_frames(1920, 1080, 9, seed=4)
         benc = Encoder(config3(), device="cuda")
-        print(json.dumps({"b_stages": b_stage_breakdown(
-            benc, bframes[:5])}))
+        print(json.dumps({"b_stages": dict(b_stage_breakdown(
+            benc, bframes[:5]), root=root)}))
         benc = Encoder(config3(), device="cuda")
         for f in bframes[:5]:          # the IDR and a warm-up mini-GOP
             benc.encode_push(*f)
-        print(json.dumps({"b_profile": device_profile(
-            lambda: [benc.encode_push(*f) for f in bframes[5:9]], 4)}))
+        print(json.dumps({"b_profile": dict(device_profile(
+            lambda: [benc.encode_push(*f) for f in bframes[5:9]], 4,
+            top=30), root=root)}))
     if 4 in configs:
         aframes = synth_frames(1920, 1080, 13, seed=4)
         print(json.dumps({"la_stages": la_stage_breakdown(aframes[:9])}))
@@ -1125,16 +1214,20 @@ def main():
             lambda: list(fenc.encode_pipelined(fframes[2:])), 8)}))
     if 12 in configs:
         from chip_smoke import config_flat_b
-        print(json.dumps({"flat_b_stages": flat_stages(
-            config_flat_b(), synth_frames(1920, 1080, 11, seed=23),
-            warm=0)}))
+        bframes = synth_frames(1920, 1080, 11, seed=23)
+        print(json.dumps({"flat_b_stages": dict(flat_stages(
+            config_flat_b(), bframes, warm=0), root=root)}))
+        # phase 23's run again, its kernels loaded by the run above
+        benc = Encoder(config_flat_b(), device="cuda")
+        print(json.dumps({"flat_b_profile": dict(device_profile(
+            lambda: list(benc.encode_pipelined(bframes)), len(bframes),
+            top=40), root=root)}))
     if 13 in configs:
         print(json.dumps({"kernel_times": dict(
             kernel_times(args.iters, args.kernels.split(",")),
-            root=args.root or ".")}))
+            root=root)}))
     if 14 in configs:
-        print(json.dumps({"e2e_fps": dict(e2e_fps(),
-                                          root=args.root or ".")}))
+        print(json.dumps({"e2e_fps": dict(e2e_fps(), root=root)}))
     print(card_line())
 
 

@@ -1216,6 +1216,128 @@ def test_decide_flat_p_row_walk(cuda_dev, wc, hc):
         assert torch.equal(got_f[k], want[k]), k
 
 
+def _mv_palette(rng, sr):
+    """MVs that repeat (the merge pruning bites), two at the +-sr edge (4 sr
+    + 3 inside, 4 sr + 4 outside: 1e18) and sub-pel ones."""
+    pal = rng.integers(-3, 4, (6, 2)) * 4
+    pal[0] = (4 * sr + 3, -4 * sr - 4)
+    pal[1] = (-4 * sr, 4 * sr + 4)
+
+    def mvs(n, dev):
+        mv = pal[rng.integers(0, 6, n)]
+        mv = mv + (rng.random((n, 2)) < 0.3) * rng.integers(1, 4, (n, 2))
+        return torch.as_tensor(mv.astype(np.int32), device=dev)
+    return mvs
+
+
+def _intra_costs(rng, n, dev):
+    di = rng.uniform(500, 4000, n)
+    di[rng.random(n) < 0.15] = rng.uniform(0, 50)
+    return torch.as_tensor(di.astype(np.float32), device=dev)
+
+
+def _uniform(rng, dev, *shape, lo=0.0, hi=3000.0):
+    return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32),
+                           device=dev)
+
+
+_B_ROW_GRIDS = [(1, 1), (1, 6), (6, 1), (7, 5), (9, 3)]
+
+
+@pytest.mark.parametrize("wc,hc", [(120, 68)] + _B_ROW_GRIDS)
+def test_decide_flat_b_row_walk(cuda_dev, wc, hc):
+    """K25 (a thread a CTU row) against `decide_b_plain` on synthetic
+    inputs passed straight to `decide_b`: 1920x1088 (sr 16) and grids of
+    one CTU, one column, one row, 7 x 5 and 9 x 3; free (choices,
+    directions, MVs, MVDs, MVP indices, cost rows) and forced with the
+    plain scan's decisions, bit for bit."""
+    from x265amod_tpu_torch.ops import cuda_lib
+    from x265amod_tpu_torch.ops import decide_flat as dfl
+    rng = np.random.default_rng(wc * 1000 + hc + 7)
+    sr, hdr, dsf = 16, 9.5, (-85, -768)
+    n, s = wc * hc, 2 * sr + 1
+    mvs = _mv_palette(rng, sr)
+    grids = (_uniform(rng, cuda_dev, n, s, s), _uniform(rng, cuda_dev, n, s,
+                                                         s))
+    d, rb = _uniform(rng, cuda_dev, n, 3), _uniform(rng, cuda_dev, n, 3,
+                                                     hi=60.0)
+    di, lam = _intra_costs(rng, n, cuda_dev), _uniform(rng, cuda_dev, n,
+                                                        lo=2.0, hi=40.0)
+    me = (mvs(n, cuda_dev), mvs(n, cuda_dev))
+    sch = dfl.Schedule(wc, hc, cuda_dev)
+    cuda_lib.reset_launches()
+    got = dfl.decide_b(sch, grids, d, rb, di, me, lam, sr, dsf, hdr,
+                       want_costs=True)
+    assert cuda_lib.LAUNCHES["decide_flat_b"] == 1
+    want = dfl.decide_b_plain(sch, grids, d, rb, di, me, lam, sr, dsf, hdr,
+                              want_costs=True)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k],
+                                                             want[k]), k
+    if n > 100:
+        assert len(set(want["choice"].tolist())) == 6
+    forced = tuple(want[k] for k in ("choice", "mvd0", "mvp0", "mvd1",
+                                     "mvp1"))
+    nones = (None,) * 5
+    got_f = dfl.decide_b(sch, *nones, lam, sr, dsf, hdr, forced=forced)
+    want_f = dfl.decide_b_plain(sch, *nones, lam, sr, dsf, hdr,
+                                forced=forced)
+    for k in want_f:
+        assert torch.equal(got_f[k], want_f[k]), k
+        assert torch.equal(got_f[k], want[k]), k
+
+
+@pytest.mark.parametrize("wc,hc", [(60, 34)] + _B_ROW_GRIDS)
+def test_decide_b_row_walk(cuda_dev, wc, hc):
+    """K19 (a thread a CTU32 row, every grid entry a step can price copied
+    as it starts) against `_decide_b_plain` on synthetic inputs: 1920x1088
+    (sr 16) and grids of one CTU, one column, one row, 7 x 5 and 9 x 3;
+    MVs that repeat, sub-pel ones (the half-pel grid rows) and at the +-sr
+    edge, cells where intra wins; free (every output and cost row) and
+    forced with the plain scan's decisions, bit for bit."""
+    from x265amod_tpu_torch.models.inter_tree import BTreeEncoder
+    from x265amod_tpu_torch.ops import cuda_lib
+    rng = np.random.default_rng(wc * 100 + hc)
+    sr, dsf = 16, (128, -384)
+    tree = BTreeEncoder(32 * wc, 32 * hc, search_range=sr, subme=1,
+                        device=cuda_dev)
+    n32, n16, s = wc * hc, 4 * wc * hc, 2 * sr + 1
+    mvs = _mv_palette(rng, sr)
+    st1 = dict(
+        grid0=torch.cat([_uniform(rng, cuda_dev, 2 * n16, s, s),
+                         _uniform(rng, cuda_dev, 2 * n32, s, s, hi=12000.0)]),
+        grid1=torch.cat([_uniform(rng, cuda_dev, 2 * n16, s, s),
+                         _uniform(rng, cuda_dev, 2 * n32, s, s, hi=12000.0)]),
+        d16=_uniform(rng, cuda_dev, n16, 3),
+        rb16=_uniform(rng, cuda_dev, n16, 3, hi=60.0),
+        di16=_intra_costs(rng, n16, cuda_dev), mv0_16=mvs(n16, cuda_dev),
+        mv1_16=mvs(n16, cuda_dev), d32=_uniform(rng, cuda_dev, n32, 3,
+                                                hi=12000.0),
+        rb32=_uniform(rng, cuda_dev, n32, 3, hi=120.0),
+        mv0_32=mvs(n32, cuda_dev), mv1_32=mvs(n32, cuda_dev))
+    maps = dict(lam16=_uniform(rng, cuda_dev, n16, lo=2.0, hi=40.0),
+                lam32=_uniform(rng, cuda_dev, n32, lo=2.0, hi=40.0))
+    cuda_lib.reset_launches()
+    got = tree._decide_b_kernel(st1, maps, dsf, want_costs=True)
+    assert cuda_lib.LAUNCHES["decide_b"] == 1
+    want = tree._decide_b_plain(st1, maps, dsf, want_costs=True)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k],
+                                                             want[k]), k
+    if n32 > 100:
+        assert len(set(want["chq"].tolist())) == 6
+        assert want["split"].any() and not want["split"].all()
+    forced = _b_forced(tree, want)
+    fk = tree._decide_b_kernel(None, maps, dsf, forced=forced)
+    fp = tree._decide_b_plain(None, maps, dsf, forced=forced)
+    for k in fp:
+        assert torch.equal(fk[k], fp[k]), k
+    for k in ("split", "dir", "mv0", "mv1"):
+        assert torch.equal(fk[k], want[k]), k
+
+
 def _k3_levels(rng, t, n):
     """TUs of every kind K3 meets: zero, a DC level, dense with more than 8
     nonzeros a group, remainders past the escape, +-32767."""

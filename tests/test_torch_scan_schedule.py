@@ -16,11 +16,14 @@ order.
   frames), lossless, and the commit of a flat P frame on random kinds with
   random inter recon and levels in place.
 
-And the schedule of K24, the flat P decide scan on the card (a thread a
-CTU row): its walk visits each diagonal's CTUs at that diagonal's step,
-and every CTU's neighbours commit one to three steps before it, as the
-row's register window holds them; a step-by-step model of the walk
-(`k24_row_walk`) equals `decide_p_plain`, free and forced; and every inter
+And the schedule of K24, K25 and K19, the decide scans on the card that
+walk the grid a thread a CTU row: the walk visits each diagonal's CTUs at
+that diagonal's step, and every CTU's neighbours commit one to three steps
+before it, as the row's register window holds them; step-by-step models
+of the walks equal the plain scans, free and forced: `k24_row_walk`
+(`decide_p_plain`), `k25_row_walk` (`decide_b_plain`) and `k19_row_walk`
+(`BTreeEncoder._decide_b_plain`, with the read set K19 copies as a step
+starts: every grid entry a decision prices is in it); and every inter
 CTU's final MV is its mrg0, mrg1 or ME MV.
 """
 
@@ -351,3 +354,530 @@ def test_k24_row_walk_model_equals_the_plain_scan(wc, hc, seed):
     for k in want_f:
         assert torch.equal(got_f[k], want_f[k].to(got_f[k].dtype)), k
         assert torch.equal(got_f[k], want[k].to(got_f[k].dtype)), k
+
+
+# ---- K25 and K19: the B decide scans, a thread a CTU row --------------------
+
+def _bits(x, y):
+    """MVD bins of (x, y) in qpel: 2 (bitlen |x| + bitlen |y|) + 2."""
+    return float(2 * (abs(x).bit_length() + abs(y).bit_length()) + 2)
+
+
+def _scale(v, dsf):
+    """Spec 8.5.3.2.8 MV scaling, clipped to 16 bits (`scale_mv`)."""
+    x = v * dsf
+    m = (abs(x) + 127) >> 8
+    return min(max(m if x > 0 else (-m if x < 0 else 0), -32768), 32767)
+
+
+def _amvp_b(c, li, dsf):
+    """The B AMVP pair of list li (`decide_common.cuh:amvp_b`) from
+    candidates (dir, m0x, m0y, m1x, m1y) in the order A1, B1, B0, B2, an
+    unavailable one with dir 0."""
+    def own(e):
+        return (e[1], e[2]) if li == 0 else (e[3], e[4])
+
+    def mvp(e):
+        if (e[0] >> li) & 1:
+            return own(e)
+        o = (e[3], e[4]) if li == 0 else (e[1], e[2])
+        return (_scale(o[0], dsf), _scale(o[1], dsf))
+    ca = mvp(c[0]) if c[0][0] else None
+    bp1 = bs = None
+    for e in (c[2], c[1], c[3]):
+        if bp1 is None and e[0] and (e[0] >> li) & 1:
+            bp1 = own(e)
+        if bs is None and e[0]:
+            bs = mvp(e)
+    c0 = ca or bp1 or bs or (0, 0)
+    c1 = bp1 if ca else (bs if bp1 and bs else None)
+    if c1 is None or c1 == c0:
+        c1 = (0, 0)
+    return c0, c1
+
+
+def _pick(me, p):
+    """(mvd, mvp index, bins) against the predictor with fewer bins."""
+    d = [(me[0] - q[0], me[1] - q[1]) for q in p]
+    b = [_bits(*v) for v in d]
+    i = int(b[1] < b[0])
+    return d[i], i, b[i]
+
+
+def _merge(c):
+    """The indices (into A1, B1, B0, B2) of the merge list's survivors of
+    the B pruning (on direction and both MVs), in order."""
+    keep = [bool(c[0][0]),
+            bool(c[1][0]) and not (c[0][0] and c[1] == c[0]),
+            bool(c[2][0]) and not (c[1][0] and c[2] == c[1]),
+            bool(c[3][0]) and not (c[0][0] and c[3] == c[0])
+            and not (c[1][0] and c[3] == c[1])]
+    return [i for i in range(4) if keep[i]]
+
+
+def _f32(v):
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def _b_costs(lam, mrg_vals, rb, d, bits0, bits1, intra):
+    """The six B costs (`decide_cu`), XLA's FMAs: skip values [2] (the
+    mean of both lists' for bi), then L0, L1, bi, intra (None: +inf)."""
+    from x265amod_tpu_torch.ops.rdoq import fma32
+    js = [fma32(lam, _f32(2.0), mrg_vals[0]),
+          fma32(lam, _f32(3.0), mrg_vals[1]),
+          fma32(lam, (rb[0] + bits0) + 8.0, d[0]),
+          fma32(lam, (rb[1] + bits1) + 8.0, d[1]),
+          fma32(lam, ((rb[2] + bits0) + bits1) + 10.0, d[2]),
+          _f32(float("inf")) if intra is None else intra]
+    js = torch.stack(js)
+    return js, int(torch.argmin(js))
+
+
+def _intra_cost(lam, hdr, di):
+    from x265amod_tpu_torch.ops.rdoq import fma32
+    return fma32(lam, _f32(hdr), di)
+
+
+def _skip_value(dir_, l0, l1):
+    return 0.5 * (l0 + l1) if dir_ == 3 else (l0 if dir_ == 1 else l1)
+
+
+_DIR_OF_AMVP = {2: 1, 3: 2, 4: 3, 5: 0}
+
+
+def _final(ch, mrg, me0, me1):
+    """The final (dir, m0x, m0y, m1x, m1y) of a B choice, an unused list
+    zeroed."""
+    if ch <= 1:
+        d, m0x, m0y, m1x, m1y = mrg[ch]
+    else:
+        d, (m0x, m0y), (m1x, m1y) = _DIR_OF_AMVP[ch], me0, me1
+    return (d, *((m0x, m0y) if d & 1 else (0, 0)),
+            *((m1x, m1y) if d & 2 else (0, 0)))
+
+
+class _Window:
+    """A row walk's commits as the card holds them: each row's own last
+    commit (A1), and its register window of the row above's last three
+    commits, fed after each step's barrier from the slot of the step's
+    parity."""
+
+    def __init__(self, hc, none):
+        self.none = none
+        self.A = [none] * hc
+        self.U = [[none] * 3 for _ in range(hc)]      # steps t-1, t-2, t-3
+        self.slot = [[none] * hc for _ in range(2)]
+
+    def publish(self, t, r, pub):
+        self.slot[t & 1][r] = pub
+
+    def barrier(self, t, mine):
+        for r in range(len(self.A)):
+            up = self.slot[t & 1][r - 1] if r else self.none
+            self.U[r] = [up, self.U[r][0], self.U[r][1]]
+            self.A[r] = mine[r]
+
+
+def k25_row_walk(wc, hc, grids, d, rb, di, me, lam, sr, dsf, hdr,
+                 forced=None):
+    """K25 (`csrc/decide_flat.cu:decide_rows_b`) step by step as the
+    card runs it: the window (A1 own, B0, B1, B2 from the row above's slot
+    after each barrier), the inputs loaded a step ahead, the grid entries
+    of both lists at the four neighbours' final MVs and at the zero MV read
+    as the step starts, the pruning picking two of them.  A commit is (dir,
+    MV0, MV1).  Returns the raster outputs of `decide_b_plain`."""
+    n = wc * hc
+    none = (0, 0, 0, 0, 0)
+
+    def lookup(g, ctu, mx, my):
+        ix, iy = mx >> 2, my >> 2
+        if abs(ix) > sr or abs(iy) > sr:
+            return _f32(1e18)
+        return g[ctu, iy + sr, ix + sr]
+
+    def load(ctu):
+        if forced is not None:
+            return dict(ctu=ctu, f=[t[ctu] for t in forced])
+        return dict(ctu=ctu, lam=lam[ctu], d=d[ctu], rb=rb[ctu], di=di[ctu],
+                    me0=tuple(int(v) for v in me[0][ctu]),
+                    me1=tuple(int(v) for v in me[1][ctu]))
+    i32 = torch.int32
+    out = dict(choice=torch.zeros(n, dtype=torch.int64),
+               dir=torch.zeros(n, dtype=i32), js=torch.zeros((n, 6)))
+    for k in ("mv0", "mv1", "mvd0", "mvd1"):
+        out[k] = torch.zeros((n, 2), dtype=i32)
+    for k in ("mvp0", "mvp1"):
+        out[k] = torch.zeros(n, dtype=i32)
+    win, cur = _Window(hc, none), [None] * hc
+    for t in range(-1, wc + 2 * (hc - 1)):
+        nxt, mine = [None] * hc, [none] * hc
+        for r in range(hc):                      # up to the barrier
+            x = t - 2 * r
+            ctu = r * wc + x
+            if 0 <= x + 1 < wc:
+                nxt[r] = load(ctu + 1)
+            if 0 <= x < wc:
+                v = cur[r]
+                assert v["ctu"] == ctu
+                c = [win.A[r], win.U[r][1], win.U[r][0], win.U[r][2]]
+                if forced is None:               # read as the step starts
+                    g = [(lookup(grids[0], ctu, e[1], e[2]),
+                          lookup(grids[1], ctu, e[3], e[4])) for e in c]
+                    gz = (lookup(grids[0], ctu, 0, 0),
+                          lookup(grids[1], ctu, 0, 0))
+                sel = (_merge(c) + [None, None])[:2]
+                mrg = [c[i] if i is not None else (3, 0, 0, 0, 0)
+                       for i in sel]
+                p0, p1 = _amvp_b(c, 0, dsf[0]), _amvp_b(c, 1, dsf[1])
+                if forced is None:
+                    (mvd0, mvp0, b0), (mvd1, mvp1, b1) = (
+                        _pick(v["me0"], p0), _pick(v["me1"], p1))
+                    vals = [_skip_value(m[0], *(g[i] if i is not None
+                                                else gz))
+                            for m, i in zip(mrg, sel)]
+                    js, ch = _b_costs(v["lam"], vals, v["rb"], v["d"], b0,
+                                      b1, _intra_cost(v["lam"], hdr,
+                                                      v["di"]))
+                    out["js"][ctu] = js
+                    me0, me1 = v["me0"], v["me1"]
+                else:
+                    ch, mvd0, mvp0, mvd1, mvp1 = v["f"]
+                    ch, mvp0, mvp1 = int(ch), int(mvp0), int(mvp1)
+                    mvd0, mvd1 = tuple(mvd0.tolist()), tuple(mvd1.tolist())
+                    me0 = tuple(a + b for a, b in zip(p0[mvp0], mvd0))
+                    me1 = tuple(a + b for a, b in zip(p1[mvp1], mvd1))
+                fin = _final(ch, mrg, me0, me1)
+                out["choice"][ctu], out["dir"][ctu] = ch, fin[0]
+                out["mv0"][ctu] = torch.tensor(fin[1:3])
+                out["mv1"][ctu] = torch.tensor(fin[3:5])
+                out["mvd0"][ctu] = torch.tensor(mvd0)
+                out["mvd1"][ctu] = torch.tensor(mvd1)
+                out["mvp0"][ctu], out["mvp1"][ctu] = mvp0, mvp1
+                mine[r] = fin
+            win.publish(t, r, mine[r])
+        win.barrier(t, mine)
+        cur = nxt
+    if forced is not None:
+        del out["js"]
+    return out
+
+
+def _b_flat_inputs(rng, wc, hc, sr, intra=0.15):
+    """Random flat B decide inputs: MVs from a small palette (so the
+    pruning bites), sub-pel and at the +-sr edge (4 sr + 3 is inside, 4
+    sr + 4 outside: 1e18), some cells where intra wins."""
+    n, s = wc * hc, 2 * sr + 1
+    edge = [4 * sr + 3, -4 * sr - 4, 4 * sr + 4, -4 * sr]
+    pal = rng.integers(-3, 4, (6, 2)) * 4
+    pal[0] = (edge[0], edge[1])
+    pal[1] = (edge[3], edge[2])
+
+    def mvs():
+        mv = pal[rng.integers(0, 6, n)]
+        mv = mv + (rng.random((n, 2)) < 0.2) * rng.integers(1, 4, (n, 2))
+        return mv.astype(np.int32)
+    di = rng.uniform(500, 4000, n)
+    di[rng.random(n) < intra] = rng.uniform(0, 50)
+    vals = [rng.uniform(0, 3000, (n, s, s)), rng.uniform(0, 3000, (n, s, s)),
+            rng.uniform(0, 3000, (n, 3)), rng.uniform(0, 60, (n, 3)), di,
+            rng.uniform(2, 40, n)]
+    g0, g1, d, rb, di, lam = (torch.as_tensor(v.astype(np.float32))
+                              for v in vals)
+    return (g0, g1), d, rb, di, (torch.as_tensor(mvs()),
+                                 torch.as_tensor(mvs())), lam
+
+
+_B_GRIDS = [(1, 1, 0), (1, 6, 1), (6, 1, 2), (7, 5, 3), (9, 3, 4)]
+_DSF = [(-85, -768), (128, -384), (-256, 256), (-768, 64), (-85, -768)]
+
+
+@pytest.mark.parametrize("wc,hc,seed", _B_GRIDS)
+def test_k25_row_walk_model_equals_the_plain_scan(wc, hc, seed):
+    """The flat B row walk (`k25_row_walk`) equals `decide_b_plain`
+    exactly, free (choices, directions, MVs, MVDs, MVP indices, cost rows)
+    and forced with the plain scan's decisions, on grids of one CTU, one
+    column, one row, 7 x 5 and 9 x 3 with dsf values that scale."""
+    from x265amod_tpu_torch.ops.decide_flat import Schedule, decide_b_plain
+    rng = np.random.default_rng(40 + seed)
+    sr, hdr, dsf = 4, 9.5, _DSF[seed]
+    grids, d, rb, di, me, lam = _b_flat_inputs(rng, wc, hc, sr)
+    sch = Schedule(wc, hc, "cpu")
+    want = decide_b_plain(sch, grids, d, rb, di, me, lam, sr, dsf, hdr,
+                          want_costs=True)
+    got = k25_row_walk(wc, hc, grids, d, rb, di, me, lam, sr, dsf, hdr)
+    for k in want:
+        assert torch.equal(got[k], want[k].to(got[k].dtype)), k
+    if wc * hc > 30:
+        assert len(set(want["choice"].tolist())) >= 5
+        assert (want["dir"] == 3).any() and (want["mvp1"] == 1).any()
+    forced = tuple(want[k] for k in ("choice", "mvd0", "mvp0", "mvd1",
+                                     "mvp1"))
+    want_f = decide_b_plain(sch, None, None, None, None, None, lam, sr, dsf,
+                            hdr, forced=forced)
+    got_f = k25_row_walk(wc, hc, None, None, None, None, None, lam, sr, dsf,
+                         hdr, forced=forced)
+    for k in want_f:
+        assert torch.equal(got_f[k], want_f[k].to(got_f[k].dtype)), k
+        assert torch.equal(got_f[k], want[k].to(got_f[k].dtype)), k
+
+
+# K19's sources of a list's MV (`csrc/decide_b.cu`): 0 the zero MV, 1 left
+# q1, 2 left q3, 3 top q2, 4 top q3, 5 top-left q3, 6 top-right q2, 7-9 the
+# ME MV of q0, q1, q2; and the ones each CU (CU32, q0..q3) can meet
+K19_NEED = [(0, 2, 4, 5, 6), (0, 1, 3, 4, 5), (0, 1, 3, 4, 5, 6, 7),
+            tuple(range(9)), tuple(range(10))]
+
+
+def k19_row_walk(tree, st1, lam16, lam32, dsf, forced=None):
+    """K19 (`csrc/decide_b.cu:decide_rows_b`) step by step as the card runs
+    it: a thread a CTU32 row; its window (the left CTU's q1 and q3, its own
+    commit; the row above's q2 and q3 of steps t - 1, t - 2 and q3 of t -
+    3, fed from the slot of the step's parity after each barrier); the
+    inputs loaded a step ahead; and the read set copied as the step starts:
+    each CU's grid entries, per list, at the MV of every source it can
+    meet (`K19_NEED`).  Each decision carries its lists' sources, and a
+    merge candidate is priced from the read set at its sources; the lookup
+    asserts that the entry was read and equals the grid at the candidate's
+    MV.  Returns the raster outputs of `_decide_b_plain`."""
+    wc, hc, w16, h16, sr = tree.wc, tree.hc, tree.w16, tree.h16, tree.sr
+    n16, n32 = w16 * h16, wc * hc
+    s_ = 2 * sr + 1
+    none = (0, 0, 0, 0, 0)
+    hdr = tree._hdr_bits.item()
+
+    def entry(g, row, ng, mx, my):
+        """The grid value of a qpel MV in CU row ``row`` (half-pel rows ng
+        on), 1e18 outside +-sr."""
+        ix, iy = mx >> 2, my >> 2
+        if abs(ix) > sr or abs(iy) > sr:
+            return _f32(1e18)
+        sub = (mx & 3) != 0 or (my & 3) != 0
+        return g[row + (ng if sub else 0), iy + sr, ix + sr]
+
+    def cu_in(i, is32):
+        if forced is not None:
+            f = forced["c32" if is32 else "c16"]
+            return dict(f=[t[i] for t in f])
+        sfx = "32" if is32 else "16"
+        return dict(d=st1["d" + sfx][i], rb=st1["rb" + sfx][i],
+                    lam=(lam32 if is32 else lam16)[i],
+                    di=None if is32 else st1["di16"][i],
+                    me0=tuple(int(v) for v in st1["mv0_" + sfx][i]),
+                    me1=tuple(int(v) for v in st1["mv1_" + sfx][i]))
+
+    def load(i32, c0):
+        q16 = [c0, c0 + 1, c0 + w16, c0 + w16 + 1]
+        v = dict(i32=i32, cu=[cu_in(i32, True)] + [cu_in(q, False)
+                                                     for q in q16])
+        v["split"] = None if forced is None else bool(forced["split"][i32])
+        return v
+
+    names = {k: torch.zeros(n32, dtype=torch.int32) for k in (
+        "split", "ch32", "mvp0_32", "mvp1_32")}
+    names.update({k: torch.zeros(n16, dtype=torch.int32) for k in (
+        "chq", "mvp0q", "mvp1q", "dir")})
+    for k in ("mvd0_32", "mvd1_32"):
+        names[k] = torch.zeros((n32, 2), dtype=torch.int32)
+    for k in ("mvd0q", "mvd1q", "mv0", "mv1"):
+        names[k] = torch.zeros((n16, 2), dtype=torch.int32)
+    out = dict(names, jsq=torch.zeros((n16, 6)), js32=torch.zeros((n32, 6)),
+               jsplit=torch.zeros(n32), j32=torch.zeros(n32))
+
+    def decide(k, c, srcs, v, pre, me_src, row_out, i):
+        """One CU (k: 0 the CU32, 1..4 q0..q3) from candidates c (A1, B1,
+        B0, B2) with their sources; returns (choice, final cell, its
+        sources, cost)."""
+        sel = (_merge(c) + [None, None])[:2]
+        mrg = [c[j] if j is not None else (3, 0, 0, 0, 0) for j in sel]
+        msrc = [srcs[j] if j is not None else (0, 0) for j in sel]
+        p0, p1 = _amvp_b(c, 0, dsf[0]), _amvp_b(c, 1, dsf[1])
+        j = None
+        if forced is None:
+            (mvd0, mvp0, b0), (mvd1, mvp1, b1) = (_pick(v["me0"], p0),
+                                                  _pick(v["me1"], p1))
+            vals = []
+            for m, (s0, s1) in zip(mrg, msrc):
+                l0, l1 = pre[(k, 0, s0)], pre[(k, 1, s1)]
+                row = (2 * n16 + i, n32) if k == 0 else (i, n16)
+                assert torch.equal(l0, entry(tree_grids[0], *row, m[1],
+                                             m[2])), (k, m)
+                assert torch.equal(l1, entry(tree_grids[1], *row, m[3],
+                                             m[4])), (k, m)
+                vals.append(_skip_value(m[0], l0, l1))
+            intra = None if k == 0 else _intra_cost(v["lam"], hdr, v["di"])
+            js, ch = _b_costs(v["lam"], vals, v["rb"], v["d"], b0, b1,
+                              intra)
+            out["js32" if k == 0 else "jsq"][i] = js
+            j = js[ch]
+            me0, me1 = v["me0"], v["me1"]
+        else:
+            ch, mvd0, mvp0, mvd1, mvp1 = v["f"]
+            ch, mvp0, mvp1 = int(ch), int(mvp0), int(mvp1)
+            mvd0, mvd1 = tuple(mvd0.tolist()), tuple(mvd1.tolist())
+            me0 = tuple(a + b for a, b in zip(p0[mvp0], mvd0))
+            me1 = tuple(a + b for a, b in zip(p1[mvp1], mvd1))
+        fin = _final(ch, mrg, me0, me1)
+        s0 = (msrc[ch][0] if ch <= 1 else me_src) if fin[0] & 1 else 0
+        s1 = (msrc[ch][1] if ch <= 1 else me_src) if fin[0] & 2 else 0
+        ch_k, mvd0_k, mvp0_k, mvd1_k, mvp1_k = row_out
+        out[ch_k][i], out[mvp0_k][i], out[mvp1_k][i] = ch, mvp0, mvp1
+        out[mvd0_k][i] = torch.tensor(mvd0)
+        out[mvd1_k][i] = torch.tensor(mvd1)
+        return ch, fin, (s0, s1), j
+
+    tree_grids = None if forced is not None else (st1["grid0"],
+                                                  st1["grid1"])
+    o32 = ("ch32", "mvd0_32", "mvp0_32", "mvd1_32", "mvp1_32")
+    o16 = ("chq", "mvd0q", "mvp0q", "mvd1q", "mvp1q")
+    # the window: A holds (left q1, left q3); the slots (q2, q3)
+    win, cur = _Window(hc, (none, none)), [None] * hc
+    for t in range(-1, wc + 2 * (hc - 1)):
+        nxt, mine = [None] * hc, [(none, none)] * hc
+        for r in range(hc):                      # up to the barrier
+            x = t - 2 * r
+            i32, c0 = r * wc + x, 2 * r * w16 + 2 * x
+            if 0 <= x + 1 < wc:
+                nxt[r] = load(i32 + 1, c0 + 2)
+            pub = (none, none)
+            if 0 <= x < wc:
+                v = cur[r]
+                assert v["i32"] == i32
+                (l1, l3), (tr2, _), (t2, t3), (_, tl3) = (
+                    win.A[r], win.U[r][0], win.U[r][1], win.U[r][2])
+                q16 = [c0, c0 + 1, c0 + w16, c0 + w16 + 1]
+                pre = {}
+                if forced is None:               # read as the step starts
+                    src = [none, l1, l3, t2, t3, tl3, tr2] + [
+                        (0, *v["cu"][q + 1]["me0"], *v["cu"][q + 1]["me1"])
+                        for q in range(3)]
+                    for k in range(5):
+                        row = (2 * n16 + i32, n32) if k == 0 else (
+                            q16[k - 1], n16)
+                        for s in K19_NEED[k]:
+                            for li in range(2):
+                                m = src[s][1 + 2 * li:3 + 2 * li]
+                                pre[(k, li, s)] = entry(tree_grids[li], *row,
+                                                        *m)
+
+                def ext(e, s):
+                    return e, (s, s)
+
+                def loc(dec):
+                    ch_, fin, srcs, _ = dec
+                    return (fin if ch_ <= 4 else none), srcs
+
+                def run(k, cands, me_src, i, rows):
+                    c = [e for e, _ in cands]
+                    srcs = [s for _, s in cands]
+                    return decide(k, c, srcs, v["cu"][k], pre, me_src, rows,
+                                  i)
+                r32 = run(0, [ext(l3, 2), ext(t3, 4), ext(tr2, 6),
+                              ext(tl3, 5)], 0, i32, o32)
+                d0 = run(1, [ext(l1, 1), ext(t2, 3), ext(t3, 4),
+                             ext(tl3, 5)], 7, q16[0], o16)
+                d1 = run(2, [loc(d0), ext(t3, 4), ext(tr2, 6), ext(t2, 3)],
+                         8, q16[1], o16)
+                d2 = run(3, [ext(l3, 2), loc(d0), loc(d1), ext(l1, 1)], 9,
+                         q16[2], o16)
+                d3 = run(4, [loc(d2), loc(d1), ext(none, 0), loc(d0)], 0,
+                         q16[3], o16)
+                qs = (d0, d1, d2, d3)
+                if forced is None:
+                    js = ((d0[3] + d1[3]) + d2[3]) + d3[3]
+                    split = bool(js < r32[3])
+                    out["jsplit"][i32], out["j32"][i32] = js, r32[3]
+                else:
+                    split = v["split"]
+                out["split"][i32] = split
+                cells = [q[1] if split else r32[1] for q in qs]
+                for k in range(4):
+                    out["dir"][q16[k]] = cells[k][0]
+                    out["mv0"][q16[k]] = torch.tensor(cells[k][1:3])
+                    out["mv1"][q16[k]] = torch.tensor(cells[k][3:5])
+                mine[r] = (cells[1], cells[3])
+                pub = (cells[2], cells[3])
+            win.publish(t, r, pub)
+        win.barrier(t, mine)
+        cur = nxt
+    out["split"] = out["split"].bool().reshape(hc, wc)
+    for k in ("ch32", "chq"):
+        out[k] = out[k].long()
+    if forced is not None:
+        for k in ("jsq", "js32", "jsplit", "j32"):
+            del out[k]
+    return out
+
+
+def _b_tree_inputs(rng, wc, hc, sr, intra=0.15):
+    """Random B tree decide inputs (`_decide_b_plain`'s st1 and lambdas):
+    MVs from a small palette (so the pruning bites), many sub-pel (the
+    half-pel grid rows), some at the +-sr edge and beyond (1e18), CU32
+    costs on the scale of four CU16s (so both split and no split win),
+    cells where intra wins."""
+    n32, n16, s = wc * hc, 4 * wc * hc, 2 * sr + 1
+    pal = rng.integers(-3, 4, (6, 2)) * 4
+    pal[0] = (4 * sr + 3, -4 * sr - 4)
+    pal[1] = (-4 * sr, 4 * sr + 4)
+
+    def mvs(n):
+        mv = pal[rng.integers(0, 6, n)]
+        mv = mv + (rng.random((n, 2)) < 0.3) * rng.integers(1, 4, (n, 2))
+        return torch.as_tensor(mv.astype(np.int32))
+
+    def f(*shape, lo=0.0, hi=3000.0):
+        return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32))
+    rows = 2 * (n16 + n32)
+    g = [np.concatenate([rng.uniform(0, 3000, (2 * n16, s, s)),
+                         rng.uniform(0, 12000, (2 * n32, s, s))])
+         for _ in range(2)]
+    di = rng.uniform(500, 4000, n16)
+    di[rng.random(n16) < intra] = rng.uniform(0, 50)
+    assert g[0].shape[0] == rows
+    st1 = dict(grid0=torch.as_tensor(g[0].astype(np.float32)),
+               grid1=torch.as_tensor(g[1].astype(np.float32)),
+               d16=f(n16, 3), rb16=f(n16, 3, hi=60.0),
+               di16=torch.as_tensor(di.astype(np.float32)),
+               mv0_16=mvs(n16), mv1_16=mvs(n16),
+               d32=f(n32, 3, hi=12000.0), rb32=f(n32, 3, hi=120.0),
+               mv0_32=mvs(n32), mv1_32=mvs(n32))
+    return st1, f(n16, lo=2.0, hi=40.0), f(n32, lo=2.0, hi=40.0)
+
+
+@pytest.mark.parametrize("wc,hc,seed", _B_GRIDS)
+def test_k19_row_walk_model_equals_the_plain_scan(wc, hc, seed):
+    """The CTU32 B row walk (`k19_row_walk`) equals
+    `BTreeEncoder._decide_b_plain` exactly, free (split, every CU's
+    choice, MVDs and MVP indices, the cells' directions and MVs, the cost
+    rows and split costs) and forced with the plain scan's decisions, on
+    grids of one CTU, one column, one row, 7 x 5 and 9 x 3; every grid
+    entry a decision prices is in the read set the step copies."""
+    from x265amod_tpu_torch.models.inter_tree import BTreeEncoder
+    rng = np.random.default_rng(60 + seed)
+    sr, dsf = 4, _DSF[seed]
+    tree = BTreeEncoder(32 * wc, 32 * hc, search_range=sr, subme=1,
+                        device="cpu")
+    st1, lam16, lam32 = _b_tree_inputs(rng, wc, hc, sr)
+    maps = dict(lam16=lam16, lam32=lam32)
+    want = tree._decide_b_plain(st1, maps, dsf, want_costs=True)
+    got = k19_row_walk(tree, st1, lam16, lam32, dsf)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k].to(got[k].dtype)), k
+    if wc * hc > 30:
+        assert len(set(want["chq"].tolist())) == 6
+        assert want["split"].any() and not want["split"].all()
+    cells = tree._cell_decisions_b(want)
+    kinds = cells["kinds"]
+    choice = torch.where(kinds == 0, cells["merge"],
+                         torch.where(kinds == 1, 1 + cells["dir"].long(), 5))
+    c16 = (choice, cells["mvd0"], cells["mvp0"], cells["mvd1"],
+           cells["mvp1"])
+    forced = dict(c16=c16, c32=[t[tree._q0_cell] for t in c16],
+                  split=want["split"].reshape(-1))
+    want_f = tree._decide_b_plain(None, maps, dsf, forced=forced)
+    got_f = k19_row_walk(tree, None, lam16, lam32, dsf, forced=forced)
+    assert set(got_f) == set(want_f)
+    for k in want_f:
+        assert torch.equal(got_f[k], want_f[k].to(got_f[k].dtype)), k
+    for k in ("split", "dir", "mv0", "mv1"):
+        assert torch.equal(got_f[k], want[k]), k

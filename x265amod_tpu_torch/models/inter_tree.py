@@ -103,18 +103,17 @@ class _DecideArgs(ctypes.Structure):
 class _DecideBArgs(ctypes.Structure):
     """`DecideBArgs` of `csrc/decide_b.cu`, field for field."""
     _fields_ = ([(k, ctypes.c_int) for k in (
-        "wc", "hc", "w16", "h16", "n_diags", "bmax", "sr", "dsf0", "dsf1")]
+        "wc", "hc", "w16", "h16", "sr", "dsf0", "dsf1")]
         + [(k, _P) for k in (
             "grid0", "grid1", "d32", "rb32", "lam32", "mv0_32", "mv1_32",
             "d16", "rb16", "di16", "lam16", "mv0_16", "mv1_16")]
         + [("intra_hdr_bits", ctypes.c_float)]
         + [(k, _P) for k in (
-            "slot_ctu", "diag_off", "f_ch16", "f_mvd0_16", "f_mvp0_16",
-            "f_mvd1_16", "f_mvp1_16", "f_ch32", "f_mvd0_32", "f_mvp0_32",
-            "f_mvd1_32", "f_mvp1_32", "f_split", "split", "ch32", "mvd0_32",
-            "mvp0_32", "mvd1_32", "mvp1_32", "chq", "mvd0q", "mvp0q",
-            "mvd1q", "mvp1q", "dir", "mv0", "mv1", "jsq", "js32", "jsplit",
-            "j32", "maps")])
+            "f_ch16", "f_mvd0_16", "f_mvp0_16", "f_mvd1_16", "f_mvp1_16",
+            "f_ch32", "f_mvd0_32", "f_mvp0_32", "f_mvd1_32", "f_mvp1_32",
+            "f_split", "split", "ch32", "mvd0_32", "mvp0_32", "mvd1_32",
+            "mvp1_32", "chq", "mvd0q", "mvp0q", "mvd1q", "mvp1q", "dir",
+            "mv0", "mv1", "jsq", "js32", "jsplit", "j32")])
 
 
 def _launch(name, struct, args, like) -> None:
@@ -1131,9 +1130,10 @@ class BTreeEncoder(InterTreeEncoder):
        and zero-bi fill, AMVP per list with cross-list scaling, skip
        priced on the SSD grids (the mean of both lists' for a bi
        candidate), the costs with XLA's FMAs.  On the card one launch of
-       K19 (`decide_b`); on the CPU its plain version, a Python loop over
-       the CTU32 anti-diagonals with the CU32 and q0 decisions of a
-       diagonal in one call.
+       K19 (`decide_b`: a thread a CTU32 row walking the wavefront, no
+       scratch); on the CPU its plain version, a Python loop over the
+       CTU32 anti-diagonals with the CU32 and q0 decisions of a diagonal
+       in one call.
     3. Final MC (`mc_select` :1610-1624: K7 per list, K9 where both lists
        are used) and residuals (K2), then the shared commit scan of intra
        cells (K20 on the card).
@@ -1435,11 +1435,9 @@ class BTreeEncoder(InterTreeEncoder):
         def p(t):
             keep.append(t)
             return cuda_lib.ptr(t)
-        a = _DecideBArgs(wc=wc, hc=hc, w16=w16, h16=h16,
-                         n_diags=len(self.diags), bmax=self._bmax, sr=self.sr,
+        a = _DecideBArgs(wc=wc, hc=hc, w16=w16, h16=h16, sr=self.sr,
                          dsf0=int(dsf[0]), dsf1=int(dsf[1]),
                          intra_hdr_bits=_INTRA_HDR_BITS)
-        a.slot_ctu, a.diag_off = p(self._slot_ctu), p(self._diag_off)
         if forced is None:
             a.grid0, a.grid1 = p(c(st1["grid0"], f32)), p(c(st1["grid1"],
                                                             f32))
@@ -1470,8 +1468,6 @@ class BTreeEncoder(InterTreeEncoder):
                        j32=torch.empty(n32, dtype=f32, device=dev))
         for k, v in out.items():
             setattr(a, k, p(v))
-        # the committed motion the scan reads back (20 bytes a 16-cell)
-        a.maps = p(torch.empty(5 * n16, dtype=i32, device=dev))
         cuda_lib.require_cuda(*keep)
         _launch("decide_b", _DecideBArgs, a, keep[0])
         out["split"] = out["split"].bool().reshape(hc, wc)

@@ -29,11 +29,10 @@ decision (choice, MVDs and MVP indices) replays through the same candidate
 derivation: an AMVP cell's MV is its predictor plus its MVD.  A CPU tensor
 takes the plain version (a Python loop over the diagonals); a CUDA tensor
 launches the kernel (one launch a frame), `LAUNCHES["decide_flat"]` (K24)
-and `LAUNCHES["decide_flat_b"]` (K25) counting them.  K24 walks the grid a
-thread a CTU row (CTU (t - 2 r, r) at step t, the same wavefront), its
-neighbours' commits in registers and one shared-memory slot, its inputs
-loaded a step ahead (`csrc/decide_flat.cu`); K25 is a thread a lane of each
-diagonal.
+and `LAUNCHES["decide_flat_b"]` (K25) counting them.  Both walk the grid a
+thread a CTU row (CTU (t - 2 r, r) at step t, the same wavefront), their
+neighbours' commits in registers and one shared-memory slot, their inputs
+loaded a step ahead, no scratch (`csrc/decide_flat.cu`).
 """
 
 from __future__ import annotations
@@ -104,9 +103,8 @@ class Schedule:
     """The wavefront of a wc x hc CTB16 grid on one device: per diagonal
     the raster index of each lane and of its four neighbours (A1, B1, B0,
     B2, clamped into the grid, as the JAX `nb` reads them) with their
-    availability; the kernels' slot order (slot -> raster CTU, each
-    diagonal's first slot); and the plain scans' index constants on the
-    device (made once: an upload per diagonal would stall the card)."""
+    availability, and the plain scans' index constants on the device (made
+    once: an upload per diagonal would stall the card)."""
 
     _cache: dict = {}
 
@@ -120,15 +118,8 @@ class Schedule:
 
     def _build(self, wc, hc, dev):
         from ..models.intra_frame import _diag_schedule
-        self.wc, self.hc = wc, hc
+        self.wc, self.hc, self.device = wc, hc, dev
         self.diags = _diag_schedule(wc, hc)
-        self.bmax = max(len(c) for c in self.diags)
-        order = [c for cells in self.diags for c in cells]
-        self.slot_ctu = torch.as_tensor([cy * wc + cx for cx, cy in order],
-                                        dtype=torch.int32, device=dev)
-        self.diag_off = torch.as_tensor(np.cumsum(
-            [0] + [len(c) for c in self.diags]), dtype=torch.int32,
-            device=dev)
         self.prune_a, self.prune_b, self.b_order, self.one_two = (
             torch.tensor(v, device=dev) for v in (PRUNE_A, PRUNE_B,
                                                    B_ORDER, [1, 2]))
@@ -340,20 +331,19 @@ _P = ctypes.c_void_p
 
 class FlatArgs(ctypes.Structure):
     """`FlatArgs` of `csrc/decide_flat.cu`, field for field."""
-    _fields_ = ([(k, ctypes.c_int) for k in (
-        "wc", "hc", "n_diags", "bmax", "sr", "dsf0", "dsf1")]
+    _fields_ = ([(k, ctypes.c_int) for k in ("wc", "hc", "sr", "dsf0",
+                                             "dsf1")]
         + [(k, _P) for k in ("grid0", "grid1", "d", "rb", "di", "lam",
                              "me0", "me1")]
         + [("intra_hdr_bits", ctypes.c_float)]
         + [(k, _P) for k in (
-            "slot_ctu", "diag_off", "f_ch", "f_mvd0", "f_mvp0", "f_mvd1",
-            "f_mvp1", "choice", "dir", "mv0", "mv1", "mvd0", "mvp0", "mvd1",
-            "mvp1", "js", "maps")])
+            "f_ch", "f_mvd0", "f_mvp0", "f_mvd1", "f_mvp1", "choice", "dir",
+            "mv0", "mv1", "mvd0", "mvp0", "mvd1", "mvp1", "js")])
 
 
 def _launch(sch, bidir: bool, ins: dict, forced, want_costs, sr, dsf, hdr):
     n = sch.wc * sch.hc
-    dev = sch.slot_ctu.device
+    dev = sch.device
     i32, f32 = torch.int32, torch.float32
     keep = []
 
@@ -363,10 +353,8 @@ def _launch(sch, bidir: bool, ins: dict, forced, want_costs, sr, dsf, hdr):
         t = t.contiguous() if dt is None else t.to(dt).contiguous()
         keep.append(t)
         return cuda_lib.ptr(t)
-    a = FlatArgs(wc=sch.wc, hc=sch.hc, n_diags=len(sch.diags), bmax=sch.bmax,
-                 sr=int(sr), dsf0=int(dsf[0]), dsf1=int(dsf[1]),
-                 intra_hdr_bits=float(np.float32(hdr)))
-    a.slot_ctu, a.diag_off = p(sch.slot_ctu), p(sch.diag_off)
+    a = FlatArgs(wc=sch.wc, hc=sch.hc, sr=int(sr), dsf0=int(dsf[0]),
+                 dsf1=int(dsf[1]), intra_hdr_bits=float(np.float32(hdr)))
     if forced is None:
         s = 2 * int(sr) + 1
         for k, dt, shape in (("grid0", f32, (n, s, s)),
@@ -400,10 +388,6 @@ def _launch(sch, bidir: bool, ins: dict, forced, want_costs, sr, dsf, hdr):
                                 device=dev)
     for k, v in out.items():
         setattr(a, k, p(v))
-    # K25's committed motion, read back by later diagonals: direction, MV0
-    # and MV1 per CTU, int32 each (K24 keeps its rows' commits on chip)
-    if bidir:
-        a.maps = p(torch.empty(5 * n, dtype=i32, device=dev))
     cuda_lib.require_cuda(*keep)
     name = "decide_flat_b" if bidir else "decide_flat"
     f = cuda_lib.lib("decide_flat").decide_flat
