@@ -19,9 +19,10 @@ Phases (any failure exits non-zero):
      modes) and K5 at 1920x1088, sr 16 (bn 16 and 32 on the integer and
      the half-pel plane, whose values reach -263 and 518), checked and
      timed; K1's bound counts its Hadamard at the f16 and K5's
-     correlation at the int8 tensor-core rate (`bound_ms_int32`: the int32
-     ALUs alone); K2 with its RDOQ stage (row 21) at one diagonal of config 1's
-     commit and at one 1920x1088 B and P frame's final coding, timed with
+     correlation at the int8 tensor-core rate and K6's integers at the f32
+     FMA rate (`bound_ms_int32`: the int32 ALUs alone); K2 with its RDOQ
+     stage (row 21) at one diagonal of config 1's commit and at one
+     1920x1088 B and P frame's final coding, timed with
      and without the stage, with lambdas within 4 ulps of hi/lo and
      group-kill ties and levels at +-32767; K1-K3 at bit depth 10 at the
      Main10 path's 16-frame batch of 1920x1088 with flat 0 / 1023 blocks;
@@ -263,6 +264,45 @@ def time_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+# spins time_queued_ms tries, each twice as long as the one before
+QUEUE_TRIES = 6
+
+
+def time_queued_ms(fn, iters):
+    """Mean device ms of ``fn``, its ``iters`` calls enqueued while the card
+    spins, so that none waits on the host (a wrapper's host time can exceed
+    a short kernel's), with the grids warm; after 2 warm-up calls.  The
+    spin is doubled until the host has enqueued every call before the card
+    reaches the first, at most QUEUE_TRIES times: a ``fn`` that waits on the
+    card (a host copy, ``.item()``) never lets the queue form, and raises."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin = (time.perf_counter() - t) * (iters + 2) * 2.0
+    for _ in range(QUEUE_TRIES):
+        # cycles at about 2 GHz (the H100's SM clock reaches 1.98); a lower
+        # clock only spins longer
+        torch.cuda._sleep(int(spin * 2e9))
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        late = t0.query()
+        torch.cuda.synchronize()
+        if not late:
+            return t0.elapsed_time(t1) / iters
+        spin *= 2
+    raise RuntimeError(f"time_queued_ms: the card reached the calls before "
+                       f"the host had enqueued them, {QUEUE_TRIES} times: "
+                       f"does the timed function wait on the card?")
+
+
 # bytes written between the launches that time_cold_ms times: more than
 # the H100's 50 MB of L2
 L2_FLUSH_BYTES = 128 << 20
@@ -306,6 +346,14 @@ def chain_ops(n):
 def bound_ms(nbytes, ops):
     tb = nbytes / H100_BYTES_PER_S * 1e3
     to = ops / H100_INT32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def bound_f32_ms(nbytes, ops):
+    """The least time with the operations on the f32 FMA pipes: K16's
+    filters, and K6's exact integer arithmetic, which it runs as f32."""
+    tb = nbytes / H100_BYTES_PER_S * 1e3
+    to = ops / H100_F32_FLOPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -788,6 +836,54 @@ def subpel_ops(n):
     return horizontal + x_cols * y_rows * taps + 25 * n * n * 3
 
 
+def k6_flat_p_args(dev):
+    """The arguments of K6's call in phase 2's flat P frame (1920x1088, n
+    16, sr 16, 8160 blocks): the card's IDR recon, the frame's blocks, the
+    integer MVs of K5 and the argmin kernel, lambda at QP 32."""
+    import torch
+    from x265amod_tpu_torch.models.inter_frame import InterFrameEncoder
+    from x265amod_tpu_torch.ops import me
+    w, h, recon, cur = flat_inter_inputs(dev)
+    enc = InterFrameEncoder(w, h, device=dev)
+    lam = enc._maps(32)["lam"].reshape(-1).to(torch.float32).contiguous()
+    ref = recon[0][0]
+    blk = cur[0].reshape(h // 16, 16, w // 16, 16).permute(0, 2, 1, 3) \
+        .reshape(-1, 16, 16).contiguous()
+    mvi = me.int_mv_argmin(me.me_ssd_grid(blk, ref, enc.sr, 16), lam, enc.sr)
+    return ref, blk, mvi, lam
+
+
+def phase_kernels_k6_1080p(iters, dev="cuda"):
+    """K6 at the flat P frame's call (`k6_flat_p_args`) against its plain
+    version bit for bit, timed back to back, with L2 flushed and queued
+    behind a spin.  Returns the keys added to the `subpel` row."""
+    from x265amod_tpu_torch.ops import me
+    ref, blk, mvi, lam = k6_flat_p_args(dev)
+    got = me.subpel_refine(ref, blk, mvi, lam, 16)
+    want = me.subpel_refine_plain(ref, blk, mvi, lam, 16)
+    err = max(check_equal("subpel mv flat P 1080p", got[0], want[0]),
+              check_equal("subpel ssd flat P 1080p", got[1], want[1]))
+    nb = blk.shape[0]
+    nbytes_ = nbytes(ref, blk, mvi, lam) + nb * 12
+    ops = nb * subpel_ops(16)
+    bound, by = bound_f32_ms(nbytes_, ops)
+    bound_int32, by_int32 = bound_ms(nbytes_, ops)
+    return dict(
+        err=err,
+        ms_flat_p_1080p=time_ms(lambda: me.subpel_refine(ref, blk, mvi, lam,
+                                                         16), iters),
+        ms_flat_p_1080p_l2_cold=time_cold_ms(
+            lambda: me.subpel_refine(ref, blk, mvi, lam, 16), iters),
+        ms_device_flat_p_1080p=time_queued_ms(
+            lambda: me.subpel_refine(ref, blk, mvi, lam, 16), iters),
+        plain_ms_flat_p_1080p=time_ms(
+            lambda: me.subpel_refine_plain(ref, blk, mvi, lam, 16), 2),
+        bound_ms_flat_p_1080p=bound, bound_by_flat_p_1080p=by,
+        bound_ms_int32_flat_p_1080p=bound_int32,
+        bound_by_int32_flat_p_1080p=by_int32,
+        blocks_flat_p_1080p=nb)
+
+
 def phase_kernels_p(iters, dev="cuda", w=1280, h=736, sr=8):
     """K5-K8 at config 2's per-frame shapes (1280x720 padded to 736 rows,
     sr 8): the ME grids at bn 16 (3680 cells) and 32 (920 CTUs) over the
@@ -886,11 +982,14 @@ def phase_kernels_p(iters, dev="cuda", w=1280, h=736, sr=8):
                        check_equal(f"subpel ssd bn={bn}", got[1], want[1]))
         d["ms"] += time_ms(lambda: me.subpel_refine(ref_t, cb, mv, lam, bn),
                            iters)
+        d["ms_device"] = d.get("ms_device", 0.0) + time_queued_ms(
+            lambda: me.subpel_refine(ref_t, cb, mv, lam, bn), iters)
         d["plain_ms"] += time_ms(
             lambda: me.subpel_refine_plain(ref_t, cb, mv, lam, bn), 2)
         nbytes_ += nbytes(ref_t, cb, mv, lam) + nb * 12
         ops += nb * subpel_ops(bn)
-    d["bound_ms"], d["bound_by"] = bound_ms(nbytes_, ops)
+    d["bound_ms"], d["bound_by"] = bound_f32_ms(nbytes_, ops)
+    d["bound_ms_int32"], d["bound_by_int32"] = bound_ms(nbytes_, ops)
     d["library_ms"] = None
     d["library_note"] = "none: no PyTorch call interpolates and searches"
     rows.append(("subpel", "x265amod_tpu_torch/csrc/subpel.cu",
@@ -2263,10 +2362,7 @@ def phase_kernels_resample(iters, dev="cuda"):
         flops += 2 * (h_ * p.shape[1] * nv + h_ * w_ * nh)
         taps = max(taps, nv, nh)
     io = sum(p.numel() for p in frame) + 1280 * 720 * 3 // 2
-    tb = io / H100_BYTES_PER_S * 1e3
-    to = flops / H100_F32_FLOPS * 1e3
-    d["bound_ms"], d["bound_by"] = (tb, "bytes") if tb >= to \
-        else (to, "operations")
+    d["bound_ms"], d["bound_by"] = bound_f32_ms(io, flops)
     d["bytes"], d["flops"], d["max_taps"] = io, flops, taps
     return [("resample", "x265amod_tpu_torch/csrc/resample.cu",
              "x265amod_tpu/ops/scaler.py:74 resample_plane", d)]
@@ -2561,7 +2657,7 @@ def phase_kernels_decide_1080p(iters, dev="cuda"):
     st1 = tree._phase1(y, refs[0], maps, tables)
     err, _, _ = check_decide(tree, st1, maps, tables, "1080p R=1")
     return dict(err=err, width=tree.width, height=tree.height, sr=tree.sr,
-                lanes=tree._bmax, maps_bytes=16 * tree.h16 * tree.w16,
+                rows=tree.hc, steps=tree.wc + 2 * (tree.hc - 1),
                 ms=time_ms(lambda: tree._decide_kernel(st1, maps, tables),
                            iters),
                 bound_ms=bound_ms(decide_bytes(tree, 1, False), 0)[0])
@@ -2840,6 +2936,8 @@ def phase_kernels_multiref(iters, frames, dev="cuda"):
         kinds = cells["kinds"]
         per_r[nr] = dict(
             ms=time_ms(lambda: tree._decide_kernel(st1, maps, tables), iters),
+            device_ms=time_queued_ms(
+                lambda: tree._decide_kernel(st1, maps, tables), iters),
             forced_ms=time_ms(lambda: tree._decide_kernel(
                 None, maps, tables, forced=forced), iters),
             plain_ms=time_once_ms(lambda: tree._decide_plain(st1, maps,
@@ -2852,7 +2950,9 @@ def phase_kernels_multiref(iters, frames, dev="cuda"):
                                   .mean()))
     tables3 = tables
     r1, r3 = per_r[1], per_r[MULTIREF]
-    d.update(ms=r1["ms"], plain_ms=r1["plain_ms"], bound_ms=r1["bound_ms"],
+    d.update(ms=r1["ms"], ms_device=r1["device_ms"],
+             ms_device_r3=r3["device_ms"], plain_ms=r1["plain_ms"],
+             bound_ms=r1["bound_ms"],
              bound_by="bytes", library_ms=None,
              library_note="none: no single call makes the decision",
              launches_per_p_frame=1,
@@ -2862,7 +2962,8 @@ def phase_kernels_multiref(iters, frames, dev="cuda"):
              bound_ms_r3=r3["bound_ms"], ms_forced_r3=r3["forced_ms"],
              plain_ms_forced_r3=r3["forced_plain_ms"],
              bound_ms_forced_r3=r3["forced_bound_ms"],
-             bound_by_r3="bytes")
+             bound_by_r3="bytes", rows=tree.hc,
+             steps=tree.wc + 2 * (tree.hc - 1))
     rows.append(("decide_p", "x265amod_tpu_torch/csrc/decide_p.cu",
                  "x265amod_tpu/models/inter_tree.py:336-544 decide_body "
                  "(lax.scan :544)", d))
@@ -3523,6 +3624,23 @@ def main():
         "_1080p_sr16_bn16_int: the flat P frame's grid; _bn16/32_int/hpel:"
         " a config-3 B frame's four grids per reference (1920x1088, sr "
         "16); bound_ms_int32*: the bound on int32 ALUs alone")
+    # K6 at the flat P frame's call (1920x1088, n 16)
+    k6 = phase_kernels_k6_1080p(args.iters)
+    sub = by_name["subpel"]
+    sub["err"] = max(sub["err"], k6.pop("err"))
+    sub.update(k6)
+    sub["shapes_note"] = (
+        "also checked at one B frame's shapes (1920x1088, sr 16); "
+        "_flat_p_1080p: the flat P frame's call (1920x1088, n 16, sr 16, "
+        "8160 blocks), _l2_cold with L2 flushed before each call; "
+        "ms_device*: the calls enqueued behind a spin of the card, the "
+        "kernel's own time (ms: back to back from the host, which the "
+        "wrapper's host time bounds); "
+        "bound_ms*: the operations at the f32 FMA rate, on which the "
+        "kernel runs its exact integer arithmetic; bound_ms_int32*: the "
+        "bound on int32 ALUs alone")
+    log("phase 2: subpel at the flat P frame " + json.dumps(k6)
+        + f" [{card}]")
     # K17 at config 3's P-anchor shapes (also the ladder's 1080p rung)
     dec1080 = phase_kernels_decide_1080p(args.iters)
     dec = by_name["decide_p"]
@@ -3790,8 +3908,7 @@ def main():
              "intra_cells_", "dsf", "cu32_share", "chain",
              "launches_per_call", "tus_"))
             or k.startswith(("blocks", "ms_per_launch", "split_blocks"))
-            or k in ("ties", "level_bound_reached", "lanes", "maps_bytes",
-                     "rows", "steps",
+            or k in ("ties", "level_bound_reached", "rows", "steps",
                      "ties_checked", "choice_histogram", "hpel_range")}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,

@@ -15,7 +15,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 profile_port.py [--configs 1,2,...,14] [--batches 2]
         [--p-frames 4] [--iters 20] [--root DIR]
-        [--kernels k1k5,k24,k3,k23,k2k20,k19k25]
+        [--kernels k1k5,k24,k3,k23,k2k20,k19k25,k6k17]
 
 and, anywhere, to compare runs of two trees (one output file per run):
 
@@ -120,11 +120,20 @@ Prints JSON lines:
     recons, sr 16) and "k19_config3_b_1080p" (config 3's POC 2 between the
     card's recons of the IDR and the P anchor, 1920x1088, sr 16), each
     also "_forced" (replaying its own decisions) and "_l2_cold" (L2
-    flushed before each call).
+    flushed before each call).  K17 and K6 ("k6k17", lists of KT_REPS
+    timings, each also "_l2_cold" and "_device": the calls enqueued behind
+    a spin of the card, the kernel's own time where the wrapper's host
+    time is the longer): "k17_config2_720p_r1" and "_r3" (chip_smoke
+    phase 2's config-2 P frame at R 1 and 3) and "k17_config3_p_1080p"
+    (config 3's first P anchor, 1920x1088, sr 16), each also "_forced"
+    and "_forced_device" (replaying its own decisions); "k6_config2_720p"
+    (that P frame's two calls, n 16 and 32, sr 8), "k6_1080p_n32" (the P
+    anchor's n-32 call) and "k6_flat_p_1080p_n16" (the flat P frame's
+    call, 8160 blocks).
     With --root DIR the port package is imported from DIR (an unpacked
     earlier tree), so that two designs are timed by one script in one
     call; --kernels names the groups timed ("k1k5", "k24", "k3", "k23",
-    "k2k20", "k19k25"; all by default);
+    "k2k20", "k19k25", "k6k17"; all by default);
   - "e2e_fps": chip_smoke phases 19, 20 and 22 timed as those phases time
     them (a new Encoder, their warm-up frames, then one encode_pipelined
     call over the rest, host wall clock): CTB16 all-intra (16 frames),
@@ -133,7 +142,8 @@ Prints JSON lines:
     tree's port, so that two trees alternate in one call (parent, change,
     change, parent);
   - with --summarize: for every number of the "kernel_times", "e2e_fps",
-    "b_stages", "b_profile", "flat_b_stages" and "flat_b_profile" lines
+    "p_stages", "p_profile", "b_stages", "b_profile", "flat_b_stages" and
+    "flat_b_profile" lines
     (each tagged with its tree's root), the median, min and max of each
     tree's runs and the verdict: "faster" only where every change run
     beats every parent run (ms and shares lower, fps higher), "slower" the
@@ -153,7 +163,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from chip_smoke import (card_line, config1, config2, config2_ref, config3,
-                        synth_frames, time_cold_ms, time_ms)
+                        synth_frames, time_cold_ms, time_ms, time_queued_ms)
 
 # P frames that run every stage before the P breakdowns' clock starts
 P_WARM = 2
@@ -877,8 +887,92 @@ def k19_k25_times(iters, dev, w=1920, h=1080):
     return out
 
 
+def k6_k17_times(iters, dev):
+    """K17 and K6 alone (see the docstring), each KT_REPS times: warm and
+    with L2 flushed before each call (K17 also replaying its own
+    decisions)."""
+    import torch
+    import x265amod_tpu_torch.models.inter_tree as mit
+    from chip_smoke import MULTIREF, check_decide, k6_flat_p_args
+    from x265amod_tpu_torch.models.encoder import Encoder, _pad_to_ctu
+    from x265amod_tpu_torch.ops import me
+    out = {}
+
+    def reps(key, fn):
+        out[key] = [time_ms(fn, iters) for _ in range(KT_REPS)]
+        out[key + "_l2_cold"] = [time_cold_ms(fn, iters)
+                                 for _ in range(KT_REPS)]
+        out[key + "_device"] = [time_queued_ms(fn, iters)
+                                for _ in range(KT_REPS)]
+
+    def phase1_k6(tree, y, refs, maps, tables):
+        """The tree's phase 1 with its K6 calls' arguments recorded."""
+        calls, inner = [], mit.subpel_refine
+
+        def spy(*a):
+            calls.append(a)
+            return inner(*a)
+        mit.subpel_refine = spy
+        try:
+            st1 = tree._phase1(y, refs, maps, tables)
+        finally:
+            mit.subpel_refine = inner
+        return st1, calls
+
+    def k17(key, tree, st1, maps, tables):
+        forced = check_decide(tree, st1, maps, tables, key)[1]
+        reps(key, lambda: tree._decide_kernel(st1, maps, tables))
+        for t, name in ((time_ms, "_forced"), (time_queued_ms,
+                                               "_forced_device")):
+            out[key + name] = [t(lambda: tree._decide_kernel(
+                None, maps, tables, forced=forced), iters)
+                for _ in range(KT_REPS)]
+
+    # config 2 (chip_smoke phase 2's P frame: frame 4 of the bench clip at
+    # 1280x736, sr 8, against the card's recons of frames 1-3), R 1 and 3
+    frames = synth_frames(1280, 720, 5, seed=2)
+    enc = Encoder(config2_ref(MULTIREF), device=dev)
+    for fr in frames[:4]:
+        enc.encode_push(*fr)
+    tree = enc.inter_encoder
+    pocs = sorted(enc._dpb, reverse=True)
+    y = torch.as_tensor(_pad_to_ctu(frames[4][0], 32), device=dev) \
+        .to(torch.int32)
+    maps = tree._maps(32)
+    for nr in (1, MULTIREF):
+        refs, tables = tree._ref_list([enc._dpb[p] for p in pocs[:nr]],
+                                      pocs[:nr], 4)
+        st1, calls = phase1_k6(tree, y, refs[0], maps, tables)
+        k17(f"k17_config2_720p_r{nr}", tree, st1, maps, tables)
+        if nr == 1:
+            reps("k6_config2_720p", lambda: [me.subpel_refine(*a)
+                                             for a in calls])
+    del enc, tree, st1, calls
+    # config 3's first P anchor (1920x1088, sr 16, R 1, against the card's
+    # recon of the IDR): K17 and its K6 call at n 32
+    frames = synth_frames(1920, 1080, 5, seed=4)
+    enc = Encoder(config3(), device=dev)
+    enc.encode_push(*frames[0])
+    tree = enc.inter_encoder
+    poc = enc.bframes + 1
+    y = torch.as_tensor(_pad_to_ctu(frames[poc][0], 32), device=dev) \
+        .to(torch.int32)
+    refs, tables = tree._ref_list([enc._dpb[0]], [0], poc)
+    maps = tree._maps(32)
+    st1, calls = phase1_k6(tree, y, refs[0], maps, tables)
+    k17("k17_config3_p_1080p", tree, st1, maps, tables)
+    a32 = next(a for a in calls if a[4] == 32)
+    reps("k6_1080p_n32", lambda: me.subpel_refine(*a32))
+    del enc, tree, st1, calls
+    # the flat P frame's call (chip_smoke phase 2's: 1920x1088, n 16)
+    args = k6_flat_p_args(dev)
+    reps("k6_flat_p_1080p_n16", lambda: me.subpel_refine(*args, 16))
+    torch.cuda.empty_cache()
+    return out
+
+
 # the kernel groups of "13", each timed by its own part of kernel_times
-KERNEL_GROUPS = ("k1k5", "k24", "k3", "k23", "k2k20", "k19k25")
+KERNEL_GROUPS = ("k1k5", "k24", "k3", "k23", "k2k20", "k19k25", "k6k17")
 
 
 def kernel_times(iters, groups=KERNEL_GROUPS):
@@ -894,6 +988,8 @@ def kernel_times(iters, groups=KERNEL_GROUPS):
         out.update(k3_k24_times(iters, dev, groups))
     if "k19k25" in groups:
         out.update(k19_k25_times(iters, dev))
+    if "k6k17" in groups:
+        out.update(k6_k17_times(iters, dev))
 
     def planes(w, h, n, seed):
         fr = synth_frames(w, h, n, seed=seed)
@@ -1056,8 +1152,8 @@ def device_profile(run, n_frames, top=12):
 
 # the output lines --summarize reads: their numbers (ms or shares) are
 # better lower, e2e_fps's higher
-SUMMARIZED = ("kernel_times", "e2e_fps", "b_stages", "b_profile",
-              "flat_b_stages", "flat_b_profile")
+SUMMARIZED = ("kernel_times", "e2e_fps", "p_stages", "p_profile",
+              "b_stages", "b_profile", "flat_b_stages", "flat_b_profile")
 
 
 def summarize(paths, parent_root):
@@ -1145,14 +1241,15 @@ def main():
     if 2 in configs:
         pframes = synth_frames(1280, 720, 2 * args.p_frames + 2, seed=2)
         penc = Encoder(config2(), device="cuda")
-        print(json.dumps({"p_stages": p_stage_breakdown(
-            penc, pframes[:P_WARM + args.p_frames + 1])}))
+        print(json.dumps({"p_stages": dict(p_stage_breakdown(
+            penc, pframes[:P_WARM + args.p_frames + 1]), root=root)}))
         penc = Encoder(config2(), device="cuda")
         penc.encode_push(*pframes[0])
         penc.encode_push(*pframes[1])
         rest = pframes[2:2 + args.p_frames]
-        print(json.dumps({"p_profile": device_profile(
-            lambda: [penc.encode_push(*f) for f in rest], len(rest))}))
+        print(json.dumps({"p_profile": dict(device_profile(
+            lambda: [penc.encode_push(*f) for f in rest], len(rest),
+            top=30), root=root)}))
     if 3 in configs:
         bframes = synth_frames(1920, 1080, 9, seed=4)
         benc = Encoder(config3(), device="cuda")

@@ -1338,6 +1338,123 @@ def test_decide_b_row_walk(cuda_dev, wc, hc):
         assert torch.equal(fk[k], want[k]), k
 
 
+@pytest.mark.parametrize("wc,hc,nr", [
+    (40, 23, 1), (40, 23, 3), (60, 34, 1), (60, 34, 4), (1, 9, 2),
+    (9, 1, 2), (1, 40, 3), (40, 1, 1), (7, 5, 4)])
+def test_decide_p_row_walk(cuda_dev, wc, hc, nr):
+    """K17 (a thread a CTU32 row, the 36 grid entries a step can price
+    copied as it starts) against `InterTreeEncoder._decide_plain` on
+    synthetic phase-1 outputs: 1280x736 at R 1 and 3, 1920x1088 at R 1
+    and 4 (34 rows across two warps), one-row and one-column grids; MVs
+    that repeat, sub-pel ones, at +-sr and beyond (1e18), references drawn
+    from all R so that neighbours lie on other references; free (every
+    output and cost row) and forced with the plain scan's decisions, bit
+    for bit."""
+    from x265amod_tpu_torch.models.inter_tree import InterTreeEncoder
+    from x265amod_tpu_torch.models.mvpred import ref_list_tables
+    from x265amod_tpu_torch.ops import cuda_lib
+    rng = np.random.default_rng(wc * 100 + hc + nr)
+    sr = 16 if hc > 30 else 8
+    tree = InterTreeEncoder(32 * wc, 32 * hc, search_range=sr, subme=1,
+                            device=cuda_dev)
+    n32, n16, s = wc * hc, 4 * wc * hc, 2 * sr + 1
+    mvs = _mv_palette(rng, sr)
+
+    def refs(n):
+        return torch.as_tensor(rng.integers(0, nr, n).astype(np.int32),
+                               device=cuda_dev)
+    st1 = dict(
+        grid=torch.cat([_uniform(rng, cuda_dev, 2 * nr * n16, s, s),
+                        _uniform(rng, cuda_dev, 2 * nr * n32, s, s,
+                                 hi=12000.0)]),
+        d16=_uniform(rng, cuda_dev, n16),
+        rb16=_uniform(rng, cuda_dev, n16, hi=60.0),
+        di16=_intra_costs(rng, n16, cuda_dev), mv16=mvs(n16, cuda_dev),
+        ref16=refs(n16), d32=_uniform(rng, cuda_dev, n32, hi=12000.0),
+        rb32=_uniform(rng, cuda_dev, n32, hi=120.0),
+        mv32=mvs(n32, cuda_dev), ref32=refs(n32))
+    maps = dict(lam16=_uniform(rng, cuda_dev, n16, lo=2.0, hi=40.0),
+                lam32=_uniform(rng, cuda_dev, n32, lo=2.0, hi=40.0))
+    dsf, bits = ref_list_tables(9, [8, 5, 3, 0][:nr])
+    tables = (torch.as_tensor(dsf, device=cuda_dev),
+              torch.as_tensor(bits, device=cuda_dev))
+    cuda_lib.reset_launches()
+    got = tree._decide_kernel(st1, maps, tables, want_costs=True)
+    assert cuda_lib.LAUNCHES["decide_p"] == 1
+    want = tree._decide_plain(st1, maps, tables, want_costs=True)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k],
+                                                             want[k]), k
+    if n32 > 100:
+        assert len(set(want["chq"].tolist())) == 4
+        assert want["split"].any() and not want["split"].all()
+        assert (want["js32"][:, :2] >= 1e18).any()
+    cells = tree._cell_decisions(want)
+    kinds = cells["kinds"]
+    forced = dict(c16=(torch.where(kinds == 0, cells["merge"],
+                                   torch.where(kinds == 1, 2, 3)),
+                       cells["mvd"], cells["mvp"], cells["ref"]),
+                  split=want["split"].reshape(-1))
+    forced["c32"] = [v[tree._q0_cell] for v in forced["c16"]]
+    fk = tree._decide_kernel(None, maps, tables, forced=forced)
+    fp = tree._decide_plain(None, maps, tables, forced=forced)
+    assert fk.keys() == fp.keys()
+    for k in fp:
+        assert torch.equal(fk[k], fp[k]), k
+    for k in ("split", "mv", "ref"):
+        assert torch.equal(fk[k], want[k]), k
+
+
+@pytest.mark.parametrize("w,h,n,plane", [
+    (1920, 1088, 16, "noise"), (1920, 1088, 32, "noise"),
+    (1280, 736, 16, "noise"), (1280, 736, 32, "noise"),
+    (256, 128, 16, "flat0"), (256, 128, 32, "flat255")])
+def test_subpel_refine_warp_kernel(cuda_dev, w, h, n, plane):
+    """K6 (a warp a block, the 25 candidates' partial SSDs in registers, a
+    transposing butterfly, a shuffle minimum) against
+    `subpel_refine_plain`: 1920x1088 and 1280x736 at n 16 and 32 with MVs
+    at +-sr on the border blocks (the window clamps) and beyond; flat 0
+    and 255 planes where all 25 SSDs tie; lambda 0 (all 25 costs tied on
+    the flat planes: the first minimum decides), mid-range and large; MVs
+    and SSDs bit for bit."""
+    from x265amod_tpu_torch.ops import cuda_lib, me
+    rng = np.random.default_rng(w + n + len(plane))
+    sr = 16
+    if plane == "noise":
+        yy, xx = np.mgrid[0:h, 0:w]
+        ref = np.clip(128 + 90 * np.sin(xx / 5.0) * np.cos(yy / 3.0)
+                      + rng.normal(0, 20, (h, w)), 0, 255)
+    else:
+        ref = np.full((h, w), 0 if plane == "flat0" else 255)
+    ref = torch.as_tensor(ref.astype(np.int32), device=cuda_dev)
+    nb, wb = (h // n) * (w // n), w // n
+    near = torch.clamp(torch.roll(ref, (1, -2), (0, 1)) + torch.as_tensor(
+        rng.integers(-3, 4, (h, w)).astype(np.int32), device=cuda_dev),
+        0, 255)
+    cur = near.reshape(h // n, n, wb, n).permute(0, 2, 1, 3) \
+        .reshape(nb, n, n).contiguous()
+    cur[1::2] = _plane(rng, n * (nb // 2), n, cuda_dev).reshape(-1, n, n)
+    mv = rng.integers(-sr, sr + 1, (nb, 2)).astype(np.int32)
+    mv[:wb] = (-sr, -sr)
+    mv[-wb:] = (sr, sr)
+    mv[::wb] = (-sr - 3, sr)
+    mv[wb - 1::wb] = (sr, -sr)
+    mv = torch.as_tensor(mv, device=cuda_dev)
+    lam = rng.uniform(0, 300, nb).astype(np.float32)
+    lam[::3] = 0.0
+    lam[1::4] = 4.0e5
+    lam = torch.as_tensor(lam, device=cuda_dev)
+    cuda_lib.reset_launches()
+    got = me.subpel_refine(ref, cur, mv, lam, n)
+    assert cuda_lib.LAUNCHES["subpel"] == 1
+    want = me.subpel_refine_plain(ref, cur, mv, lam, n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if plane != "noise":
+        tied = lam == 0
+        assert torch.equal(got[0][tied], 4 * mv[tied] - 2)
+
+
 def _k3_levels(rng, t, n):
     """TUs of every kind K3 meets: zero, a DC level, dense with more than 8
     nonzeros a group, remainders past the escape, +-32767."""

@@ -3,7 +3,9 @@ motion search, sub-pel refinement, motion compensation, the half-pel
 plane, MVD bin counts, the inter residual chain, tu_bits at P-slice init
 states and the inter bS maps.  The same numpy inputs, made from a seed, go
 through each JAX function and the port's plain PyTorch version (the version
-a CPU tensor takes).  Exact unless a test states its tolerance and why."""
+a CPU tensor takes).  Exact unless a test states its tolerance and why.
+`k6_model` holds the card's decomposition of K6 (`csrc/subpel.cu`) to the
+plain refinement, in plain numpy and PyTorch."""
 
 import numpy as np
 import pytest
@@ -383,3 +385,144 @@ def test_subpel_pick_pins_xla_fma():
     got = tme.subpel_pick(T(ssd), T(lam), T(cand[keep])).numpy()
     np.testing.assert_array_equal(got, want)
     assert (np.where(rounded[keep], 0, 12) != want).sum() >= 10
+
+
+# ---- K6's decomposition on the card, modelled ------------------------------
+
+# dx + 2 of K6's five horizontal columns (`csrc/subpel.cu:hrow`): a copy,
+# phase 1, phase 2 (offset 0), phase 3 and phase 2 at offset -1
+_K6_DX = (2, 3, 4, 1, 0)
+
+
+def k6_model(ref, cur, mv_int, lam, n):
+    """K6 (`csrc/subpel.cu:subpel_warp`) as a warp computes it, in exact
+    integers, asserting the bounds under which its f32 arithmetic is exact
+    (every value below 2^24): the clamped (n+8)^2 window; lane j of row
+    segment s (n 16: two segments of eight rows; n 32: one of 32) filters
+    its column horizontally into the five columns a delta needs, each
+    sum started at 32 (so that the vertical sums start at 2048: the taps
+    sum to 64); down its rows it filters each column vertically at phases
+    1, 2 and 3, takes phase 0 as the row itself and phase 2 at offset -1
+    as the row above's phase 2 (kept: the row-shift sharing), rounds
+    floor(v / 4096), clamps, and adds the squared differences into 25
+    partials; a transposing butterfly leaves candidate k's SSD in lane k;
+    lane k's cost is the FMA of lambda and the rate onto the SSD, and a
+    shuffle minimum on (cost, k) picks the first minimum.  Returns
+    (mv_q [nb, 2] int32, ssd [nb] f32), as `subpel_refine_plain`, and the
+    25 SSDs [nb, 25] lanes 0-24 hold."""
+    from x265amod_tpu_torch.ops.rdoq import fma32
+    taps = tme.LUMA_FILTERS.astype(np.int64)
+    ref = np.asarray(ref, np.int64)
+    cur = np.asarray(cur, np.int64)
+    mv = np.asarray(mv_int, np.int64)
+    h, w = ref.shape
+    nb, wn = cur.shape[0], n + 8
+    bx = (np.arange(nb) % (w // n)) * n
+    by = (np.arange(nb) // (w // n)) * n
+    ys = np.clip(by[:, None] + mv[:, 1:2] - 4 + np.arange(wn), 0, h - 1)
+    xs = np.clip(bx[:, None] + mv[:, 0:1] - 4 + np.arange(wn), 0, w - 1)
+    win = ref[ys[:, :, None], xs[:, None, :]]               # [nb, wn, wn]
+    lanes = np.arange(32)
+    j = lanes % n
+    rows = n // (32 // n)
+    r0 = (lanes // n) * rows
+    x = win[:, :, j[:, None] + np.arange(9)]             # [nb, wn, 32, 9]
+    hs = np.stack([64 * x[..., 4] + 32,
+                   32 + x[..., 1:9] @ taps[1],
+                   32 + x[..., 1:9] @ taps[2],
+                   32 + x[..., 0:8] @ taps[3],
+                   32 + x[..., 0:8] @ taps[2]], -1)     # [nb, wn, 32, 5]
+    assert np.abs(hs).max() < 2 ** 24
+
+    def vert(p, top):
+        """Phase p over window rows top .. top + 7 of each lane's column."""
+        rr = top[:, None] + np.arange(8)                  # [32, 8]
+        col = hs[:, rr, lanes[:, None], :]                # [nb, 32, 8, 5]
+        v = np.einsum("nlkc,k->nlc", col, taps[p])
+        assert np.abs(v).max() < 2 ** 24
+        return v
+
+    def clip(v):
+        return np.clip(v, 0, 255)
+    up2 = clip(vert(2, r0) >> 12)                   # the row above r0's
+    acc = np.zeros((nb, 32, 25), np.int64)
+    for i in range(rows):
+        o = r0 + i
+        same = hs[:, o + 4, lanes, :]                     # [nb, 32, 5]
+        p = [up2, clip(vert(3, o) >> 12), clip(same >> 6),
+             clip(vert(1, o + 1) >> 12), clip(vert(2, o + 1) >> 12)]
+        up2 = p[4]
+        pix = cur[:, o, j][..., None]                     # [nb, 32, 1]
+        for dy in range(5):
+            d = p[dy] - pix
+            for c in range(5):
+                acc[:, :, dy * 5 + _K6_DX[c]] += d[..., c] ** 2
+    assert acc.max() < 2 ** 24
+    v = np.zeros((nb, 32, 32), np.int64)
+    v[..., :25] = acc
+    for m in (16, 8, 4, 2, 1):
+        hi = ((lanes & m) != 0)[None, :, None]
+        keep = np.where(hi, v[..., m:2 * m], v[..., :m])
+        send = np.where(hi, v[..., :m], v[..., m:2 * m])
+        v = keep + send[:, lanes ^ m]
+    ssd = v[..., 0]                                       # [nb, 32]
+    k = torch.as_tensor(lanes[:25])
+    vq = torch.as_tensor(4 * mv)[:, None, :] + torch.stack(
+        [k % 5 - 2, k // 5 - 2], -1)[None]
+    cost = torch.full((nb, 32), float("inf"))
+    cost[:, :25] = fma32(torch.as_tensor(lam)[:, None], tme.mvd_bits(vq),
+                         torch.as_tensor(ssd[:, :25]).to(torch.float32))
+    best = torch.as_tensor(lanes).expand(nb, 32).clone()
+    for m in (16, 8, 4, 2, 1):
+        oc, ob = cost[:, lanes ^ m], best[:, lanes ^ m]
+        take = (oc < cost) | ((oc == cost) & (ob < best))
+        cost, best = torch.where(take, oc, cost), torch.where(take, ob, best)
+    assert (best == best[:, :1]).all()
+    b = best[:, 0]
+    mv_q = torch.stack([4 * torch.as_tensor(mv[:, 0]) + b % 5 - 2,
+                        4 * torch.as_tensor(mv[:, 1]) + b // 5 - 2], 1)
+    return (mv_q.to(torch.int32),
+            torch.as_tensor(ssd)[torch.arange(nb), b].to(torch.float32),
+            torch.as_tensor(ssd[:, :25]))
+
+
+@pytest.mark.parametrize("plane", ["noise", "flat0", "flat255"])
+@pytest.mark.parametrize("n", [16, 32])
+def test_k6_model_equals_the_plain_refinement(n, plane):
+    """`k6_model` equals `subpel_refine_plain` exactly (MVs and SSDs) at
+    n 16 and 32: on a textured plane with MVs at +-sr on the border blocks
+    (the window clamps at every edge) and beyond, and on flat 0 and 255
+    planes where all 25 SSDs tie (so lambda 0 leaves all 25 costs tied and
+    the first minimum decides); lambdas 0, mid-range and large."""
+    rng = np.random.default_rng(n + len(plane))
+    h, w = 96, 128
+    if plane == "noise":
+        yy, xx = np.mgrid[0:h, 0:w]
+        ref = np.clip(128 + 90 * np.sin(xx / 5.0) * np.cos(yy / 3.0)
+                      + rng.normal(0, 20, (h, w)), 0, 255)
+    else:
+        ref = np.full((h, w), 0 if plane == "flat0" else 255)
+    ref = ref.astype(np.int32)
+    nb, wb = (h // n) * (w // n), w // n
+    near = np.clip(np.roll(ref, (1, -2), (0, 1))
+                   + rng.integers(-3, 4, (h, w)), 0, 255)
+    cur = np.where(np.arange(nb)[:, None, None] % 2 == 0,
+                   blocks(near, n).reshape(nb, n, n),
+                   rng.integers(0, 256, (nb, n, n))).astype(np.int32)
+    mv = rng.integers(-SR, SR + 1, (nb, 2)).astype(np.int32)
+    mv[:wb] = (-SR, -SR)
+    mv[-wb:] = (SR, SR)
+    mv[::wb] = (-SR - 3, SR)
+    lam = rng.uniform(0, 300, nb).astype(np.float32)
+    lam[::3] = 0.0
+    lam[1::4] = 4.0e5
+    want = tme.subpel_refine_plain(T(ref), T(cur), T(mv), T(lam), n)
+    got = k6_model(ref, cur, mv, lam, n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cand = T(mv)[:, None, :] * 4 + tme._SUBPEL_D[None]
+    for k in range(25):
+        d = tme.mc_luma_qpel_plain(T(ref), cand[:, k], n) - T(cur)
+        assert torch.equal(got[2][:, k], (d.long() ** 2).sum((1, 2))), k
+    if plane != "noise":
+        tied = lam == 0
+        assert (want[0][T(tied)] == T(4 * mv[tied] - 2)).all()

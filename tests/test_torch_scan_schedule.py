@@ -21,10 +21,12 @@ walk the grid a thread a CTU row: the walk visits each diagonal's CTUs at
 that diagonal's step, and every CTU's neighbours commit one to three steps
 before it, as the row's register window holds them; step-by-step models
 of the walks equal the plain scans, free and forced: `k24_row_walk`
-(`decide_p_plain`), `k25_row_walk` (`decide_b_plain`) and `k19_row_walk`
+(`decide_p_plain`), `k25_row_walk` (`decide_b_plain`), `k19_row_walk`
 (`BTreeEncoder._decide_b_plain`, with the read set K19 copies as a step
-starts: every grid entry a decision prices is in it); and every inter
-CTU's final MV is its mrg0, mrg1 or ME MV.
+starts: every grid entry a decision prices is in it) and `k17_row_walk`
+(`InterTreeEncoder._decide_plain` at R 1, 2 and 4, with the 36 entries
+K17 copies as a step starts); and every inter CTU's final MV is its
+mrg0, mrg1 or ME MV.
 """
 
 import numpy as np
@@ -621,10 +623,11 @@ def test_k25_row_walk_model_equals_the_plain_scan(wc, hc, seed):
         assert torch.equal(got_f[k], want[k].to(got_f[k].dtype)), k
 
 
-# K19's sources of a list's MV (`csrc/decide_b.cu`): 0 the zero MV, 1 left
-# q1, 2 left q3, 3 top q2, 4 top q3, 5 top-left q3, 6 top-right q2, 7-9 the
-# ME MV of q0, q1, q2; and the ones each CU (CU32, q0..q3) can meet
-K19_NEED = [(0, 2, 4, 5, 6), (0, 1, 3, 4, 5), (0, 1, 3, 4, 5, 6, 7),
+# The row walks' sources of a candidate's motion (K17 and K19,
+# `csrc/decide_common.cuh:kSources`): 0 the zero MV, 1 left q1, 2 left q3,
+# 3 top q2, 4 top q3, 5 top-left q3, 6 top-right q2, 7-9 the ME motion of
+# q0, q1, q2; and the ones each CU (CU32, q0..q3) can meet (`need`)
+ROW_WALK_NEED = [(0, 2, 4, 5, 6), (0, 1, 3, 4, 5), (0, 1, 3, 4, 5, 6, 7),
             tuple(range(9)), tuple(range(10))]
 
 
@@ -635,7 +638,7 @@ def k19_row_walk(tree, st1, lam16, lam32, dsf, forced=None):
     3, fed from the slot of the step's parity after each barrier); the
     inputs loaded a step ahead; and the read set copied as the step starts:
     each CU's grid entries, per list, at the MV of every source it can
-    meet (`K19_NEED`).  Each decision carries its lists' sources, and a
+    meet (`ROW_WALK_NEED`).  Each decision carries its lists' sources, and a
     merge candidate is priced from the read set at its sources; the lookup
     asserts that the entry was read and equals the grid at the candidate's
     MV.  Returns the raster outputs of `_decide_b_plain`."""
@@ -753,7 +756,7 @@ def k19_row_walk(tree, st1, lam16, lam32, dsf, forced=None):
                     for k in range(5):
                         row = (2 * n16 + i32, n32) if k == 0 else (
                             q16[k - 1], n16)
-                        for s in K19_NEED[k]:
+                        for s in ROW_WALK_NEED[k]:
                             for li in range(2):
                                 m = src[s][1 + 2 * li:3 + 2 * li]
                                 pre[(k, li, s)] = entry(tree_grids[li], *row,
@@ -881,3 +884,304 @@ def test_k19_row_walk_model_equals_the_plain_scan(wc, hc, seed):
         assert torch.equal(got_f[k], want_f[k].to(got_f[k].dtype)), k
     for k in ("split", "dir", "mv0", "mv1"):
         assert torch.equal(got_f[k], want[k]), k
+
+
+# ---- K17: the P decide scan, a thread a CTU32 row ---------------------------
+
+def _amvp_p(c, cur, dsf):
+    """The P AMVP pair (`csrc/decide_p.cu:decide_cu`) from committed cells
+    (ir = inter | ref << 1, mx, my) in the order A1, B1, B0, B2: A from
+    A1, B the first of B0, B1, B2, each scaled to reference ``cur`` by dsf
+    [R, R] when it lies on another; B pruned against A, zero-filled."""
+    def at(e):
+        rf = e[0] >> 1
+        if rf == cur:
+            return (e[1], e[2])
+        f = int(dsf[rf, cur])
+        return (_scale(e[1], f), _scale(e[2], f))
+    av = [bool(e[0] & 1) for e in c]
+    avb = av[1] or av[2] or av[3]
+    sa = at(c[0])
+    sb = at(c[2] if av[2] else (c[1] if av[1] else c[3]))
+    p0 = sa if av[0] else (sb if avb else (0, 0))
+    p1 = sb if av[0] and avb and sb != sa else (0, 0)
+    return p0, p1
+
+
+def k17_row_walk(tree, st1, maps, tables, forced=None):
+    """K17 (`csrc/decide_p.cu:decide_rows_p`) step by step as the card runs
+    it: a thread a CTU32 row; its window (the left CTU's q1 and q3, its own
+    commit; the row above's q2 and q3 of steps t - 1, t - 2 and q3 of t -
+    3, fed from the slot of the step's parity after each barrier), a cell
+    being (inter | ref << 1, mx, my); the inputs loaded a step ahead; and
+    the read set copied as the step starts: each CU's grid entry at the
+    (MV, reference) of every source it can meet (`ROW_WALK_NEED`, 36
+    entries), in the block of grid rows of the source's sub-pel flag and
+    reference, at its integer MV clamped into the window.  Each decision
+    carries its source, and a merge candidate is priced from the read set
+    at its source; the lookup asserts that the entry was read and equals
+    the grid at the candidate's motion (1e18 outside +-sr).  Returns the
+    raster outputs of `InterTreeEncoder._decide_plain`."""
+    from x265amod_tpu_torch.ops.rdoq import fma32
+    wc, hc, w16, sr = tree.wc, tree.hc, tree.w16, tree.sr
+    n16, n32 = w16 * tree.h16, wc * hc
+    dsf, refbits = tables
+    nr = refbits.shape[0]
+    none = (0, 0, 0)
+    grid = None if forced is not None else st1["grid"]
+
+    def rows_of(k, i):
+        """(base row, rows per block) of CU k's grid rows."""
+        return (2 * nr * n16 + i, n32) if k == 0 else (i, n16)
+
+    def inside(mx, my):
+        return abs(mx >> 2) <= sr and abs(my >> 2) <= sr
+
+    def read(base, ng, mx, my, rf):
+        """The entry the card copies: the source's block, its integer MV
+        clamped into the window."""
+        sub = (mx & 3) != 0 or (my & 3) != 0
+        ix = min(max(mx >> 2, -sr), sr)
+        iy = min(max(my >> 2, -sr), sr)
+        return grid[base + ((nr if sub else 0) + rf) * ng, iy + sr, ix + sr]
+
+    def entry(base, ng, mx, my, rf):
+        """The plain scan's price of (mx, my) on reference rf."""
+        if not inside(mx, my):
+            return _f32(1e18)
+        sub = (mx & 3) != 0 or (my & 3) != 0
+        return grid[base + ((nr if sub else 0) + rf) * ng, (my >> 2) + sr,
+                    (mx >> 2) + sr]
+
+    def cu_in(i, is32):
+        sfx = "32" if is32 else "16"
+        if forced is not None:
+            ch, mvd, mvp, ref = (t[i] for t in forced["c" + sfx])
+            return dict(ch=int(ch), mvd=tuple(int(v) for v in mvd),
+                        mvp=int(mvp), ref=int(ref))
+        return dict(d=st1["d" + sfx][i], rb=st1["rb" + sfx][i],
+                    lam=maps["lam" + sfx][i],
+                    di=None if is32 else st1["di16"][i],
+                    me=tuple(int(v) for v in st1["mv" + sfx][i]),
+                    ref=int(st1["ref" + sfx][i]))
+
+    def load(i32, c0):
+        q16 = [c0, c0 + 1, c0 + w16, c0 + w16 + 1]
+        v = dict(i32=i32, cu=[cu_in(i32, True)] + [cu_in(q, False)
+                                                     for q in q16])
+        v["split"] = None if forced is None else bool(forced["split"][i32])
+        return v
+
+    out = {k: torch.zeros(n32, dtype=torch.int32) for k in (
+        "split", "ch32", "mvp32", "ref32")}
+    out.update({k: torch.zeros(n16, dtype=torch.int32) for k in (
+        "chq", "mvpq", "refq", "ref")})
+    for k, n in (("mvd32", n32), ("mvdq", n16), ("mv", n16)):
+        out[k] = torch.zeros((n, 2), dtype=torch.int32)
+    out.update(jsq=torch.zeros((n16, 4)), js32=torch.zeros((n32, 4)),
+               jsplit=torch.zeros(n32), j32=torch.zeros(n32))
+
+    def decide(k, cands, v, pre, me_src, rows, i):
+        """One CU (k: 0 the CU32, 1..4 q0..q3) from candidates (cell,
+        source) in the order A1, B1, B0, B2; returns (choice, final cell,
+        its source, cost)."""
+        c = [e for e, _ in cands]
+        sel = (_merge(c) + [None, None])[:2]
+        mrg = [c[j] if j is not None else (1, 0, 0) for j in sel]
+        msrc = [cands[j][1] if j is not None else 0 for j in sel]
+        cur = v["ref"]
+        p = _amvp_p(c, cur, dsf)
+        j = None
+        if forced is None:
+            d = [(v["me"][0] - q[0], v["me"][1] - q[1]) for q in p]
+            b = [_bits(*x) for x in d]
+            mvp = int(b[1] < b[0])
+            mvd = d[mvp]
+            base, ng = rows_of(k, i)
+            vals = []
+            for m, s in zip(mrg, msrc):
+                assert (k, s) in pre, (k, s)     # read as the step starts
+                val = pre[(k, s)] if inside(m[1], m[2]) else _f32(1e18)
+                assert torch.equal(val, entry(base, ng, m[1], m[2],
+                                              m[0] >> 1)), (k, m)
+                vals.append(val)
+            js = torch.stack([
+                fma32(v["lam"], _f32(2.0), vals[0]),
+                fma32(v["lam"], _f32(3.0), vals[1]),
+                fma32(v["lam"], ((v["rb"] + b[mvp]) + refbits[cur]) + 6.0,
+                      v["d"]),
+                _f32(float("inf")) if k == 0 else _intra_cost(
+                    v["lam"], float(tree._hdr_bits), v["di"])])
+            ch = int(torch.argmin(js))
+            out["js32" if k == 0 else "jsq"][i] = js
+            j = js[ch]
+            me = v["me"]
+        else:
+            ch, mvd, mvp = v["ch"], v["mvd"], int(v["mvp"] == 1)
+            me = (p[mvp][0] + mvd[0], p[mvp][1] + mvd[1])
+        if ch <= 1:
+            fin, src = mrg[ch], msrc[ch]
+        elif ch == 2:
+            fin, src = (1 | cur << 1, *me), me_src
+        else:
+            fin, src = none, 0
+        ch_k, mvd_k, mvp_k, ref_k = rows
+        out[ch_k][i], out[mvp_k][i], out[ref_k][i] = ch, mvp, fin[0] >> 1
+        out[mvd_k][i] = torch.tensor(mvd)
+        return ch, fin, src, j
+
+    o32 = ("ch32", "mvd32", "mvp32", "ref32")
+    o16 = ("chq", "mvdq", "mvpq", "refq")
+    win, cur = _Window(hc, (none, none)), [None] * hc
+    for t in range(-1, wc + 2 * (hc - 1)):
+        nxt, mine = [None] * hc, [(none, none)] * hc
+        for r in range(hc):                      # up to the barrier
+            x = t - 2 * r
+            i32, c0 = r * wc + x, 2 * r * w16 + 2 * x
+            if 0 <= x + 1 < wc:
+                nxt[r] = load(i32 + 1, c0 + 2)
+            pub = (none, none)
+            if 0 <= x < wc:
+                v = cur[r]
+                assert v["i32"] == i32
+                (l1, l3), (tr2, _), (t2, t3), (_, tl3) = (
+                    win.A[r], win.U[r][0], win.U[r][1], win.U[r][2])
+                q16 = [c0, c0 + 1, c0 + w16, c0 + w16 + 1]
+                pre = {}
+                if forced is None:               # read as the step starts
+                    src = [(0, 0, 0), (l1[1], l1[2], l1[0] >> 1),
+                           (l3[1], l3[2], l3[0] >> 1),
+                           (t2[1], t2[2], t2[0] >> 1),
+                           (t3[1], t3[2], t3[0] >> 1),
+                           (tl3[1], tl3[2], tl3[0] >> 1),
+                           (tr2[1], tr2[2], tr2[0] >> 1)] + [
+                        (*v["cu"][q + 1]["me"], v["cu"][q + 1]["ref"])
+                        for q in range(3)]
+                    for k in range(5):
+                        base, ng = rows_of(k, i32 if k == 0 else q16[k - 1])
+                        for s in ROW_WALK_NEED[k]:
+                            pre[(k, s)] = read(base, ng, *src[s])
+                    assert len(pre) == 36
+
+                def run(k, cands, me_src, i, rows):
+                    return decide(k, cands, v["cu"][k], pre, me_src, rows,
+                                  i)
+
+                def loc(dec):
+                    return (dec[1] if dec[0] <= 2 else none), dec[2]
+                r32 = run(0, [(l3, 2), (t3, 4), (tr2, 6), (tl3, 5)], 0, i32,
+                          o32)
+                d0 = run(1, [(l1, 1), (t2, 3), (t3, 4), (tl3, 5)], 7,
+                         q16[0], o16)
+                d1 = run(2, [loc(d0), (t3, 4), (tr2, 6), (t2, 3)], 8,
+                         q16[1], o16)
+                d2 = run(3, [(l3, 2), loc(d0), loc(d1), (l1, 1)], 9, q16[2],
+                         o16)
+                d3 = run(4, [loc(d2), loc(d1), (none, 0), loc(d0)], 0,
+                         q16[3], o16)
+                qs = (d0, d1, d2, d3)
+                if forced is None:
+                    js = ((d0[3] + d1[3]) + d2[3]) + d3[3]
+                    split = bool(js < r32[3])
+                    out["jsplit"][i32], out["j32"][i32] = js, r32[3]
+                else:
+                    split = v["split"]
+                out["split"][i32] = split
+                k32 = (1 | (r32[1][0] & ~1), r32[1][1], r32[1][2])
+                cells = [q[1] if split else k32 for q in qs]
+                for k in range(4):
+                    out["mv"][q16[k]] = torch.tensor(cells[k][1:])
+                    out["ref"][q16[k]] = cells[k][0] >> 1
+                mine[r] = (cells[1], cells[3])
+                pub = (cells[2], cells[3])
+            win.publish(t, r, pub)
+        win.barrier(t, mine)
+        cur = nxt
+    out["split"] = out["split"].bool().reshape(hc, wc)
+    for k in ("ch32", "chq"):
+        out[k] = out[k].long()
+    if forced is not None:
+        for k in ("jsq", "js32", "jsplit", "j32"):
+            del out[k]
+    return out
+
+
+def _p_tree_inputs(rng, wc, hc, sr, nr, intra=0.15):
+    """Random P tree decide inputs (`_decide_plain`'s st1 and lambdas):
+    MVs from a small palette (so the pruning bites), many sub-pel (the
+    half-pel blocks of grid rows), some at the +-sr edge and beyond (1e18),
+    references drawn from all R (so neighbours lie on other references
+    than the CU's and AMVP scales them), CU32 costs on the scale of four
+    CU16s, cells where intra wins."""
+    n32, n16, s = wc * hc, 4 * wc * hc, 2 * sr + 1
+    pal = rng.integers(-3, 4, (6, 2)) * 4
+    pal[0] = (4 * sr + 3, -4 * sr - 4)
+    pal[1] = (-4 * sr, 4 * sr + 4)
+
+    def mvs(n):
+        mv = pal[rng.integers(0, 6, n)]
+        mv = mv + (rng.random((n, 2)) < 0.3) * rng.integers(1, 4, (n, 2))
+        return torch.as_tensor(mv.astype(np.int32))
+
+    def refs(n):
+        return torch.as_tensor(rng.integers(0, nr, n).astype(np.int32))
+
+    def f(*shape, lo=0.0, hi=3000.0):
+        return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32))
+    g = np.concatenate([rng.uniform(0, 3000, (2 * nr * n16, s, s)),
+                        rng.uniform(0, 12000, (2 * nr * n32, s, s))])
+    di = rng.uniform(500, 4000, n16)
+    di[rng.random(n16) < intra] = rng.uniform(0, 50)
+    st1 = dict(grid=torch.as_tensor(g.astype(np.float32)), d16=f(n16),
+               rb16=f(n16, hi=60.0),
+               di16=torch.as_tensor(di.astype(np.float32)), mv16=mvs(n16),
+               ref16=refs(n16), d32=f(n32, hi=12000.0),
+               rb32=f(n32, hi=120.0), mv32=mvs(n32), ref32=refs(n32))
+    return st1, dict(lam16=f(n16, lo=2.0, hi=40.0),
+                     lam32=f(n32, lo=2.0, hi=40.0))
+
+
+@pytest.mark.parametrize("nr", [1, 2, 4])
+@pytest.mark.parametrize("wc,hc,seed", _B_GRIDS)
+def test_k17_row_walk_model_equals_the_plain_scan(wc, hc, seed, nr):
+    """The CTU32 P row walk (`k17_row_walk`) equals
+    `InterTreeEncoder._decide_plain` exactly, free (split, every CU's
+    choice, MVD, MVP index and reference, the cells' MVs and references,
+    the cost rows and split costs) and forced with the plain scan's
+    decisions, on grids of one CTU, one column, one row, 7 x 5 and 9 x 3,
+    at R = 1, 2 and 4; every grid entry a decision prices is in the 36
+    entries the step copies."""
+    from x265amod_tpu_torch.models.inter_tree import InterTreeEncoder
+    from x265amod_tpu_torch.models.mvpred import ref_list_tables
+    rng = np.random.default_rng(80 + 10 * seed + nr)
+    sr = 4
+    tree = InterTreeEncoder(32 * wc, 32 * hc, search_range=sr, subme=1,
+                            device="cpu")
+    st1, maps = _p_tree_inputs(rng, wc, hc, sr, nr)
+    dsf, bits = ref_list_tables(9, [8, 5, 3, 0][:nr])
+    tables = (torch.as_tensor(dsf), torch.as_tensor(bits))
+    want = tree._decide_plain(st1, maps, tables, want_costs=True)
+    got = k17_row_walk(tree, st1, maps, tables)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k].to(got[k].dtype)), k
+    if wc * hc > 30:
+        assert len(set(want["chq"].tolist())) == 4
+        assert want["split"].any() and not want["split"].all()
+        assert (want["js32"][:, :2] >= 1e18).any()
+        if nr > 1:
+            assert (want["ref"] > 0).any() and (want["refq"] == 0).any()
+    cells = tree._cell_decisions(want)
+    kinds = cells["kinds"]
+    forced = dict(c16=(torch.where(kinds == 0, cells["merge"],
+                                   torch.where(kinds == 1, 2, 3)),
+                       cells["mvd"], cells["mvp"], cells["ref"]),
+                  split=want["split"].reshape(-1))
+    forced["c32"] = [t[tree._q0_cell] for t in forced["c16"]]
+    want_f = tree._decide_plain(None, maps, tables, forced=forced)
+    got_f = k17_row_walk(tree, None, maps, tables, forced=forced)
+    assert set(got_f) == set(want_f)
+    for k in want_f:
+        assert torch.equal(got_f[k], want_f[k].to(got_f[k].dtype)), k
+    for k in ("split", "mv", "ref"):
+        assert torch.equal(got_f[k], want[k].to(got_f[k].dtype)), k

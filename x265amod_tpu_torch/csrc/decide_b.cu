@@ -37,7 +37,7 @@
 // Design (`decide_rows_b`, K24's row walk): one thread block, a thread a
 // CTU32 row.  Thread r decides CTU (t - 2 r, r) at step t, the wavefront of
 // the diagonals, so the same decisions.  What a CTU reads of its
-// neighbours is, by cell (spec 6.4.2; `nb_cu32` and `nb_quad` in
+// neighbours is, by cell (spec 6.4.2; the table in
 // decide_common.cuh): the left CTU's q1 and q3, the top-left CTU's q3, the
 // top CTU's q2 and q3 and the top-right CTU's q2.  So
 //   - the left CTU's cells are the thread's own commit of step t - 1;
@@ -48,9 +48,10 @@
 //     one barrier a step hands them down;
 //   - a row before its first CTU or after its last commits nothing, so an
 //     unavailable neighbour reads as zeros, as the committed maps of an
-//     intra cell do.  Every position `nb_pos` clamps is inside the frame
-//     whenever its availability flag is set (the wrapper gives w16 = 2 wc
-//     and h16 = 2 hc), so the window holds every cell the JAX `nb` reads;
+//     intra cell do.  Every position the JAX `nb` clamps is inside the
+//     frame whenever its availability flag is set (the wrapper gives w16 =
+//     2 wc and h16 = 2 hc), so the window holds every cell the JAX `nb`
+//     reads;
 //   - the inputs that do not depend on the neighbours (per CU: the trial
 //     distortions and rates, the ME MVs of both lists, lambda, the intra
 //     cost; forced: the given choices, MVDs, MVP indices and split), 60
@@ -117,6 +118,10 @@ namespace {
 
 using decide::amvp_b;
 using decide::Cand;
+using decide::cp_async4;
+using decide::cp_async_wait_all;
+using decide::kSources;
+using decide::need;
 using decide::pick_mvp;
 using decide::same_b;
 
@@ -125,17 +130,6 @@ __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 // the most CTU32 rows a launch takes (7168 luma rows: the shared memory of
 // 224 threads)
 constexpr int kMaxRows = 224;
-
-// The sources of a list's MV: 0 the zero MV; the neighbour cells 1 left
-// q1, 2 left q3, 3 top q2, 4 top q3, 5 top-left q3, 6 top-right q2; 7-9
-// the ME MV of quadrant q0, q1, q2.
-constexpr int kSources = 10;
-// the sources CU k (0 the CU32, 1..4 q0..q3) can meet, bit s
-__host__ __device__ constexpr unsigned need(int k) {
-  return k == 0 ? 0x75u : (k == 1 ? 0x3Bu : (k == 2 ? 0xFBu
-                                                   : (k == 3 ? 0x1FFu
-                                                             : 0x3FFu)));
-}
 
 // A committed 16-cell: direction (0: intra or nothing) and both MVs (zero
 // where the list is unused).
@@ -177,30 +171,12 @@ struct CuIn {
   int m0x, m0y, m1x, m1y, ch, mvp0, mvp1;
 };
 
-// ---- the grid entries a step reads, copied to shared memory -------------
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
 // ---- a CTU's inputs, staged a step ahead in shared memory ----------------
 
 // Words a CU's inputs take: free, d[3] rb[3] lam di m0x m0y m1x m1y; forced,
 // ch mvd0x mvd0y mvp0 mvd1x mvd1y mvp1, and the CU32's word 7 the split.
 constexpr int kInWords = 12;
 constexpr int kStepWords = 5 * kInWords;
-
-__device__ __forceinline__ void cp_async4w(uint32_t* dst, const void* src) {
-  cp_async4(reinterpret_cast<float*>(dst), static_cast<const float*>(src));
-}
 
 // Copy the inputs of CTU i32 (top-left 16-cell c0) into `in`, the thread's
 // column of one input buffer (word w of CU k at ((k kInWords + w) T)).
@@ -214,32 +190,32 @@ __device__ __forceinline__ void stage_in(const DecideBArgs& a, int i32,
     const int i = is32 ? i32 : q16[k - 1];
     uint32_t* w = in + k * kInWords * T;
     if (FORCED) {
-      cp_async4w(w, (is32 ? a.f_ch32 : a.f_ch16) + i);
+      cp_async4(w, (is32 ? a.f_ch32 : a.f_ch16) + i);
       const int32_t* d0 = (is32 ? a.f_mvd0_32 : a.f_mvd0_16) + 2 * i;
       const int32_t* d1 = (is32 ? a.f_mvd1_32 : a.f_mvd1_16) + 2 * i;
-      cp_async4w(w + T, d0);
-      cp_async4w(w + 2 * T, d0 + 1);
-      cp_async4w(w + 3 * T, (is32 ? a.f_mvp0_32 : a.f_mvp0_16) + i);
-      cp_async4w(w + 4 * T, d1);
-      cp_async4w(w + 5 * T, d1 + 1);
-      cp_async4w(w + 6 * T, (is32 ? a.f_mvp1_32 : a.f_mvp1_16) + i);
-      if (is32) cp_async4w(w + 7 * T, a.f_split + i32);
+      cp_async4(w + T, d0);
+      cp_async4(w + 2 * T, d0 + 1);
+      cp_async4(w + 3 * T, (is32 ? a.f_mvp0_32 : a.f_mvp0_16) + i);
+      cp_async4(w + 4 * T, d1);
+      cp_async4(w + 5 * T, d1 + 1);
+      cp_async4(w + 6 * T, (is32 ? a.f_mvp1_32 : a.f_mvp1_16) + i);
+      if (is32) cp_async4(w + 7 * T, a.f_split + i32);
     } else {
       const float* d = (is32 ? a.d32 : a.d16) + 3 * i;
       const float* rb = (is32 ? a.rb32 : a.rb16) + 3 * i;
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        cp_async4w(w + j * T, d + j);
-        cp_async4w(w + (3 + j) * T, rb + j);
+        cp_async4(w + j * T, d + j);
+        cp_async4(w + (3 + j) * T, rb + j);
       }
-      cp_async4w(w + 6 * T, (is32 ? a.lam32 : a.lam16) + i);
-      if (!is32) cp_async4w(w + 7 * T, a.di16 + i);
+      cp_async4(w + 6 * T, (is32 ? a.lam32 : a.lam16) + i);
+      if (!is32) cp_async4(w + 7 * T, a.di16 + i);
       const int32_t* e0 = (is32 ? a.mv0_32 : a.mv0_16) + 2 * i;
       const int32_t* e1 = (is32 ? a.mv1_32 : a.mv1_16) + 2 * i;
-      cp_async4w(w + 8 * T, e0);
-      cp_async4w(w + 9 * T, e0 + 1);
-      cp_async4w(w + 10 * T, e1);
-      cp_async4w(w + 11 * T, e1 + 1);
+      cp_async4(w + 8 * T, e0);
+      cp_async4(w + 9 * T, e0 + 1);
+      cp_async4(w + 10 * T, e1);
+      cp_async4(w + 11 * T, e1 + 1);
     }
   }
 }

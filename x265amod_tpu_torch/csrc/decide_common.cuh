@@ -2,8 +2,8 @@
 // decide scan), K19 (`decide_b.cu`, the B decide scan) and K24 / K25
 // (`decide_flat.cu`, the flat P and B decide scans): the MVD bin count, the
 // spec 8.5.3.2.8 MV scaling, the SSD-grid lookup of a merge candidate, the
-// z-scan positions of the neighbours a CTU32's decide reads (spec 6.4.2;
-// JAX models/inter_tree.py decide_body :436-470 and :1482-1520), and the
+// table of the neighbours a CTU32's decisions read, the row walks' motion
+// sources, their read set and cp.async copies (K17, K19), and the
 // one copy of the B candidate derivation K19, K24 and K25 share (the
 // candidate, its pruning test, the AMVP pair with cross-list scaling and
 // the predictor pick; K17 keeps its own).  Header only; each kernel is its
@@ -72,58 +72,47 @@ __device__ __forceinline__ const float* grid_ptr(const float* grid,
   return r_;
 }
 
-// A neighbour 16-cell of the CTU at 16-cell origin (bx, by): its position,
-// clamped into the frame as the JAX `nb` clamps it, and whether the z-scan
-// makes it available (before the inter test).
-struct NbPos {
-  int cell;
-  bool ok;
-};
-
-__device__ __forceinline__ NbPos nb_pos(int px, int py, bool ok, int w16,
-                                        int h16) {
-  px = px < 0 ? 0 : (px > w16 - 1 ? w16 - 1 : px);
-  py = py < 0 ? 0 : (py > h16 - 1 ? h16 - 1 : py);
-  return NbPos{py * w16 + px, ok};
+// The neighbour 16-cells a CTU32's decisions read (spec 6.4.2, z-scan
+// availability; JAX models/inter_tree.py decide_body :436-470 and
+// :1482-1520), for the CTU at 16-cell origin (bx, by), in the candidate
+// order A1, B1, B0, B2 (L, T, TL, TR: the left, top, top-left and
+// top-right CTUs; qk: quadrant k, q0 top-left, q1 top-right, q2
+// bottom-left, q3 bottom-right):
+//   CU32  L q3 (bx-1, by+1), T q3 (bx+1, by-1), TR q2 (bx+2, by-1),
+//         TL q3 (bx-1, by-1)
+//   q0    L q1 (bx-1, by), T q2 (bx, by-1), T q3, TL q3
+//   q1    q0, T q3, TR q2, T q2
+//   q2    L q3, q0, q1, L q1
+//   q3    q2, q1, none, q0
+// So a CTU reads of the CTUs around it only the left CTU's q1 and q3, the
+// top-left CTU's q3, the top CTU's q2 and q3 and the top-right CTU's q2:
+// the register window of the row walks (K17, K19).
+//
+// The sources of a candidate's motion in the row walks: 0 the zero MV (on
+// reference 0 in P); the neighbour cells 1 left q1, 2 left q3, 3 top q2, 4
+// top q3, 5 top-left q3, 6 top-right q2; 7-9 the ME motion of quadrant q0,
+// q1, q2.
+constexpr int kSources = 10;
+// the sources CU k (0 the CU32, 1..4 q0..q3) can meet, bit s: its
+// neighbours above, the zero MV, and the earlier quadrants' sources
+__host__ __device__ constexpr unsigned need(int k) {
+  return k == 0 ? 0x75u : (k == 1 ? 0x3Bu : (k == 2 ? 0xFBu
+                                                   : (k == 3 ? 0x1FFu
+                                                             : 0x3FFu)));
 }
 
-// The external neighbours of the CTU32's CU32 hypothesis (k = 0..3: A1, B1,
-// B0, B2) and of its quadrants (q0: A1 B1 B0 B2; q1: B1 B0 B2 as k = 1..3;
-// q2: A1 and B2 as k = 0, 3); the other candidates of q1..q3 are earlier
-// quadrants of the same CTU.  left / top / tr: the CTU has a left, top and
-// top-right CTU.
-__device__ __forceinline__ NbPos nb_cu32(int k, int bx, int by, bool left,
-                                         bool top, bool tr, int w16,
-                                         int h16) {
-  switch (k) {
-    case 0: return nb_pos(bx - 1, by + 1, left, w16, h16);
-    case 1: return nb_pos(bx + 1, by - 1, top, w16, h16);
-    case 2: return nb_pos(bx + 2, by - 1, tr, w16, h16);
-    default: return nb_pos(bx - 1, by - 1, left && top, w16, h16);
-  }
+// ---- cp.async: a word from global to shared memory (K17, K19) ----------
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
 }
 
-__device__ __forceinline__ NbPos nb_quad(int q, int k, int bx, int by,
-                                         bool left, bool top, bool tr,
-                                         int w16, int h16) {
-  if (q == 0) {
-    switch (k) {
-      case 0: return nb_pos(bx - 1, by, left, w16, h16);
-      case 1: return nb_pos(bx, by - 1, top, w16, h16);
-      case 2: return nb_pos(bx + 1, by - 1, top, w16, h16);
-      default: return nb_pos(bx - 1, by - 1, left && top, w16, h16);
-    }
-  }
-  if (q == 1) {
-    switch (k) {
-      case 1: return nb_pos(bx + 1, by - 1, top, w16, h16);
-      case 2: return nb_pos(bx + 2, by - 1, tr, w16, h16);
-      default: return nb_pos(bx, by - 1, top, w16, h16);
-    }
-  }
-  // q == 2
-  return k == 0 ? nb_pos(bx - 1, by + 1, left, w16, h16)
-                : nb_pos(bx - 1, by, left, w16, h16);
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
 }
 
 // ---- the B candidate derivation (K19, K24, K25) -------------------------

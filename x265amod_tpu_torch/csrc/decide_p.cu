@@ -9,11 +9,12 @@
 // quadrants in z-order (skip, AMVP inter or intra), the later quadrants
 // reading the earlier ones' results; then split against no split by RD
 // cost, and commits the cells' motion.  Merge candidates are pruned on (MV,
-// reference); AMVP scales a neighbour's MV to the CU's reference through
-// dsf (spec 8.5.3.2.8, JAX `scale_to` :355); the inter cost carries the
-// ref_idx bins; a skip candidate is priced from the SSD grid of its own
-// reference (its half-pel grid when it is sub-pel): row base + (sub R + r)
-// n + idx of the stacked grids.
+// reference) and an unfilled merge slot is the zero MV on reference 0; AMVP
+// scales a neighbour's MV to the CU's reference through dsf (spec
+// 8.5.3.2.8, JAX `scale_to` :355); the inter cost carries the ref_idx bins;
+// a skip candidate is priced from the SSD grid of its own reference (its
+// half-pel grid when it is sub-pel): row base + (sub R + r) n + idx of the
+// stacked grids.
 //
 // Three costs take an FMA where XLA's CPU code contracts a product with one
 // use into the add that follows it (read from the decide body's optimized
@@ -23,24 +24,58 @@
 //   j_intra = fma(lam, intra header bits, intra trial cost)
 // The file is built with --fmad=false so that nothing else contracts.
 //
-// Design: one thread block; thread j is lane j of the current diagonal
-// (one CTU32).  The block loops over the diagonals with __syncthreads()
-// between them; the committed motion (MV, inter flag, reference per 16x16
-// cell, int32 each: 16 bytes a cell, 59 KB at 1280x736, 131 KB at
-// 1920x1088) lives in a global scratch the wrapper allocates, which the
-// one SM's L1 holds (a block's global writes are visible to its threads
-// after __syncthreads(); on an H100 this timed no slower than shared memory
-// at 720p and within 4 % of it at 1080p).  Every input and output is in raster
-// order.  A forced mode replays given decisions
-// (choice, MVD, MVP index, reference per CU, split per CTU) through the same
-// candidate derivation.
+// What bounds it on an H100: neither bytes nor operations (it reads a few
+// dozen SSD-grid entries a CTU, a few hundred KB of the grids); its time is
+// the latency of one thread's chain of five CU decisions a step times the
+// number of wavefront steps (84 at 1280x736, 126 at 1920x1088).
 //
-// What bounds it on an H100: neither bytes nor operations (it reads each
-// SSD-grid entry it needs once, a few thousand of the 9.6 MB at 720p, R 1,
-// sr 8); its time is the latency of one thread's chain of dependent steps
-// per diagonal times the number of diagonals (84 at 1280x736, 126 at
-// 1920x1088).  The device helpers it shares with K19 (`decide_b.cu`) are
-// in decide_common.cuh.
+// Design (`decide_rows_p`, K19's row walk with the P derivation): one
+// thread block, a thread a CTU32 row.  Thread r decides CTU (t - 2 r, r) at
+// step t, the wavefront of the diagonals, so the same decisions.  What a
+// CTU reads of its neighbours is, by cell (spec 6.4.2; the table in
+// decide_common.cuh): the left CTU's q1 and q3, the top-left
+// CTU's q3, the top CTU's q2 and q3 and the top-right CTU's q2.  So
+//   - the left CTU's cells are the thread's own commit of step t - 1;
+//   - the row above's are a register window of its commits of steps t - 1
+//     (top-right), t - 2 (top) and t - 3 (top-left): each step a row
+//     publishes its CTU's bottom cells q2 and q3 into a shared-memory slot
+//     by the step's parity, and one barrier a step hands them down.  A
+//     cell is three words: the inter flag and the reference in one (inter
+//     | ref << 1: 0 for an intra cell, whose MV and reference are zero) and
+//     the MV;
+//   - a row before its first CTU or after its last publishes zeros, so an
+//     unavailable neighbour reads as zeros, as the committed motion of an
+//     intra cell does.  Every position the JAX `nb` clamps is inside the
+//     frame whenever its availability flag is set (the wrapper gives w16 =
+//     2 wc and h16 = 2 hc), so the window holds every cell the JAX `nb`
+//     reads;
+//   - the inputs that do not depend on the neighbours (free, per CU: the
+//     trial distortion and rate, lambda, the intra cost, the ME MV and its
+//     reference, 34 words; forced: the given choices, MVDs, MVP indices and
+//     references and the split, 26 words) are copied a step ahead into the
+//     thread's column of shared memory by `cp.async`, the next CTU of a row
+//     being the next raster index;
+//   - every SSD-grid entry any of the CTU's five decisions can price is
+//     read as the step starts, so one memory round trip is on the step's
+//     chain.  A candidate's (MV, reference) is one of ten sources: the zero
+//     MV on reference 0, one of the six neighbour cells above, or the ME
+//     motion of quadrant q0, q1 or q2 (a quadrant ends on its merge
+//     candidate 0 or 1, which carries an earlier source, on its own ME
+//     motion, or as intra, which no one reads).  An entry's row depends
+//     only on its source's sub-pel flag and reference.  Each decision
+//     carries its source; the entries of each CU's row at each source it
+//     can meet (CU32 5, q0 5, q1 7, q2 9, q3 10: 36) are copied into the
+//     thread's column of shared memory by `cp.async`, and a merge
+//     candidate's skip price is the entry of its source;
+//   - the rows of a warp walk different CTUs, so a branch on a CTU's data
+//     splits the warp: the merge list, the AMVP pair with its dsf scaling,
+//     the tie rule b1 < b0, the first minimum and an outside MV's 1e18 are
+//     selects (`pick` where nvcc would branch);
+//   - dsf [R, R] and the ref_idx bins [R] are copied into shared memory
+//     once, so a scaling reads them without a trip to device memory.
+// A forced mode replays the given split, choices, MVDs, MVP indices and
+// references through the same derivation, without grid reads.  Every input
+// and output is raster; the kernel needs no scratch in device memory.
 //
 // Entry point (plain C, caller's stream, returns cudaGetLastError()):
 //   decide_p(const DecideArgs* args, cudaStream_t stream)
@@ -52,8 +87,8 @@
 
 extern "C" {
 struct DecideArgs {
-  // geometry
-  int wc, hc, w16, h16, n_diags, bmax, sr, R;
+  // geometry (w16 = 2 wc, h16 = 2 hc)
+  int wc, hc, w16, h16, sr, R;
   // stacked SSD grids [rows, S, S] f32 (rows = 2 R (n16 + n32))
   const float* grid;
   // phase-1 outputs per CTU32 and per 16-cell (raster)
@@ -66,9 +101,6 @@ struct DecideArgs {
   const int32_t* dsf;
   const float* refbits;
   float intra_hdr_bits;
-  // wavefront schedule: slot -> raster CTU, diagonal d holds slots
-  // diag_off[d] .. diag_off[d + 1] - 1
-  const int32_t *slot_ctu, *diag_off;
   // forced mode (all null when free): choice, MVD, MVP index and reference
   // per CU16 cell and per CTU (the CU32 hypothesis), split per CTU
   const int32_t *f_ch16, *f_mvd16, *f_mvp16, *f_ref16;
@@ -78,282 +110,490 @@ struct DecideArgs {
   int32_t *chq, *mvdq, *mvpq, *refq, *mv_cell, *ref_cell;
   // optional cost rows (null unless wanted)
   float *jsq, *js32, *jsplit, *j32;
-  // global scratch for the motion maps, 4 * w16 * h16 int32
-  int32_t* maps;
 };
 }
 
 namespace {
 
+using decide::cp_async4;
+using decide::cp_async_wait_all;
+using decide::kSources;
 using decide::mvd_bits;
+using decide::need;
+using decide::pick;
 using decide::scale_mv;
 
-struct Cand {
-  bool av;
-  int mx, my, rf;
+__device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
+
+// the most CTU32 rows a launch takes (8192 luma rows: 256 threads)
+constexpr int kMaxRows = 256;
+
+// A committed 16-cell: ir = inter | ref << 1 (0: intra or nothing; its MV
+// and reference are zero) and its MV.
+struct Cell {
+  int ir, mx, my;
 };
 
+// a merge / AMVP candidate with the source of its motion
+struct Cand {
+  bool av;
+  int mx, my, rf, s;
+};
+
+__device__ __forceinline__ Cand ext(const Cell& e, int s) {
+  return Cand{(e.ir & 1) != 0, e.mx, e.my, e.ir >> 1, s};
+}
+
+// what a CU decision hands on: its choice, final MV, reference and their
+// source, and its cost
 struct Decision {
-  int choice, mx, my, rf, mvdx, mvdy, mvp;
-  float js[4];
+  int choice, mx, my, rf, s;
   float j;
 };
 
-struct Maps {
-  int32_t *mv, *inter, *ref;
+__device__ __forceinline__ Cand local(const Decision& d) {
+  return Cand{d.choice <= 2, d.mx, d.my, d.rf, d.s};
+}
 
-  __device__ Cand nb(decide::NbPos p) const {
-    Cand r;
-    r.av = p.ok && inter[p.cell] != 0;
-    r.mx = r.av ? mv[2 * p.cell] : 0;
-    r.my = r.av ? mv[2 * p.cell + 1] : 0;
-    r.rf = r.av ? ref[p.cell] : 0;
-    return r;
+// merge pruning: MV and reference (every compare made)
+__device__ __forceinline__ bool same(const Cand& a, const Cand& b) {
+  return (a.mx == b.mx) & (a.my == b.my) & (a.rf == b.rf);
+}
+
+// ---- a CTU's inputs, staged a step ahead in shared memory ----------------
+
+// Words a CU's inputs take: free, d rb lam di mex mey ref (the CU32 without
+// di); forced, ch mvdx mvdy mvp ref, and the CU32's word 5 the split.
+constexpr int kInWords = 7;
+constexpr int kStepWords = 5 * kInWords;
+
+// Copy the inputs of CTU i32 (top-left 16-cell c0) into `in`, the thread's
+// column of one input buffer (word w of CU k at ((k kInWords + w) T)).
+template <bool FORCED>
+__device__ __forceinline__ void stage_in(const DecideArgs& a, int i32,
+                                         int c0, uint32_t* in, int T) {
+  const int q16[4] = {c0, c0 + 1, c0 + a.w16, c0 + a.w16 + 1};
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const bool is32 = k == 0;
+    const int i = is32 ? i32 : q16[k - 1];
+    uint32_t* w = in + k * kInWords * T;
+    if (FORCED) {
+      const int32_t* mvd = (is32 ? a.f_mvd32 : a.f_mvd16) + 2 * i;
+      cp_async4(w, (is32 ? a.f_ch32 : a.f_ch16) + i);
+      cp_async4(w + T, mvd);
+      cp_async4(w + 2 * T, mvd + 1);
+      cp_async4(w + 3 * T, (is32 ? a.f_mvp32 : a.f_mvp16) + i);
+      cp_async4(w + 4 * T, (is32 ? a.f_ref32 : a.f_ref16) + i);
+      if (is32) cp_async4(w + 5 * T, a.f_split + i32);
+    } else {
+      const int32_t* mv = (is32 ? a.mv32 : a.mv16) + 2 * i;
+      cp_async4(w, (is32 ? a.d32 : a.d16) + i);
+      cp_async4(w + T, (is32 ? a.rb32 : a.rb16) + i);
+      cp_async4(w + 2 * T, (is32 ? a.lam32 : a.lam16) + i);
+      if (!is32) cp_async4(w + 3 * T, a.di16 + i);
+      cp_async4(w + 4 * T, mv);
+      cp_async4(w + 5 * T, mv + 1);
+      cp_async4(w + 6 * T, (is32 ? a.ref32 : a.ref16) + i);
+    }
   }
+}
+
+// A CU's inputs: free, the trial distortion and rate, lambda, intra cost
+// (CU32: none), the ME MV and its reference; forced, the choice, the MVD
+// (in the ME MV's place), the MVP index and the reference.
+struct CuIn {
+  float d, rb, lam, di;
+  int mx, my, ref, ch, mvp;
 };
 
-__device__ __forceinline__ Cand local(const Decision& d) {
-  Cand c;
-  c.av = d.choice <= 2;
-  c.mx = d.mx;
-  c.my = d.my;
-  c.rf = d.rf;
-  return c;
+template <bool FORCED>
+__device__ __forceinline__ CuIn read_in(const uint32_t* in, int k, int T) {
+  const uint32_t* w = in + k * kInWords * T;
+  CuIn v{};
+  if (FORCED) {
+    v.ch = (int)w[0];
+    v.mx = (int)w[T];
+    v.my = (int)w[2 * T];
+    v.mvp = (int)w[3 * T];
+    v.ref = (int)w[4 * T];
+  } else {
+    v.d = __uint_as_float(w[0]);
+    v.rb = __uint_as_float(w[T]);
+    v.lam = __uint_as_float(w[2 * T]);
+    v.di = k == 0 ? 0.0f : __uint_as_float(w[3 * T]);
+    v.mx = (int)w[4 * T];
+    v.my = (int)w[5 * T];
+    v.ref = (int)w[6 * T];
+  }
+  return v;
 }
 
-__device__ __forceinline__ bool same(const Cand& a, const Cand& b) {
-  return a.mx == b.mx && a.my == b.my && a.rf == b.rf;
+__device__ __forceinline__ bool inside(int mx, int my, int sr) {
+  return abs(mx >> 2) <= sr && abs(my >> 2) <= sr;
 }
 
-// One CU decision (JAX decide_cu :363-476).  row: the CU's grid row base +
-// idx; ngrid: rows per (sub-pel phase, reference) block.  forced >= 0 gives
-// the choice to replay (with fmvd, fmvp, fref).
-__device__ Decision decide_cu(const DecideArgs& a, const Cand c[4],
-                              bool with_intra, int64_t row, int ngrid,
-                              float dd, float rbd, int mex, int mey,
-                              int refme, float lamv, float di, int forced,
-                              int fmvdx, int fmvdy, int fmvp, int fref) {
-  // merge list: B1 pruned against A1, B0 against B1, B2 against A1 and B1
+// The entry of CU k at source s lives at pre[(k 10 + s) T] of the thread's
+// column (T threads).
+__device__ __forceinline__ int pre_at(int k, int s, int T) {
+  return (k * kSources + s) * T;
+}
+
+// ---- one CU decision -----------------------------------------------------
+
+// Output rows of one CU size.
+struct CuOut {
+  int32_t *ch, *mvd, *mvp, *ref;
+  float* js;
+};
+
+// One P CU decision (JAX decide_cu :363-476) from its candidates c in the
+// order A1, B1, B0, B2; K is the CU (0 the CU32, 1..4 q0..q3) whose inputs
+// lie in `inputs` and grid entries in `pre` (the thread's columns, T
+// threads); me_src the source id of its ME motion; i its output row; dsf
+// and refbits the tables in shared memory.
+template <bool FORCED, int K>
+__device__ __forceinline__ Decision decide_cu(
+    const DecideArgs& a, const Cand c[4], const uint32_t* inputs,
+    const float* pre, int T, int me_src, const CuOut& out, int i,
+    const int* dsf, const float* refbits) {
+  const CuIn in = read_in<FORCED>(inputs, K, T);
+  // merge list: B1 pruned against A1, B0 against B1, B2 against A1 and B1;
+  // the first two kept, an unfilled slot the zero MV on reference 0
+  // (chosen field by field with selects: no row of a warp branches)
   bool m_av[4];
   m_av[0] = c[0].av;
-  m_av[1] = c[1].av && !(c[0].av && same(c[1], c[0]));
-  m_av[2] = c[2].av && !(c[1].av && same(c[2], c[1]));
-  m_av[3] = c[3].av && !(c[0].av && same(c[3], c[0])) &&
-            !(c[1].av && same(c[3], c[1]));
-  int mrg_x[2] = {0, 0}, mrg_y[2] = {0, 0}, mrg_r[2] = {0, 0};
-  int k = 0;
-  for (int i = 0; i < 4; ++i) {
-    if (m_av[i] && k < 2) {
-      mrg_x[k] = c[i].mx;
-      mrg_y[k] = c[i].my;
-      mrg_r[k] = c[i].rf;
-      ++k;
+  m_av[1] = c[1].av & !(c[0].av & same(c[1], c[0]));
+  m_av[2] = c[2].av & !(c[1].av & same(c[2], c[1]));
+  m_av[3] = c[3].av & !(c[0].av & same(c[3], c[0])) &
+            !(c[1].av & same(c[3], c[1]));
+  Cand mrg[2];
+  mrg[0] = mrg[1] = Cand{true, 0, 0, 0, 0};
+  int k2 = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const bool take = m_av[j] & (k2 == m);
+      Cand& o = mrg[m];
+      o.mx = pick(take, c[j].mx, o.mx);
+      o.my = pick(take, c[j].my, o.my);
+      o.rf = pick(take, c[j].rf, o.rf);
+      o.s = pick(take, c[j].s, o.s);
     }
+    k2 += m_av[j];
   }
-  // AMVP: A = A1, B = first of (B0, B1, B2), each scaled to the CU's
-  // reference; B pruned against A
-  const int cur = forced >= 0 ? fref : refme;
-  const int R = a.R;
-  const bool avb = c[1].av || c[2].av || c[3].av;
-  const Cand& cb = c[2].av ? c[2] : (c[1].av ? c[1] : c[3]);
-  int sax = c[0].mx, say = c[0].my, sbx = cb.mx, sby = cb.my;
-  if (c[0].rf != cur) {
-    const int f = a.dsf[c[0].rf * R + cur];
-    sax = scale_mv(sax, f);
-    say = scale_mv(say, f);
-  }
-  if (cb.rf != cur) {
-    const int f = a.dsf[cb.rf * R + cur];
-    sbx = scale_mv(sbx, f);
-    sby = scale_mv(sby, f);
-  }
-  const bool dup = sbx == sax && sby == say;
-  const int a0x = c[0].av ? sax : (avb ? sbx : 0);
-  const int a0y = c[0].av ? say : (avb ? sby : 0);
-  const bool a1ok = c[0].av && avb && !dup;
-  const int a1x = a1ok ? sbx : 0, a1y = a1ok ? sby : 0;
-  Decision o;
-  if (forced >= 0) {
-    o.choice = forced;
-    o.mvdx = fmvdx;
-    o.mvdy = fmvdy;
-    o.mvp = fmvp == 1;
-    const int px = fmvp == 1 ? a1x : a0x, py = fmvp == 1 ? a1y : a0y;
-    if (forced <= 1) {
-      o.mx = mrg_x[forced];
-      o.my = mrg_y[forced];
-      o.rf = mrg_r[forced];
-    } else if (forced == 2) {
-      o.mx = px + fmvdx;
-      o.my = py + fmvdy;
-      o.rf = fref;
-    } else {
-      o.mx = o.my = o.rf = 0;
-    }
-    for (int i = 0; i < 4; ++i) o.js[i] = 0.0f;
-    o.j = 0.0f;
-    return o;
-  }
-  const int d0x = mex - a0x, d0y = mey - a0y;
-  const int d1x = mex - a1x, d1y = mey - a1y;
-  const float b0 = mvd_bits(d0x, d0y), b1 = mvd_bits(d1x, d1y);
-  const bool use1 = b1 < b0;
-  o.mvdx = use1 ? d1x : d0x;
-  o.mvdy = use1 ? d1y : d0y;
-  o.mvp = use1;
-  const float m = b1 < b0 ? b1 : b0;
-  const float x = ((rbd + m) + a.refbits[refme]) + 6.0f;
-  const float j_inter = __fmaf_rn(lamv, x, dd);
-  for (int i = 0; i < 2; ++i) {
-    const bool sub = decide::sub_pel(mrg_x[i], mrg_y[i]);
-    const int64_t r = row + (int64_t)((sub ? R : 0) + mrg_r[i]) * ngrid;
-    const float v = decide::grid_at(a.grid, r, a.sr, mrg_x[i], mrg_y[i]);
-    o.js[i] = __fmaf_rn(lamv, i == 0 ? 2.0f : 3.0f, v);
-  }
-  o.js[2] = j_inter;
-  o.js[3] = with_intra ? __fmaf_rn(lamv, a.intra_hdr_bits, di)
-                       : __int_as_float(0x7f800000);  // +inf
-  int best = 0;
-  for (int i = 1; i < 4; ++i)
-    if (o.js[i] < o.js[best]) best = i;
-  o.choice = best;
-  o.j = o.js[best];
-  if (best <= 1) {
-    o.mx = mrg_x[best];
-    o.my = mrg_y[best];
-    o.rf = mrg_r[best];
-  } else if (best == 2) {
-    o.mx = mex;
-    o.my = mey;
-    o.rf = refme;
+  // AMVP: A = A1, B = the first of (B0, B1, B2), each scaled to the CU's
+  // reference when it lies on another; B pruned against A
+  const int cur = in.ref, R = a.R;
+  const bool avb = c[1].av | c[2].av | c[3].av;
+  const int cbx = pick(c[2].av, c[2].mx, pick(c[1].av, c[1].mx, c[3].mx));
+  const int cby = pick(c[2].av, c[2].my, pick(c[1].av, c[1].my, c[3].my));
+  const int cbr = pick(c[2].av, c[2].rf, pick(c[1].av, c[1].rf, c[3].rf));
+  const int fa = dsf[c[0].rf * R + cur], fb = dsf[cbr * R + cur];
+  const bool xa = c[0].rf != cur, xb = cbr != cur;
+  const int sax = pick(xa, scale_mv(c[0].mx, fa), c[0].mx);
+  const int say = pick(xa, scale_mv(c[0].my, fa), c[0].my);
+  const int sbx = pick(xb, scale_mv(cbx, fb), cbx);
+  const int sby = pick(xb, scale_mv(cby, fb), cby);
+  const bool dup = (sbx == sax) & (sby == say);
+  const int a0x = pick(c[0].av, sax, pick(avb, sbx, 0));
+  const int a0y = pick(c[0].av, say, pick(avb, sby, 0));
+  const bool a1ok = c[0].av & avb & !dup;
+  const int a1x = pick(a1ok, sbx, 0), a1y = pick(a1ok, sby, 0);
+  int ch, mvdx, mvdy, mvp, mex, mey;
+  float j = 0.0f;
+  if (FORCED) {
+    ch = in.ch;
+    mvdx = in.mx;
+    mvdy = in.my;
+    mvp = in.mvp == 1;
+    mex = pick(mvp, a1x, a0x) + mvdx;
+    mey = pick(mvp, a1y, a0y) + mvdy;
   } else {
-    o.mx = o.my = o.rf = 0;
+    mex = in.mx;
+    mey = in.my;
+    const int d0x = mex - a0x, d0y = mey - a0y;
+    const int d1x = mex - a1x, d1y = mey - a1y;
+    const float b0 = mvd_bits(d0x, d0y), b1 = mvd_bits(d1x, d1y);
+    mvp = b1 < b0;
+    mvdx = pick(mvp, d1x, d0x);
+    mvdy = pick(mvp, d1y, d0y);
+    const float m = mvp ? b1 : b0;
+    const float x = __fadd_rn(
+        __fadd_rn(__fadd_rn(in.rb, m), refbits[cur]), 6.0f);
+    const float lam = in.lam;
+    if (K == 0) cp_async_wait_all();
+    float js[4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float e = pre[pre_at(K, mrg[q].s, T)];
+      const float v = inside(mrg[q].mx, mrg[q].my, a.sr) ? e : 1e18f;
+      js[q] = __fmaf_rn(lam, q == 0 ? 2.0f : 3.0f, v);
+    }
+    js[2] = __fmaf_rn(lam, x, in.d);
+    js[3] = K == 0 ? inf() : __fmaf_rn(lam, a.intra_hdr_bits, in.di);
+    ch = 0;
+    j = js[0];
+#pragma unroll
+    for (int q = 1; q < 4; ++q) {
+      const bool lt = js[q] < j;
+      j = lt ? js[q] : j;
+      ch = lt ? q : ch;
+    }
+    if (out.js != nullptr)
+      reinterpret_cast<float4*>(out.js)[i] =
+          make_float4(js[0], js[1], js[2], js[3]);
   }
+  // the final motion and its source: a merge choice takes its candidate's,
+  // an AMVP choice the ME (or replayed) MV on the CU's reference, intra
+  // none (selected field by field: a candidate chosen at run time would put
+  // the merge list in local memory)
+  const bool mg = ch <= 1, m1 = ch == 1, am = ch == 2;
+  Decision o;
+  o.choice = ch;
+  o.j = j;
+  o.mx = mg ? pick(m1, mrg[1].mx, mrg[0].mx) : pick(am, mex, 0);
+  o.my = mg ? pick(m1, mrg[1].my, mrg[0].my) : pick(am, mey, 0);
+  o.rf = mg ? pick(m1, mrg[1].rf, mrg[0].rf) : pick(am, cur, 0);
+  o.s = mg ? pick(m1, mrg[1].s, mrg[0].s) : pick(am, me_src, 0);
+  out.ch[i] = ch;
+  reinterpret_cast<int2*>(out.mvd)[i] = make_int2(mvdx, mvdy);
+  out.mvp[i] = mvp;
+  out.ref[i] = o.rf;
   return o;
 }
 
-__global__ void decide_kernel(const DecideArgs a) {
-  const int cells = a.w16 * a.h16;
-  int32_t* base = a.maps;
-  Maps mp;
-  mp.mv = base;
-  mp.inter = base + 2 * cells;
-  mp.ref = base + 3 * cells;
-  const int w16 = a.w16, h16 = a.h16;
-  for (int i = threadIdx.x; i < 4 * cells; i += blockDim.x) base[i] = 0;
-  __syncthreads();
-  const int n16 = cells, n32 = a.wc * a.hc;
-  const bool forced = a.f_ch16 != nullptr;
-  const int64_t base32 = (int64_t)2 * a.R * n16;
-  for (int d = 0; d < a.n_diags; ++d) {
-    const int s0 = a.diag_off[d], cnt = a.diag_off[d + 1] - s0;
-    const int lane = threadIdx.x;
-    if (lane < cnt) {
-      const int i32 = a.slot_ctu[s0 + lane];
-      const int cx = i32 % a.wc, cy = i32 / a.wc;
-      const int bx = 2 * cx, by = 2 * cy;
-      const bool left = cx > 0, top = cy > 0;
-      const bool tr = top && cx < a.wc - 1;
-      const int q16[4] = {by * a.w16 + bx, by * a.w16 + bx + 1,
-                          (by + 1) * a.w16 + bx, (by + 1) * a.w16 + bx + 1};
-      // hypothesis A: one CU32
-      Cand c[4];
-      for (int k = 0; k < 4; ++k)
-        c[k] = mp.nb(decide::nb_cu32(k, bx, by, left, top, tr, w16, h16));
-      Decision r32 = forced
-          ? decide_cu(a, c, false, base32 + i32, n32, 0.f, 0.f, 0, 0, 0, 0.f,
-                      0.f, a.f_ch32[i32], a.f_mvd32[2 * i32],
-                      a.f_mvd32[2 * i32 + 1], a.f_mvp32[i32],
-                      a.f_ref32[i32])
-          : decide_cu(a, c, false, base32 + i32, n32, a.d32[i32],
-                      a.rb32[i32], a.mv32[2 * i32], a.mv32[2 * i32 + 1],
-                      a.ref32[i32], a.lam32[i32], 0.f, -1, 0, 0, 0, 0);
-      // hypothesis B: four CU16 quadrants in z-order
-      Decision q[4];
-      for (int k = 0; k < 4; ++k) {
-        auto ext = [&](int j) {
-          return mp.nb(decide::nb_quad(k, j, bx, by, left, top, tr, w16,
-                                       h16));
-        };
-        if (k == 0) {
-          for (int j = 0; j < 4; ++j) c[j] = ext(j);
-        } else if (k == 1) {
-          c[0] = local(q[0]);
-          c[1] = ext(1);
-          c[2] = ext(2);
-          c[3] = ext(3);
-        } else if (k == 2) {
-          c[0] = ext(0);
-          c[1] = local(q[0]);
-          c[2] = local(q[1]);
-          c[3] = ext(3);
-        } else {
-          c[0] = local(q[2]);
-          c[1] = local(q[1]);
-          c[2].av = false;
-          c[2].mx = c[2].my = c[2].rf = 0;
-          c[3] = local(q[0]);
-        }
-        const int i = q16[k];
-        q[k] = forced
-            ? decide_cu(a, c, true, i, n16, 0.f, 0.f, 0, 0, 0, 0.f, 0.f,
-                        a.f_ch16[i], a.f_mvd16[2 * i], a.f_mvd16[2 * i + 1],
-                        a.f_mvp16[i], a.f_ref16[i])
-            : decide_cu(a, c, true, i, n16, a.d16[i], a.rb16[i],
-                        a.mv16[2 * i], a.mv16[2 * i + 1], a.ref16[i],
-                        a.lam16[i], a.di16[i], -1, 0, 0, 0, 0);
+// ---- the row walk ----------------------------------------------------------
+
+// A row's state between steps: the left CTU's q1 and q3 (its own commit)
+// and the window of the row above: the top-right CTU's q2 and q3 (step t -
+// 1), the top CTU's (t - 2), the top-left CTU's q3 (t - 3).
+struct RowState {
+  Cell L1, L3, TR2, TR3, T2, T3, TL3;
+};
+
+// Dynamic shared memory: dsf and the ref_idx bins (16 + 4 words), then
+// each thread's data in its column (word j of thread r at j T + r): the
+// commit slots by parity (a row's q2 and q3: six words in an int4 and an
+// int2), the two input buffers (the current CTU's and the next's, by the
+// step's parity), then (free) the grid entries.
+struct Smem {
+  int* dsf;
+  float* refbits;
+  int4* sa;
+  int2* sb;
+  uint32_t* in;
+  float* pre;
+};
+
+constexpr int kTableWords = 32;  // dsf 16, refbits 4, padded to 16 bytes
+
+__device__ __forceinline__ Smem smem_of(unsigned char* base, int T) {
+  Smem s;
+  s.dsf = reinterpret_cast<int*>(base);
+  s.refbits = reinterpret_cast<float*>(s.dsf + 16);
+  s.sa = reinterpret_cast<int4*>(s.dsf + kTableWords);
+  s.sb = reinterpret_cast<int2*>(s.sa + 2 * T);
+  s.in = reinterpret_cast<uint32_t*>(s.sb + 2 * T);
+  s.pre = reinterpret_cast<float*>(s.in + 2 * kStepWords * T);
+  return s;
+}
+
+// bytes of shared memory a launch of T threads takes
+constexpr size_t smem_bytes(bool forced, int T) {
+  return kTableWords * 4 +
+         (size_t)T * (2 * (sizeof(int4) + sizeof(int2)) +
+                      2 * kStepWords * sizeof(uint32_t) +
+                      (forced ? 0 : 5 * kSources * sizeof(float)));
+}
+
+// Step t of row r: decide CTU (t - 2 r, r) from the window and its
+// inputs (staged a step ahead in input buffer t & 1), stage the next CTU's
+// inputs into the other buffer, exchange commits with the rows around.
+template <bool FORCED>
+__device__ __forceinline__ void row_step(const DecideArgs& a, int t, int r,
+                                         RowState& st, const Smem& sm) {
+  const int wc = a.wc, w16 = a.w16, T = blockDim.x;
+  const bool row = r < a.hc;
+  const int x = t - 2 * r;
+  const bool act = row && x >= 0 && x < wc;
+  const int i32 = r * wc + x;
+  const int c0 = 2 * r * w16 + 2 * x;
+  // this CTU's inputs have landed (a no-op after an active step, whose
+  // decisions waited for all its copies)
+  cp_async_wait_all();
+  const uint32_t* in = sm.in + (t & 1) * kStepWords * T + r;
+  if (row && x + 1 >= 0 && x + 1 < wc)
+    stage_in<FORCED>(a, i32 + 1, c0 + 2,
+                     sm.in + ((t + 1) & 1) * kStepWords * T + r, T);
+  const Cell none{0, 0, 0};
+  Cell o1 = none, o2 = none, o3 = none;
+  if (act) {
+    const int q16[4] = {c0, c0 + 1, c0 + w16, c0 + w16 + 1};
+    const float* pre = sm.pre + r;
+    if (!FORCED) {
+      // every entry the five decisions can price, by source (the wait
+      // for them is in the CU32's decision, after its derivation)
+      const Cell nbr[7] = {none, st.L1, st.L3, st.T2, st.T3, st.TL3,
+                           st.TR2};
+      int sx[kSources], sy[kSources], sf[kSources];
+#pragma unroll
+      for (int s = 0; s <= 6; ++s) {
+        sx[s] = nbr[s].mx;
+        sy[s] = nbr[s].my;
+        sf[s] = nbr[s].ir >> 1;
       }
-      bool split;
-      if (forced) {
-        split = a.f_split[i32] != 0;
-      } else {
-        const float js = ((q[0].j + q[1].j) + q[2].j) + q[3].j;
-        split = js < r32.j;
-        if (a.jsplit != nullptr) {
-          a.jsplit[i32] = js;
-          a.j32[i32] = r32.j;
-        }
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const uint32_t* w = in + (q + 1) * kInWords * T;
+        sx[7 + q] = (int)w[4 * T];
+        sy[7 + q] = (int)w[5 * T];
+        sf[7 + q] = (int)w[6 * T];
       }
-      a.split[i32] = split;
-      a.ch32[i32] = r32.choice;
-      a.mvd32[2 * i32] = r32.mvdx;
-      a.mvd32[2 * i32 + 1] = r32.mvdy;
-      a.mvp32[i32] = r32.mvp;
-      a.ref32_out[i32] = r32.rf;
-      if (a.js32 != nullptr)
-        for (int t = 0; t < 4; ++t) a.js32[4 * i32 + t] = r32.js[t];
-      for (int k = 0; k < 4; ++k) {
-        const int i = q16[k];
-        a.chq[i] = q[k].choice;
-        a.mvdq[2 * i] = q[k].mvdx;
-        a.mvdq[2 * i + 1] = q[k].mvdy;
-        a.mvpq[i] = q[k].mvp;
-        a.refq[i] = q[k].rf;
-        if (a.jsq != nullptr)
-          for (int t = 0; t < 4; ++t) a.jsq[4 * i + t] = q[k].js[t];
-        const int mx = split ? q[k].mx : r32.mx;
-        const int my = split ? q[k].my : r32.my;
-        const int rf = split ? q[k].rf : r32.rf;
-        a.mv_cell[2 * i] = mx;
-        a.mv_cell[2 * i + 1] = my;
-        a.ref_cell[i] = rf;
-        mp.mv[2 * i] = mx;
-        mp.mv[2 * i + 1] = my;
-        mp.ref[i] = rf;
-        mp.inter[i] = split ? q[k].choice <= 2 : 1;
+      // each source's entry within a CU's [S, S] grid (its integer part
+      // clamped into the window: an outside MV's entry is read and
+      // ignored) and its block of grid rows (sub-pel R + reference); then
+      // one multiply-add a copy
+      const int sr = a.sr, S = 2 * sr + 1, SS = S * S, R = a.R;
+      const int n16 = w16 * a.h16, n32 = wc * a.hc;
+      int off[kSources], blk[kSources];
+#pragma unroll
+      for (int s = 0; s < kSources; ++s) {
+        const int ix = min(max(sx[s] >> 2, -sr), sr);
+        const int iy = min(max(sy[s] >> 2, -sr), sr);
+        off[s] = (iy + sr) * S + (ix + sr);
+        blk[s] = (decide::sub_pel(sx[s], sy[s]) ? R : 0) + sf[s];
+      }
+      float* dst = sm.pre + r;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+        const int rowk = k == 0 ? 2 * R * n16 + i32 : q16[k - 1];
+        const int nk = k == 0 ? n32 : n16;
+#pragma unroll
+        for (int s = 0; s < kSources; ++s) {
+          if ((need(k) >> s) & 1u)
+            cp_async4(dst + pre_at(k, s, T),
+                      a.grid + (int64_t)(rowk + blk[s] * nk) * SS + off[s]);
+        }
       }
     }
-    __syncthreads();
+    const CuOut o32{a.ch32, a.mvd32, a.mvp32, a.ref32_out, a.js32};
+    const CuOut o16{a.chq, a.mvdq, a.mvpq, a.refq, a.jsq};
+    const int* dsf = sm.dsf;
+    const float* rbits = sm.refbits;
+    // hypothesis A: one CU32 (A1 left q3, B1 top q3, B0 top-right q2, B2
+    // top-left q3)
+    const Cand c32[4] = {ext(st.L3, 2), ext(st.T3, 4), ext(st.TR2, 6),
+                         ext(st.TL3, 5)};
+    const Decision r32 = decide_cu<FORCED, 0>(a, c32, in, pre, T, 0, o32,
+                                              i32, dsf, rbits);
+    // hypothesis B: four CU16 quadrants in z-order
+    const Cand cq0[4] = {ext(st.L1, 1), ext(st.T2, 3), ext(st.T3, 4),
+                         ext(st.TL3, 5)};
+    const Decision d0 = decide_cu<FORCED, 1>(a, cq0, in, pre, T, 7, o16,
+                                             q16[0], dsf, rbits);
+    const Cand cq1[4] = {local(d0), ext(st.T3, 4), ext(st.TR2, 6),
+                         ext(st.T2, 3)};
+    const Decision d1 = decide_cu<FORCED, 2>(a, cq1, in, pre, T, 8, o16,
+                                             q16[1], dsf, rbits);
+    const Cand cq2[4] = {ext(st.L3, 2), local(d0), local(d1),
+                         ext(st.L1, 1)};
+    const Decision d2 = decide_cu<FORCED, 3>(a, cq2, in, pre, T, 9, o16,
+                                             q16[2], dsf, rbits);
+    const Cand cq3[4] = {local(d2), local(d1), ext(none, 0), local(d0)};
+    const Decision d3 = decide_cu<FORCED, 4>(a, cq3, in, pre, T, 0, o16,
+                                             q16[3], dsf, rbits);
+    bool split;
+    if (FORCED) {
+      split = in[5 * T] != 0;
+    } else {
+      const float js = __fadd_rn(__fadd_rn(__fadd_rn(d0.j, d1.j), d2.j),
+                                 d3.j);
+      split = js < r32.j;
+      if (a.jsplit != nullptr) {
+        a.jsplit[i32] = js;
+        a.j32[i32] = r32.j;
+      }
+    }
+    a.split[i32] = split;
+    // the committed cells: the quadrants' where split, else the CU32's
+    // (inter whatever its choice, as the JAX commit sets it)
+    const Decision dq[4] = {d0, d1, d2, d3};
+    Cell f[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const Decision& e = dq[k];
+      const int inter = split ? (e.choice <= 2) : 1;
+      f[k].mx = pick(split, e.mx, r32.mx);
+      f[k].my = pick(split, e.my, r32.my);
+      const int rf = pick(split, e.rf, r32.rf);
+      f[k].ir = inter | (rf << 1);
+      reinterpret_cast<int2*>(a.mv_cell)[q16[k]] = make_int2(f[k].mx,
+                                                             f[k].my);
+      a.ref_cell[q16[k]] = rf;
+    }
+    o1 = f[1];
+    o2 = f[2];
+    o3 = f[3];
   }
+  // publish this step's bottom cells; take the upper row's
+  const int p = t & 1;
+  if (row) {
+    sm.sa[p * T + r] = make_int4(o2.ir, o2.mx, o2.my, o3.ir);
+    sm.sb[p * T + r] = make_int2(o3.mx, o3.my);
+  }
+  __syncthreads();
+  st.TL3 = st.T3;
+  st.T2 = st.TR2;
+  st.T3 = st.TR3;
+  if (row && r > 0) {
+    const int4 u = sm.sa[p * T + r - 1];
+    const int2 v = sm.sb[p * T + r - 1];
+    st.TR2 = Cell{u.x, u.y, u.z};
+    st.TR3 = Cell{u.w, v.x, v.y};
+  }
+  st.L1 = o1;
+  st.L3 = o3;
+}
+
+// Thread r walks CTU32 row r (see the file's head).  Step -1 only stages
+// the first CTU of row 0 (and copies the tables).
+template <bool FORCED>
+__global__ void decide_rows_p(const DecideArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem sm = smem_of(smem, blockDim.x);
+  const int r = threadIdx.x;
+  if (r < a.R * a.R) sm.dsf[r] = a.dsf[r];
+  if (r < a.R) sm.refbits[r] = a.refbits[r];
+  const int steps = a.wc + 2 * (a.hc - 1);
+  const Cell none{0, 0, 0};
+  RowState st{none, none, none, none, none, none, none};
+  // (the tables are seen after step -1's barrier)
+  for (int t = -1; t < steps; ++t) row_step<FORCED>(a, t, r, st, sm);
+}
+
+template <bool FORCED>
+int launch(const DecideArgs& a, cudaStream_t stream) {
+  const int threads = ((a.hc + 31) / 32) * 32;
+  const size_t bytes = smem_bytes(FORCED, threads);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decide_rows_p<FORCED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  decide_rows_p<FORCED><<<1, threads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int decide_p(const DecideArgs* args, cudaStream_t stream) {
   const DecideArgs& a = *args;
-  if (a.R < 1 || a.R > 4 || a.bmax < 1 || a.bmax > 1024)
+  if (a.R < 1 || a.R > 4 || a.sr < 1 || a.wc < 1 || a.hc < 1 ||
+      a.hc > kMaxRows || a.w16 != 2 * a.wc || a.h16 != 2 * a.hc)
     return (int)cudaErrorInvalidValue;
-  const int threads = ((a.bmax + 31) / 32) * 32;
-  decide_kernel<<<1, threads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  return a.f_ch16 != nullptr ? launch<true>(a, stream)
+                             : launch<false>(a, stream);
 }

@@ -17,8 +17,8 @@ Four phases per P frame, as in the JAX `_encode` (:171):
    already decided (spec 8.5.3.2, z-scan availability; merge pruning on
    (MV, reference), AMVP scaled to the CU's reference) and picks skip, AMVP
    inter or intra per CU, then split against no split.  On the card one
-   launch of K17 (`decide_p`); on the CPU its plain version, a Python loop
-   over the diagonals.
+   launch of K17 (`decide_p`, a thread a CTU32 row); on the CPU its plain
+   version, a Python loop over the diagonals.
 3. Final MC against each cell's reference (K7, with a reference index over
    the stacked planes when R > 1; JAX `mc_sel` :598-615) and residuals at
    the decided MVs (:616-687): K2.
@@ -87,17 +87,16 @@ _P = ctypes.c_void_p
 class _DecideArgs(ctypes.Structure):
     """`DecideArgs` of `csrc/decide_p.cu`, field for field."""
     _fields_ = ([(k, ctypes.c_int) for k in (
-        "wc", "hc", "w16", "h16", "n_diags", "bmax", "sr", "R")]
+        "wc", "hc", "w16", "h16", "sr", "R")]
         + [(k, _P) for k in (
             "grid", "d32", "rb32", "lam32", "mv32", "ref32", "d16", "rb16",
             "di16", "lam16", "mv16", "ref16", "dsf", "refbits")]
         + [("intra_hdr_bits", ctypes.c_float)]
         + [(k, _P) for k in (
-            "slot_ctu", "diag_off", "f_ch16", "f_mvd16", "f_mvp16",
-            "f_ref16", "f_ch32", "f_mvd32", "f_mvp32", "f_ref32", "f_split",
-            "split", "ch32", "mvd32", "mvp32", "ref32_out", "chq", "mvdq",
-            "mvpq", "refq", "mv_cell", "ref_cell", "jsq", "js32", "jsplit",
-            "j32", "maps")])
+            "f_ch16", "f_mvd16", "f_mvp16", "f_ref16", "f_ch32", "f_mvd32",
+            "f_mvp32", "f_ref32", "f_split", "split", "ch32", "mvd32",
+            "mvp32", "ref32_out", "chq", "mvdq", "mvpq", "refq", "mv_cell",
+            "ref_cell", "jsq", "js32", "jsplit", "j32")])
 
 
 class _DecideBArgs(ctypes.Structure):
@@ -198,12 +197,6 @@ class InterTreeEncoder:
         cx = np.array([c[0] for c in order])
         cy = np.array([c[1] for c in order])
         self._perm32 = torch.as_tensor(cy * wc + cx, device=dev)
-        # K17's schedule: slot -> raster CTU, and each diagonal's first slot
-        self._slot_ctu = self._perm32.to(torch.int32)
-        self._diag_off = torch.as_tensor(np.cumsum(
-            [0] + [len(c) for c in self.diags]), dtype=torch.int32,
-            device=dev)
-        self._bmax = max(len(c) for c in self.diags)
         # raster CTU -> its top-left 16-cell
         i32 = np.arange(self.hc * wc)
         self._q0_cell = torch.as_tensor(2 * (i32 // wc) * w16 + 2 * (i32 % wc),
@@ -636,11 +629,9 @@ class InterTreeEncoder:
                 return None
             keep.append(t)
             return cuda_lib.ptr(t)
-        a = _DecideArgs(wc=wc, hc=hc, w16=w16, h16=h16,
-                        n_diags=len(self.diags), bmax=self._bmax, sr=self.sr,
-                        R=nr, intra_hdr_bits=_INTRA_HDR_BITS)
+        a = _DecideArgs(wc=wc, hc=hc, w16=w16, h16=h16, sr=self.sr, R=nr,
+                        intra_hdr_bits=_INTRA_HDR_BITS)
         a.dsf, a.refbits = p(c(dsf, i32)), p(c(refbits, f32))
-        a.slot_ctu, a.diag_off = p(self._slot_ctu), p(self._diag_off)
         if forced is None:
             a.grid = p(c(st1["grid"], f32))
             for k, dt in (("d32", f32), ("rb32", f32), ("mv32", i32),
@@ -677,8 +668,6 @@ class InterTreeEncoder:
                        j32=torch.empty(n32, dtype=f32, device=dev))
             for k in ("jsq", "js32", "jsplit", "j32"):
                 setattr(a, k, p(out[k]))
-        # the committed motion the scan reads back (16 bytes a 16-cell)
-        a.maps = p(torch.empty(4 * n16, dtype=i32, device=dev))
         cuda_lib.require_cuda(*keep)
         _launch("decide_p", _DecideArgs, a, keep[0])
         out["split"] = out["split"].bool().reshape(hc, wc)
