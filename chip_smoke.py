@@ -32,8 +32,13 @@ Phases (any failure exits non-zero):
      lambda 0 for SAO, flat lowres planes whose candidates all tie, a
      CU-tree pile-up on the border blocks), K2 with inter rounding, K3 at
      P- and B-slice init states and K4 on bS 1 edges;
-     K21 (the loop filter's bS/QP maps) and K22 (SSE/SSIM) at a config-1
-     batch, a config-2 P frame, a config-3 B frame and a 1080p CTB16 frame;
+     K21 (the loop filter's bS/QP maps, two launches a call) and K22
+     (SSE/SSIM) at a config-1 batch, a config-2 P frame, a config-3 B
+     frame and a 1080p CTB16 frame, K21 also with L2 flushed and queued
+     behind a spin of the card; K7 at the flat 1080p frames' calls (luma
+     n 16, chroma n 8 and the select entry of a B frame's final MC, MVs at
+     the window bound past all four edges, every phase pair), timed the
+     same three ways;
      the ME argmin on K5's grids of a config-2 P frame and a 1080p B frame
      (and crafted near-ties); K23 (the flat CTB16 scan, two launches a
      call: its ticket list, held to `scan_tickets`, and the scan) at one
@@ -264,26 +269,47 @@ def time_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
-# spins time_queued_ms tries, each twice as long as the one before
+# tries of a time_queued_ms reading, the spin doubled after each late one
 QUEUE_TRIES = 6
+# readings of time_queued_ms, of which it returns the median
+QUEUE_READINGS = 3
+# a queued reading above this multiple of the same calls' back-to-back
+# mean is a misread: back to back the card runs the same kernels and waits
+# on the host besides, so their device time cannot be longer
+QUEUE_MISREAD = 1.2
+# what time_queued_ms met in this run: readings kept, late tries, the
+# largest max / min of one call's readings, and each misread with the SM
+# clock nvidia-smi read just after it
+QUEUE_LOG = dict(calls=0, late=0, max_spread=1.0, misreads=[])
+
+
+def sm_clock():
+    """The card's SM clock and its maximum, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
 
 
 def time_queued_ms(fn, iters):
-    """Mean device ms of ``fn``, its ``iters`` calls enqueued while the card
+    """Device ms of ``fn``, its ``iters`` calls enqueued while the card
     spins, so that none waits on the host (a wrapper's host time can exceed
-    a short kernel's), with the grids warm; after 2 warm-up calls.  The
-    spin is doubled until the host has enqueued every call before the card
-    reaches the first, at most QUEUE_TRIES times: a ``fn`` that waits on the
-    card (a host copy, ``.item()``) never lets the queue form, and raises."""
+    a short kernel's), with the grids warm; after its back-to-back mean
+    (`time_ms`).  The median of QUEUE_READINGS readings.  A reading is
+    taken again when the card reached the calls before the host had
+    enqueued them all (late: the spin is doubled) and when it is a misread
+    (above QUEUE_MISREAD x the back-to-back mean); after QUEUE_TRIES x
+    QUEUE_READINGS tries it raises: a ``fn`` that waits on the card (a
+    host copy, ``.item()``) never lets the queue form.  Counts go to
+    QUEUE_LOG."""
     import torch
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
+    b2b = time_ms(fn, iters)
     t = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     spin = (time.perf_counter() - t) * (iters + 2) * 2.0
-    for _ in range(QUEUE_TRIES):
+    got = []
+    for _ in range(QUEUE_TRIES * QUEUE_READINGS):
         # cycles at about 2 GHz (the H100's SM clock reaches 1.98); a lower
         # clock only spins longer
         torch.cuda._sleep(int(spin * 2e9))
@@ -295,12 +321,25 @@ def time_queued_ms(fn, iters):
         t1.record()
         late = t0.query()
         torch.cuda.synchronize()
-        if not late:
-            return t0.elapsed_time(t1) / iters
-        spin *= 2
-    raise RuntimeError(f"time_queued_ms: the card reached the calls before "
-                       f"the host had enqueued them, {QUEUE_TRIES} times: "
-                       f"does the timed function wait on the card?")
+        ms = t0.elapsed_time(t1) / iters
+        if late:
+            QUEUE_LOG["late"] += 1
+            spin *= 2
+        elif ms > QUEUE_MISREAD * b2b:
+            QUEUE_LOG["misreads"].append(dict(
+                ms=ms, back_to_back_ms=b2b, sm_clock=sm_clock()))
+        else:
+            got.append(ms)
+            if len(got) == QUEUE_READINGS:
+                QUEUE_LOG["calls"] += 1
+                QUEUE_LOG["max_spread"] = max(QUEUE_LOG["max_spread"],
+                                              max(got) / min(got))
+                return float(np.median(got))
+    raise RuntimeError(f"time_queued_ms: {len(got)} of {QUEUE_READINGS} "
+                       f"readings in {QUEUE_TRIES * QUEUE_READINGS} tries "
+                       f"(late or above {QUEUE_MISREAD} x the back-to-back "
+                       f"{b2b:.4f} ms): does the timed function wait on "
+                       f"the card?")
 
 
 # bytes written between the launches that time_cold_ms times: more than
@@ -884,6 +923,147 @@ def phase_kernels_k6_1080p(iters, dev="cuda"):
         blocks_flat_p_1080p=nb)
 
 
+def k7_ops(nb, n, chroma):
+    """int32 operations of nb uni predictions: the n + T - 1 rows filtered
+    horizontally (T taps, a multiply and an add each), the vertical taps
+    and the two roundings and the clip of each pixel."""
+    t = 4 if chroma else 8
+    return nb * ((n + t - 1) * n * 2 * t + n * n * (2 * t + 4))
+
+
+def k7_read_bytes(plane, mv, n, chroma, use=None):
+    """Bytes that the uni predictions k of ``plane`` [H, W] named by ``use``
+    (a bool mask over mv's rows; all by default), prediction k of raster
+    block k mod (H / n)(W / n), must read:
+    their MV rows, and once each sample of the plane that a block's
+    prediction depends on, at clamped coordinates: along each axis the
+    samples under the phase's nonzero taps (n + T - 1 wide where all T
+    are nonzero, n wide at phase 0, a single 64 tap)."""
+    import torch
+    from x265amod_tpu_torch.ops import me
+    h, w = plane.shape
+    filt, sh = (me.CHROMA_FILTERS, 3) if chroma else (me.LUMA_FILTERS, 2)
+    nz = [np.flatnonzero(f) for f in np.asarray(filt)]
+    first = torch.as_tensor([z[0] for z in nz], device=mv.device)
+    span = torch.as_tensor([n + z[-1] - z[0] for z in nz], device=mv.device)
+    m = filt.shape[1] // 2 - 1
+    k = torch.arange(mv.shape[0], device=mv.device)
+    if use is not None:
+        k = k[use]
+    v = mv[k].long()
+    ar = torch.arange(n + filt.shape[1] - 1, device=mv.device)
+
+    def axis(origin, comp, size):
+        ph = comp & ((1 << sh) - 1)
+        lo = origin + (comp >> sh) - m + first[ph]
+        return (lo[:, None] + ar).clamp(0, size - 1), ar < span[ph][:, None]
+    blk = k % ((h // n) * (w // n))
+    xs, okx = axis((blk % (w // n)) * n, v[:, 0], w)
+    ys, oky = axis((blk // (w // n)) * n, v[:, 1], h)
+    hit = torch.zeros(h * w, dtype=torch.bool, device=mv.device)
+    hit[(ys[:, :, None] * w + xs[:, None, :])[
+        oky[:, :, None] & okx[:, None, :]]] = True
+    return int(hit.sum()) * plane.element_size() + \
+        k.numel() * 2 * mv.element_size()
+
+
+def window_mvs(rng, nb, wb, unit, m):
+    """MVs [nb, 2] in 1/unit pel of the raster blocks of a plane wb blocks
+    wide: integer parts within +-m (the window bound), every phase pair in
+    turn, the border blocks' pointing past the four frame edges."""
+    base = rng.integers(-m, m + 1, (nb, 2)) * unit
+    base[:wb, 1] = -m * unit                  # top row of blocks: up
+    base[-wb:, 1] = m * unit                  # bottom row: down
+    base[::wb, 0] = -m * unit                 # left column: left
+    base[wb - 1::wb, 0] = m * unit            # right column: right
+    i = np.arange(nb)
+    return (base + np.stack([i % unit, (i // unit) % unit], 1)) \
+        .astype(np.int32)
+
+
+def k7_flat_inputs(dev, sr=16):
+    """K7's calls at the flat 1080p frames' shapes: the card's CTB16 IDR
+    recons of phase 2's flat P/B frames (`flat_inter_inputs`) as list 0's
+    and list 1's planes (1920x1088 luma, 960x544 chroma), the MVs of the
+    8160 16x16 blocks (`window_mvs`, within +-(sr + 2) luma pels, so
+    +-(sr / 2 + 2) chroma pels as the chroma calls read them), directions
+    0-3 at random and K9's bi-predictions of both planes.  Returns a dict
+    of tensors."""
+    import torch
+    from x265amod_tpu_torch.ops import me
+    rng = np.random.default_rng(16)
+    w, h, recon, _ = flat_inter_inputs(dev)
+    wb, nb = w // 16, (w // 16) * (h // 16)
+    mv0, mv1 = (torch.as_tensor(window_mvs(rng, nb, wb, 4, sr + 2),
+                                device=dev) for _ in range(2))
+    dirs = torch.as_tensor(rng.integers(0, 4, nb).astype(np.int32),
+                           device=dev)
+    out = dict(y0=recon[0][0], y1=recon[1][0], c0=recon[0][1],
+               c1=recon[1][1], mv0=mv0, mv1=mv1, dir=dirs)
+    out["bi_y"] = me.mc_bi(out["y0"], out["y1"], mv0, mv1, 16, False,
+                           sr + 2)
+    out["bi_c"] = me.mc_bi(out["c0"], out["c1"], mv0, mv1, 8, True,
+                           sr // 2 + 2)
+    return out
+
+
+def phase_kernels_k7_1080p(iters, dev="cuda"):
+    """K7 at the flat 1080p frames' calls (`k7_flat_inputs`): the trial's
+    and the P frame's final luma call (n 16, 8160 blocks), a chroma call
+    (n 8, 8160 blocks) and the select entry of a B frame's final MC on
+    luma and chroma, each against its plain version bit for bit, timed
+    back to back, with L2 flushed before each call and queued behind a
+    spin (the kernel's own time).  Each bound counts the bytes this run's
+    blocks must read (`k7_read_bytes`; the select entry's per list, and
+    K9's rows only where both lists are used) and the output.  Returns the
+    keys added to the mc_qpel row."""
+    from x265amod_tpu_torch.ops import me
+    a = k7_flat_inputs(dev)
+    nb = a["mv0"].shape[0]
+    d3 = a["dir"] & 3
+    # the select entry: list 0 where dir & 3 is 1, list 1 where it is 0 or
+    # 2, K9's rows where it is 3
+    l0, l1, both = d3 == 1, (d3 & 1) == 0, d3 == 3
+    uni = int((~both).sum())
+
+    def sel_bytes(r0, r1, n, chroma):
+        return (k7_read_bytes(r0, a["mv0"], n, chroma, l0)
+                + k7_read_bytes(r1, a["mv1"], n, chroma, l1)
+                + int(both.sum()) * n * n * 4 + nbytes(a["dir"]))
+    calls = {
+        "_flat_1080p_luma16": (
+            me.mc_luma_qpel, me.mc_luma_qpel_plain, (a["y0"], a["mv0"], 16),
+            k7_read_bytes(a["y0"], a["mv0"], 16, False), k7_ops(nb, 16, 0)),
+        "_flat_1080p_chroma8": (
+            me.mc_chroma_qpel, me.mc_chroma_qpel_plain,
+            (a["c0"], a["mv0"], 8), k7_read_bytes(a["c0"], a["mv0"], 8, True),
+            k7_ops(nb, 8, 1)),
+        "_flat_1080p_sel_luma16": (
+            me.mc_qpel_sel, me.mc_sel_plain,
+            (a["y0"], a["y1"], a["mv0"], a["mv1"], a["dir"], 16, False,
+             a["bi_y"]), sel_bytes(a["y0"], a["y1"], 16, False),
+            k7_ops(uni, 16, 0)),
+        "_flat_1080p_sel_chroma8": (
+            me.mc_qpel_sel, me.mc_sel_plain,
+            (a["c0"], a["c1"], a["mv0"], a["mv1"], a["dir"], 8, True,
+             a["bi_c"]), sel_bytes(a["c0"], a["c1"], 8, True),
+            k7_ops(uni, 8, 1))}
+    k7 = dict(err=0.0, blocks_flat_1080p=nb, uni_blocks_flat_1080p_sel=uni)
+    for key, (fn, plain, args, read, ops) in calls.items():
+        got = fn(*args)
+        k7["err"] = max(k7["err"], check_equal(f"mc_qpel{key}", got,
+                                               plain(*args)))
+        k7[f"ms{key}"] = time_ms(lambda: fn(*args), iters)
+        k7[f"ms_l2_cold{key}"] = time_cold_ms(lambda: fn(*args), iters)
+        k7[f"ms_device{key}"] = time_queued_ms(lambda: fn(*args), iters)
+        k7[f"plain_ms{key}"] = time_ms(lambda: plain(*args), 2)
+        # the bytes this run's blocks need read, and the output written
+        k7[f"bytes{key}"] = read + nbytes(got)
+        k7[f"bound_ms{key}"], k7[f"bound_by{key}"] = bound_ms(
+            read + nbytes(got), ops)
+    return k7
+
+
 def phase_kernels_p(iters, dev="cuda", w=1280, h=736, sr=8):
     """K5-K8 at config 2's per-frame shapes (1280x720 padded to 736 rows,
     sr 8): the ME grids at bn 16 (3680 cells) and 32 (920 CTUs) over the
@@ -1014,10 +1194,11 @@ def phase_kernels_p(iters, dev="cuda", w=1280, h=736, sr=8):
             f"mc_qpel n={n} chroma={chroma}", fn(plane, mv, n),
             plain(plane, mv, n)))
         d["ms"] += time_ms(lambda: fn(plane, mv, n), iters)
+        d["ms_device"] = d.get("ms_device", 0.0) + time_queued_ms(
+            lambda: fn(plane, mv, n), iters)
         d["plain_ms"] += time_ms(lambda: plain(plane, mv, n), 2)
-        t = 4 if chroma else 8
-        nbytes_ += nbytes(plane, mv) + nb * n * n * 4
-        ops += nb * ((n + t - 1) * n * 2 * t + n * n * (2 * t + 4))
+        nbytes_ += k7_read_bytes(plane, mv, n, chroma) + nb * n * n * 4
+        ops += k7_ops(nb, n, chroma)
     d["bound_ms"], d["bound_by"] = bound_ms(nbytes_, ops)
     d["library_ms"] = None
     d["library_note"] = ("none: per-block MVs need a gather before any "
@@ -1185,6 +1366,51 @@ def k23_commit_kinds(kz, iters, dev):
         del got, want
 
 
+# K21's shapes in phase 2 (key, F, h, w, kind): a config-1 batch of 16
+# frames at 640x384, a config-2 P frame, a config-3 B frame, a 1080p CTB16
+# frame
+K21_CASES = (("", 16, 384, 640, "intra"), ("_p_frame", 1, 736, 1280, "p"),
+             ("_b_frame", 1, 1088, 1920, "b"),
+             ("_flat_1080p", 1, 1088, 1920, "flat"))
+
+
+def k21_case(rng, f, h, w, kind, dev):
+    """K21's inputs for F frames of w x h: sparse random levels
+    (`flat_levels`), per-CTB QPs (offsets on the B and flat frames), random
+    CTB32 splits (the trees), random kinds, MVs and reference indices (the
+    P tree) or directions and both lists' MVs (the B tree).  Returns (levels,
+    qp_sig, split, inter) as `deblock_maps` takes them."""
+    import torch
+    h16, w16 = h // 16, w // 16
+    lv = flat_levels(rng, f, h16, w16, dev)
+    flat = kind == "flat"
+    grid = (h16, w16) if flat else (h16 // 2, w16 // 2)
+    qp_sig = torch.as_tensor(30 + rng.integers(-6, 3, grid).astype(
+        np.int32) * (kind in ("b", "flat")), device=dev)
+    split = None if flat else torch.as_tensor(rng.integers(
+        0, 2, (f,) + grid).astype(np.int32), device=dev)
+    inter = None
+
+    def r(lo, hi, *shp):
+        return torch.as_tensor(rng.integers(lo, hi, (f, h16, w16) + shp)
+                               .astype(np.int32), device=dev)
+    if kind == "p":
+        inter = (r(0, 3), None, r(-40, 41, 2), None, r(0, 1))
+    elif kind == "b":
+        inter = (r(0, 3), r(1, 4), r(-40, 41, 2), r(-40, 41, 2), None)
+    return lv, qp_sig, split, inter
+
+
+def k21_times(km, key, fn, iters):
+    """K21's times of ``fn`` under ``key``: back to back (ms), with L2
+    flushed before each call (ms_l2_cold, as a frame's flow finds the
+    levels after the residual chain's traffic) and queued behind a spin
+    of the card (ms_device: the kernels' own time)."""
+    km[f"ms{key}"] = time_ms(fn, iters)
+    km[f"ms_l2_cold{key}"] = time_cold_ms(fn, iters)
+    km[f"ms_device{key}"] = time_queued_ms(fn, iters)
+
+
 def phase_kernels_flat(iters, dev="cuda"):
     """K21 (the loop filter's maps), K22 (SSE/SSIM), the ME argmin and K23
     (the flat CTB16 scan) against their plain versions on the card, exact
@@ -1206,33 +1432,14 @@ def phase_kernels_flat(iters, dev="cuda"):
     dev = torch.device(dev)
     rng = np.random.default_rng(21)
     km, kq = dict(err=0.0), dict(err=0.0)
-    for key, f, h, w, kind in (("", 16, 384, 640, "intra"),
-                               ("_p_frame", 1, 736, 1280, "p"),
-                               ("_b_frame", 1, 1088, 1920, "b"),
-                               ("_flat_1080p", 1, 1088, 1920, "flat")):
-        h16, w16 = h // 16, w // 16
-        lv = flat_levels(rng, f, h16, w16, dev)
-        flat = kind == "flat"
-        grid = (h16, w16) if flat else (h16 // 2, w16 // 2)
-        qp_sig = torch.as_tensor(30 + rng.integers(-6, 3, grid).astype(
-            np.int32) * (kind in ("b", "flat")), device=dev)
-        split = None if flat else torch.as_tensor(rng.integers(
-            0, 2, (f,) + grid).astype(np.int32), device=dev)
-        inter = None
-
-        def r(lo, hi, *shp):
-            return torch.as_tensor(rng.integers(lo, hi, (f, h16, w16) + shp)
-                                   .astype(np.int32), device=dev)
-        if kind == "p":
-            inter = (r(0, 3), None, r(-40, 41, 2), None, r(0, 1))
-        elif kind == "b":
-            inter = (r(0, 3), r(1, 4), r(-40, 41, 2), r(-40, 41, 2), None)
+    for key, f, h, w, kind in K21_CASES:
+        lv, qp_sig, split, inter = k21_case(rng, f, h, w, kind, dev)
         got = deblock.deblock_maps(lv, 30, qp_sig, split, inter)
         want = deblock.deblock_maps_plain(lv, 30, qp_sig, split, inter)
         for i, (g, w_) in enumerate(zip(got, want)):
             km["err"] = max(km["err"], check_exact(
                 f"deblock_maps {kind} out{i}", g, w_))
-        km[f"ms{key}"] = time_ms(lambda: deblock.deblock_maps(
+        k21_times(km, key, lambda: deblock.deblock_maps(
             lv, 30, qp_sig, split, inter), iters)
         km[f"plain_ms{key}"] = time_ms(lambda: deblock.deblock_maps_plain(
             lv, 30, qp_sig, split, inter), iters)
@@ -3024,11 +3231,12 @@ def phase_kernels_multiref(iters, frames, dev="cuda"):
                                                     chroma), iters)
         ext["plain_ms"] += time_ms(lambda: me.mc_ref_plain(planes, mv, ref, n,
                                                            chroma), 2)
-        t = 4 if chroma else 8
-        # as K7's own row: the stacked planes read once, the MVs and
-        # indices read, the predictions written
-        nbytes_ += nbytes(planes, mv, ref) + nb * n * n * 4
-        ops += nb * ((n + t - 1) * n * 2 * t + n * n * (2 * t + 4))
+        # as K7's own row: what each plane's predictions need of it, the
+        # MVs and indices read, the predictions written
+        nbytes_ += sum(k7_read_bytes(planes[r], mv, n, chroma, ref == r)
+                       for r in range(planes.shape[0])) \
+            + nbytes(ref) + nb * n * n * 4
+        ops += k7_ops(nb, n, chroma)
     ext["bound_ms"], ext["bound_by"] = bound_ms(nbytes_, ops)
     summary = dict(older_ref_share_r3=r3["older_ref_share"],
                    decide_free_equal=True, decide_forced_equal=True)
@@ -3453,7 +3661,7 @@ def phase_kernels_flat_inter(iters, dev="cuda", w=1920, h=1080):
         for i, (g, w_) in enumerate(zip(got_m, want_m)):
             km["err"] = max(km.get("err", 0.0), check_exact(
                 f"deblock_maps{tag} out{i}", g, w_))
-        km[f"ms{tag}"] = time_ms(lambda: deblock.deblock_maps(
+        k21_times(km, tag, lambda: deblock.deblock_maps(
             levels, 32, maps["qp"], None, inter), iters)
         km[f"plain_ms{tag}"] = time_ms(lambda: deblock.deblock_maps_plain(
             levels, 32, maps["qp"], None, inter), iters)
@@ -3641,6 +3849,22 @@ def main():
         "bound on int32 ALUs alone")
     log("phase 2: subpel at the flat P frame " + json.dumps(k6)
         + f" [{card}]")
+    # K7 at the flat 1080p frames' calls, the select entry among them
+    k7 = phase_kernels_k7_1080p(args.iters)
+    mc_row = by_name["mc_qpel"]
+    mc_row["err"] = max(mc_row["err"], k7.pop("err"))
+    mc_row.update(k7)
+    mc_row["shapes_note"] = (
+        "ms: config 2's five calls (1280x736: trials at n 16 and 32, the "
+        "final luma at 16, cb and cr at 8); _ref_r3: the multi-reference "
+        "calls at R 3; _flat_1080p_luma16 / _chroma8: a flat 1080p frame's "
+        "luma call (8160 blocks of 16x16) and a chroma call (8160 of 8x8); "
+        "_flat_1080p_sel_*: the select entry of a flat B frame's final MC "
+        "(one list a block, K9's rows where both are used); _l2_cold: L2 "
+        "flushed before each call; ms_device*: the calls enqueued behind a "
+        "spin of the card, the kernel's own time")
+    log("phase 2: mc_qpel at the flat 1080p frames " + json.dumps(k7)
+        + f" [{card}]")
     # K17 at config 3's P-anchor shapes (also the ladder's 1080p rung)
     dec1080 = phase_kernels_decide_1080p(args.iters)
     dec = by_name["decide_p"]
@@ -3666,7 +3890,9 @@ def main():
         "phase 2's flat P / B frame at 1920x1088 (its intra CTUs only)")
     by_name["deblock_maps"]["shapes_note"] += (
         "; _flat_p / _flat_b: the maps of phase 2's flat P / B frame at "
-        "1920x1088 (bS from kinds, directions and MVs)")
+        "1920x1088 (bS from kinds, directions and MVs); ms_l2_cold*: L2 "
+        "flushed before each call; ms_device*: the calls enqueued behind "
+        "a spin of the card, the two kernels' own time")
     by_name["tu_bits"]["shapes_note"] = (
         "ms: a config-1 batch's four calls; _flat_intra_trial / "
         "_flat_inter_trial: the two calls of phase 2's flat P frame at "
@@ -3939,6 +4165,7 @@ def main():
             **({"deterministic_run_to_run": True}
                if d.get("deterministic") else {}),
             **extra, shapes=shapes))
+    print(json.dumps({"queued_timer": QUEUE_LOG}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

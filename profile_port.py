@@ -15,7 +15,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 profile_port.py [--configs 1,2,...,14] [--batches 2]
         [--p-frames 4] [--iters 20] [--root DIR]
-        [--kernels k1k5,k24,k3,k23,k2k20,k19k25,k6k17]
+        [--kernels k1k5,k24,k3,k23,k2k20,k19k25,k6k17,k7k21]
 
 and, anywhere, to compare runs of two trees (one output file per run):
 
@@ -43,7 +43,7 @@ Prints JSON lines:
     frames coded between the IDR and the P anchor of the first mini-GOP,
     after one uncounted warm-up pass of the first B frame;
   - "b_profile": torch.profiler over one mini-GOP (P + 3 B) of config 3
-    through encode_push (its 30 kernels with the most device time);
+    through encode_push (its 80 kernels with the most device time);
   - "la_stages": the lookahead of config 3 per pushed frame (upload, K12
     lowres plane + AQ, K1 lowres intra cost, K13 lowres motion search, the
     host copies of the small maps, scene-cut decision, CU-tree over the
@@ -89,7 +89,7 @@ Prints JSON lines:
     together; the B trials in "phase1_all", K25 in "decide_scan", SAO and
     the lookahead apart, the IDR's device step in "idr_step");
     "flat_b_profile": torch.profiler over the same 11 frames coded again
-    by a new encoder (its 40 kernels with the most device time, each with
+    by a new encoder (its 80 kernels with the most device time, each with
     its calls);
   - "kernel_times" ("13"): K1, K5, K24, K3, K23, K2 and K20 alone at the main
     path's shapes, CUDA events over --iters calls after 2 warm-up.  K1
@@ -129,11 +129,23 @@ Prints JSON lines:
     and "_forced_device" (replaying its own decisions); "k6_config2_720p"
     (that P frame's two calls, n 16 and 32, sr 8), "k6_1080p_n32" (the P
     anchor's n-32 call) and "k6_flat_p_1080p_n16" (the flat P frame's
-    call, 8160 blocks).
+    call, 8160 blocks).  K7 and K21 ("k7k21", lists of KT_REPS timings,
+    each also "_l2_cold" and "_device"): "k7_flat_1080p_luma16" and
+    "k7_flat_1080p_chroma8" (a flat 1080p frame's luma call, 8160 blocks
+    of 16x16, and a chroma call, 8160 of 8x8, on chip_smoke's
+    `k7_flat_inputs`), "k7_copy_flat_1080p_luma16" and "_chroma8" (a
+    device copy of the bytes each call moves), "k7_mc_select_flat_b_1080p"
+    (the whole final MC of the three planes, K9 included),
+    "k7_config2_five" (config 2's five calls at 1280x736); K21 at
+    chip_smoke phase 2's shapes: "k21_config1_batch" (16 frames at
+    640x384), "k21_p_frame" (1280x736), "k21_b_frame" and
+    "k21_flat_1080p" (1920x1088), each with "_split" (torch.profiler's
+    device ms a call of each of its two kernels); "launch_floor" (an
+    empty launch).
     With --root DIR the port package is imported from DIR (an unpacked
     earlier tree), so that two designs are timed by one script in one
     call; --kernels names the groups timed ("k1k5", "k24", "k3", "k23",
-    "k2k20", "k19k25", "k6k17"; all by default);
+    "k2k20", "k19k25", "k6k17", "k7k21"; all by default);
   - "e2e_fps": chip_smoke phases 19, 20 and 22 timed as those phases time
     them (a new Encoder, their warm-up frames, then one encode_pipelined
     call over the rest, host wall clock): CTB16 all-intra (16 frames),
@@ -148,6 +160,8 @@ Prints JSON lines:
     tree's runs and the verdict: "faster" only where every change run
     beats every parent run (ms and shares lower, fps higher), "slower" the
     other way round, else "unresolved";
+  - "queued_timer": what chip_smoke's `time_queued_ms` met in the run
+    (readings kept, late tries, misreads with the SM clock);
   - the card's name and power limit.
 """
 
@@ -162,8 +176,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from chip_smoke import (card_line, config1, config2, config2_ref, config3,
-                        synth_frames, time_cold_ms, time_ms, time_queued_ms)
+from chip_smoke import (QUEUE_LOG, card_line, config1, config2, config2_ref,
+                        config3, synth_frames, time_cold_ms, time_ms,
+                        time_queued_ms)
 
 # P frames that run every stage before the P breakdowns' clock starts
 P_WARM = 2
@@ -971,8 +986,76 @@ def k6_k17_times(iters, dev):
     return out
 
 
+def k7_k21_times(iters, dev):
+    """K7 and K21 alone (see the docstring), each KT_REPS times: back to
+    back, with L2 flushed before each call and queued behind a spin of the
+    card (`_device`)."""
+    import torch
+    from chip_smoke import K21_CASES, k21_case, k7_flat_inputs, window_mvs
+    from x265amod_tpu_torch.models.encoder import _pad_to_ctu
+    from x265amod_tpu_torch.ops import deblock, me
+    out = {}
+
+    def reps(key, fn):
+        out[key] = [time_ms(fn, iters) for _ in range(KT_REPS)]
+        out[key + "_l2_cold"] = [time_cold_ms(fn, iters)
+                                 for _ in range(KT_REPS)]
+        out[key + "_device"] = [time_queued_ms(fn, iters)
+                                for _ in range(KT_REPS)]
+
+    a = k7_flat_inputs(dev)
+    reps("k7_flat_1080p_luma16",
+         lambda: me.mc_luma_qpel(a["y0"], a["mv0"], 16))
+    reps("k7_flat_1080p_chroma8",
+         lambda: me.mc_chroma_qpel(a["c0"], a["mv0"], 8))
+
+    # a copy of the same bytes (the plane read, an output of its size
+    # written: both equal the call's, 1920x1088 and 8160 x 16^2; 960x544
+    # and 8160 x 8^2): what a launch that only moves them takes
+    for key, src in (("luma16", a["y0"]), ("chroma8", a["c0"])):
+        dst = torch.empty_like(src)
+        reps(f"k7_copy_flat_1080p_{key}", lambda: dst.copy_(src))
+    # a flat B frame's whole final MC: K9 and K7 on the three planes
+    refs0, refs1 = (a["y0"], a["c0"], a["c0"]), (a["y1"], a["c1"], a["c1"])
+    reps("k7_mc_select_flat_b_1080p", lambda: me.mc_select(
+        refs0, refs1, a["dir"], a["mv0"], a["mv1"], 16, []))
+    # config 2's five calls (chip_smoke phase 2's shapes: 1280x736, sr 8)
+    y = torch.as_tensor(_pad_to_ctu(synth_frames(1280, 720, 1, seed=2)[0][0],
+                                    32), device=dev).to(torch.int32)
+    c = y[::2, ::2].contiguous()
+    rng = np.random.default_rng(7)
+    five = []
+    for plane, n, chroma, unit, m in ((y, 16, False, 4, 10),
+                                      (y, 32, False, 4, 10),
+                                      (y, 16, False, 4, 10),
+                                      (c, 8, True, 8, 6), (c, 8, True, 8, 6)):
+        ph, pw = plane.shape
+        mv = torch.as_tensor(window_mvs(rng, (ph // n) * (pw // n), pw // n,
+                                        unit, m), device=dev)
+        five.append((me.mc_chroma_qpel if chroma else me.mc_luma_qpel,
+                     plane, mv, n))
+    reps("k7_config2_five", lambda: [fn(p, mv, n) for fn, p, mv, n in five])
+    # K21 at phase 2's shapes (chip_smoke.K21_CASES, the same seed)
+    rng = np.random.default_rng(21)
+    for key, f, h, w, kind in K21_CASES:
+        lv, qp_sig, split, inter = k21_case(rng, f, h, w, kind, dev)
+        name = f"k21{key or '_config1_batch'}"
+        reps(name, lambda: deblock.deblock_maps(lv, 30, qp_sig, split,
+                                                 inter))
+        # the two launches apart: torch.profiler's device ms a call of each
+        prof = device_profile(lambda: [deblock.deblock_maps(
+            lv, 30, qp_sig, split, inter) for _ in range(iters)], iters)
+        out[name + "_split"] = {t["name"]: t["ms"] / t["calls"]
+                                for t in prof["top"]}
+    # an empty launch (a spin of 0 cycles) queued: the floor of a launch
+    reps("launch_floor", lambda: torch.cuda._sleep(0))
+    torch.cuda.empty_cache()
+    return out
+
+
 # the kernel groups of "13", each timed by its own part of kernel_times
-KERNEL_GROUPS = ("k1k5", "k24", "k3", "k23", "k2k20", "k19k25", "k6k17")
+KERNEL_GROUPS = ("k1k5", "k24", "k3", "k23", "k2k20", "k19k25", "k6k17",
+                 "k7k21")
 
 
 def kernel_times(iters, groups=KERNEL_GROUPS):
@@ -990,6 +1073,8 @@ def kernel_times(iters, groups=KERNEL_GROUPS):
         out.update(k19_k25_times(iters, dev))
     if "k6k17" in groups:
         out.update(k6_k17_times(iters, dev))
+    if "k7k21" in groups:
+        out.update(k7_k21_times(iters, dev))
 
     def planes(w, h, n, seed):
         fr = synth_frames(w, h, n, seed=seed)
@@ -1249,7 +1334,7 @@ def main():
         rest = pframes[2:2 + args.p_frames]
         print(json.dumps({"p_profile": dict(device_profile(
             lambda: [penc.encode_push(*f) for f in rest], len(rest),
-            top=30), root=root)}))
+            top=80), root=root)}))
     if 3 in configs:
         bframes = synth_frames(1920, 1080, 9, seed=4)
         benc = Encoder(config3(), device="cuda")
@@ -1260,7 +1345,7 @@ def main():
             benc.encode_push(*f)
         print(json.dumps({"b_profile": dict(device_profile(
             lambda: [benc.encode_push(*f) for f in bframes[5:9]], 4,
-            top=30), root=root)}))
+            top=80), root=root)}))
     if 4 in configs:
         aframes = synth_frames(1920, 1080, 13, seed=4)
         print(json.dumps({"la_stages": la_stage_breakdown(aframes[:9])}))
@@ -1318,13 +1403,14 @@ def main():
         benc = Encoder(config_flat_b(), device="cuda")
         print(json.dumps({"flat_b_profile": dict(device_profile(
             lambda: list(benc.encode_pipelined(bframes)), len(bframes),
-            top=40), root=root)}))
+            top=80), root=root)}))
     if 13 in configs:
         print(json.dumps({"kernel_times": dict(
             kernel_times(args.iters, args.kernels.split(",")),
             root=root)}))
     if 14 in configs:
         print(json.dumps({"e2e_fps": dict(e2e_fps(), root=root)}))
+    print(json.dumps({"queued_timer": QUEUE_LOG}))
     print(card_line())
 
 

@@ -582,6 +582,24 @@ def test_check_params_refuses_what_the_b_slice_does_not_run(field, value):
         check_params(p)
 
 
+@pytest.mark.parametrize("bframes", [2, 3, 16])
+def test_check_params_refuses_no_b_pyramid(bframes):
+    """ROADMAP queue 3 q: the JAX gate admits ``b_pyramid=False`` with B
+    frames, but the JAX package reads `b_pyramid` nowhere and codes the
+    pyramid all the same; the port refuses the setting for bframes > 1
+    rather than ignore it.  One B frame makes no pyramid: both gates admit
+    it."""
+    from x265amod_tpu.utils.params import check_params as jax_check
+    kw = dict(width=W, height=H, keyint=60, ctu_size=32, sao=True,
+              aq_mode=0, cutree=False, rc_lookahead=4, info=False, qp=32,
+              b_pyramid=False)
+    with pytest.raises(ValueError, match="--no-b-pyramid"):
+        check_params(Param(bframes=bframes, **kw))
+    jax_check(JaxParam(bframes=bframes, **kw))
+    check_params(Param(bframes=1, **kw))
+    jax_check(JaxParam(bframes=1, **kw))
+
+
 @pytest.mark.parametrize("kw", [dict(keyint=1, bframes=0),
                                 dict(bframes=0), dict(bframes=0, aq_mode=0)])
 def test_check_params_admits_the_lookahead_without_b_frames(kw):

@@ -1503,3 +1503,140 @@ def test_tu_bits_flat_intra_trial_count(cuda_dev):
     got = estbits.tu_bits(lv, 0, qp, "P")
     assert got.shape == (8160, 35)
     assert torch.equal(got, estbits.tu_bits_plain(lv, 0, qp, "P"))
+
+
+def _mc_plane(kind, rng, h, w, dev):
+    """A plane for K7: texture with noise, or flat 0 / flat 255 (the two
+    ends of the sample range)."""
+    if kind == "flat0":
+        p = np.zeros((h, w))
+    elif kind == "flat255":
+        p = np.full((h, w), 255)
+    else:
+        yy, xx = np.mgrid[0:h, 0:w]
+        p = np.clip(128 + 90 * np.sin(xx / 5.0) * np.cos(yy / 3.0)
+                    + rng.normal(0, 30, (h, w)), 0, 255)
+    return torch.as_tensor(p.astype(np.int32), device=dev)
+
+
+@pytest.mark.parametrize("plane", ["texture", "flat0", "flat255"])
+@pytest.mark.parametrize("chroma", [False, True])
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_mc_qpel_kernel_1080p(cuda_dev, n, chroma, plane):
+    """K7 against its plain version at the main path's sizes: a 1920x1088
+    luma plane or a 960x544 chroma plane, n 8, 16 and 32, MVs at the
+    window bound +-(sr + 2) luma pels or +-(sr / 2 + 2) chroma pels (sr
+    16) past all four frame edges, every phase pair; textured, flat 0 and
+    flat 255 planes; also through `mc_qpel_ref` at R 3 (one prediction a
+    block, and every block on every plane)."""
+    from chip_smoke import window_mvs
+    from x265amod_tpu_torch.ops import me
+    rng = np.random.default_rng(16 * n + chroma)
+    h, w = (544, 960) if chroma else (1088, 1920)
+    unit, m = (8, 16 // 2 + 2) if chroma else (4, 16 + 2)
+    p = _mc_plane(plane, rng, h, w, cuda_dev)
+    nb, wb = (h // n) * (w // n), w // n
+    mv = torch.as_tensor(window_mvs(rng, nb, wb, unit, m), device=cuda_dev)
+    fn, plain = ((me.mc_chroma_qpel, me.mc_chroma_qpel_plain) if chroma
+                 else (me.mc_luma_qpel, me.mc_luma_qpel_plain))
+    assert torch.equal(fn(p, mv, n), plain(p, mv, n))
+    planes = torch.stack([p, _mc_plane("texture", rng, h, w, cuda_dev),
+                          255 - p])
+    for k in (nb, 3 * nb):
+        mvk = torch.as_tensor(window_mvs(rng, k, wb, unit, m),
+                              device=cuda_dev)
+        ref = torch.as_tensor(rng.integers(0, 3, k).astype(np.int32),
+                              device=cuda_dev)
+        assert torch.equal(me.mc_qpel_ref(planes, mvk, ref, n, chroma),
+                           me.mc_ref_plain(planes, mvk, ref, n, chroma))
+
+
+@pytest.mark.parametrize("plane", ["texture", "flat0", "flat255"])
+@pytest.mark.parametrize("n,chroma", [(16, False), (8, True)])
+def test_mc_qpel_select_entry(cuda_dev, n, chroma, plane):
+    """K7's select entry against its plain version at a flat B frame's
+    final MC (1920x1088 luma n 16, 960x544 chroma n 8): directions 0-3,
+    K9's rows for the blocks that use both lists; `mc_select` launches K7
+    once a plane."""
+    from chip_smoke import window_mvs
+    from x265amod_tpu_torch.ops import cuda_lib, me
+    rng = np.random.default_rng(40 + n + len(plane))
+    h, w = (544, 960) if chroma else (1088, 1920)
+    unit, m = (8, 10) if chroma else (4, 18)
+    r0 = _mc_plane(plane, rng, h, w, cuda_dev)
+    r1 = _mc_plane("texture", rng, h, w, cuda_dev)
+    nb, wb = (h // n) * (w // n), w // n
+    mv0, mv1 = (torch.as_tensor(window_mvs(rng, nb, wb, unit, m),
+                                device=cuda_dev) for _ in range(2))
+    d = torch.as_tensor(rng.integers(0, 4, nb).astype(np.int32),
+                        device=cuda_dev)
+    bi = me.mc_bi(r0, r1, mv0, mv1, n, chroma, m)
+    assert torch.equal(me.mc_qpel_sel(r0, r1, mv0, mv1, d, n, chroma, bi),
+                       me.mc_sel_plain(r0, r1, mv0, mv1, d, n, chroma, bi))
+    if not chroma:
+        cr0, cr1 = r0[::2, ::2].contiguous(), r1[::2, ::2].contiguous()
+        cuda_lib.reset_launches()
+        got = me.mc_select((r0, cr0, cr0), (r1, cr1, cr1), d, mv0, mv1, 16,
+                           [])
+        assert cuda_lib.LAUNCHES["mc_qpel"] == 3
+        assert cuda_lib.LAUNCHES["mc_bi"] == 3
+        u0 = ((d & 1) == 1)[:, None, None]
+        both = ((d & 3) == 3)[:, None, None]
+        for g, (a0, a1, nn, ch) in zip(got, ((r0, r1, 16, False),
+                                             (cr0, cr1, 8, True),
+                                             (cr0, cr1, 8, True))):
+            mc = me.mc_chroma_qpel_plain if ch else me.mc_luma_qpel_plain
+            want = torch.where(both, me.mc_bi_plain(a0, a1, mv0, mv1, nn, ch),
+                               torch.where(u0, mc(a0, mv0, nn),
+                                           mc(a1, mv1, nn)))
+            assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("f,h16,w16", [(1, 68, 120), (16, 24, 40)])
+def test_deblock_maps_two_launches(cuda_dev, f, h16, w16, mode):
+    """K21's two launches against the plain maps at 1920x1088 (one frame)
+    and 640x384 (a config-1 batch of 16 frames), in all four modes, on the
+    coded patterns of `tests/test_torch_scan_schedule.py` that cross the
+    CTAs' CTB rows (nothing coded, only the last or the first CTB, every
+    other CTB, one a row, split CTB32s whose first coded cell is z = 1, 2
+    or 3, random), bit for bit; the levels also at an offset that is not
+    16-byte aligned."""
+    from test_torch_scan_schedule import _K21_PATTERNS, _k21_coded, \
+        _k21_levels
+    from x265amod_tpu_torch.ops import deblock
+    rng = np.random.default_rng(500 + 10 * mode + f)
+    s_ = 1 if mode >= 2 else 2
+    grid = (h16 // s_, w16 // s_)
+    for pattern in _K21_PATTERNS:
+        if pattern == "z123" and s_ == 1:
+            continue
+        cells = _k21_coded(pattern, f, h16, w16, s_, rng)
+        lv = tuple(t.to(cuda_dev) for t in _k21_levels(cells, rng))
+        qp_sig = torch.as_tensor(rng.integers(20, 45, grid).astype(np.int32),
+                                 device=cuda_dev)
+        split = None if s_ == 1 else torch.as_tensor(
+            (rng.random((f,) + grid) < 0.7).astype(np.int32),
+            device=cuda_dev)
+        inter = None
+        if mode in (1, 3):
+            def r(lo, hi, *shp):
+                return torch.as_tensor(
+                    rng.integers(lo, hi, (f, h16, w16) + shp)
+                    .astype(np.int32), device=cuda_dev)
+            inter = (r(0, 3), r(1, 4), r(-6, 7, 2), r(-6, 7, 2),
+                     r(0, 2) if mode == 1 else None)
+        want = deblock.deblock_maps_plain(lv, 30, qp_sig, split, inter)
+        got = deblock.deblock_maps(lv, 30, qp_sig, split, inter)
+        for g, wt in zip(got, want):
+            assert torch.equal(g, wt.to(torch.int32)), pattern
+        # levels 2 bytes past an aligned start: the wrapper realigns them
+        shifted = []
+        for t in lv:
+            flat = torch.empty(t.numel() + 1, dtype=torch.int16,
+                               device=cuda_dev)
+            flat[1:] = t.reshape(-1)
+            shifted.append(flat[1:].view(t.shape))
+        got = deblock.deblock_maps(tuple(shifted), 30, qp_sig, split, inter)
+        for g, wt in zip(got, want):
+            assert torch.equal(g, wt.to(torch.int32)), pattern

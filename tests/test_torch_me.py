@@ -167,6 +167,41 @@ def test_mc_chroma_qpel_parity():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("n,chroma", [(16, False), (8, True)])
+def test_mc_select_entry_equals_jax_mc_select(n, chroma):
+    """K7's select entry (`mc_sel_plain`, what `mc_qpel_sel` computes) is
+    JAX's `mc_select` composition (`models/b_frame.py:407-415`): the uni
+    prediction of list 0 where ``dir & 1``, else of list 1, and the bi rows
+    where both lists are used, for dir 0, 1, 2 and 3 at n 16 luma and n 8
+    chroma.  JAX's uni predictions are the calls (same shapes and bounds)
+    that the two parity tests above compile, and its selection is done in
+    numpy, so no JAX program is compiled here; the bi rows, the same on
+    both sides, are K9's plain version (held to JAX's `bi_combine` in
+    `tests/test_torch_b.py`)."""
+    rng = np.random.default_rng(60 + n)
+    h, w = (32, 48) if chroma else (64, 96)
+    m = SR // 2 + 2 if chroma else SR + 2
+    unit = 8 if chroma else 4
+    planes = [rng.integers(0, 256, (h, w)).astype(np.int32)
+              for _ in range(2)]
+    nb = (h // n) * (w // n)
+    mv0, mv1 = (rng.integers(-unit * m, unit * m + unit, (nb, 2))
+                .astype(np.int32) for _ in range(2))
+    mv0[0], mv1[-1] = (-unit * m, -unit * m), (unit * m, unit * m)
+    dirs = (np.arange(nb) % 4).astype(np.int32)
+    rng.shuffle(dirs)
+    jfn = jme.mc_chroma_qpel if chroma else jme.mc_luma_qpel
+    uni = [np.asarray(jfn(jnp.asarray(p), jnp.asarray(v), n, max_mv=m))
+           for p, v in zip(planes, (mv0, mv1))]
+    tt = [T(a) for a in (planes[0], planes[1], mv0, mv1)]
+    bi = tme.mc_bi_plain(*tt, n, chroma)
+    u0 = ((dirs & 1) == 1)[:, None, None]
+    both = ((dirs & 3) == 3)[:, None, None]
+    sel = np.where(u0, uni[0], uni[1])
+    got = tme.mc_qpel_sel(*tt, T(dirs), n, chroma, bi).numpy()
+    np.testing.assert_array_equal(got, np.where(both, bi.numpy(), sel))
+
+
 def test_mvd_bits_over_the_reachable_domain():
     """`_mvd_bits` and `_mvd_bits_f` (f32 floor(log2)) against the port's
     integer form 1 + 2 bitlen(|v|) per component, for every component up

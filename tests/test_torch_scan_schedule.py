@@ -1185,3 +1185,295 @@ def test_k17_row_walk_model_equals_the_plain_scan(wc, hc, seed, nr):
         assert torch.equal(got_f[k], want_f[k].to(got_f[k].dtype)), k
     for k in ("split", "mv", "ref"):
         assert torch.equal(got_f[k], want[k].to(got_f[k].dtype)), k
+
+
+# ---- K21: the loop filter's maps as two launches ---------------------------
+
+def _pad16(n):
+    return (n + 15) & ~15
+
+
+def k21_model(levels, slice_qp, qp_sig, split=None, inter=None):
+    """K21 (`csrc/deblock_maps.cu`) as its two launches compute it, in
+    numpy.  `flags_kernel`: a warp takes four cells (flat: four in raster
+    order; CTB32: a CTB's four in z-order), each lane 16 bytes of a cell's
+    luma and lanes 0-15 16 bytes of its chroma; two ballots give a cell's
+    byte (bit 0 coded, bit 1 luma coded), and lane 0 a CTB32's byte.  The
+    scratch's padding is left 0xff, as `torch.empty` may leave it.
+    `edges_kernel`, a CTA a CTB row R of a frame: the last coded CTB
+    before the row from the CTB bytes read 16 at a time, a block scan of
+    256 CTBs at a time over rows R and R + 1, the decoded QPs of the
+    row's cell rows and of the cell row below, then the edges.  Returns
+    the six maps, as `deblock_maps_plain`, and per (frame, R) the decoded
+    QPs [rows, w16] the CTA computed from cell row S R on."""
+    ly, lcb, lcr = (np.asarray(t) for t in levels)
+    f_, h16, w16 = ly.shape[:3]
+    n16 = h16 * w16
+    mode = (2 if inter is None else 3) if split is None else \
+        (0 if inter is None else 1)
+    s_ = 1 if mode >= 2 else 2
+    wc, hc = w16 // s_, h16 // s_
+    nctb = wc * hc
+    qp_sig = np.asarray(qp_sig).reshape(-1)
+    flags = np.full((f_, _pad16(n16)), 0xff, np.uint8)
+    ctb = np.full((f_, _pad16(nctb)), 0xff, np.uint8)
+    lane_y = ly.reshape(f_, n16, 32, 8)
+    lane_c = np.concatenate([lcb.reshape(f_, n16, 8, 8),
+                             lcr.reshape(f_, n16, 8, 8),
+                             np.zeros((f_, n16, 16, 8), np.int16)], 2)
+    units = (n16 + 3) // 4 if s_ == 1 else nctb
+    for f in range(f_):
+        for u in range(units):
+            if s_ == 1:
+                cells = [4 * u + z if 4 * u + z < n16 else -1
+                         for z in range(4)]
+            else:
+                cells = [(2 * (u // wc) + (z >> 1)) * w16 + 2 * (u % wc)
+                         + (z & 1) for z in range(4)]
+            any_ = 0
+            for c in cells:
+                ny = c >= 0 and (lane_y[f, c] != 0).any(1).any()
+                nc = c >= 0 and (lane_c[f, c] != 0).any(1).any()
+                fl = int(ny or nc) | (int(ny) << 1)
+                any_ |= fl
+                if c >= 0:
+                    flags[f, c] = fl
+            if s_ == 2:
+                ctb[f, u] = any_ & 1
+    ctbf = flags if s_ == 1 else ctb
+    kinds = dir_ = mv0 = mv1 = ref0 = None
+    if inter is not None:
+        kinds, dir_, mv0, mv1, ref0 = (None if t is None else np.asarray(t)
+                                       for t in inter)
+    spl = None if split is None else np.asarray(split).reshape(f_, -1)
+    outs = [np.zeros((f_, h16, w16 - 1), np.int32) for _ in range(3)] + \
+        [np.zeros((f_, h16 - 1, w16), np.int32) for _ in range(3)]
+    tiles = {}
+
+    for f in range(f_):
+        def fl(r, c):
+            return int(flags[f, r * w16 + c])
+
+        def sp(r, c):
+            return int(spl[f, (r // 2) * wc + c // 2])
+
+        def bs_pair(p, q, cbf_p, cbf_q):
+            fk, fm0 = kinds[f].reshape(-1), mv0[f].reshape(-1, 2)
+            if fk[p] == 2 or fk[q] == 2:
+                return 2
+            dp = 1 if dir_ is None else int(dir_[f].reshape(-1)[p])
+            dq = 1 if dir_ is None else int(dir_[f].reshape(-1)[q])
+            rp = 0 if ref0 is None else int(ref0[f].reshape(-1)[p])
+            rq = 0 if ref0 is None else int(ref0[f].reshape(-1)[q])
+            big0 = bool((np.abs(fm0[p] - fm0[q]) >= 4).any())
+            big1 = mv1 is not None and bool((np.abs(
+                mv1[f].reshape(-1, 2)[p] - mv1[f].reshape(-1, 2)[q])
+                >= 4).any())
+            mm = dp != dq or (dp & 1 and big0) or (dp & 2 and big1) or \
+                rp != rq
+            return 1 if (cbf_p or cbf_q or mm) else 0
+
+        def tu_cbf(r, c):
+            if sp(r, c):
+                return (fl(r, c) >> 1) & 1
+            r0, c0 = r & ~1, c & ~1
+            return ((fl(r0, c0) | fl(r0, c0 + 1) | fl(r0 + 1, c0)
+                     | fl(r0 + 1, c0 + 1)) >> 1) & 1
+
+        def edge_bs(r, c, rq, cq, internal):
+            if mode == 2:
+                return 2
+            if mode == 3:
+                return bs_pair(r * w16 + c, rq * w16 + cq,
+                               (fl(r, c) >> 1) & 1, (fl(rq, cq) >> 1) & 1)
+            s = sp(rq, cq)
+            if mode == 0:
+                return 2 * s if internal else 2
+            if internal and s == 0:
+                return 0
+            return bs_pair(r * w16 + c, rq * w16 + cq, tu_cbf(r, c),
+                           tu_cbf(rq, cq))
+
+        for R in range(hc):
+            k0_, k1_ = R * wc, min(nctb, R * wc + 2 * wc)
+            carry0 = -1
+            for q in range(-(-k0_ // 16)):
+                for i in range(16):
+                    k = 16 * q + i
+                    if ctbf[f, k] & 1 and k < k0_:
+                        carry0 = max(carry0, k)
+            incl = np.zeros(2 * wc, int)
+            run = carry0
+            for k0 in range(k0_, k1_, 256):
+                v = np.array([k if k < k1_ and ctbf[f, k] & 1 else -1
+                              for k in range(k0, k0 + 256)])
+                scan = np.maximum.accumulate(v)
+                for k in range(k0, min(k1_, k0 + 256)):
+                    incl[k - k0_] = max(scan[k - k0], run)
+                run = max(run, scan[-1])
+            rlo = s_ * R
+            nrows, nq = min(s_, h16 - rlo), min(s_ + 1, h16 - rlo)
+            eff = np.zeros((nq, w16), np.int32)
+            for r in range(rlo, rlo + nq):
+                for c in range(w16):
+                    if s_ == 1:
+                        last = incl[r * wc + c - k0_]
+                        q = qp_sig[last] if last >= 0 else slice_qp
+                    else:
+                        k = (r // 2) * wc + c // 2
+                        r0, c0 = r & ~1, c & ~1
+                        cz = [fl(r0 + (z >> 1), c0 + (z & 1)) & 1
+                              for z in range(4)]
+                        firstz = 4
+                        if any(cz):
+                            firstz = cz.index(1) if sp(r, c) else 0
+                        z = (r & 1) * 2 + (c & 1)
+                        if z >= firstz:
+                            q = qp_sig[k]
+                        else:
+                            carry = carry0 if k == k0_ else \
+                                incl[k - k0_ - 1]
+                            q = qp_sig[carry] if carry >= 0 else slice_qp
+                    eff[r - rlo, c] = q
+            tiles[f, R] = eff
+            nv = nrows * (w16 - 1)
+            for e in range(nv + (nq - 1) * w16):
+                if e < nv:
+                    r, c = rlo + e // (w16 - 1), e % (w16 - 1)
+                    rq, cq, internal = r, c + 1, (c & 1) == 0
+                else:
+                    r, c = rlo + (e - nv) // w16, (e - nv) % w16
+                    rq, cq, internal = r + 1, c, (r & 1) == 0
+                bs = edge_bs(r, c, rq, cq, internal)
+                q = (int(eff[r - rlo, c]) + int(eff[rq - rlo, cq]) + 1) >> 1
+                qc = min(max(q, 0), 57)
+                qc = qc if qc < 30 else (qc - 6 if qc > 43 else
+                                         _CHROMA_QP[qc - 30])
+                o = (0, 1, 2) if e < nv else (3, 4, 5)
+                for k, v in zip(o, (bs, q, qc)):
+                    outs[k][f, r, c] = v
+    return outs, tiles
+
+
+_CHROMA_QP = (29, 30, 31, 32, 33, 33, 34, 34, 35, 35, 36, 36, 37, 37)
+
+
+def _k21_coded(pattern, f, h16, w16, s_, rng):
+    """Per-cell coded masks [F, h16, w16] of a named pattern over the CTB
+    grid (CTB = s_ x s_ cells): "none", "last" (only the last CTB),
+    "first", "alternate" (every other CTB in raster order), "row_one" (one
+    CTB a CTB row, at a random column), "z123" (CTB32: coded CTBs whose
+    first coded cell in z-order is z = 1, 2 or 3), "random"."""
+    hc, wc = h16 // s_, w16 // s_
+    ctb = np.zeros((f, hc * wc), bool)
+    if pattern == "last":
+        ctb[:, -1] = True
+    elif pattern == "first":
+        ctb[:, 0] = True
+    elif pattern == "alternate":
+        ctb[:, ::2] = True
+    elif pattern == "row_one":
+        for r in range(hc):
+            ctb[:, r * wc + rng.integers(0, wc, f)] = True
+    elif pattern in ("z123", "random"):
+        ctb = rng.random((f, hc * wc)) < 0.5
+    cells = np.repeat(np.repeat(ctb.reshape(f, hc, wc), s_, 1), s_, 2)
+    if s_ == 2:
+        z = rng.integers(1 if pattern == "z123" else 0, 4, (f, hc, wc))
+        zz = (np.arange(h16)[:, None] % 2) * 2 + np.arange(w16)[None] % 2
+        first = np.repeat(np.repeat(z, 2, 1), 2, 2)
+        keep = zz[None] >= first
+        if pattern != "z123":
+            keep |= rng.random((f, h16, w16)) < 0.5
+        cells &= keep
+    return cells
+
+
+def _k21_levels(cells, rng):
+    """Levels [F, h16, w16, 16, 16] and two [F, h16, w16, 8, 8] int16 with
+    one non-zero level in each coded cell: luma (so luma coded) or one of
+    the chroma blocks, each with probability a third."""
+    f, h16, w16 = cells.shape
+    out = [np.zeros((f, h16, w16, n, n), np.int16) for n in (16, 8, 8)]
+    for idx in zip(*np.nonzero(cells)):
+        p = rng.integers(0, 3)
+        n = 16 if p == 0 else 8
+        out[p][idx + (rng.integers(0, n), rng.integers(0, n))] = \
+            rng.choice([-3, -1, 1, 2])
+    return tuple(torch.as_tensor(a) for a in out)
+
+
+_K21_PATTERNS = ["none", "last", "first", "alternate", "row_one", "z123",
+                 "random"]
+
+
+@pytest.mark.parametrize("mode,pattern", [
+    (m, p) for m in range(4) for p in _K21_PATTERNS
+    if m < 2 or p != "z123"])              # z-order: CTB32 only
+def test_k21_model_equals_the_plain_maps(mode, pattern):
+    """`k21_model` equals `deblock_maps_plain` exactly in all four modes
+    (the intra CTU32 tree, the P/B trees, the flat intra frame, the flat
+    P/B frame) on coded patterns that cross the CTAs' CTB rows, and each
+    CTA's decoded QP rows equal `effective_qp16_tree` (CTB32) or
+    `effective_qp_map` (CTB16) there: nothing coded, only the last or the
+    first CTB, every other CTB, one CTB a row, split CTB32s whose first
+    coded cell lies at z = 1, 2 or 3, random; two frames of 10 x 8 cells
+    (CTB32) or 7 x 5 (CTB16)."""
+    from x265amod_tpu_torch.ops import deblock
+    rng = np.random.default_rng(300 + 10 * mode + len(pattern))
+    f = 2
+    s_ = 1 if mode >= 2 else 2
+    h16, w16 = (5, 7) if s_ == 1 else (8, 10)
+    cells = _k21_coded(pattern, f, h16, w16, s_, rng)
+    lv = _k21_levels(cells, rng)
+    grid = (h16 // s_, w16 // s_)
+    qp_sig = torch.as_tensor(rng.integers(20, 45, grid).astype(np.int32))
+    split = None if s_ == 1 else torch.as_tensor(
+        (rng.random((f,) + grid) < (0.9 if pattern == "z123" else 0.5))
+        .astype(np.int32))
+    inter = None
+    if mode in (1, 3):
+        def r(lo, hi, *shp):
+            return torch.as_tensor(rng.integers(lo, hi, (f, h16, w16) + shp)
+                                   .astype(np.int32))
+        inter = (r(0, 3), r(1, 4), r(-6, 7, 2), r(-6, 7, 2),
+                 r(0, 2) if mode == 1 else None)
+    want = deblock.deblock_maps_plain(lv, 30, qp_sig, split, inter)
+    got, tiles = k21_model(lv, 30, qp_sig, split, inter)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())
+    nz_y, coded = deblock.coded_cells(lv)
+    if s_ == 1:
+        eff = deblock.effective_qp_map(qp_sig, coded, 30)
+    else:
+        eff = deblock.effective_qp16_tree(qp_sig, split, coded, 30)
+    for (fi, r), rows in tiles.items():
+        rlo = s_ * r
+        assert np.array_equal(rows, eff[fi, rlo:rlo + rows.shape[0]].numpy())
+    if pattern == "none":
+        assert (eff == 30).all()
+
+
+@pytest.mark.parametrize("mode", [2, 3])
+def test_k21_model_scans_past_one_cta(mode):
+    """A CTB16 frame 150 cells wide: the scan over two CTB rows takes two
+    chunks of 256 and the carry-in reads more than one load of 16 CTB
+    bytes a thread."""
+    from x265amod_tpu_torch.ops import deblock
+    rng = np.random.default_rng(330 + mode)
+    f, h16, w16 = 1, 4, 150
+    cells = rng.random((f, h16, w16)) < 0.02
+    cells[0, 1] = False                   # a whole row with nothing coded
+    lv = _k21_levels(cells, rng)
+    qp_sig = torch.as_tensor(rng.integers(20, 45, (h16, w16))
+                             .astype(np.int32))
+    inter = None
+    if mode == 3:
+        inter = (torch.as_tensor(rng.integers(0, 3, (f, h16, w16))
+                                 .astype(np.int32)), None,
+                 torch.as_tensor(rng.integers(-6, 7, (f, h16, w16, 2))
+                                 .astype(np.int32)), None, None)
+    want = deblock.deblock_maps_plain(lv, 33, qp_sig, None, inter)
+    got, _ = k21_model(lv, 33, qp_sig, None, inter)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())

@@ -9,7 +9,8 @@ either runs the kernel or raises.
 
 `LAUNCHES[name]` counts the launches of kernel `name` by its wrapper (one
 a call; K20 `commit_intra` enqueues one a diagonal in one call, K23
-`intra16_scan` two: its ticket list and its scan);
+`intra16_scan` two: its ticket list and its scan, K21 `deblock_maps` two:
+the cells' flags, then the QP chain and the edges);
 `LAUNCHES["intra_pred_lowres"]` counts K1's launches by the lookahead apart
 from the trees', `LAUNCHES["residual_chain_rdoq"]` K2's launches with its
 RDOQ stage apart from those without, and `LAUNCHES["decide_flat_b"]` the B

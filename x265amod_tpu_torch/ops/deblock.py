@@ -1,8 +1,8 @@
 """Deblocking (spec 8.7.2) for the CTU32 trees and the flat CTB16 intra
 frame: kernel K21 `deblock_maps` (the boundary strength maps, the decoded QP
-chain and the per-edge luma and chroma QPs, in one launch) and kernel K4
-`deblock` (the luma bS 1/2 filter and the chroma bS == 2 filter, vertical
-edges then horizontal), each beside its plain version.
+chain and the per-edge luma and chroma QPs, in one call of two launches) and
+kernel K4 `deblock` (the luma bS 1/2 filter and the chroma bS == 2 filter,
+vertical edges then horizontal), each beside its plain version.
 
 Counterparts in the JAX package's `ops/deblock.py`: `luma_params`,
 `intra_tree_bs_maps`, `_bs_pair`, `bs_maps`, `inter_tree_bs_maps`,
@@ -221,9 +221,17 @@ class MapsArgs(ctypes.Structure):
                     "qpc_v", "qpc_h", "scratch")])
 
 
+def _pad16(n: int) -> int:
+    return (n + 15) & ~15
+
+
 def deblock_maps(levels, slice_qp: int, qp_sig, split=None, inter=None):
     """See deblock_maps_plain; CUDA levels launch K21
-    (`csrc/deblock_maps.cu`) once for the batch."""
+    (`csrc/deblock_maps.cu`) once for the batch: two kernels, the cells'
+    flags, then the QP chain and the edges.  Each call allocates one int32
+    buffer that holds the six outputs and one byte buffer of flags (a byte
+    a cell and, for the CTU32 trees, a byte a CTB32), both from PyTorch's
+    caching allocator."""
     if levels[0].device.type == "cpu":
         return deblock_maps_plain(levels, slice_qp, qp_sig, split, inter)
     ly = levels[0]
@@ -235,6 +243,8 @@ def deblock_maps(levels, slice_qp: int, qp_sig, split=None, inter=None):
         if t is None:
             return None
         t = t.to(dt).contiguous()
+        if t.data_ptr() % 16:          # the levels are read 16 bytes a load
+            t = t.clone()
         keep.append(t)
         return cuda_lib.ptr(t)
     mode = (2 if inter is None else 3) if split is None else \
@@ -256,20 +266,25 @@ def deblock_maps(levels, slice_qp: int, qp_sig, split=None, inter=None):
     a.split, a.qp_sig = p(split), p(qp_sig)
     if inter is not None:
         a.kinds, a.dir, a.mv0, a.mv1, a.ref0 = (p(t) for t in inter)
-    outs = [torch.empty((f, h16, w16 - 1) if k < 3 else (f, h16 - 1, w16),
-                        dtype=torch.int32, device=dev) for k in range(6)]
-    scratch = torch.empty((f, 2, h16 * w16), dtype=torch.int32, device=dev)
+    nv, nh = f * h16 * (w16 - 1), f * (h16 - 1) * w16
+    buf = torch.empty(3 * (nv + nh), dtype=torch.int32, device=dev)
+    outs = [buf[k * nv:(k + 1) * nv].view(f, h16, w16 - 1) for k in range(3)]
+    outs += [buf[3 * nv + k * nh:3 * nv + (k + 1) * nh].view(f, h16 - 1, w16)
+             for k in range(3)]
+    n16 = h16 * w16
+    scratch = torch.empty(f * (_pad16(n16) + (_pad16(n16 // 4) if mode < 2
+                                              else 0)),
+                          dtype=torch.uint8, device=dev)
     a.bs_v, a.qp_v, a.qpc_v, a.bs_h, a.qp_h, a.qpc_h = (
         cuda_lib.ptr(t) for t in outs)
     a.scratch = cuda_lib.ptr(scratch)
-    cuda_lib.require_cuda(*keep, *outs, scratch)
+    cuda_lib.require_cuda(*keep, buf, scratch)
     fn = cuda_lib.lib("deblock_maps").deblock_maps
     fn.argtypes = [ctypes.POINTER(MapsArgs), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(ctypes.byref(a), ctypes.c_void_p(cuda_lib.stream_handle(ly)))
-    cuda_lib.launched("deblock_maps", rc)
+    cuda_lib.launched("deblock_maps", rc, 2)
     return tuple(outs)
-
 
 
 # ---- plain filters ----------------------------------------------------------

@@ -1,6 +1,7 @@
 """Motion estimation and motion compensation for the P and B trees: kernels
 K5 `me_ssd_grid`, K6 `subpel_refine`, K7 `mc_qpel` (also over stacked
-reference planes with a per-block reference index, `mc_qpel_ref`), K8
+reference planes with a per-block reference index, `mc_qpel_ref`, and
+from the list each block's direction names, `mc_qpel_sel`), K8
 `hpel_plane`, K9 `mc_bi` (bi-prediction) and K18 `pick_ref` (the best
 reference per CU of a multi-reference P frame), each beside its plain
 PyTorch version.
@@ -163,6 +164,19 @@ def mc_ref_plain(planes, mv, ref, n: int, chroma: bool):
                          for r in range(planes.shape[0])])
     return torch.gather(preds, 0, ref.long()[None, :, None, None].expand(
         1, -1, n, n))[0]
+
+
+def mc_sel_plain(ref0, ref1, mv0, mv1, dir_, n: int, chroma: bool, bi):
+    """The prediction of every raster block from the lists its direction
+    names (JAX `mc_select`, `models/b_frame.py:407-415`): the rows of ``bi``
+    [nb, n, n] (the bi-prediction) where ``dir_ & 3`` is 3, else the uni
+    prediction from ref0 at mv0 where ``dir_ & 1``, else from ref1 at mv1.
+    [nb, n, n] int32."""
+    u0 = ((dir_ & 1) == 1)[:, None, None]
+    both = ((dir_ & 3) == 3)[:, None, None]
+    return torch.where(both, bi, torch.where(
+        u0, _uni(mc14(ref0, mv0, n, chroma)),
+        _uni(mc14(ref1, mv1, n, chroma))))
 
 
 def mc_luma_qpel14(plane, mv, n: int = 16):
@@ -431,6 +445,38 @@ def mc_qpel_ref(planes, mv, ref, n: int, chroma: bool):
     return out
 
 
+def mc_qpel_sel(ref0, ref1, mv0, mv1, dir_, n: int, chroma: bool, bi):
+    """See mc_sel_plain; a CUDA tensor launches `csrc/mc_qpel.cu`'s select
+    entry (one launch: each block predicted once, from the list its
+    direction names, or its bi rows copied)."""
+    if ref0.device.type == "cpu":
+        return mc_sel_plain(ref0, ref1, mv0, mv1, dir_, n, chroma, bi)
+    r0, r1 = _plane_arg(ref0), _plane_arg(ref1)
+    m0 = mv0.to(torch.int32).contiguous()
+    m1 = mv1.to(torch.int32).contiguous()
+    d = dir_.to(torch.int32).contiguous()
+    h, w = r0.shape
+    nb = (h // n) * (w // n)
+    b = bi.to(torch.int32).contiguous()
+    if b.data_ptr() % 16:                  # its rows are read as vectors
+        b = b.clone()
+    cuda_lib.require_cuda(r0, r1, m0, m1, d, b)
+    if r1.shape != r0.shape or m0.shape != (nb, 2) or m1.shape != (nb, 2) \
+            or d.shape != (nb,) or b.shape != (nb, n, n) or \
+            n not in (8, 16, 32):
+        raise ValueError("mc_qpel_sel: bad shapes")
+    out = torch.empty((nb, n, n), dtype=torch.int32, device=r0.device)
+    if nb:
+        rc = _lib("mc_qpel", "mc_qpel_sel", [_VP] * 2 + [_I] * 2 + [_VP] * 4
+                  + [_I] * 3 + [_VP] * 2).mc_qpel_sel(
+            cuda_lib.ptr(r0), cuda_lib.ptr(r1), h, w, cuda_lib.ptr(m0),
+            cuda_lib.ptr(m1), cuda_lib.ptr(d), cuda_lib.ptr(b), nb, n,
+            int(chroma),
+            cuda_lib.ptr(out), _VP(cuda_lib.stream_handle(r0)))
+        cuda_lib.launched("mc_qpel", rc)
+    return out
+
+
 def pick_ref(d, rb, mv, lam, refbits):
     """See pick_ref_plain; a CUDA tensor launches `csrc/pick_ref.cu`."""
     if d.device.type == "cpu":
@@ -525,20 +571,17 @@ def mc_select(refs0, refs1, dir_, mv0, mv1, sr: int, excess):
     the two references' planes): the bi-prediction (K9, its window check
     appended to ``excess``, MVs within +-(sr + 2) luma and sr / 2 + 2
     chroma) where ``dir_`` uses both lists, else the used list's uni
-    prediction (K7), list 1's where it uses none (JAX `mc_select`,
-    `models/inter_tree.py:1610-1624` and `models/b_frame.py:407-418`)."""
-    use0, use1 = (dir_ & 1) == 1, (dir_ & 2) == 2
-    both = (use0 & use1)[:, None, None]
-    u0 = use0[:, None, None]
+    prediction, list 1's where it uses none (JAX `mc_select`,
+    `models/inter_tree.py:1610-1624` and `models/b_frame.py:407-418`).
+    One K7 launch a plane (`mc_qpel_sel`) predicts each block from its
+    list only and takes K9's rows where both are used."""
     out = []
     for r0, r1, n, chroma in ((refs0[0], refs1[0], 16, False),
                               (refs0[1], refs1[1], 8, True),
                               (refs0[2], refs1[2], 8, True)):
-        mc = mc_chroma_qpel if chroma else mc_luma_qpel
         mm = sr // 2 + 2 if chroma else sr + 2
         bi = mc_bi(r0, r1, mv0, mv1, n, chroma, mm, excess)
-        out.append(torch.where(both, bi, torch.where(
-            u0, mc(r0, mv0, n), mc(r1, mv1, n))))
+        out.append(mc_qpel_sel(r0, r1, mv0, mv1, dir_, n, chroma, bi))
     return tuple(out)
 
 
