@@ -1011,12 +1011,15 @@ def phase_kernels_k7_1080p(iters, dev="cuda"):
     """K7 at the flat 1080p frames' calls (`k7_flat_inputs`): the trial's
     and the P frame's final luma call (n 16, 8160 blocks), a chroma call
     (n 8, 8160 blocks) and the select entry of a B frame's final MC on
-    luma and chroma, each against its plain version bit for bit, timed
-    back to back, with L2 flushed before each call and queued behind a
-    spin (the kernel's own time).  Each bound counts the bytes this run's
+    luma and chroma, with and without K9's rows (the selbi keys: the
+    both-list blocks bi-predicted in the same launch), each against its
+    plain version bit for bit, timed back to back, with L2 flushed before
+    each call and queued behind a spin (the kernel's own time).  Each
+    bound counts the bytes this run's
     blocks must read (`k7_read_bytes`; the select entry's per list, and
-    K9's rows only where both lists are used) and the output.  Returns the
-    keys added to the mc_qpel row."""
+    K9's rows only where both lists are used; without those rows, the
+    `_selbi` keys, both lists of the blocks that use both) and the output.
+    Returns the keys added to the mc_qpel row."""
     from x265amod_tpu_torch.ops import me
     a = k7_flat_inputs(dev)
     nb = a["mv0"].shape[0]
@@ -1030,6 +1033,20 @@ def phase_kernels_k7_1080p(iters, dev="cuda"):
         return (k7_read_bytes(r0, a["mv0"], n, chroma, l0)
                 + k7_read_bytes(r1, a["mv1"], n, chroma, l1)
                 + int(both.sum()) * n * n * 4 + nbytes(a["dir"]))
+
+    def selbi_bytes(r0, r1, n, chroma):
+        # without bi rows: the both-list blocks read both lists
+        return (k7_read_bytes(r0, a["mv0"], n, chroma, l0 | both)
+                + k7_read_bytes(r1, a["mv1"], n, chroma, l1 | both)
+                + nbytes(a["dir"]))
+
+    def selbi(r0, r1, mv0, mv1, d, n, chroma, mm):
+        return me.mc_qpel_sel(r0, r1, mv0, mv1, d, n, chroma, None, mm, [])
+
+    def selbi_plain(r0, r1, mv0, mv1, d, n, chroma, mm):
+        return me.mc_sel_plain(r0, r1, mv0, mv1, d, n, chroma,
+                               me.mc_bi_plain(r0, r1, mv0, mv1, n, chroma))
+    nb3 = int(both.sum())
     calls = {
         "_flat_1080p_luma16": (
             me.mc_luma_qpel, me.mc_luma_qpel_plain, (a["y0"], a["mv0"], 16),
@@ -1047,7 +1064,17 @@ def phase_kernels_k7_1080p(iters, dev="cuda"):
             me.mc_qpel_sel, me.mc_sel_plain,
             (a["c0"], a["c1"], a["mv0"], a["mv1"], a["dir"], 8, True,
              a["bi_c"]), sel_bytes(a["c0"], a["c1"], 8, True),
-            k7_ops(uni, 8, 1))}
+            k7_ops(uni, 8, 1)),
+        "_flat_1080p_selbi_luma16": (
+            selbi, selbi_plain,
+            (a["y0"], a["y1"], a["mv0"], a["mv1"], a["dir"], 16, False, 18),
+            selbi_bytes(a["y0"], a["y1"], 16, False),
+            k7_ops(uni, 16, 0) + k9_ops(nb3, 16, 0)),
+        "_flat_1080p_selbi_chroma8": (
+            selbi, selbi_plain,
+            (a["c0"], a["c1"], a["mv0"], a["mv1"], a["dir"], 8, True, 10),
+            selbi_bytes(a["c0"], a["c1"], 8, True),
+            k7_ops(uni, 8, 1) + k9_ops(nb3, 8, 1))}
     k7 = dict(err=0.0, blocks_flat_1080p=nb, uni_blocks_flat_1080p_sel=uni)
     for key, (fn, plain, args, read, ops) in calls.items():
         got = fn(*args)
@@ -1779,18 +1806,15 @@ def sao_ops(npix, planes):
     return npix * planes * (1 + 4 * 8 + 3)
 
 
-def phase_kernels_b(iters, dev="cuda", w=1920, h=1088, sr=16):
-    """K9-K11 at one config-3 B frame's shapes (1920x1080 padded to 1088
-    rows, sr 16): K9 at the trials' luma calls (bn 16 and 32) and the final
-    MC's luma (16) and chroma (8) calls, with MVs at the window bound on
-    the border blocks over references with 0/255 steps; K10 on luma (CTU
-    32) and on cb + cr jointly (CTU 16), with flat, exact and noisy
-    regions and lambda 0 on some CTUs; K11 on the three planes."""
+def sao_inputs(dev, w=1920, h=1088, seed=3):
+    """SAO's planes at a w x h frame (a config-3 B frame's and a flat
+    CTB16 frame's 1920x1088): luma and two chroma planes (sine texture with
+    noise, flat 0 / 255 corners and a 0/255 step), each deblocked plane
+    the original plus noise of +-5, equal to it on a quarter; lambdas at
+    CTU 32 and 16, 0 on every seventh CTU.  Returns ((oy, ry), (ocb, rcb),
+    (ocr, rcr), {32: lam, 16: lam})."""
     import torch
-    from x265amod_tpu_torch.ops import me, sao
-    dev = torch.device(dev)
-    rng = np.random.default_rng(3)
-    rows = []
+    rng = np.random.default_rng(seed)
 
     def plane(hh, ww):
         xx, yy = np.meshgrid(np.arange(ww), np.arange(hh))
@@ -1799,29 +1823,68 @@ def phase_kernels_b(iters, dev="cuda", w=1920, h=1088, sr=16):
         p[: hh // 8, : ww // 8] = 0
         p[: hh // 8, ww // 8: ww // 4] = 255      # a 0/255 step
         p[-hh // 8:, -ww // 8:] = 255
-        return torch.as_tensor(p, device=dev)
-    ry0, ry1 = plane(h, w), plane(h, w)
-    rc0, rc1 = plane(h // 2, w // 2), plane(h // 2, w // 2)
+        orig = torch.as_tensor(p, device=dev)
+        rec = torch.clamp(orig + torch.as_tensor(
+            rng.integers(-5, 6, p.shape).astype(np.int32), device=dev),
+            0, 255)
+        rec[: hh // 4, ww // 2:] = orig[: hh // 4, ww // 2:]  # rec == orig
+        return orig.contiguous(), rec.contiguous()
+    planes = (plane(h, w), plane(h // 2, w // 2), plane(h // 2, w // 2))
+    lam = {}
+    for ctu in (32, 16):
+        n = (h // ctu) * (w // ctu)
+        la = rng.uniform(0, 600, n).astype(np.float32)
+        la[::7] = 0.0
+        lam[ctu] = torch.as_tensor(la, device=dev)
+    return planes + (lam,)
 
-    # K9 mc_bi: the trials at 16 and 32, the final luma 16 and chroma 8 x 2
-    d = dict(err=0.0, ms=0.0, plain_ms=0.0, launches_per_b_frame=5)
+
+def k9_bytes(r0, r1, mv0, mv1, n, chroma):
+    """Bytes K9's blocks must move: the samples each block's prediction
+    depends on in each list, once (`k7_read_bytes`), and the output."""
+    return (k7_read_bytes(r0, mv0, n, chroma)
+            + k7_read_bytes(r1, mv1, n, chroma) + mv0.shape[0] * n * n * 4)
+
+
+def k9_ops(nb, n, chroma):
+    """int32 operations of nb bi-predictions: two uni filterings
+    (`k7_ops` less their uni rounding) and the combination (an add, the
+    rounding shift and the clip)."""
+    return 2 * k7_ops(nb, n, chroma) + nb * n * n
+
+
+def phase_kernels_b(iters, dev="cuda", w=1920, h=1088, sr=16):
+    """K9-K11 at one config-3 B frame's shapes (1920x1080 padded to 1088
+    rows, sr 16): K9 at the trials' luma calls (bn 16 and 32) and at luma
+    16 and chroma 8 (the final MC's shapes, which K7's select entry now
+    runs), with MVs at the window bound on the border blocks over
+    references with 0/255 steps; K10 on luma (CTU 32) and on cb + cr
+    jointly (CTU 16), and both in one launch (the frame entry), also at a
+    flat CTB16 frame's CTU 16 / 8, with flat, exact and noisy regions and
+    lambda 0 on some CTUs; K11 on the three planes of both frames.  K9's
+    1080p calls, K10's frame entry and K11 are also timed queued behind a
+    spin (`ms_device*`: the kernels' own time)."""
+    import torch
+    from x265amod_tpu_torch.ops import me, sao
+    dev = torch.device(dev)
+    rng = np.random.default_rng(3)
+    rows = []
+    (oy, ry), (ocb, rcb), (ocr, rcr), lam = sao_inputs(dev, w, h)
+    ry0, ry1, rc0, rc1 = oy, ry, ocb, ocr
+
+    # K9 mc_bi: the trials at 16 and 32, luma 16 and chroma 8 x 2
+    d = dict(err=0.0, ms=0.0, plain_ms=0.0)
     nbytes_, ops = 0, 0
-    for r0, r1, n, chroma in ((ry0, ry1, 16, False), (ry0, ry1, 32, False),
-                              (ry0, ry1, 16, False), (rc0, rc1, 8, True),
-                              (rc0, rc1, 8, True)):
+    for i, (r0, r1, n, chroma) in enumerate((
+            (ry0, ry1, 16, False), (ry0, ry1, 32, False),
+            (ry0, ry1, 16, False), (rc0, rc1, 8, True),
+            (rc0, rc1, 8, True))):
         ph, pw = r0.shape
         nb = (ph // n) * (pw // n)
         mm = sr // 2 + 2 if chroma else sr + 2
         unit = 8 if chroma else 4
-        mvs = []
-        for _ in range(2):
-            mv = rng.integers(-unit * mm, unit * mm + unit, (nb, 2)) \
-                .astype(np.int32)
-            wb = pw // n
-            mv[:wb] = (-unit * mm, -unit * mm)
-            mv[-wb:] = (unit * mm + unit - 1, unit * mm + unit - 1)
-            mv[::wb] = (-unit * mm, unit * mm)
-            mvs.append(torch.as_tensor(mv, device=dev))
+        mvs = [torch.as_tensor(window_mvs(rng, nb, pw // n, unit, mm),
+                               device=dev) for _ in range(2)]
         d["err"] = max(d["err"], check_equal(
             f"mc_bi n={n} chroma={chroma}",
             me.mc_bi(r0, r1, *mvs, n, chroma, mm),
@@ -1831,82 +1894,124 @@ def phase_kernels_b(iters, dev="cuda", w=1920, h=1088, sr=16):
         if int(excess[0]) != 1:
             raise AssertionError(f"mc_bi n={n}: window excess "
                                  f"{int(excess[0])}, expected 1")
-        d["ms"] += time_ms(lambda: me.mc_bi(r0, r1, *mvs, n, chroma, mm),
-                           iters)
+
+        def call(r0=r0, r1=r1, mvs=mvs, n=n, chroma=chroma, mm=mm):
+            # the excess appended, not read: no wait on the card
+            return me.mc_bi(r0, r1, *mvs, n, chroma, mm, [])
+        d["ms"] += time_ms(call, iters)
         d["plain_ms"] += time_ms(
             lambda: me.mc_bi_plain(r0, r1, *mvs, n, chroma), 2)
-        t = 4 if chroma else 8
-        nbytes_ += nbytes(r0, r1, *mvs) + nb * n * n * 4
-        ops += 2 * nb * ((n + t - 1) * n * 2 * t + n * n * (2 * t + 2)) \
-            + nb * n * n * 4
+        nbytes_ += k9_bytes(r0, r1, *mvs, n, chroma)
+        ops += k9_ops(nb, n, chroma)
+        if i in (0, 1, 3):
+            key = f"_1080p_{'chroma' if chroma else 'luma'}{n}"
+            d[f"ms_device{key}"] = time_queued_ms(call, iters)
+            d[f"ms_l2_cold{key}"] = time_cold_ms(call, iters)
+            d[f"bound_ms{key}"], d[f"bound_by{key}"] = bound_ms(
+                k9_bytes(r0, r1, *mvs, n, chroma), k9_ops(nb, n, chroma))
     d["bound_ms"], d["bound_by"] = bound_ms(nbytes_, ops)
     d["library_ms"] = None
     d["library_note"] = ("none: two per-block-MV interpolations and a "
                          "rounding average, no single call")
+    d["shapes_note"] = (
+        "ms, plain_ms, bound_ms: five calls at 1920x1088 (luma n 16, 32, "
+        "16; chroma n 8 twice at 960x544), MVs at the window bound; "
+        "_1080p_luma16 / _luma32 / _chroma8: one call each (8160, 2040 and "
+        "8160 blocks); ms_device*: the calls enqueued behind a spin of the "
+        "card, the kernel's own time; ms_l2_cold*: L2 flushed before each "
+        "call; bound_ms*: the samples each block needs from both lists "
+        "once, and the output; the final MC's bi blocks run in K7's select "
+        "entry (mc_qpel row, _flat_1080p_selbi_* keys)")
     rows.append(("mc_bi", "x265amod_tpu_torch/csrc/mc_bi.cu",
                  "x265amod_tpu/ops/me.py:323 bi_combine (+ :262 "
                  "mc_luma_qpel14, :331 mc_chroma_qpel14, :180 "
                  "_block_windows)", d))
 
-    def sao_pair(ref):
-        orig = ref
-        rec = torch.clamp(ref + torch.as_tensor(
-            rng.integers(-5, 6, ref.shape).astype(np.int32), device=dev),
-            0, 255)
-        hh, ww = ref.shape
-        rec[: hh // 4, ww // 2:] = orig[: hh // 4, ww // 2:]   # rec == orig
-        return orig.contiguous(), rec.contiguous()
-    oy, ry = sao_pair(ry0)
-    ocb, rcb = sao_pair(rc0)
-    ocr, rcr = sao_pair(rc1)
-    n32 = (h // 32) * (w // 32)
-    lam = torch.as_tensor(rng.uniform(0, 600, n32).astype(np.float32),
-                          device=dev)
-    lam[::7] = 0.0
+    # K10 sao_analyse: luma and joint chroma, apart and in one launch
+    d = dict(err=0.0, launches_per_b_frame=1)
+    frames = {"": 32, "_flat_1080p": 16}
+    for key, ctu in frames.items():
+        la = lam[ctu]
+        want_y = sao.sao_analyse_plain(oy, ry, la, ctu)
+        want_c = sao.sao_analyse_chroma_plain(ocb, rcb, ocr, rcr, la,
+                                              ctu // 2)
+        got_y, got_c = sao.sao_analyse_frame(oy, ocb, ocr, ry, rcb, rcr, la,
+                                             ctu)
+        for g, p_ in zip(got_y + got_c, want_y + want_c):
+            d["err"] = max(d["err"], check_equal(
+                f"sao_analyse_frame ctu {ctu}", g, p_))
+        for g, p_ in zip(sao.sao_analyse(oy, ry, la, ctu), want_y):
+            d["err"] = max(d["err"], check_equal("sao_analyse luma", g, p_))
+        for g, p_ in zip(sao.sao_analyse_chroma(ocb, rcb, ocr, rcr, la,
+                                                ctu // 2), want_c):
+            d["err"] = max(d["err"], check_equal("sao_analyse chroma", g,
+                                                 p_))
 
-    # K10 sao_analyse: luma and joint chroma
-    d = dict(err=0.0, launches_per_b_frame=2)
-    for g, p_ in zip(sao.sao_analyse(oy, ry, lam, 32),
-                     sao.sao_analyse_plain(oy, ry, lam, 32)):
-        d["err"] = max(d["err"], check_equal("sao_analyse luma", g, p_))
-    for g, p_ in zip(sao.sao_analyse_chroma(ocb, rcb, ocr, rcr, lam, 16),
-                     sao.sao_analyse_chroma_plain(ocb, rcb, ocr, rcr, lam,
-                                                  16)):
-        d["err"] = max(d["err"], check_equal("sao_analyse chroma", g, p_))
-    d["ms"] = time_ms(lambda: sao.sao_analyse(oy, ry, lam, 32), iters) \
-        + time_ms(lambda: sao.sao_analyse_chroma(ocb, rcb, ocr, rcr, lam,
-                                                 16), iters)
-    d["plain_ms"] = time_ms(lambda: sao.sao_analyse_plain(oy, ry, lam, 32),
-                            2) + time_ms(
-        lambda: sao.sao_analyse_chroma_plain(ocb, rcb, ocr, rcr, lam, 16), 2)
-    d["bound_ms"], d["bound_by"] = bound_ms(
-        nbytes(oy, ry, ocb, rcb, ocr, rcr) + 2 * nbytes(lam) + 2 * n32 * 52,
-        sao_ops(h * w, 1) + sao_ops(h * w // 4, 2))
+        def frame(la=la, ctu=ctu):
+            return sao.sao_analyse_frame(oy, ocb, ocr, ry, rcb, rcr, la,
+                                         ctu)
+
+        def two(la=la, ctu=ctu):
+            return (sao.sao_analyse(oy, ry, la, ctu),
+                    sao.sao_analyse_chroma(ocb, rcb, ocr, rcr, la,
+                                           ctu // 2))
+        d[f"ms{key}"] = time_ms(frame, iters)
+        d[f"ms_device{key}"] = time_queued_ms(frame, iters)
+        d[f"ms_l2_cold{key}"] = time_cold_ms(frame, iters)
+        d[f"ms_two_entries{key}"] = time_ms(two, iters)
+        d[f"ms_device_two_entries{key}"] = time_queued_ms(two, iters)
+        d[f"plain_ms{key}"] = time_ms(lambda: (
+            sao.sao_analyse_plain(oy, ry, la, ctu),
+            sao.sao_analyse_chroma_plain(ocb, rcb, ocr, rcr, la, ctu // 2)),
+            2)
+        d[f"bound_ms{key}"], d[f"bound_by{key}"] = bound_ms(
+            nbytes(oy, ry, ocb, rcb, ocr, rcr) + nbytes(la)
+            + 2 * la.numel() * 52,
+            sao_ops(h * w, 1) + sao_ops(h * w // 4, 2))
     d["library_ms"] = None
     d["library_note"] = "none: no call classifies edges and picks offsets"
+    d["shapes_note"] = (
+        "ms, ms_device, bound_ms: the frame entry (luma at CTU 32, cb + cr "
+        "at 16, one launch); _flat_1080p: a flat CTB16 frame's (CTU 16, "
+        "8; 8160 CTUs); _two_entries: the luma and the joint chroma "
+        "entries, two launches; ms_device*: enqueued behind a spin of the "
+        "card, the kernel's own time; ms_l2_cold*: L2 flushed before each "
+        "call")
     rows.append(("sao_analyse", "x265amod_tpu_torch/csrc/sao_analyse.cu",
                  "x265amod_tpu/ops/sao.py:75 sao_analyse (+ :257 "
                  "sao_analyse_chroma)", d))
 
     # K11 sao_apply: the three planes with their chosen parameters
-    d = dict(err=0.0, ms=0.0, plain_ms=0.0, launches_per_b_frame=3)
-    ly = sao.sao_analyse(oy, ry, lam, 32)
-    lc = sao.sao_analyse_chroma(ocb, rcb, ocr, rcr, lam, 16)
-    nbytes_ = 0
-    for name, r, par, ctu in (("y", ry, ly[:4], 32),
-                              ("cb", rcb, lc[:4], 16),
-                              ("cr", rcr, (lc[0], lc[1], lc[4], lc[5]), 16)):
-        d["err"] = max(d["err"], check_equal(
-            f"sao_apply {name}", sao.sao_apply(r, *par, ctu),
-            sao.sao_apply_plain(r, *par, ctu)))
-        d["ms"] += time_ms(lambda: sao.sao_apply(r, *par, ctu), iters)
-        d["plain_ms"] += time_ms(lambda: sao.sao_apply_plain(r, *par, ctu),
-                                 2)
-        nbytes_ += 2 * nbytes(r) + nbytes(*par)
-    d["bound_ms"], d["bound_by"] = bound_ms(
-        nbytes_, (h * w + h * w // 2) * 12)
+    d = dict(err=0.0, launches_per_b_frame=3)
+    for key, ctu in frames.items():
+        ly, lc = sao.sao_analyse_frame(oy, ocb, ocr, ry, rcb, rcr, lam[ctu],
+                                       ctu)
+        calls = (("y", ry, ly[:4], ctu),
+                 ("cb", rcb, lc[:4], ctu // 2),
+                 ("cr", rcr, (lc[0], lc[1], lc[4], lc[5]), ctu // 2))
+        nbytes_ = 0
+        for name, r, par, c in calls:
+            d["err"] = max(d["err"], check_equal(
+                f"sao_apply {name}", sao.sao_apply(r, *par, c),
+                sao.sao_apply_plain(r, *par, c)))
+            nbytes_ += 2 * nbytes(r) + nbytes(*par)
+
+        def three(calls=calls):
+            return [sao.sao_apply(r, *par, c) for _, r, par, c in calls]
+        d[f"ms{key}"] = time_ms(three, iters)
+        d[f"ms_device{key}"] = time_queued_ms(three, iters)
+        d[f"ms_l2_cold{key}"] = time_cold_ms(three, iters)
+        d[f"plain_ms{key}"] = time_ms(lambda: [
+            sao.sao_apply_plain(r, *par, c) for _, r, par, c in calls], 2)
+        d[f"bound_ms{key}"], d[f"bound_by{key}"] = bound_ms(
+            nbytes_, (h * w + h * w // 2) * 12)
     d["library_ms"] = None
     d["library_note"] = "none: per-CTU lookup tables need a gather"
+    d["shapes_note"] = (
+        "the three planes of a frame, three launches: a config-3 B frame "
+        "(CTU 32, 16) and, _flat_1080p, a flat CTB16 frame (CTU 16, 8); "
+        "ms_device*: enqueued behind a spin of the card, the kernel's own "
+        "time; ms_l2_cold*: L2 flushed before each call")
     rows.append(("sao_apply", "x265amod_tpu_torch/csrc/sao_apply.cu",
                  "x265amod_tpu/ops/sao.py:168 sao_apply", d))
     return rows
@@ -3860,7 +3965,10 @@ def main():
         "calls at R 3; _flat_1080p_luma16 / _chroma8: a flat 1080p frame's "
         "luma call (8160 blocks of 16x16) and a chroma call (8160 of 8x8); "
         "_flat_1080p_sel_*: the select entry of a flat B frame's final MC "
-        "(one list a block, K9's rows where both are used); _l2_cold: L2 "
+        "(one list a block, K9's rows where both are used); "
+        "_flat_1080p_selbi_*: the same without K9's rows, the blocks that "
+        "use both lists bi-predicted in the launch (what mc_select runs); "
+        "_l2_cold: L2 "
         "flushed before each call; ms_device*: the calls enqueued behind a "
         "spin of the card, the kernel's own time")
     log("phase 2: mc_qpel at the flat 1080p frames " + json.dumps(k7)

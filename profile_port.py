@@ -15,7 +15,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 profile_port.py [--configs 1,2,...,14] [--batches 2]
         [--p-frames 4] [--iters 20] [--root DIR]
-        [--kernels k1k5,k24,k3,k23,k2k20,k19k25,k6k17,k7k21]
+        [--kernels k1k5,k24,k3,k23,k2k20,k19k25,k6k17,k7k21,k9k10]
 
 and, anywhere, to compare runs of two trees (one output file per run):
 
@@ -141,11 +141,22 @@ Prints JSON lines:
     640x384), "k21_p_frame" (1280x736), "k21_b_frame" and
     "k21_flat_1080p" (1920x1088), each with "_split" (torch.profiler's
     device ms a call of each of its two kernels); "launch_floor" (an
-    empty launch).
+    empty launch).  K9, K10 and K11 ("k9k10", lists of KT_REPS timings,
+    each also "_l2_cold" and "_device"): "k9_flat_1080p_luma16" and
+    "k9_flat_1080p_chroma8" (K9 on `k7_flat_inputs`' two lists),
+    "k9_config3_trials" (the B tree's two trial calls, bn 16 and 32),
+    "k9_final_mc_flat_b_1080p_copy" (a flat B frame's final MC with K9's
+    rows: K9 and K7's select entry a plane) and "_fold" (K7's select entry
+    alone, its both-list blocks bi-predicted in the launch);
+    "k10_config3_b_frame" and "k10_flat_1080p" (K10's frame entry: luma
+    at CTU 32 / 16 and cb + cr at half of it, one launch, on chip_smoke's
+    `sao_inputs`), each also "_two_entries" (the luma and the joint chroma
+    entries); "k11_config3_b_frame_three" and "k11_flat_1080p_three" (K11
+    on the three planes).
     With --root DIR the port package is imported from DIR (an unpacked
     earlier tree), so that two designs are timed by one script in one
     call; --kernels names the groups timed ("k1k5", "k24", "k3", "k23",
-    "k2k20", "k19k25", "k6k17", "k7k21"; all by default);
+    "k2k20", "k19k25", "k6k17", "k7k21", "k9k10"; all by default);
   - "e2e_fps": chip_smoke phases 19, 20 and 22 timed as those phases time
     them (a new Encoder, their warm-up frames, then one encode_pipelined
     call over the rest, host wall clock): CTB16 all-intra (16 frames),
@@ -1053,9 +1064,78 @@ def k7_k21_times(iters, dev):
     return out
 
 
+def k9_k10_times(iters, dev):
+    """K9, K10 and K11 alone (see the docstring), each KT_REPS times: back
+    to back, with L2 flushed before each call and queued behind a spin of
+    the card (`_device`).  An entry the imported tree lacks (K10's frame
+    entry, the select entry without bi rows) is left out."""
+    import torch
+    from chip_smoke import k7_flat_inputs, sao_inputs, window_mvs
+    from x265amod_tpu_torch.ops import me, sao
+    out = {}
+
+    def reps(key, fn):
+        out[key] = [time_ms(fn, iters) for _ in range(KT_REPS)]
+        out[key + "_l2_cold"] = [time_cold_ms(fn, iters)
+                                 for _ in range(KT_REPS)]
+        out[key + "_device"] = [time_queued_ms(fn, iters)
+                                for _ in range(KT_REPS)]
+
+    a = k7_flat_inputs(dev)
+    # the window excess is appended, not read: no wait on the card
+    reps("k9_flat_1080p_luma16", lambda: me.mc_bi(
+        a["y0"], a["y1"], a["mv0"], a["mv1"], 16, False, 18, []))
+    reps("k9_flat_1080p_chroma8", lambda: me.mc_bi(
+        a["c0"], a["c1"], a["mv0"], a["mv1"], 8, True, 10, []))
+    # a config-3 B frame's two trial calls (bn 16 and 32, sr 16)
+    rng = np.random.default_rng(9)
+    h, w = a["y0"].shape
+    mv32 = [torch.as_tensor(window_mvs(rng, (h // 32) * (w // 32), w // 32,
+                                       4, 18), device=dev)
+            for _ in range(2)]
+    reps("k9_config3_trials", lambda: (
+        me.mc_bi(a["y0"], a["y1"], a["mv0"], a["mv1"], 16, False, 18, []),
+        me.mc_bi(a["y0"], a["y1"], *mv32, 32, False, 18, [])))
+    # a flat B frame's whole final MC: with K9's rows copied (K9 a plane,
+    # then K7's select entry) and, where the tree has it, without (K7's
+    # select entry alone, one launch a plane)
+    planes = ((a["y0"], a["y1"], 16, False, 18),
+              (a["c0"], a["c1"], 8, True, 10),
+              (a["c0"], a["c1"], 8, True, 10))
+
+    def final_mc(fold):
+        for r0, r1, n, ch, mm in planes:
+            bi = None if fold else me.mc_bi(r0, r1, a["mv0"], a["mv1"], n,
+                                            ch, mm, [])
+            me.mc_qpel_sel(r0, r1, a["mv0"], a["mv1"], a["dir"], n, ch, bi,
+                           *((mm, []) if fold else ()))
+    reps("k9_final_mc_flat_b_1080p_copy", lambda: final_mc(False))
+    if "max_mv" in inspect.signature(me.mc_qpel_sel).parameters:
+        reps("k9_final_mc_flat_b_1080p_fold", lambda: final_mc(True))
+    # K10 and K11 at a config-3 B frame's shapes (CTU 32) and a flat CTB16
+    # frame's (CTU 16), chip_smoke's planes
+    (oy, ry), (ocb, rcb), (ocr, rcr), lam = sao_inputs(dev)
+    for key, ctu in (("config3_b_frame", 32), ("flat_1080p", 16)):
+        la = lam[ctu]
+        reps(f"k10_{key}_two_entries", lambda: (
+            sao.sao_analyse(oy, ry, la, ctu),
+            sao.sao_analyse_chroma(ocb, rcb, ocr, rcr, la, ctu // 2)))
+        if hasattr(sao, "sao_analyse_frame"):
+            reps(f"k10_{key}", lambda: sao.sao_analyse_frame(
+                oy, ocb, ocr, ry, rcb, rcr, la, ctu))
+        ly = sao.sao_analyse(oy, ry, la, ctu)
+        lc = sao.sao_analyse_chroma(ocb, rcb, ocr, rcr, la, ctu // 2)
+        calls = ((ry, ly[:4], ctu), (rcb, lc[:4], ctu // 2),
+                 (rcr, (lc[0], lc[1], lc[4], lc[5]), ctu // 2))
+        reps(f"k11_{key}_three", lambda: [sao.sao_apply(r, *p, c)
+                                          for r, p, c in calls])
+    torch.cuda.empty_cache()
+    return out
+
+
 # the kernel groups of "13", each timed by its own part of kernel_times
 KERNEL_GROUPS = ("k1k5", "k24", "k3", "k23", "k2k20", "k19k25", "k6k17",
-                 "k7k21")
+                 "k7k21", "k9k10")
 
 
 def kernel_times(iters, groups=KERNEL_GROUPS):
@@ -1075,6 +1155,8 @@ def kernel_times(iters, groups=KERNEL_GROUPS):
         out.update(k6_k17_times(iters, dev))
     if "k7k21" in groups:
         out.update(k7_k21_times(iters, dev))
+    if "k9k10" in groups:
+        out.update(k9_k10_times(iters, dev))
 
     def planes(w, h, n, seed):
         fr = synth_frames(w, h, n, seed=seed)

@@ -1556,8 +1556,10 @@ def test_mc_qpel_kernel_1080p(cuda_dev, n, chroma, plane):
 def test_mc_qpel_select_entry(cuda_dev, n, chroma, plane):
     """K7's select entry against its plain version at a flat B frame's
     final MC (1920x1088 luma n 16, 960x544 chroma n 8): directions 0-3,
-    K9's rows for the blocks that use both lists; `mc_select` launches K7
-    once a plane."""
+    K9's rows copied for the blocks that use both lists, and, without
+    them, those blocks bi-predicted in the same launch with every block's
+    two MVs held to the window contract; `mc_select` launches K7 once a
+    plane and K9 not at all."""
     from chip_smoke import window_mvs
     from x265amod_tpu_torch.ops import cuda_lib, me
     rng = np.random.default_rng(40 + n + len(plane))
@@ -1571,15 +1573,33 @@ def test_mc_qpel_select_entry(cuda_dev, n, chroma, plane):
     d = torch.as_tensor(rng.integers(0, 4, nb).astype(np.int32),
                         device=cuda_dev)
     bi = me.mc_bi(r0, r1, mv0, mv1, n, chroma, m)
+    want = me.mc_sel_plain(r0, r1, mv0, mv1, d, n, chroma, bi)
     assert torch.equal(me.mc_qpel_sel(r0, r1, mv0, mv1, d, n, chroma, bi),
-                       me.mc_sel_plain(r0, r1, mv0, mv1, d, n, chroma, bi))
+                       want)
+    # without bi rows: the both-list blocks bi-predicted in the same launch
+    cuda_lib.reset_launches()
+    excess = []
+    assert torch.equal(me.mc_qpel_sel(r0, r1, mv0, mv1, d, n, chroma, None,
+                                      m, excess), want)
+    assert int(excess[0]) == 0
+    assert cuda_lib.LAUNCHES["mc_qpel"] == 1
+    assert cuda_lib.LAUNCHES["mc_bi"] == 0
+    # the window contract covers every block, whatever its direction: one
+    # sample beyond it on a list-1 MV of a list-0 block
+    k = int(torch.nonzero(d == 1)[0])
+    mv1x = mv1.clone()
+    mv1x[k, 0] = unit * (m + 1)
+    me.mc_qpel_sel(r0, r1, mv0, mv1x, d, n, chroma, None, m, excess)
+    assert int(excess[1]) == 1
+    with pytest.raises(ValueError, match="window contract"):
+        me.mc_qpel_sel(r0, r1, mv0, mv1x, d, n, chroma, None, m)
     if not chroma:
         cr0, cr1 = r0[::2, ::2].contiguous(), r1[::2, ::2].contiguous()
         cuda_lib.reset_launches()
         got = me.mc_select((r0, cr0, cr0), (r1, cr1, cr1), d, mv0, mv1, 16,
                            [])
         assert cuda_lib.LAUNCHES["mc_qpel"] == 3
-        assert cuda_lib.LAUNCHES["mc_bi"] == 3
+        assert cuda_lib.LAUNCHES["mc_bi"] == 0
         u0 = ((d & 1) == 1)[:, None, None]
         both = ((d & 3) == 3)[:, None, None]
         for g, (a0, a1, nn, ch) in zip(got, ((r0, r1, 16, False),
@@ -1590,6 +1610,87 @@ def test_mc_qpel_select_entry(cuda_dev, n, chroma, plane):
                                torch.where(u0, mc(a0, mv0, nn),
                                            mc(a1, mv1, nn)))
             assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("plane", ["texture", "flat0", "flat255", "step"])
+@pytest.mark.parametrize("n,chroma", [(16, False), (32, False), (8, True)])
+def test_mc_bi_kernel_1080p(cuda_dev, n, chroma, plane):
+    """K9 against its plain version at the main path's sizes: 1920x1088
+    luma at n 16 (the flat B trial, a final MC) and 32 (the CTU32 trial),
+    960x544 chroma at n 8; MVs at the window bound +-(sr + 2) luma pels or
+    +-(sr / 2 + 2) chroma pels (sr 16) past all four frame edges, every
+    phase pair; textured, flat 0, flat 255 and 0/255-step planes as list
+    0's against a textured list 1; the window check one sample beyond."""
+    from chip_smoke import window_mvs
+    from x265amod_tpu_torch.ops import me
+    rng = np.random.default_rng(90 + n + len(plane))
+    h, w = (544, 960) if chroma else (1088, 1920)
+    unit, m = (8, 10) if chroma else (4, 18)
+    r0 = (_step_plane(rng, h, w, cuda_dev) if plane == "step"
+          else _mc_plane(plane, rng, h, w, cuda_dev))
+    r1 = _mc_plane("texture", rng, h, w, cuda_dev)
+    nb, wb = (h // n) * (w // n), w // n
+    mv0, mv1 = (torch.as_tensor(window_mvs(rng, nb, wb, unit, m),
+                                device=cuda_dev) for _ in range(2))
+    excess = []
+    got = me.mc_bi(r0, r1, mv0, mv1, n, chroma, m, excess)
+    assert torch.equal(got, me.mc_bi_plain(r0, r1, mv0, mv1, n, chroma))
+    assert int(excess[0]) == 0
+    me.mc_bi(r0, r1, mv0, mv1 - unit, n, chroma, m, excess)
+    assert int(excess[1]) == 1
+
+
+def _sao_frame(rng, h, w, dev):
+    """Luma and chroma planes for K10's frame entry: `_sao_planes`'s flat
+    0, flat 255 and rec == orig regions, a band-narrow stripe (every
+    sample of its CTUs in one band) and stripes that reach the picture
+    borders."""
+    out = []
+    for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
+        o, r = (t.clone() for t in _sao_planes(rng, hh, ww, dev))
+        r[hh // 4: hh // 2, ww // 2:] = 84
+        o[hh // 4: hh // 2, ww // 2:] = torch.as_tensor(rng.integers(
+            82, 88, (hh // 2 - hh // 4, ww - ww // 2)).astype(np.int32),
+            device=dev)
+        r[0, :], r[-1, :] = 255, 0
+        r[:, 0] = torch.arange(hh, device=dev) * 3 % 256
+        out.append((o.contiguous(), r.contiguous()))
+    return out
+
+
+@pytest.mark.parametrize("w,h,ctu", [(1920, 1088, 16), (1920, 1088, 32),
+                                     (160, 96, 32), (96, 64, 16)])
+def test_sao_analyse_frame_kernel(cuda_dev, w, h, ctu):
+    """K10's frame entry (luma at ctu, cb + cr at ctu / 2, one launch) and
+    its two single entries against the plain versions at a 1080p flat
+    CTB16 frame's and a config-3 frame's shapes and at small ones, lam 0
+    on every fifth CTU, bit for bit (the gain too)."""
+    from x265amod_tpu_torch.ops import cuda_lib, sao
+    rng = np.random.default_rng(w + ctu)
+    (oy, ry), (ocb, rcb), (ocr, rcr) = _sao_frame(rng, h, w, cuda_dev)
+    n = (h // ctu) * (w // ctu)
+    lam = rng.uniform(0, 600, n).astype(np.float32)
+    lam[::5] = 0.0
+    lam = torch.as_tensor(lam, device=cuda_dev)
+    want_y = sao.sao_analyse_plain(oy, ry, lam, ctu)
+    want_c = sao.sao_analyse_chroma_plain(ocb, rcb, ocr, rcr, lam, ctu // 2)
+    cuda_lib.reset_launches()
+    got_y, got_c = sao.sao_analyse_frame(oy, ocb, ocr, ry, rcb, rcr, lam,
+                                         ctu)
+    assert cuda_lib.LAUNCHES["sao_analyse"] == 1
+    for g, p in zip(got_y + got_c, want_y + want_c):
+        assert torch.equal(g, p)
+    for g, p in zip(sao.sao_analyse(oy, ry, lam, ctu), want_y):
+        assert torch.equal(g, p)
+    for g, p in zip(sao.sao_analyse_chroma(ocb, rcb, ocr, rcr, lam,
+                                           ctu // 2), want_c):
+        assert torch.equal(g, p)
+    # the filter step: one analysis launch and three applications
+    cuda_lib.reset_launches()
+    planes, par = sao.sao_filter_frame(oy, ocb, ocr, ry, rcb, rcr, lam, ctu)
+    assert cuda_lib.LAUNCHES["sao_analyse"] == 1
+    assert cuda_lib.LAUNCHES["sao_apply"] == 3
+    assert torch.equal(planes[0], sao.sao_apply_plain(ry, *want_y[:4], ctu))
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 3])

@@ -561,3 +561,119 @@ def test_k6_model_equals_the_plain_refinement(n, plane):
     if plane != "noise":
         tied = lam == 0
         assert (want[0][T(tied)] == T(4 * mv[tied] - 2)).all()
+
+
+# ---- K9's decomposition on the card, modelled ------------------------------
+
+# a shared-memory entry K9 never writes
+_K9_UNSET = np.iinfo(np.int64).min // 4
+
+
+def _k9_source(plane, mv, n, chroma):
+    """One list's 14-bit predictions [nb, n, n] as K9's groups (the kernel
+    of `csrc/mc_common.cuh`) form them: the (n + T - 1)^2 window staged
+    with clamped rows, 16-byte pieces from x0 & ~3 where the window lies
+    inside the plane's columns (the row starting s = x0 & 3 in, only the
+    pieces up to the last one it needs), else a sample a column at clamped
+    columns; the rows the vertical pass reads filtered horizontally once
+    (all n + T - 1 at a vertical phase, else the n middle ones; phase 0:
+    64 x the sample); the vertical taps (phase 0: 64 x the row), >> 6.
+    Every entry read must have been written (checked) and every sum stays
+    in int32."""
+    taps, sh = (CHROMA, 3) if chroma else (LUMA, 2)
+    t = taps.shape[1]
+    m = t // 2 - 1
+    ww = n + t - 1
+    ch = (ww + 6) // 4
+    p = np.asarray(plane, np.int64)
+    h, w = p.shape
+    mv = np.asarray(mv, np.int64)
+    nb, wb = mv.shape[0], w // n
+    win = np.full((nb, ww, 4 * ch), _K9_UNSET, np.int64)
+    s = np.zeros(nb, np.int64)
+    x0 = (np.arange(nb) % wb) * n + (mv[:, 0] >> sh) - m
+    y0 = (np.arange(nb) // wb) * n + (mv[:, 1] >> sh) - m
+    fx, fy = mv[:, 0] & ((1 << sh) - 1), mv[:, 1] & ((1 << sh) - 1)
+    for k in range(nb):
+        rows = np.clip(y0[k] + np.arange(ww), 0, h - 1)
+        if w % 4 == 0 and x0[k] >= 0 and x0[k] + ww <= w:
+            s[k] = x0[k] & 3
+            last = (s[k] + ww - 1) >> 2
+            c0 = x0[k] - s[k]
+            win[k, :, :4 * (last + 1)] = p[rows][:, c0:c0 + 4 * (last + 1)]
+        else:
+            cols = np.clip(x0[k] + np.arange(ww), 0, w - 1)
+            win[k, :, :ww] = p[rows][:, cols]
+    hor = np.full((nb, ww, n), _K9_UNSET, np.int64)
+    for k in range(nb):
+        r0, nr = (0, ww) if fy[k] else (m, n)
+        x = win[k, r0:r0 + nr, s[k]:]
+        if fx[k]:
+            seg = np.stack([x[:, q:q + n] for q in range(t)], -1)
+            assert (seg != _K9_UNSET).all()
+            hor[k, r0:r0 + nr] = seg @ taps[fx[k]]
+        else:
+            assert (x[:, m:m + n] != _K9_UNSET).all()
+            hor[k, r0:r0 + nr] = 64 * x[:, m:m + n]
+    out = np.empty((nb, n, n), np.int64)
+    for k in range(nb):
+        if fy[k]:
+            seg = np.stack([hor[k, q:q + n] for q in range(t)], -1)
+            assert (seg != _K9_UNSET).all()
+            out[k] = seg @ taps[fy[k]]
+        else:
+            assert (hor[k, m:m + n] != _K9_UNSET).all()
+            out[k] = 64 * hor[k, m:m + n]
+    assert np.abs(hor[hor != _K9_UNSET]).max() < 2 ** 31
+    assert np.abs(out).max() < 2 ** 31
+    return out >> 6
+
+
+def k9_model(ref0, ref1, mv0, mv1, n, chroma):
+    """K9 as its groups compute it: each list's window staged and filtered
+    once (`_k9_source`), the two 14-bit values combined as (a + c + 64)
+    >> 7 with arithmetic shifts (their sum checked within int32) and
+    clipped to 0..255.  [nb, n, n] int32."""
+    a = _k9_source(ref0, mv0, n, chroma)
+    c = _k9_source(ref1, mv1, n, chroma)
+    assert np.abs(a + c + 64).max() < 2 ** 31
+    return np.clip((a + c + 64) >> 7, 0, 255).astype(np.int32)
+
+
+LUMA = tme.LUMA_FILTERS.astype(np.int64)
+CHROMA = tme.CHROMA_FILTERS.astype(np.int64)
+
+
+@pytest.mark.parametrize("n,chroma", [(8, False), (16, False), (32, False),
+                                      (8, True), (16, True), (32, True)])
+def test_k9_model_equals_the_plain_bi_prediction(n, chroma):
+    """`k9_model` equals `mc_bi_plain` exactly at n 8, 16 and 32, luma and
+    chroma, on planes with 0/255 steps (negative 14-bit lobes) at 64x96
+    and 64x100 (a width not a multiple of 4: every window read a sample a
+    column): MVs at +-(sr + 2) integer samples (sr 16, the window
+    contract's edge) on the border blocks, pointing past the four plane
+    edges, every phase pair in turn, the rest at random."""
+    rng = np.random.default_rng(9 * n + chroma)
+    unit, m = (8, 10) if chroma else (4, 18)
+    for h, w in ((64, 96), (64, 100)):
+        planes = []
+        for _ in range(2):
+            p = rng.integers(0, 256, (h, w))
+            p[:, : w // 3] = 0
+            p[:, w // 3: w // 2] = 255
+            p[h // 2:, w // 2: w // 2 + 5] = 255
+            planes.append(p.astype(np.int32))
+        wb = w // n
+        nb = (h // n) * wb
+        mvs = []
+        for _ in range(2):
+            mv = rng.integers(-m, m + 1, (nb, 2)) * unit
+            mv[:wb, 1], mv[-wb:, 1] = -m * unit, m * unit
+            mv[::wb, 0], mv[wb - 1::wb, 0] = -m * unit, m * unit
+            i = np.arange(nb)
+            mvs.append((mv + np.stack([i % unit, (i // unit + 3 * i) % unit],
+                                      1)).astype(np.int32))
+        got = k9_model(planes[0], planes[1], mvs[0], mvs[1], n, chroma)
+        want = tme.mc_bi_plain(T(planes[0]), T(planes[1]), T(mvs[0]),
+                               T(mvs[1]), n, chroma).numpy()
+        np.testing.assert_array_equal(got, want)

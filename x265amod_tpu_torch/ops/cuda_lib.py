@@ -135,6 +135,19 @@ def lib(name: str):
         return _libs[name]
 
 
+def typed_lib(name: str, fn: str, argtypes):
+    """The library of kernel ``name`` with its entry ``fn`` typed: its
+    arguments ``argtypes``, an int (the CUDA error code) returned."""
+    lib_ = lib(name)
+    typed = lib_.__dict__.setdefault("_typed_fns", set())
+    if fn not in typed:
+        f = getattr(lib_, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        typed.add(fn)
+    return lib_
+
+
 def stream_handle(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream

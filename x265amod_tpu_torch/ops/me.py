@@ -1,10 +1,10 @@
 """Motion estimation and motion compensation for the P and B trees: kernels
 K5 `me_ssd_grid`, K6 `subpel_refine`, K7 `mc_qpel` (also over stacked
 reference planes with a per-block reference index, `mc_qpel_ref`, and
-from the list each block's direction names, `mc_qpel_sel`), K8
-`hpel_plane`, K9 `mc_bi` (bi-prediction) and K18 `pick_ref` (the best
-reference per CU of a multi-reference P frame), each beside its plain
-PyTorch version.
+from the lists each block's direction names, `mc_qpel_sel`), K8
+`hpel_plane`, K9 `mc_bi` (bi-prediction; its device code also runs in
+K7's select entry) and K18 `pick_ref` (the best reference per CU of a
+multi-reference P frame), each beside its plain PyTorch version.
 
 Counterparts in the JAX package: `ops/me.py` (`me_ssd_grid` :33,
 `subpel_refine` :385, `mc_luma_qpel` :315 / `mc_luma_qpel14` :262,
@@ -317,16 +317,7 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib(name, fn, argtypes):
-    """The library of kernel ``name`` with its entry ``fn`` typed."""
-    lib = cuda_lib.lib(name)
-    typed = lib.__dict__.setdefault("_typed_fns", set())
-    if fn not in typed:
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = _I
-        typed.add(fn)
-    return lib
+_lib = cuda_lib.typed_lib
 
 
 def _plane_arg(plane):
@@ -445,11 +436,19 @@ def mc_qpel_ref(planes, mv, ref, n: int, chroma: bool):
     return out
 
 
-def mc_qpel_sel(ref0, ref1, mv0, mv1, dir_, n: int, chroma: bool, bi):
+def mc_qpel_sel(ref0, ref1, mv0, mv1, dir_, n: int, chroma: bool, bi=None,
+                max_mv=None, excess=None):
     """See mc_sel_plain; a CUDA tensor launches `csrc/mc_qpel.cu`'s select
     entry (one launch: each block predicted once, from the list its
-    direction names, or its bi rows copied)."""
+    direction names).  Where both lists are used it copies the rows of
+    ``bi`` or, without ``bi``, bi-predicts the block itself with K9's device
+    code (`mc_qpel_sel_bi`); then every block's two MVs must lie within
+    the window contract +-``max_mv``, measured and checked as `mc_bi` does
+    (``excess`` as there)."""
+    fold = bi is None
     if ref0.device.type == "cpu":
+        if fold:
+            bi = mc_bi(ref0, ref1, mv0, mv1, n, chroma, max_mv, excess)
         return mc_sel_plain(ref0, ref1, mv0, mv1, dir_, n, chroma, bi)
     r0, r1 = _plane_arg(ref0), _plane_arg(ref1)
     m0 = mv0.to(torch.int32).contiguous()
@@ -457,23 +456,38 @@ def mc_qpel_sel(ref0, ref1, mv0, mv1, dir_, n: int, chroma: bool, bi):
     d = dir_.to(torch.int32).contiguous()
     h, w = r0.shape
     nb = (h // n) * (w // n)
-    b = bi.to(torch.int32).contiguous()
-    if b.data_ptr() % 16:                  # its rows are read as vectors
+    b = None if fold else bi.to(torch.int32).contiguous()
+    if b is not None and b.data_ptr() % 16:   # its rows are read as vectors
         b = b.clone()
-    cuda_lib.require_cuda(r0, r1, m0, m1, d, b)
+    cuda_lib.require_cuda(r0, r1, m0, m1, d, *([] if fold else [b]))
     if r1.shape != r0.shape or m0.shape != (nb, 2) or m1.shape != (nb, 2) \
-            or d.shape != (nb,) or b.shape != (nb, n, n) or \
-            n not in (8, 16, 32):
+            or d.shape != (nb,) or n not in (8, 16, 32) or \
+            (not fold and b.shape != (nb, n, n)):
         raise ValueError("mc_qpel_sel: bad shapes")
     out = torch.empty((nb, n, n), dtype=torch.int32, device=r0.device)
-    if nb:
+    ex = torch.zeros((), dtype=torch.int32, device=r0.device) if fold \
+        else None
+    stream = _VP(cuda_lib.stream_handle(r0))
+    if nb and fold:
+        rc = _lib("mc_qpel", "mc_qpel_sel_bi", [_VP] * 2 + [_I] * 2
+                  + [_VP] * 3 + [_I] * 4 + [_VP] * 3).mc_qpel_sel_bi(
+            cuda_lib.ptr(r0), cuda_lib.ptr(r1), h, w, cuda_lib.ptr(m0),
+            cuda_lib.ptr(m1), cuda_lib.ptr(d), nb, n, int(chroma),
+            int(max_mv), cuda_lib.ptr(out), cuda_lib.ptr(ex), stream)
+        cuda_lib.launched("mc_qpel", rc)
+    elif nb:
         rc = _lib("mc_qpel", "mc_qpel_sel", [_VP] * 2 + [_I] * 2 + [_VP] * 4
                   + [_I] * 3 + [_VP] * 2).mc_qpel_sel(
             cuda_lib.ptr(r0), cuda_lib.ptr(r1), h, w, cuda_lib.ptr(m0),
             cuda_lib.ptr(m1), cuda_lib.ptr(d), cuda_lib.ptr(b), nb, n,
-            int(chroma),
-            cuda_lib.ptr(out), _VP(cuda_lib.stream_handle(r0)))
+            int(chroma), cuda_lib.ptr(out), stream)
         cuda_lib.launched("mc_qpel", rc)
+    if not fold:
+        return out
+    if excess is None:
+        check_window(ex)
+    else:
+        excess.append(ex)
     return out
 
 
@@ -568,20 +582,20 @@ def mc_bi(ref0, ref1, mv0, mv1, n: int, chroma: bool, max_mv: int,
 
 def mc_select(refs0, refs1, dir_, mv0, mv1, sr: int, excess):
     """The final prediction of a B frame's blocks, per plane (y, cb, cr of
-    the two references' planes): the bi-prediction (K9, its window check
-    appended to ``excess``, MVs within +-(sr + 2) luma and sr / 2 + 2
-    chroma) where ``dir_`` uses both lists, else the used list's uni
-    prediction, list 1's where it uses none (JAX `mc_select`,
-    `models/inter_tree.py:1610-1624` and `models/b_frame.py:407-418`).
-    One K7 launch a plane (`mc_qpel_sel`) predicts each block from its
-    list only and takes K9's rows where both are used."""
+    the two references' planes): the bi-prediction where ``dir_`` uses
+    both lists, else the used list's uni prediction, list 1's where it
+    uses none (JAX `mc_select`, `models/inter_tree.py:1610-1624` and
+    `models/b_frame.py:407-418`); every block's two MVs within the window
+    contract +-(sr + 2) luma and sr / 2 + 2 chroma, its check appended to
+    ``excess``.  One K7 launch a plane (`mc_qpel_sel` without bi rows)
+    predicts each block once, from the lists it uses."""
     out = []
     for r0, r1, n, chroma in ((refs0[0], refs1[0], 16, False),
                               (refs0[1], refs1[1], 8, True),
                               (refs0[2], refs1[2], 8, True)):
         mm = sr // 2 + 2 if chroma else sr + 2
-        bi = mc_bi(r0, r1, mv0, mv1, n, chroma, mm, excess)
-        out.append(mc_qpel_sel(r0, r1, mv0, mv1, dir_, n, chroma, bi))
+        out.append(mc_qpel_sel(r0, r1, mv0, mv1, dir_, n, chroma, None, mm,
+                               excess))
     return tuple(out)
 
 

@@ -1,6 +1,7 @@
 """SAO, sample adaptive offset: kernels K10 `sao_analyse` (per-CTU
-statistics and the RD choice of the offsets, luma and joint chroma) and K11
-`sao_apply`, each beside its plain PyTorch version.
+statistics and the RD choice of the offsets, luma and joint chroma, or
+both of a frame in one launch: `sao_analyse_frame`) and K11 `sao_apply`,
+each beside its plain PyTorch version.
 
 Counterparts in the JAX package: `ops/sao.py` (`_eo_cat_map` :42,
 `sao_analyse` :75, `sao_apply` :168, `sao_analyse_chroma` :257).
@@ -235,43 +236,70 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib(fn, argtypes):
-    lib = cuda_lib.lib(fn)
-    if not getattr(lib, "_typed", False):
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _I
-        lib._typed = True
-    return lib
+_lib = cuda_lib.typed_lib
 
 
-def _analyse_k10(planes, lam, ctu):
+def _plane_args(planes):
+    """int32, contiguous, 16-byte aligned copies where needed (the kernel
+    reads rows as vectors)."""
+    out = []
+    for p in planes:
+        t = p.to(torch.int32).contiguous()
+        out.append(t.clone() if t.data_ptr() % 16 else t)
+    return out
+
+
+def _analyse_k10(planes, lam, ctu, chroma=None):
     """Launch K10 on one plane (orig, rec) or on cb and cr together (ocb,
-    rcb, ocr, rcr).  Returns its int32 rows [n, 12] (type, eo_class,
-    band_pos, offsets[4], band_pos and offsets[4] of the second plane) and
-    the gain [n] f32 (0 for the joint chroma choice)."""
-    ps = [p.to(torch.int32).contiguous() for p in planes]
+    rcb, ocr, rcr), or, given ``chroma`` (ocb, rcb, ocr, rcr at half the
+    size), on a frame: luma at ``ctu`` and cb + cr at ``ctu / 2`` in one
+    launch.  Returns its int32 rows [n, 12] (type, eo_class, band_pos,
+    offsets[4], band_pos and offsets[4] of the second plane), the gain [n]
+    f32 (0 for the joint chroma choice) and, for a frame, the chroma
+    rows."""
+    ps = _plane_args(planes)
+    cs = _plane_args(chroma) if chroma is not None else []
     la = lam.to(torch.float32).reshape(-1).contiguous()
-    cuda_lib.require_cuda(*ps, la)
+    cuda_lib.require_cuda(*ps, *cs, la)
     h, w = ps[0].shape
     if any(p.shape != (h, w) for p in ps) or h % ctu or w % ctu \
-            or ctu not in (8, 16, 32):
+            or ctu not in ((16, 32) if cs else (8, 16, 32)) \
+            or any(c.shape != (h // 2, w // 2) for c in cs):
         raise ValueError("sao_analyse: bad shapes")
     n = (h // ctu) * (w // ctu)
     if la.shape != (n,):
         raise ValueError("sao_analyse: lam needs one value per CTU")
-    rows = torch.empty((n, 12), dtype=torch.int32, device=la.device)
+    rows = torch.empty((2 if cs else 1, n, 12), dtype=torch.int32,
+                       device=la.device)
     gain = torch.empty(n, dtype=torch.float32, device=la.device)
-    if n:
+    stream = _VP(cuda_lib.stream_handle(la))
+    if n and cs:
+        rc = _lib("sao_analyse", "sao_analyse_frame",
+                  [_VP, _VP] + [_I] * 3 + [_VP] * 9).sao_analyse_frame(
+            *map(cuda_lib.ptr, ps), h, w, ctu, *map(cuda_lib.ptr, cs),
+            cuda_lib.ptr(la), cuda_lib.ptr(rows[0]), cuda_lib.ptr(gain),
+            cuda_lib.ptr(rows[1]), stream)
+        cuda_lib.launched("sao_analyse", rc)
+    elif n:
         two = len(ps) == 4
-        rc = _lib("sao_analyse", [_VP] * 4 + [_I] * 4 + [_VP] * 4) \
-            .sao_analyse(cuda_lib.ptr(ps[0]), cuda_lib.ptr(ps[1]),
-                         cuda_lib.ptr(ps[2 if two else 0]),
-                         cuda_lib.ptr(ps[3 if two else 1]), h, w, ctu,
-                         int(two), cuda_lib.ptr(la), cuda_lib.ptr(rows),
-                         cuda_lib.ptr(gain),
-                         _VP(cuda_lib.stream_handle(la)))
+        rc = _lib("sao_analyse", "sao_analyse",
+                  [_VP] * 4 + [_I] * 4 + [_VP] * 4).sao_analyse(
+            cuda_lib.ptr(ps[0]), cuda_lib.ptr(ps[1]),
+            cuda_lib.ptr(ps[2 if two else 0]),
+            cuda_lib.ptr(ps[3 if two else 1]), h, w, ctu, int(two),
+            cuda_lib.ptr(la), cuda_lib.ptr(rows[0]), cuda_lib.ptr(gain),
+            stream)
         cuda_lib.launched("sao_analyse", rc)
     return rows, gain
+
+
+def _luma_out(rows, gain):
+    return rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3:7], gain
+
+
+def _chroma_out(rows):
+    return (rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3:7], rows[:, 7],
+            rows[:, 8:12])
 
 
 def sao_analyse(orig, rec, lam, ctu: int = 32):
@@ -279,17 +307,30 @@ def sao_analyse(orig, rec, lam, ctu: int = 32):
     if rec.device.type == "cpu":
         return sao_analyse_plain(orig, rec, lam, ctu)
     rows, gain = _analyse_k10((orig, rec), lam, ctu)
-    return rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3:7], gain
+    return _luma_out(rows[0], gain)
 
 
 def sao_analyse_chroma(ocb, rcb, ocr, rcr, lam, ctu: int = 16):
     """See sao_analyse_chroma_plain; a CUDA tensor launches
-    `csrc/sao_analyse.cu` with cb and cr in one block per CTU."""
+    `csrc/sao_analyse.cu` with cb and cr in one group of warps per CTU."""
     if rcb.device.type == "cpu":
         return sao_analyse_chroma_plain(ocb, rcb, ocr, rcr, lam, ctu)
     rows, _ = _analyse_k10((ocb, rcb, ocr, rcr), lam, ctu)
-    return (rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3:7], rows[:, 7],
-            rows[:, 8:12])
+    return _chroma_out(rows[0])
+
+
+def sao_analyse_frame(y, cb, cr, ry, rcb, rcr, lam, ctu: int = 32):
+    """Both SAO analyses of a frame: `sao_analyse` of luma at ``ctu`` and
+    `sao_analyse_chroma` of cb and cr at ``ctu / 2`` (16 or 32), on the
+    same CTU grid and per-CTU lambdas [n].  Returns (the luma outputs, the
+    chroma outputs).  A CUDA tensor launches `csrc/sao_analyse.cu` once for
+    both; a CPU tensor takes the two plain versions."""
+    lam = lam.reshape(-1)
+    if ry.device.type == "cpu":
+        return (sao_analyse_plain(y, ry, lam, ctu),
+                sao_analyse_chroma_plain(cb, rcb, cr, rcr, lam, ctu // 2))
+    rows, gain = _analyse_k10((y, ry), lam, ctu, (cb, rcb, cr, rcr))
+    return _luma_out(rows[0], gain), _chroma_out(rows[1])
 
 
 def sao_apply(rec, ty, eo_class, band_pos, offsets, ctu: int = 32):
@@ -307,7 +348,8 @@ def sao_apply(rec, ty, eo_class, band_pos, offsets, ctu: int = 32):
         raise ValueError("sao_apply: bad shapes")
     out = torch.empty((h, w), dtype=torch.int32, device=r.device)
     if h * w:
-        rc = _lib("sao_apply", [_VP, _I, _I, _I, _VP, _VP, _VP]).sao_apply(
+        rc = _lib("sao_apply", "sao_apply",
+                  [_VP, _I, _I, _I, _VP, _VP, _VP]).sao_apply(
             cuda_lib.ptr(r), h, w, ctu, cuda_lib.ptr(params),
             cuda_lib.ptr(out), _VP(cuda_lib.stream_handle(r)))
         cuda_lib.launched("sao_apply", rc)
@@ -323,11 +365,10 @@ def sao_filter_frame(y, cb, cr, ry, rcb, rcr, lam, ctu: int = 32):
     planes and the ten parameter arrays (luma type, class, band position,
     offsets; chroma type, class, cb band position and offsets, cr band
     position and offsets)."""
-    lam = lam.reshape(-1)
     half = ctu // 2
-    s_ty, s_cls, s_bp, s_off, _ = sao_analyse(y, ry, lam, ctu)
+    (s_ty, s_cls, s_bp, s_off, _), c = sao_analyse_frame(
+        y, cb, cr, ry, rcb, rcr, lam, ctu)
     ry = sao_apply(ry, s_ty, s_cls, s_bp, s_off, ctu)
-    c = sao_analyse_chroma(cb, rcb, cr, rcr, lam, half)
     rcb = sao_apply(rcb, c[0], c[1], c[2], c[3], half)
     rcr = sao_apply(rcr, c[0], c[1], c[4], c[5], half)
     return (ry, rcb, rcr), (s_ty, s_cls, s_bp, s_off) + tuple(c)
