@@ -39,13 +39,16 @@ Phases (any failure exits non-zero):
      n 16, chroma n 8 and the select entry of a B frame's final MC, MVs at
      the window bound past all four edges, every phase pair), timed the
      same three ways;
-     the ME argmin on K5's grids of a config-2 P frame and a 1080p B frame
-     (and crafted near-ties); K23 (the flat CTB16 scan, two launches a
-     call: its ticket list, held to `scan_tickets`, and the scan) at one
-     1920x1088 frame, lossy and lossless, a 16-frame batch of 640x368,
-     and as the commit of a 1920x1088 P frame on adversarial kinds maps
-     (all intra, none, one column, one diagonal chain, a checkerboard, a
-     336-CTU patch);
+     K5 with the ME argmin folded into its epilogue (`me_ssd_grid_mv`,
+     what the encode paths run: the `me_ssd_argmin` row) at a config-2 P
+     frame and a 1080p B frame against both plain versions, timed also
+     queued behind a spin, beside K5 without the fold; K13 also at rng 1 and 16, its SSD's bound at four bytes an
+     instruction (`__dp4a`, `__vabsdiffu4`; `bound_ms_int32` beside); K23
+     (the flat CTB16 scan, two launches a call: its ticket list, held to
+     `scan_tickets`, and the scan) at one 1920x1088 frame, lossy and
+     lossless, a 16-frame batch of 640x368, and as the commit of a
+     1920x1088 P frame on adversarial kinds maps (all intra, none, one
+     column, one diagonal chain, a checkerboard, a 336-CTU patch);
      K15 (the level pack) at a config-1 batch, a config-2 P frame and a
      config-3 B frame, with an overflow and int16 extremes, and the packed
      D2H against the dense one; K16 (the resampler) at 1080p -> 720p and ->
@@ -393,6 +396,17 @@ def bound_f32_ms(nbytes, ops):
     filters, and K6's exact integer arithmetic, which it runs as f32."""
     tb = nbytes / H100_BYTES_PER_S * 1e3
     to = ops / H100_F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def bound_simd4_ms(nbytes, pix_ops):
+    """The least time of K13's SSD on the int32 pipes at four bytes an
+    instruction: a pixel-offset's difference, square and add (3 int32
+    operations) are half an instruction, __vabsdiffu4 and __dp4a on four
+    bytes each, an instruction counting two of H100_INT32_OPS_PER_S's
+    operations."""
+    tb = nbytes / H100_BYTES_PER_S * 1e3
+    to = pix_ops * 0.5 * 2 / H100_INT32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -878,7 +892,7 @@ def subpel_ops(n):
 def k6_flat_p_args(dev):
     """The arguments of K6's call in phase 2's flat P frame (1920x1088, n
     16, sr 16, 8160 blocks): the card's IDR recon, the frame's blocks, the
-    integer MVs of K5 and the argmin kernel, lambda at QP 32."""
+    integer MVs of K5 with the argmin folded in, lambda at QP 32."""
     import torch
     from x265amod_tpu_torch.models.inter_frame import InterFrameEncoder
     from x265amod_tpu_torch.ops import me
@@ -888,7 +902,7 @@ def k6_flat_p_args(dev):
     ref = recon[0][0]
     blk = cur[0].reshape(h // 16, 16, w // 16, 16).permute(0, 2, 1, 3) \
         .reshape(-1, 16, 16).contiguous()
-    mvi = me.int_mv_argmin(me.me_ssd_grid(blk, ref, enc.sr, 16), lam, enc.sr)
+    mvi = me.me_ssd_grid_mv(blk, ref, enc.sr, 16, lam)[1]
     return ref, blk, mvi, lam
 
 
@@ -1439,15 +1453,15 @@ def k21_times(km, key, fn, iters):
 
 
 def phase_kernels_flat(iters, dev="cuda"):
-    """K21 (the loop filter's maps), K22 (SSE/SSIM), the ME argmin and K23
-    (the flat CTB16 scan) against their plain versions on the card, exact
-    but the SSIM (1e-6).  K21 and K22 at the shapes of the three trees'
+    """K21 (the loop filter's maps), K22 (SSE/SSIM), K5 with the ME argmin
+    folded in and K23 (the flat CTB16 scan) against their plain versions
+    on the card, exact but the SSIM (1e-6).  K21 and K22 at the shapes of the three trees'
     tails (a config-1 batch of 16 frames of 640x384 with random splits; a
     config-2 P frame at 1280x736 and a config-3 B frame at 1920x1088 with
     random kinds, directions, MVs and reference indices and per-CTU QPs)
-    and of a 1080p CTB16 frame; the argmin on K5's grids of the bench clip
-    at a config-2 P frame (sr 8) and a config-3 B frame (1920x1088, sr 16),
-    CU16 and CU32, plus crafted near-ties and exact ties; K23 at one
+    and of a 1080p CTB16 frame; K5 with the argmin folded in on the bench
+    clip at a config-2 P frame (sr 8) and a config-3 B frame (1920x1088,
+    sr 16), CU16 and CU32, with exact ties (lam 0); K23 at one
     1920x1088 frame, lossy (QP 32) and lossless, and a 16-frame batch of
     640x368.  Times: CUDA events, 20 calls after 2 warm-up (the plain
     scans once after a warm-up)."""
@@ -1510,58 +1524,71 @@ def phase_kernels_flat(iters, dev="cuda"):
              "x265amod_tpu/ops/metrics.py:24 ssim_plane (+ the plane SSE of "
              "each encoder's tail)", kq)]
 
-    # ---- the ME argmin on K5's grids of the bench clip ----
-    ka = dict(err=0.0)
+    # ---- K5 with the ME argmin folded into its epilogue (what every
+    # encode path runs) on the bench clip's frames ----
+    kf = dict(err=0.0)
     for key, w, h, sr, seed in (("", 1280, 720, 8, 2),
                                 ("_b_frame", 1920, 1080, 16, 4)):
         fr = synth_frames(w, h, 2, seed=seed)
         ref, cur_p = (torch.as_tensor(_pad_to_ctu(x[0], 32), device=dev)
                       .to(torch.int32) for x in fr)
-        ms = plain = nb_all = 0.0
-        nbytes_ = 0
+        nb_all, fbytes = 0, 0
+        k5ops = [0, 0]
+        calls = []
         for bn in (16, 32):
             hh, ww = cur_p.shape
             cur = cur_p.reshape(hh // bn, bn, ww // bn, bn).permute(
                 0, 2, 1, 3).reshape(-1, bn, bn).contiguous()
-            g = me.me_ssd_grid(cur, ref, sr, bn)
+            g = me.me_ssd_grid_plain(cur, ref, sr, bn)
             lam = torch.as_tensor(lambda2_of(np.full(
                 g.shape[0], 32)).astype(np.float32), device=dev)
-            got = me.int_mv_argmin(g, lam, sr)
-            ka["err"] = max(ka["err"], check_exact(
-                f"mv_argmin {w}x{h} bn {bn}", got,
-                me.int_mv_argmin_plain(g, lam, sr)))
-            ms += time_ms(lambda: me.int_mv_argmin(g, lam, sr), iters)
-            plain += time_ms(lambda: me.int_mv_argmin_plain(g, lam, sr),
-                             iters)
-            nbytes_ += nbytes(g, lam, got)
+            lam[::9] = 0.0          # every cost of a grid tied: first wins
+            want = me.int_mv_argmin_plain(g, lam, sr)
+            fg, fmv = me.me_ssd_grid_mv(cur, ref, sr, bn, lam)
+            kf["err"] = max(kf["err"], check_exact(
+                f"me_ssd_grid_mv grid {w}x{h} bn {bn}", fg, g), check_exact(
+                f"me_ssd_grid_mv mv {w}x{h} bn {bn}", fmv, want))
+            calls.append((cur, lam))
+            fbytes += nbytes(cur, ref, g, lam, want)
             nb_all += g.shape[0]
-        ka[f"ms{key}"], ka[f"plain_ms{key}"] = ms, plain
-        ka[f"bound_ms{key}"], ka[f"bound_by{key}"] = bound_ms(nbytes_, 0)
-        ka[f"blocks{key}"] = int(nb_all)
-    # crafted near-ties (the FMA and the rounded cost pick differently)
-    # and exact ties (the first index wins)
-    sr, n = 8, 4096
-    s_ = 2 * sr + 1
-    lam = rng.uniform(1.0, 300.0, n).astype(np.float32)
-    grid = rng.uniform(1e3, 1e6, (n, s_, s_)).astype(np.float32)
-    bits_a = float(me.mvd_bits(torch.tensor([-4 * sr, -4 * sr])))
-    cb_ = rng.uniform(1e3, 1e5, n)
-    ca = (cb_ + lam * 2.0 - lam.astype(np.float64) * bits_a) * (
-        1 + rng.integers(-3, 4, n) * 2.0 ** -23)
-    grid[:, 0, 0], grid[:, sr, sr] = ca, cb_
-    grid[::7, 1, 1] = grid[::7, 0, 0]
-    g, la = (torch.as_tensor(a, device=dev) for a in (grid, lam))
-    ka["err"] = max(ka["err"], check_exact(
-        "mv_argmin crafted ties", me.int_mv_argmin(g, la, sr),
-        me.int_mv_argmin_plain(g, la, sr)))
-    ka.update(library_ms=None, ties_checked=n, shapes_note=(
-        "keys without suffix: a config-2 P frame at 1280x736, sr 8, CU16 + "
-        "CU32 grids (two launches); _b_frame: 1920x1088, sr 16"),
-        library_note="none: torch.argmin over fma(lam, bits, grid) needs "
-        "the FMA formed first (a second kernel)")
-    rows.append(("mv_argmin", "x265amod_tpu_torch/csrc/mv_argmin.cu",
+            k5 = k5_ops(g.shape[0], bn, sr)
+            k5ops[0] += k5[0] + 2 * g.numel()      # + the cost, the minimum
+            k5ops[1] += k5[1]
+            del g, fg
+
+        def folded():
+            for cur, lam in calls:
+                me.me_ssd_grid_mv(cur, ref, sr, cur.shape[1], lam)
+
+        def grid_only():
+            for cur, _ in calls:
+                me.me_ssd_grid(cur, ref, sr, cur.shape[1])
+        kf[f"ms{key}"] = time_ms(folded, iters)
+        kf[f"ms_device{key}"] = time_queued_ms(folded, iters)
+        kf[f"ms_device_grid_only{key}"] = time_queued_ms(grid_only, iters)
+        kf[f"plain_ms{key}"] = time_ms(lambda: [me.int_mv_argmin_plain(
+            me.me_ssd_grid_plain(cur, ref, sr, cur.shape[1]), lam, sr)
+            for cur, lam in calls], 2)
+        kf[f"bound_ms{key}"], kf[f"bound_by{key}"] = bound_tc_ms(
+            fbytes, k5ops[0], int8_ops=k5ops[1])
+        kf[f"blocks{key}"] = int(nb_all)
+    kf.update(library_ms=None, shapes_note=(
+        "K5 with the ME argmin folded into its epilogue (me_ssd_grid_mv, "
+        "what every encode path runs; launches: config 2's integer-pel "
+        "grids), its grid and MVs held against me_ssd_grid_plain and "
+        "int_mv_argmin_plain on the same inputs; keys without suffix: a "
+        "config-2 P frame at 1280x736, sr 8, CU16 + CU32 (two launches); "
+        "_b_frame: 1920x1088, sr 16; ms_device*: enqueued behind a spin of "
+        "the card; ms_device_grid_only*: K5's entry without the fold on the "
+        "same blocks; plain_ms*: both plain versions; bound_ms*: K5's bound "
+        "(bytes; the correlation at the int8 tensor-core rate) with the "
+        "cost and minimum of each entry on the int32 ALUs"),
+        library_note="none: no single call forms the SSD grid, and "
+        "torch.argmin needs the FMA formed first")
+    rows.append(("me_ssd_argmin", "x265amod_tpu_torch/csrc/me_ssd.cu",
+                 "x265amod_tpu/ops/me.py:33 me_ssd_grid + "
                  "x265amod_tpu/models/inter_tree.py:227-229 best_mv cost "
-                 "and argmin", ka))
+                 "and argmin", kf))
 
     # ---- K23, the flat CTB16 scan ----
     kz = dict(err=0.0)
@@ -2059,25 +2086,40 @@ def phase_kernels_la(iters, dev="cuda", w=1920, h=1088):
                  "x265amod_tpu/models/lookahead.py:64 aq_offsets (+ :39 "
                  "lowres_half)", d))
 
-    # K13 lowres_me
+    # K13 lowres_me, at the lookahead's range and at 1 and 16
     lr = la.lowres_half(y)
     prev = la.lowres_half(torch.as_tensor(f1[0], device=dev))
     d = dict(err=0.0)
     flat = torch.full_like(lr, 77)
     for a, b in ((lr, prev), (flat, flat)):
-        got = la.lowres_inter_cost(a, b)
-        want = la.lowres_inter_cost_plain(a, b)
-        d["err"] = max(d["err"], check_equal("lowres_me cost", got[0],
-                                             want[0]),
-                       check_equal("lowres_me mv", got[1], want[1]))
+        for r in (1, la.LOWRES_ME_RANGE, 16):
+            got = la.lowres_inter_cost(a, b, r)
+            want = la.lowres_inter_cost_plain(a, b, r)
+            d["err"] = max(d["err"], check_equal("lowres_me cost", got[0],
+                                                 want[0]),
+                           check_equal("lowres_me mv", got[1], want[1]))
     if not bool((la.lowres_inter_cost(flat, flat)[1] == -8).all()):
         raise AssertionError("lowres_me: a flat plane must give MV (-8, -8)")
     d["ms"] = time_ms(lambda: la.lowres_inter_cost(lr, prev), iters)
+    d["ms_device"] = time_queued_ms(lambda: la.lowres_inter_cost(lr, prev),
+                                    iters)
+    d["ms_l2_cold"] = time_cold_ms(lambda: la.lowres_inter_cost(lr, prev),
+                                   iters)
     d["plain_ms"] = time_ms(lambda: la.lowres_inter_cost_plain(lr, prev), 2)
     hb, wb = lr.shape[0] // 8, lr.shape[1] // 8
     s_ = 2 * la.LOWRES_ME_RANGE + 1
-    d["bound_ms"], d["bound_by"] = bound_ms(
-        nbytes(lr, prev) + hb * wb * 12, hb * wb * s_ * s_ * 64 * 3)
+    k13_bytes = nbytes(lr, prev) + hb * wb * 12
+    d["bound_ms"], d["bound_by"] = bound_simd4_ms(k13_bytes,
+                                                  hb * wb * s_ * s_ * 64)
+    d["bound_ms_int32"], d["bound_by_int32"] = bound_ms(
+        k13_bytes, hb * wb * s_ * s_ * 64 * 3)
+    d["shapes_note"] = (
+        "one frame's lookahead at 1920x1080 (lowres 960x544, 120x68 "
+        "blocks, rng 8; also checked at rng 1 and 16); ms_device: the calls "
+        "enqueued behind a spin of the card, the kernel's own time; "
+        "ms_l2_cold: L2 flushed before each call; bound_ms: the SSD four "
+        "bytes an instruction (__vabsdiffu4, __dp4a), bound_ms_int32: a "
+        "pixel-offset's three operations on the int32 ALUs")
     d["library_ms"] = None
     d["library_note"] = ("none: the SSD grid is two grouped convolutions "
                          "and an add, then an argmin; no single call")
@@ -3403,7 +3445,8 @@ def phase_config2_ref(frames, warm, p5):
         older_ref_share=sum(a for a, _ in shares) / max(sum(
             b for _, b in shares), 1),
         launches_per_p_frame={k: launches[k] / n for k in (
-            "me_ssd", "subpel", "mc_qpel", "hpel", "decide_p", "pick_ref")},
+            "me_ssd", "me_ssd_argmin", "subpel", "mc_qpel", "hpel",
+            "decide_p", "pick_ref")},
         phase5_one_ref=dict(fps=p5["fps"], psnr_y=p5["psnr_y"],
                             kbps=p5["kbps"], timed_psnr_y=p5["timed_psnr_y"],
                             timed_kbps=p5["timed_kbps"])), launches
@@ -3812,13 +3855,15 @@ def phase_flat_inter(frames, warm, bidir):
     if not np.isfinite(kbps) or not 30.0 < psnr < 60.0:
         raise AssertionError(f"{label}: PSNR-Y {psnr}, kbps {kbps}")
     n_p, n_b = types.count("P"), types.count("B")
-    want = ["me_ssd", "mv_argmin", "subpel", "mc_qpel", "intra_pred",
+    want = ["me_ssd_argmin", "subpel", "mc_qpel", "intra_pred",
             "residual_chain", "tu_bits", "intra16_scan", "decide_flat",
             "deblock_maps", "deblock", "frame_metrics", "pack_levels"]
     if bidir:
         want += ["decide_flat_b", "mc_bi", "sao_analyse", "sao_apply",
                  "lowres_aq", "lowres_me", "cutree_prop"]
-    tree = ("decide_p", "decide_b", "commit_intra", "hpel", "pick_ref")
+    # the flat frames' K5 launches all carry the folded argmin
+    tree = ("decide_p", "decide_b", "commit_intra", "hpel", "pick_ref",
+            "me_ssd")
     missing = [k for k in want if launches[k] <= 0]
     unexpected = [k for k in tree if launches[k] > 0]
     if (missing or unexpected or launches["decide_flat"] != n_p
@@ -3983,7 +4028,8 @@ def main():
         + json.dumps(dec1080) + f" [{card}]")
     # K19 and K20 (the B decide scan and the forced intra commit)
     rows += phase_kernels_scans(args.iters)
-    # K21, K22, the ME argmin and K23 (the flat CTB16 scan)
+    # K21, K22, K5 with the ME argmin folded in and K23 (the flat CTB16
+    # scan)
     rows += phase_kernels_flat(args.iters)
     # K24 and K25 (the flat decide scans), K23 as the flat P/B commit and
     # K21's flat P/B maps
@@ -4006,8 +4052,9 @@ def main():
         "_flat_inter_trial: the two calls of phase 2's flat P frame at "
         "1920x1088 (8160 x 35 and 8160 TUs of 16x16)")
     for name in ("decide_b", "commit_intra", "deblock_maps",
-                 "frame_metrics", "mv_argmin", "intra16_scan", "decide_flat",
-                 "decide_flat_b", "tu_bits"):
+                 "frame_metrics", "me_ssd_argmin",
+                 "intra16_scan", "decide_flat", "decide_flat_b", "tu_bits",
+                 "lowres_me"):
         log(f"phase 2: {name} " + json.dumps(by_name[name]) + f" [{card}]")
     for name, _, _, d in rows:
         log(f"phase 2: {name} equal to plain (max abs err {d['err']}); "

@@ -15,7 +15,8 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 profile_port.py [--configs 1,2,...,14] [--batches 2]
         [--p-frames 4] [--iters 20] [--root DIR]
-        [--kernels k1k5,k24,k3,k23,k2k20,k19k25,k6k17,k7k21,k9k10]
+        [--kernels k1k5,k24,k3,k23,k2k20,k19k25,k6k17,k7k21,k9k10,k13am]
+        [--fold-tail none|launch|read]
 
 and, anywhere, to compare runs of two trees (one output file per run):
 
@@ -90,7 +91,11 @@ Prints JSON lines:
     the lookahead apart, the IDR's device step in "idr_step");
     "flat_b_profile": torch.profiler over the same 11 frames coded again
     by a new encoder (its 80 kernels with the most device time, each with
-    its calls);
+    its calls); with --fold-tail launch or read, both runs enqueue after
+    each folded K5 launch of the flat frames' ME a one-element fill (a
+    launch that moves no bytes) or a max over the grid (its bytes read
+    once, as a separate argmin kernel would), to show whether a later
+    kernel's time in the flow depends on what runs before it;
   - "kernel_times" ("13"): K1, K5, K24, K3, K23, K2 and K20 alone at the main
     path's shapes, CUDA events over --iters calls after 2 warm-up.  K1
     and K5 (lists of KT_REPS timings): "k1_satd35_*" and "k1_predict_*"
@@ -152,11 +157,19 @@ Prints JSON lines:
     at CTU 32 / 16 and cb + cr at half of it, one launch, on chip_smoke's
     `sao_inputs`), each also "_two_entries" (the luma and the joint chroma
     entries); "k11_config3_b_frame_three" and "k11_flat_1080p_three" (K11
-    on the three planes).
+    on the three planes).  K13 and the ME argmin ("k13am", lists of
+    KT_REPS timings, each also "_l2_cold" and "_device"):
+    "k13_lookahead_1080p" (K13 at a 1080p frame's lowres planes, 960x544,
+    rng 8, chip_smoke's `phase_kernels_la` planes); "k5_argmin_flat_1080p"
+    (the flat 1080p frame's grid, 8160 blocks, sr 16) and
+    "k5_argmin_config2" (config 2's two grids, 1280x736, sr 8, bn 16 and
+    32): K5 with the argmin in its epilogue (`me_ssd_grid_mv`), or in a
+    tree without it, K5 then its argmin kernel.
     With --root DIR the port package is imported from DIR (an unpacked
     earlier tree), so that two designs are timed by one script in one
     call; --kernels names the groups timed ("k1k5", "k24", "k3", "k23",
-    "k2k20", "k19k25", "k6k17", "k7k21", "k9k10"; all by default);
+    "k2k20", "k19k25", "k6k17", "k7k21", "k9k10", "k13am"; all by
+    default);
   - "e2e_fps": chip_smoke phases 19, 20 and 22 timed as those phases time
     them (a new Encoder, their warm-up frames, then one encode_pipelined
     call over the rest, host wall clock): CTB16 all-intra (16 frames),
@@ -1133,9 +1146,58 @@ def k9_k10_times(iters, dev):
     return out
 
 
+def k13_argmin_times(iters, dev):
+    """K13 and K5 with the ME argmin (see the docstring), each KT_REPS
+    times: back to back, with L2 flushed before each call and queued
+    behind a spin of the card (`_device`).  A tree without the fold runs K5
+    then its argmin kernel."""
+    import torch
+    from x265amod_tpu_torch.models import lookahead as la
+    from x265amod_tpu_torch.models.encoder import _pad_to_ctu
+    from x265amod_tpu_torch.ops import me
+    from x265amod_tpu_torch.utils.lambdas import lambda2_of
+    out = {}
+
+    def reps(key, fn):
+        out[key] = [time_ms(fn, iters) for _ in range(KT_REPS)]
+        out[key + "_l2_cold"] = [time_cold_ms(fn, iters)
+                                 for _ in range(KT_REPS)]
+        out[key + "_device"] = [time_queued_ms(fn, iters)
+                                for _ in range(KT_REPS)]
+
+    f0, f1 = synth_frames(1920, 1088, 2, seed=6)
+    lr, prev = (la.lowres_half(torch.as_tensor(f[0], device=dev))
+                for f in (f0, f1))
+    reps("k13_lookahead_1080p", lambda: la.lowres_inter_cost(lr, prev))
+    if hasattr(me, "me_ssd_grid_mv"):
+        k5_argmin = me.me_ssd_grid_mv
+    else:
+        def k5_argmin(cur, ref, sr, bn, lam):
+            return me.int_mv_argmin(me.me_ssd_grid(cur, ref, sr, bn), lam,
+                                    sr)
+    for key, w, h, sr, bns, seed in (("flat_1080p", 1920, 1080, 16, (16,),
+                                      22),
+                                     ("config2", 1280, 720, 8, (16, 32), 2)):
+        fr = synth_frames(w, h, 2, seed=seed)
+        ref, cur_p = (torch.as_tensor(_pad_to_ctu(x[0], 32), device=dev)
+                      .to(torch.int32) for x in fr)
+        calls = []
+        for bn in bns:
+            hh, ww = cur_p.shape
+            cur = cur_p.reshape(hh // bn, bn, ww // bn, bn).permute(
+                0, 2, 1, 3).reshape(-1, bn, bn).contiguous()
+            lam = torch.as_tensor(lambda2_of(np.full(
+                cur.shape[0], 32)).astype(np.float32), device=dev)
+            calls.append((cur, bn, lam))
+        reps(f"k5_argmin_{key}", lambda: [k5_argmin(cur, ref, sr, bn, lam)
+                                          for cur, bn, lam in calls])
+    torch.cuda.empty_cache()
+    return out
+
+
 # the kernel groups of "13", each timed by its own part of kernel_times
 KERNEL_GROUPS = ("k1k5", "k24", "k3", "k23", "k2k20", "k19k25", "k6k17",
-                 "k7k21", "k9k10")
+                 "k7k21", "k9k10", "k13am")
 
 
 def kernel_times(iters, groups=KERNEL_GROUPS):
@@ -1157,6 +1219,8 @@ def kernel_times(iters, groups=KERNEL_GROUPS):
         out.update(k7_k21_times(iters, dev))
     if "k9k10" in groups:
         out.update(k9_k10_times(iters, dev))
+    if "k13am" in groups:
+        out.update(k13_argmin_times(iters, dev))
 
     def planes(w, h, n, seed):
         fr = synth_frames(w, h, n, seed=seed)
@@ -1287,6 +1351,28 @@ def e2e_fps():
     return out
 
 
+def add_fold_tail(kind):
+    """Enqueue ``kind`` after each folded K5 launch of the flat P/B
+    frames' ME (`models/inter_frame.py:_motion`): "launch", a one-element
+    fill; "read", a max over the grid.  A tree without the fold is left as
+    it is."""
+    import torch
+    from x265amod_tpu_torch.models import inter_frame
+    if kind == "none" or not hasattr(inter_frame, "me_ssd_grid_mv"):
+        return
+    fold = inter_frame.me_ssd_grid_mv
+    one = torch.zeros(1, device="cuda")
+
+    def tailed(cur, ref, sr, bn, lam):
+        grid, mv = fold(cur, ref, sr, bn, lam)
+        if kind == "launch":
+            one.zero_()
+        else:
+            grid.amax()
+        return grid, mv
+    inter_frame.me_ssd_grid_mv = tailed
+
+
 def device_profile(run, n_frames, top=12):
     """torch.profiler over ``run()``: wall time, device kernel time, the
     device busy share and the ``top`` kernels with the most device time."""
@@ -1377,6 +1463,9 @@ def main():
     ap.add_argument("--kernels", default=",".join(KERNEL_GROUPS),
                     help="the kernel groups \"13\" times: "
                     + ", ".join(KERNEL_GROUPS))
+    ap.add_argument("--fold-tail", default="none",
+                    choices=("none", "launch", "read"),
+                    help="config 12: what runs after each folded K5")
     ap.add_argument("--summarize", nargs="+", default=None,
                     help="print the parent/change comparison of these "
                     "output files (--root names the parent's tree)")
@@ -1478,6 +1567,7 @@ def main():
             lambda: list(fenc.encode_pipelined(fframes[2:])), 8)}))
     if 12 in configs:
         from chip_smoke import config_flat_b
+        add_fold_tail(args.fold_tail)
         bframes = synth_frames(1920, 1080, 11, seed=23)
         print(json.dumps({"flat_b_stages": dict(flat_stages(
             config_flat_b(), bframes, warm=0), root=root)}))
@@ -1485,7 +1575,7 @@ def main():
         benc = Encoder(config_flat_b(), device="cuda")
         print(json.dumps({"flat_b_profile": dict(device_profile(
             lambda: list(benc.encode_pipelined(bframes)), len(bframes),
-            top=80), root=root)}))
+            top=80), root=root, fold_tail=args.fold_tail)}))
     if 13 in configs:
         print(json.dumps({"kernel_times": dict(
             kernel_times(args.iters, args.kernels.split(",")),

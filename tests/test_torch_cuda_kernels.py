@@ -368,6 +368,56 @@ def test_lowres_me_kernel(cuda_dev, kind):
         assert bool((mv == -8).all())
 
 
+def _lowres_pair(kind, rng, h, w):
+    """A lowres (cur, ref) pair of one kind, uint8 [h, w]."""
+    cur = rng.integers(0, 256, (h, w))
+    ref = rng.integers(0, 256, (h, w))
+    if kind == "flat":
+        cur[:], ref[:] = 77, 77
+    elif kind == "shifted":
+        ref = np.roll(cur, (5, -7), (0, 1))
+    elif kind == "step":
+        cur[:, : w // 2], cur[:, w // 2:] = 0, 255
+        cur[: h // 3] = 255 - cur[: h // 3]
+        ref = 255 - cur
+    return cur.astype(np.uint8), ref.astype(np.uint8)
+
+
+@pytest.mark.parametrize("rng_", [1, 8, 16])
+@pytest.mark.parametrize("kind", ["random", "flat", "shifted", "step"])
+def test_lowres_me_kernel_sizes_and_ranges(cuda_dev, kind, rng_):
+    """K13 against its plain version, cost and MV bit for bit, at rng 1, 8
+    and 16: at the 1080p lowres plane (960x544), at the lowres planes of
+    `test_torch_lookahead.SIZES` (64x32, 128x64; that file imports JAX, so
+    they are written out), at the widths of `k13_model` (72x24: a byte a
+    column; 256x32 and 1440x16: 16-byte pieces at unaligned starts) and
+    on planes one byte past an aligned start (the wrapper copies them);
+    one launch a call."""
+    from x265amod_tpu_torch.models import lookahead as la
+    from x265amod_tpu_torch.ops import cuda_lib
+    rng = np.random.default_rng(130 + rng_ + len(kind))
+    sizes = [(544, 960), (24, 72), (32, 256), (16, 1440), (32, 64),
+             (64, 128)]
+    for h, w in sizes:
+        cur, ref = (torch.as_tensor(a, device=cuda_dev)
+                    for a in _lowres_pair(kind, rng, h, w))
+        want = la.lowres_inter_cost_plain(cur, ref, rng_)
+        cuda_lib.reset_launches()
+        got = la.lowres_inter_cost(cur, ref, rng_)
+        assert cuda_lib.LAUNCHES["lowres_me"] == 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if kind == "flat":
+            assert bool((got[1] == -rng_).all())
+        off = []
+        for t in (cur, ref):
+            flat = torch.empty(t.numel() + 1, dtype=torch.uint8,
+                               device=cuda_dev)
+            flat[1:] = t.reshape(-1)
+            off.append(flat[1:].view(t.shape))
+        got = la.lowres_inter_cost(*off, rng_)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("kind", ["random", "pileup"])
 def test_cutree_prop_kernel_is_deterministic(cuda_dev, kind):
     from x265amod_tpu_torch.models import lookahead as la
@@ -827,28 +877,64 @@ def test_frame_metrics_kernel(cuda_dev, ssim):
     assert (got[:, 3] - want[:, 3]).abs().max().item() <= 1e-6
 
 
-def test_mv_argmin_kernel_on_crafted_ties(cuda_dev):
-    """The ME argmin kernel against `int_mv_argmin_plain`: grids with two
-    MVs within a few ulps of each other (where the FMA and the rounded
-    cost pick differently) and exact ties (the first index wins)."""
-    from x265amod_tpu_torch.ops import me
-    rng = np.random.default_rng(220)
-    sr, n = 8, 4096
-    s = 2 * sr + 1
-    lam = rng.uniform(1.0, 300.0, n).astype(np.float32)
-    grid = rng.uniform(1e3, 1e6, (n, s, s)).astype(np.float32)
-    # candidate a at (-sr, -sr), b at (0, 0): cost b - cost a within ulps
-    bits_a = float(me.mvd_bits(torch.tensor([-4 * sr, -4 * sr])))
-    cb = rng.uniform(1e3, 1e5, n).astype(np.float32)
-    ca = (cb.astype(np.float64) + lam * 2.0 - lam.astype(np.float64)
-          * bits_a)
-    ca = (ca * (1 + rng.integers(-3, 4, n) * 2.0 ** -23)).astype(np.float32)
-    grid[:, 0, 0], grid[:, sr, sr] = ca, cb
-    grid[::7, 1, 1] = grid[::7, 0, 0]       # exact ties elsewhere
-    g = torch.as_tensor(grid, device=cuda_dev)
-    la = torch.as_tensor(lam, device=cuda_dev)
-    assert torch.equal(me.int_mv_argmin(g, la, sr),
-                       me.int_mv_argmin_plain(g, la, sr))
+@pytest.mark.parametrize("w,h,sr", [(1280, 736, 8), (1920, 1088, 16)])
+@pytest.mark.parametrize("bn", [16, 32])
+def test_me_ssd_grid_argmin_fold(cuda_dev, w, h, sr, bn):
+    """K5's entry with the argmin folded into its epilogue
+    (`me_ssd_grid_mv`): its grid equal to `me_ssd_grid_plain` and to the
+    entry without the fold, its MVs to `int_mv_argmin_plain` on that grid,
+    at config 2's shapes (1280x736, sr 8) and 1080p sr 16, bn 16 and 32:
+    on a plane of 0 / 255 steps with flat regions (all-equal SSDs: the MV
+    with the fewest bits, or with lam 0 the first) and a moving copy of
+    it, on K8's half-pel plane (the byte split) and on a 10-bit block
+    (the exact int32 loop); one launch counted as `me_ssd_argmin`, none
+    as `me_ssd`."""
+    from x265amod_tpu_torch.ops import cuda_lib, me
+    rng = np.random.default_rng(w + 7 * sr + bn)
+    ref = _step_plane8(rng, h, w, cuda_dev)
+    ref[h // 4: h // 2, w // 4: w // 2] = 90
+
+    def blocks(p):
+        return p.reshape(h // bn, bn, w // bn, bn).permute(0, 2, 1, 3) \
+            .reshape(-1, bn, bn).contiguous()
+    nb = (h // bn) * (w // bn)
+    lam = rng.uniform(0.0, 400.0, nb).astype(np.float32)
+    lam[::9] = 0.0
+    lam = torch.as_tensor(lam, device=cuda_dev)
+    moved = torch.roll(ref, (3, -5), (0, 1))
+    cur10 = _plane(rng, h, w, cuda_dev, hi=1024)
+    for cur, plane in ((blocks(moved), ref), (blocks(ref), ref),
+                       (blocks(moved), me.hpel_plane(ref)),
+                       (blocks(cur10), ref)):
+        want_g = me.me_ssd_grid_plain(cur, plane, sr, bn)
+        want_mv = me.int_mv_argmin_plain(want_g, lam, sr)
+        cuda_lib.reset_launches()
+        g, mv = me.me_ssd_grid_mv(cur, plane, sr, bn, lam)
+        assert cuda_lib.LAUNCHES["me_ssd_argmin"] == 1
+        assert cuda_lib.LAUNCHES["me_ssd"] == 0
+        assert torch.equal(g, want_g) and torch.equal(mv, want_mv)
+        assert torch.equal(me.me_ssd_grid(cur, plane, sr, bn), want_g)
+        assert cuda_lib.LAUNCHES["me_ssd"] == 1
+
+
+@pytest.mark.parametrize("flat", [False, True])
+def test_p_frame_launches_with_the_fold(cuda_dev, flat):
+    """A P frame's ME runs the argmin inside K5: the flat P frame's one K5
+    launch and the CTU32 tree's two integer-pel launches (bn 16 and 32)
+    are counted as `me_ssd_argmin`, the tree's two half-pel grids as
+    `me_ssd`."""
+    from chip_smoke import config2, config_flat_p, synth_frames
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from x265amod_tpu_torch.ops import cuda_lib
+    w, h = 320, 192
+    frames = synth_frames(w, h, 2, seed=5)
+    enc = Encoder((config_flat_p if flat else config2)(w, h), device="cuda")
+    list(enc.encode_pipelined(frames[:1]))
+    cuda_lib.reset_launches()
+    list(enc.encode_pipelined(frames[1:]))
+    got = {k: cuda_lib.LAUNCHES[k] for k in ("me_ssd_argmin", "me_ssd")}
+    assert got == ({"me_ssd_argmin": 1, "me_ssd": 0} if flat else
+                   {"me_ssd_argmin": 2, "me_ssd": 2})
 
 
 @pytest.mark.parametrize("lossless,aq,f", [(False, False, 1), (False, True, 2),

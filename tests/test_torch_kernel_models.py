@@ -79,7 +79,7 @@ def _mma_i8(a, b, k32, signed_a):
 
 
 def k5_model(cur, ref, sr, bn):
-    """SSD grid [nb, S, S] as `me_ssd_kernel` forms it."""
+    """SSD grid [nb, S, S] as `me_ssd_body` (K5) forms it."""
     h, w = ref.shape
     s = 2 * sr + 1
     ws = bn + 2 * sr

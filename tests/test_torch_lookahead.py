@@ -256,3 +256,185 @@ def test_qp_maps_and_qp32_match_jax():
     got = tit_tree.qp32_of(qp16)
     np.testing.assert_array_equal(got, jit_tree.qp32_of(qp16))
     assert got[0, 0] == 30 and got[0, 1] == 32
+
+
+# ---- K13's design on the card, modelled -----------------------------------
+
+# bytes K13 never stages: a lane may read them, but only into the bits its
+# funnel shifts drop
+_K13_UNSET = 0xA5
+
+
+def _bytes_of(words):
+    """[..., 4] bytes of uint32 words (little-endian, as the card)."""
+    words = np.ascontiguousarray(words, np.uint32)
+    return words.view(np.uint8).reshape(words.shape + (4,))
+
+
+def _word_of(b):
+    """uint32 words [...] of [..., 4] bytes."""
+    return np.ascontiguousarray(b, np.uint8).view(np.uint32)[..., 0]
+
+
+def _vabsdiffu4(a, b):
+    """__vabsdiffu4: the four bytes' absolute differences, as a word."""
+    return _word_of(np.abs(_bytes_of(a).astype(np.int16)
+                           - _bytes_of(b).astype(np.int16)))
+
+
+def _dp4a(a, b, acc):
+    """__dp4a (unsigned): acc + the four bytes' products, modulo 2^32."""
+    return (acc + (_bytes_of(a).astype(np.uint32)
+                   * _bytes_of(b).astype(np.uint32)).sum(-1,
+                                                         dtype=np.uint32))
+
+
+def _funnelshift_r(lo, hi, sh):
+    """__funnelshift_r: the 32 bits at ``sh`` (mod 32) of hi:lo."""
+    v = (hi.astype(np.uint64) << 32) | lo.astype(np.uint64)
+    return (v >> (np.asarray(sh, np.uint64) & 31)).astype(np.uint32)
+
+
+def k13_model(cur, ref, rng):
+    """K13 (`csrc/lowres_me.cu`) as its CTAs compute it: NB = 256 // S
+    blocks of a block row a CTA, their window staged once as bytes (16-byte
+    pieces from the aligned column at or before its first where the window
+    lies inside the plane's columns and w % 16 == 0, else a byte a column
+    at clamped columns; rows clamped; bytes never staged hold a marker);
+    thread t is lane (block t // S, dx t % S), its block's 8 rows as 16
+    words, each window row's 8 bytes at its dx from three aligned words
+    through two funnel shifts; each row adds into the ring slot (r - y) & 7
+    of every dy = r - y it reaches (block row 0 starts the slot), each word
+    pair as __vabsdiffu4 then __dp4a; dy = r - 7 complete after row r and
+    kept on a strict less; then the 64-bit key (ssd << 16) | (dy S + dx),
+    a segmented shuffle tree in each warp, the segments' heads storing
+    their warp's part, the least of a block's two parts.  Returns (cost
+    f32 [hb, wb], mv int32 [hb, wb, 2]) as the wrapper does; asserts that
+    every byte a block needs was staged."""
+    cur, ref = (np.asarray(a, np.uint8) for a in (cur, ref))
+    h, w = cur.shape
+    s_, ws = 2 * rng + 1, 8 + 2 * rng
+    nbc = 256 // s_
+    pitch = (8 * nbc + 2 * rng + 15 + 12 + 15) & ~15
+    hb, wb = h // 8, w // 8
+    per_row = -(-wb // nbc)
+    threads = -(-nbc * s_ // 32) * 32
+    ctas = [(br, c * nbc) for br in range(hb) for c in range(per_row)]
+    win = np.full((len(ctas), ws, pitch), _K13_UNSET, np.uint8)
+    staged = np.zeros(win.shape, bool)
+    lane_o = np.zeros((len(ctas), threads), np.int64)
+    tid = np.arange(threads)
+    nbv = np.array([min(nbc, wb - b0) for _, b0 in ctas])
+    blk = np.minimum(tid[None] // s_, nbv[:, None] - 1)
+    dx = tid % s_
+    for k, (br, b0) in enumerate(ctas):
+        x0, y0 = 8 * b0 - rng, 8 * br - rng
+        wv = 8 * nbv[k] + 2 * rng
+        rows = np.clip(y0 + np.arange(ws), 0, h - 1)
+        s = 0
+        if w % 16 == 0 and x0 >= 0 and x0 + wv <= w:
+            s = x0 & 15
+            n16 = ((s + wv - 1) >> 4) + 1
+            win[k, :, :16 * n16] = ref[rows][:, x0 - s:x0 - s + 16 * n16]
+            staged[k, :, :16 * n16] = True
+        else:
+            cols = np.clip(x0 + np.arange(wv), 0, w - 1)
+            win[k, :, :wv] = ref[rows][:, cols]
+            staged[k, :, :wv] = True
+        lane_o[k] = s + 8 * blk[k] + dx
+    valid = tid[None] < (nbv * s_)[:, None]
+    # every byte a valid lane's row needs was staged
+    need = lane_o[:, :, None] + np.arange(8)
+    ck = np.broadcast_to(np.arange(len(ctas))[:, None, None], need.shape)
+    assert staged[ck, :, need].transpose(0, 1, 3, 2)[valid].all()
+    words = win.view("<u4")                              # [cta, ws, pitch/4]
+    q = lane_o >> 2
+    shift = 8 * (lane_o & 3)
+    # the block's rows: 8 rows x 2 words a lane
+    cw = np.ascontiguousarray(cur).view("<u4")
+    brow = np.array([br for br, _ in ctas])[:, None]
+    b0s = np.array([b0 for _, b0 in ctas])[:, None]
+    col = 2 * (b0s + blk)
+    c = np.stack([np.stack([cw[8 * brow + y, col + i] for i in range(2)],
+                           -1) for y in range(8)], -2)   # [cta, t, 8, 2]
+    acc = np.zeros((8,) + lane_o.shape, np.uint32)
+    best = np.full(lane_o.shape, 0xFFFFFFFF, np.uint32)
+    bdy = np.zeros(lane_o.shape, np.int64)
+    ci = np.arange(len(ctas))[:, None]
+    for r in range(ws):
+        w0, w1, w2 = (words[:, r][ci, q + i] for i in range(3))
+        a0 = _funnelshift_r(w0, w1, shift)
+        a1 = _funnelshift_r(w1, w2, shift)
+        for y in range(8):
+            m = (r - y) & 7
+            start = np.zeros_like(best) if y == 0 else acc[m]
+            acc[m] = _dp4a(*(2 * (_vabsdiffu4(a1, c[:, :, y, 1]),)),
+                           _dp4a(*(2 * (_vabsdiffu4(a0, c[:, :, y, 0]),)),
+                                 start))
+        if r >= 7:
+            v = acc[(r + 1) & 7]
+            better = v < best
+            best = np.where(better, v, best)
+            bdy = np.where(better, r - 7, bdy)
+    assert (best < 2 ** 31).all()
+    key = np.where(valid, (best.astype(np.uint64) << 16)
+                   | (bdy * s_ + dx).astype(np.uint64),
+                   np.uint64(2 ** 64 - 1))
+    seg = np.where(valid, blk, -1 - (tid % 32))
+    nw = threads // 32
+    key, seg = key.reshape(-1, nw, 32), seg.reshape(-1, nw, 32)
+    lane = np.arange(32)
+    for off in (1, 2, 4, 8, 16):
+        src = np.minimum(lane + off, 31)
+        k2, s2 = key[..., src], seg[..., src]
+        take = (lane + off < 32) & (s2 == seg) & (k2 < key)
+        key = np.where(take, k2, key)
+    up = np.concatenate([seg[..., :1], seg[..., :-1]], -1)
+    head = (lane == 0) | (up != seg)
+    part = np.full((len(ctas), nbc, 2), 2 ** 64 - 1, np.uint64)
+    key, head = key.reshape(len(ctas), -1), head.reshape(len(ctas), -1)
+    for k in range(len(ctas)):
+        for t in np.nonzero(head[k] & valid[k])[0]:
+            part[k, blk[k, t], int(dx[t] != 0)] = key[k, t]
+    kmin = part.min(-1)
+    cost = np.empty((hb, wb), np.float32)
+    mv = np.empty((hb, wb, 2), np.int32)
+    for k, (br, b0) in enumerate(ctas):
+        for b in range(nbv[k]):
+            ssd, idx = int(kmin[k, b] >> 16), int(kmin[k, b] & 0xFFFF)
+            cost[br, b0 + b] = np.float32(np.sqrt(np.float64(ssd) * 64.0))
+            mv[br, b0 + b] = (idx % s_ - rng, idx // s_ - rng)
+    return cost, mv
+
+
+@pytest.mark.parametrize("rng_", [1, 8, 16])
+@pytest.mark.parametrize("kind", ["flat", "step", "random", "shifted"])
+def test_k13_model_equals_the_plain_search(rng_, kind):
+    """`k13_model` equals `lowres_inter_cost_plain` exactly at rng 1, 8
+    and 16 on flat planes (every offset ties: MV (-rng, -rng)), 0/255
+    steps (the largest SSDs), random content and content moving in, on
+    planes whose every block row and column lies on a border: 256x32 (the
+    window staged 16 bytes a piece in the CTAs that lie inside the
+    columns, at unaligned starts at rng 16), 72x24 (a width not a
+    multiple of 16: a byte a column), and at rng 1 1440x16 (85 blocks a
+    CTA, a 16-byte staged window starting 7 bytes in)."""
+    g = np.random.default_rng(13 * rng_ + len(kind))
+    sizes = [(32, 256), (24, 72)] + ([(16, 1440)] if rng_ == 1 else [])
+    for h, w in sizes:
+        cur = g.integers(0, 256, (h, w))
+        ref = g.integers(0, 256, (h, w))
+        if kind == "flat":
+            cur[:], ref[:] = 77, 77
+        elif kind == "step":
+            cur[:, : w // 2], cur[:, w // 2:] = 0, 255
+            cur[: h // 3] = 255 - cur[: h // 3]
+            ref = 255 - cur
+        elif kind == "shifted":
+            ref = np.roll(cur, (3, -5), (0, 1))
+        cur, ref = cur.astype(np.uint8), ref.astype(np.uint8)
+        want = tla.lowres_inter_cost_plain(*_t(cur, ref), rng_)
+        got = k13_model(cur, ref, rng_)
+        np.testing.assert_array_equal(got[0], want[0].numpy())
+        np.testing.assert_array_equal(got[1], want[1].numpy())
+        if kind == "flat":
+            assert (got[1] == -rng_).all()

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from x265amod_tpu.bitstream.nal import split_annexb
@@ -48,6 +49,11 @@ from test_torch_slice import config1, yield_cpu  # noqa: F401 (autouse)
 torch.set_num_threads(1)
 
 MAX10 = 1023
+# the JAX tu_bits under jit, as the JAX trees run it: one compile a shape
+# for the file instead of one for each of its eager operations
+_j_tu_bits = jax.jit(jeb.tu_bits, static_argnames=("c_idx", "slice_type",
+                                                   "sbh"))
+_j_satd = jax.jit(_satd_modes)
 
 
 def T(a):
@@ -116,7 +122,7 @@ def test_intra_pred_at_bit_depth_10_matches_jax(n, c_idx):
     np.testing.assert_array_equal(
         tintra.satd35(T(orig), *map(T, refs), n, c_idx,
                       bit_depth=10).numpy(),
-        np.asarray(_satd_modes(jnp.asarray(orig), jnp.asarray(jp))))
+        np.asarray(_j_satd(jnp.asarray(orig), jnp.asarray(jp))))
     modes = rng.integers(0, 35, (b, 3)).astype(np.int32)
     modes[:, 1], modes[:, 2] = 10, 26
     got = tintra.predict(*map(T, refs), T(modes), n, c_idx,
@@ -156,8 +162,8 @@ def test_residual_chain_at_bit_depth_10_matches_jax(n, qp):
     # K3 on the 10-bit levels: exact where JAX's f32 sums are (below 512
     # bits), within rtol 1e-5 on dense TUs (tests/test_torch_ops.py)
     lvn = lv.numpy()
-    jb = np.asarray(jeb.tu_bits(jnp.asarray(lvn.astype(np.int32)), c_idx=0,
-                                slice_type="I", qp=jnp.asarray(qpv)[:, None]))
+    jb = np.asarray(_j_tu_bits(jnp.asarray(lvn.astype(np.int32)), c_idx=0,
+                               slice_type="I", qp=jnp.asarray(qpv)[:, None]))
     tb = teb.tu_bits(T(lvn), 0, T(qpv)[:, None]).numpy()
     np.testing.assert_allclose(tb, jb, rtol=1e-5, atol=0)
     small = jb < 512
@@ -182,9 +188,9 @@ def test_tu_bits_golomb_forms_hold_for_10_bit_levels():
     lv8, _, _ = residual_chain(T(orig >> 2), T(pred >> 2),
                                T(np.zeros(2, np.int32)), False)
     assert np.abs(lv.numpy()).max() > 3 * np.abs(lv8.numpy()).max()
-    jb = np.asarray(jeb.tu_bits(jnp.asarray(lv.numpy().astype(np.int32)),
-                                c_idx=0, slice_type="I",
-                                qp=jnp.zeros((2, 1), jnp.int32)))
+    jb = np.asarray(_j_tu_bits(jnp.asarray(lv.numpy().astype(np.int32)),
+                               c_idx=0, slice_type="I",
+                               qp=jnp.zeros((2, 1), jnp.int32)))
     tb = teb.tu_bits(lv, 0, torch.zeros((2, 1), dtype=torch.int32)).numpy()
     np.testing.assert_array_equal(tb, jb)
 

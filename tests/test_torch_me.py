@@ -26,6 +26,7 @@ from x265amod_tpu.ops.transforms import inv_transform as j_inv
 from x265amod_tpu_torch.ops import deblock as tdb
 from x265amod_tpu_torch.ops import estbits as teb
 from x265amod_tpu_torch.ops import me as tme
+from x265amod_tpu_torch.ops.rdoq import fma32
 from x265amod_tpu_torch.ops.residual import residual_chain
 from test_torch_slice import yield_cpu  # noqa: F401 (autouse)
 
@@ -34,6 +35,14 @@ from test_torch_slice import yield_cpu  # noqa: F401 (autouse)
 torch.set_num_threads(1)
 
 SR = 8      # config 2's search range (preset superfast)
+
+# the JAX tu_bits under jit, as the JAX trees run it: one compile a shape
+# for the file instead of one for each of its eager operations
+_j_tu_bits = jax.jit(jeb.tu_bits, static_argnames=("c_idx", "slice_type",
+                                                   "sbh"))
+# likewise the inter bS maps, which the JAX package leaves unjitted (its
+# trees call them inside their own jit)
+_j_inter_bs = jax.jit(jdb.inter_tree_bs_maps)
 
 
 def T(a):
@@ -275,8 +284,8 @@ def test_tu_bits_p_table(n):
              * (rng.random((10, n, n)) < 0.7)).astype(np.int32)
     for c_idx in (0, 1):
         for lv, exact in ((sparse, True), (dense, False)):
-            jb = np.asarray(jeb.tu_bits(jnp.asarray(lv), c_idx=c_idx,
-                                        slice_type="P", qp=jnp.asarray(qp)))
+            jb = np.asarray(_j_tu_bits(jnp.asarray(lv), c_idx=c_idx,
+                                       slice_type="P", qp=jnp.asarray(qp)))
             tb = teb.tu_bits(T(lv), c_idx, T(qp), "P").numpy()
             if exact:
                 np.testing.assert_array_equal(tb, jb)
@@ -299,7 +308,7 @@ def test_inter_tree_bs_maps_parity(seed):
     mv1 = np.zeros_like(mv0)
     ref0 = np.zeros((h16, w16), np.int32)
     split = rng.integers(0, 2, (h16 // 2, w16 // 2)).astype(np.int32)
-    jv, jh = (np.asarray(a) for a in jdb.inter_tree_bs_maps(
+    jv, jh = (np.asarray(a) for a in _j_inter_bs(
         jnp.asarray(intra), jnp.asarray(cbf), jnp.asarray(dir_),
         jnp.asarray(mv0), jnp.asarray(mv1), jnp.asarray(split),
         ref0=jnp.asarray(ref0)))
@@ -353,7 +362,7 @@ def test_int_mv_argmin_pins_xla_fma():
     """The integer ME's argmin (JAX `models/inter_tree.py:best_mv` :227;
     XLA's CPU code computes ``grid + lam * mvbits`` as one FMA, the
     argmin fusion's object code): on crafted grids where two MVs tie
-    within a few ulps, the port's `int_mv_argmin` equals a jitted JAX
+    within a few ulps, the port's `int_mv_argmin_plain` equals a jitted JAX
     function of JAX's formula, and the rounded form picks otherwise on at
     least 10 lanes."""
     rng = np.random.default_rng(41)
@@ -381,7 +390,7 @@ def test_int_mv_argmin_pins_xla_fma():
         flat = jnp.argmin(cost.reshape(cost.shape[0], -1), axis=1)
         return jnp.stack([flat % s - sr, flat // s - sr], 1)
     want = np.asarray(jax_best(grid, lam))
-    got = tme.int_mv_argmin(T(grid), T(lam), sr).numpy()
+    got = tme.int_mv_argmin_plain(T(grid), T(lam), sr).numpy()
     np.testing.assert_array_equal(got, want)
     rounded_mv = np.where(rounded[keep][:, None], -sr, 0)
     assert (rounded_mv != want).any(1).sum() >= 10
@@ -677,3 +686,116 @@ def test_k9_model_equals_the_plain_bi_prediction(n, chroma):
         want = tme.mc_bi_plain(T(planes[0]), T(planes[1]), T(mvs[0]),
                                T(mvs[1]), n, chroma).numpy()
         np.testing.assert_array_equal(got, want)
+
+
+# ---- the ME argmin on the card, modelled -----------------------------------
+
+_INF = np.float32(np.inf)
+
+
+def _keep_min(c, i, c2, i2):
+    """The kernels' keep_min on arrays: the least (cost, index), ties to
+    the lower index."""
+    take = (c2 < c) | ((c2 == c) & (i2 < i))
+    return np.where(take, c2, c), np.where(take, i2, i)
+
+
+def _shuffle_min(c, i):
+    """A warp's shuffle tree (shfl_down 16, 8, 4, 2, 1; a lane beyond the
+    warp reads its own value) on [..., 32] lanes: lane 0's result."""
+    lane = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        src = np.where(lane + off < 32, lane + off, lane)
+        c, i = _keep_min(c, i, c[..., src], i[..., src])
+    return c[..., 0], i[..., 0]
+
+
+def _mv_cost(lam, bits, g):
+    """__fmaf_rn(lam, bits, g) in f32."""
+    return fma32(torch.as_tensor(lam), torch.as_tensor(bits),
+                 torch.as_tensor(g)).numpy()
+
+
+def _lane_mins(cost, seqs, n):
+    """Each thread's first minimum (keep_min in its visiting order) of
+    cost [nb, n] over its flat indices ``seqs`` (a list a thread):
+    ([nb, threads] costs, indices)."""
+    k = max(map(len, seqs))
+    idx = np.array([list(q) + [n] * (k - len(q)) for q in seqs])
+    padded = np.concatenate([cost, np.full((cost.shape[0], 1), _INF,
+                                           np.float32)], 1)
+    c = np.full((cost.shape[0], len(seqs)), _INF, np.float32)
+    i = np.full(c.shape, n, np.int64)
+    for j in range(k):
+        c, i = _keep_min(c, i, padded[:, idx[:, j]], idx[None, :, j])
+    return c, i
+
+
+def argmin_model(grid, lam, sr):
+    """The ME argmin as the card runs it: folded into K5's epilogue
+    (`csrc/me_ssd.cu`'s `me_ssd_grid_argmin`).  K5's fast-path epilogue
+    order: (S + 7) // 8 warps, the S x 4 column runs (dx, a run of
+    ceil(S / 4) dy) dealt to the threads in turn, dy increasing within a
+    run (a run's strict first minimum, then the thread's keep_min); the
+    bits (2 + X[dx]) + X[dy] in f32 adds from the table X[d] = 2 bitlen(4
+    |d - sr|); the cost fma(lam, bits, g); a thread's minimum, the shuffle
+    tree in each warp, then the least of the warps' keys (cost bits << 32)
+    | index (a shared atomicMin: the costs are non-negative, so their bits
+    order as they do); and the order of its exact int32 loop (offset t to
+    thread t % T, T threads).
+
+    Returns the two results, each [nb, 2] int32 (dx, dy)."""
+    grid = np.asarray(grid, np.float32)
+    lam = np.asarray(lam, np.float32)
+    nb, s, _ = grid.shape
+    n = s * s
+    d = np.arange(s)
+    bl = np.where(d == sr, 0, np.frexp(4.0 * np.abs(d - sr))[1])
+    xt = (2 * bl).astype(np.float32)                # the table X
+    bits = (np.float32(2.0) + xt)[None, :] + xt[:, None]      # [dy, dx]
+    cost = _mv_cost(lam[:, None, None], bits[None], grid).reshape(nb, n)
+    warps = (s + 7) // 8
+    threads = 32 * warps
+    run = -(-s // 4)
+    fast = [[] for _ in range(threads)]
+    for task in range(s * 4):
+        dx, dy0 = task % s, (task // s) * run
+        fast[task % threads] += [dy * s + dx
+                                 for dy in range(dy0, min(dy0 + run, s))]
+    wide = [list(range(t, n, threads)) for t in range(threads)]
+    out = []
+    for seqs in (fast, wide):
+        tc, ti = _lane_mins(cost, seqs, n)
+        wc, wi = _shuffle_min(tc.reshape(nb, warps, 32),
+                              ti.reshape(nb, warps, 32))
+        assert (wc >= 0).all()
+        key = (wc.view(np.uint32).astype(np.uint64) << 32) | wi.astype(
+            np.uint64)
+        out.append((key.min(1) & 0xFFFFFFFF).astype(np.int64))
+    return [np.stack([i % s - sr, i // s - sr], 1).astype(np.int32)
+            for i in out]
+
+
+@pytest.mark.parametrize("sr", [4, 8, 16, 32])
+def test_argmin_model_equals_the_plain_argmin(sr):
+    """`argmin_model` (the two orders of K5's epilogue) equals
+    `int_mv_argmin_plain` at sr 4, 8, 16 and 32 on the crafted FMA near-ties of `_near_ties` (candidate a at
+    (-sr, -sr) within ulps of candidate b at (0, 0)), exact ties (a copy
+    of the first candidate at (-sr + 1, -sr + 1) and on the last offset:
+    the first index wins), a grid of equal values (every cost of one bit
+    count ties: the argmin is (0, 0), the fewest bits) and random grids."""
+    rng = np.random.default_rng(77 + sr)
+    s = 2 * sr + 1
+    bits_a = float(tme.mvd_bits(torch.tensor([-4 * sr, -4 * sr])))
+    lam, ca, cb = _near_ties(rng, 48, bits_a, 2.0, (1000, 1000000))
+    grid = rng.uniform(2e6, 3e7, (lam.size, s, s)).astype(np.float32)
+    grid[:, 0, 0], grid[:, sr, sr] = ca, cb
+    grid[::3, 1, 1] = grid[::3, 0, 0]
+    grid[1::3, -1, -1] = grid[1::3, 0, 0]
+    grid[2::6] = 5e5
+    lam[::5] = 0.0
+    want = tme.int_mv_argmin_plain(T(grid), T(lam), sr).numpy()
+    for got in argmin_model(grid, lam, sr):
+        np.testing.assert_array_equal(got, want)
+    assert (want[2::6][lam[2::6] > 0] == 0).all()
+    assert (want[lam == 0] == -sr).all()

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from x265amod_tpu.models.intra_tree import _satd_modes
@@ -28,6 +29,22 @@ from x265amod_tpu_torch.ops.sbh import sbh_adjust as t_sbh
 from x265amod_tpu_torch.ops.transforms import fwd_transform as t_fwd
 from x265amod_tpu_torch.ops.transforms import inv_transform as t_inv
 from test_torch_slice import yield_cpu  # noqa: F401 (autouse)
+
+# the JAX tu_bits under jit, as the JAX trees run it: one compile a shape
+# for the file instead of one for each of its eager operations
+_j_tu_bits = jax.jit(jeb.tu_bits, static_argnames=("c_idx", "slice_type",
+                                                   "sbh"))
+# likewise the deblocking maps and the SATD, which the JAX package leaves
+# unjitted (its trees call them inside their own jit)
+_j_intra_bs = jax.jit(jdb.intra_tree_bs_maps, static_argnames=("h16",
+                                                               "w16"))
+_j_inter_bs = jax.jit(jdb.inter_tree_bs_maps)
+_j_eff_qp = jax.jit(jdb.effective_qp_map, static_argnames=("slice_qp",
+                                                          "wpp"))
+_j_eff_qp16 = jax.jit(jdb.effective_qp16_tree, static_argnames=("slice_qp",
+                                                               "wpp"))
+_j_edge_qp = jax.jit(jdb.edge_qp_maps)
+_j_satd = jax.jit(_satd_modes)
 
 # The port's CPU ops are small: one intra-op thread keeps torch's idle
 # threads from spinning on cores that parallel test workers need.
@@ -88,7 +105,7 @@ def test_intra_pred_parity(n, c_idx):
     orig[3] = 255
     np.testing.assert_array_equal(
         tintra.satd35(T(orig), *map(T, refs), n, c_idx).numpy(),
-        np.asarray(_satd_modes(jnp.asarray(orig), jnp.asarray(jp))))
+        np.asarray(_j_satd(jnp.asarray(orig), jnp.asarray(jp))))
     modes = rng.integers(0, 35, (b, 2)).astype(np.int32)
     got = tintra.predict(*map(T, refs), T(modes), n, c_idx).numpy()
     for k in range(2):
@@ -162,9 +179,9 @@ def test_tu_bits_parity(n, qp, c_idx):
     qpv = np.full(b, qp, np.int32)
     lv, _, _ = residual_chain(T(orig), T(pred), T(qpv), False)
     lv = lv.numpy()
-    jb = np.asarray(jeb.tu_bits(jnp.asarray(lv.astype(np.int32)),
-                                c_idx=c_idx, slice_type="I",
-                                qp=jnp.asarray(qpv)[:, None]))
+    jb = np.asarray(_j_tu_bits(jnp.asarray(lv.astype(np.int32)),
+                               c_idx=c_idx, slice_type="I",
+                               qp=jnp.asarray(qpv)[:, None]))
     tb = teb.tu_bits(T(lv), c_idx, T(qpv)[:, None]).numpy()
     assert tb.dtype == np.float32
     np.testing.assert_allclose(tb, jb, rtol=1e-5, atol=0)
@@ -179,8 +196,8 @@ def test_tu_bits_sparse_blocks_exact():
         lv[0] = 0
         qp = rng.integers(0, 52, 12).astype(np.int32)
         for c_idx in (0, 1):
-            jb = np.asarray(jeb.tu_bits(jnp.asarray(lv), c_idx=c_idx,
-                                        slice_type="I", qp=jnp.asarray(qp)))
+            jb = np.asarray(_j_tu_bits(jnp.asarray(lv), c_idx=c_idx,
+                                       slice_type="I", qp=jnp.asarray(qp)))
             tb = teb.tu_bits(T(lv), c_idx, T(qp)).numpy()
             np.testing.assert_array_equal(tb, jb)
 
@@ -228,14 +245,14 @@ def test_deblock_parity(seed):
     cb = rng.integers(100, 160, (f, h // 2, w // 2))
     for i in range(f):
         jv, jh = (np.asarray(a) for a in
-                  jdb.intra_tree_bs_maps(jnp.asarray(split[i]), h16, w16))
+                  _j_intra_bs(jnp.asarray(split[i]), h16, w16))
         np.testing.assert_array_equal(bs_v[i].numpy(), jv)
         np.testing.assert_array_equal(bs_h[i].numpy(), jh)
-        je = np.asarray(jdb.effective_qp16_tree(
+        je = np.asarray(_j_eff_qp16(
             jnp.asarray(qp32), jnp.asarray(split[i]), jnp.asarray(coded[i]),
             sq))
         np.testing.assert_array_equal(eff[i].numpy(), je)
-        jqv, jqh = (np.asarray(a) for a in jdb.edge_qp_maps(jnp.asarray(je)))
+        jqv, jqh = (np.asarray(a) for a in _j_edge_qp(jnp.asarray(je)))
         jy = np.asarray(jdb.deblock_luma_bs(
             jnp.asarray(y[i], jnp.int32), sq, jnp.asarray(jv),
             jnp.asarray(jh), 16, qp_v=jnp.asarray(jqv),
@@ -310,14 +327,14 @@ def test_deblock_maps_parity(shape):
             (lv[2][i] != 0).any((2, 3))
         if flat:
             bs = (np.full((h16, w16 - 1), 2), np.full((h16 - 1, w16), 2))
-            eff = jdb.effective_qp_map(jnp.asarray(qp_sig),
+            eff = _j_eff_qp(jnp.asarray(qp_sig),
                                        jnp.asarray(coded), 30)
         else:
-            eff = jdb.effective_qp16_tree(jnp.asarray(qp_sig),
+            eff = _j_eff_qp16(jnp.asarray(qp_sig),
                                           jnp.asarray(split[i]),
                                           jnp.asarray(coded), 30)
             if inter is None:
-                bs = jdb.intra_tree_bs_maps(jnp.asarray(split[i]), h16, w16)
+                bs = _j_intra_bs(jnp.asarray(split[i]), h16, w16)
             else:
                 intra = kinds[i] == 2
                 cbf32 = nz_y.reshape(h16 // 2, 2, w16 // 2, 2).any((1, 3))
@@ -331,11 +348,11 @@ def test_deblock_maps_parity(shape):
                     np.zeros_like(m0)
                 r0 = np.zeros_like(kinds[i]) if b else \
                     np.where(intra, 0, ref0[i])
-                bs = jdb.inter_tree_bs_maps(
+                bs = _j_inter_bs(
                     jnp.asarray(intra), jnp.asarray(cbf), jnp.asarray(d_),
                     jnp.asarray(m0), jnp.asarray(m1), jnp.asarray(split[i]),
                     ref0=jnp.asarray(r0))
-        qv, qh = jdb.edge_qp_maps(eff)
+        qv, qh = _j_edge_qp(eff)
         want = (bs[0], qv, jq.chroma_qp_jnp(qv), bs[1], qh,
                 jq.chroma_qp_jnp(qh))
         for g, w_ in zip(got, want):

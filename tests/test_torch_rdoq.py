@@ -208,7 +208,7 @@ def test_group_near_ties_match_jax(n, st, c_idx):
     csb0, csb1 = (float(x) for x in rdoq.group_csb(st, c_idx))
     step = rdoq.pixel_step_sse(n).astype(np.float64)
     rtab = torch.as_tensor(rdoq.rate_consts(st, c_idx))
-    cases = []
+    cand = []
     for _ in range(700):
         qp = int(rng.integers(0, 52))
         qb, sc = qbits_of(np.int64(qp), n), QS[qp % 6]
@@ -218,25 +218,36 @@ def test_group_near_ties_match_jax(n, st, c_idx):
             (rng.uniform(0.5, 3.0, k) * 2 ** qb / sc).astype(np.int64)
         lv = np.round(co * sc / 2 ** qb).astype(np.int32)
         q = (np.float32(co[:4, :4]) * np.float32(sc)) / np.float32(2 ** qb)
-        lam = 1.0
-        for _ in range(3):        # the tie lambda, at the hi/lo choice
-            l1 = np.abs(port_rdoq(co[None].astype(np.int32), lv[None],
-                                  np.array([qp], np.int32),
-                                  np.array([lam], np.float32), c_idx, st,
-                                  False)[0, :4, :4]).astype(np.int64)
+        cand.append((co.astype(np.int32), lv, qp, q))
+    # the tie lambda of each candidate, at the hi/lo choice: three rounds,
+    # each one batched plain RDOQ over the candidates still searching (a
+    # block's result does not depend on the batch around it)
+    lam = [1.0] * len(cand)
+    alive = list(range(len(cand)))
+    for _ in range(3):
+        l1s = np.abs(port_rdoq(
+            np.stack([cand[i][0] for i in alive]),
+            np.stack([cand[i][1] for i in alive]),
+            np.array([cand[i][2] for i in alive], np.int32),
+            np.array([lam[i] for i in alive], np.float32), c_idx, st,
+            False)[:, :4, :4]).astype(np.int64)
+        keep = []
+        for i, l1 in zip(alive, l1s):
+            _, _, qp, q = cand[i]
             if not l1.any():
-                break
+                continue
             r = rdoq.level_rate(T(l1), torch.full((4, 4), qp), rtab)
             den = float(r.double().sum()) + csb1 - csb0
             lam_t = step[qp] * float(((q.astype(np.float64) ** 2)
                                       - (q - l1) ** 2).sum()) / den \
                 if den > 0 else -1.0
             if not 1e-3 < lam_t < 1e7:
-                break
-            lam = lam_t
-        else:
-            cases += [(co.astype(np.int32), lv, qp, _ulps(lam, j))
-                      for j in range(-4, 5)]
+                continue
+            lam[i] = lam_t
+            keep.append(i)
+        alive = keep
+    cases = [(cand[i][0], cand[i][1], cand[i][2], _ulps(lam[i], j))
+             for i in alive for j in range(-4, 5)]
     co = np.stack([x[0] for x in cases])
     lv = np.stack([x[1] for x in cases])
     qp = np.array([x[2] for x in cases], np.int32)

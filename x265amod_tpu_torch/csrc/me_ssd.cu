@@ -5,9 +5,26 @@
 // Replaces, from the JAX package: ops/me.py me_ssd_grid (a grouped f32
 // convolution, w2 - 2 corr + c2, over im2col windows).
 //
-// Entry point (plain C, caller's stream, returns cudaGetLastError()):
+// Entry points (plain C, caller's stream, returns cudaGetLastError()):
 //   me_ssd_grid(cur [nb,bn,bn] i32, ref [H,W] i32, H, W, bn, sr,
 //               out [nb,S,S] f32),  S = 2 sr + 1, nb = (H/bn) (W/bn)
+//   me_ssd_grid_argmin(cur, ref, H, W, bn, sr, lam [nb] f32, out,
+//               mv_out [nb,2] i32 (dx, dy)): the same grid, and the ME
+//               argmin folded into the epilogue (the JAX package's
+//               models/inter_tree.py best_mv :227-229, the first minimum
+//               of fma(lam, mvd_bits(4 d), grid[d])): as a thread stores
+//               an offset's f32 SSD it forms the cost from that value
+//               with __fmaf_rn, mvd_bits = (2 + X[dx]) + X[dy]
+//               from a table X[d] = 2 bitlen(4 |d - sr|) in shared memory
+//               (ops/me.py mvd_bits; exact small integers, f32 adds), and
+//               keeps the first minimum of each run of dy (a strict less)
+//               and of its runs (ties to the lower index); a shuffle tree
+//               in each warp on the key (cost bits << 32) | index (the
+//               costs are non-negative floats, whose bits order as their
+//               values do) and a shared atomicMin over the warps' keys
+//               take the least (cost, index): ties go to the lower index,
+//               jnp.argmin's order.  Every float step is an explicit _rn
+//               intrinsic: this file is built with FMA contraction on.
 //
 // What bounds it on an H100: the correlation, S^2 bn^2 multiply-adds per
 // block against 4 bn^2 bytes read and 4 S^2 written; on the int32 ALUs,
@@ -91,11 +108,47 @@ __device__ __forceinline__ void mma_u8(int (&d)[4], const unsigned (&a)[4],
 // cut into kSeg runs, one thread a run.
 constexpr int kSeg = 4;
 
+// the least (cost, index) of a thread's and another's, ties to the lower
+// index
+__device__ __forceinline__ void keep_min(float& c, int& i, float c2,
+                                         int i2) {
+  if (c2 < c || (c2 == c && i2 < i)) {
+    c = c2;
+    i = i2;
+  }
+}
+
+// the CTA's first minimum of the threads' (c, i) into mv_out[b]: a warp's
+// least key (cost bits << 32) | index by a shuffle tree, then the least of
+// the warps' keys by a shared atomicMin on *key (~0 before the call);
+// every thread of the CTA calls it
+__device__ void argmin_store(float c, int i, int S, int sr,
+                             unsigned long long* key, int32_t* mv_out,
+                             int b) {
+  unsigned long long k =
+      ((unsigned long long)__float_as_uint(c) << 32) | (unsigned)i;
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    const unsigned long long k2 = __shfl_down_sync(0xffffffffu, k, off);
+    k = k2 < k ? k2 : k;
+  }
+  if ((threadIdx.x & 31) == 0) atomicMin(key, k);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int idx = (int)(*key & 0xffffffffu);
+    mv_out[2 * b] = idx % S - sr;
+    mv_out[2 * b + 1] = idx / S - sr;
+  }
+}
+
 template <int BN, int MT>
-__global__ void __launch_bounds__(288)
-    me_ssd_kernel(const int32_t* __restrict__ cur,
-                  const int32_t* __restrict__ ref, int H, int W, int sr,
-                  float* __restrict__ out) {
+__device__ __forceinline__ void me_ssd_body(const int32_t* __restrict__ cur,
+                                            const int32_t* __restrict__ ref,
+                                            int H, int W, int sr,
+                                            float* __restrict__ out,
+                                            const float* __restrict__ lam,
+                                            int32_t* __restrict__ mv_out) {
+  const bool am = mv_out != nullptr;    // the folded argmin
   constexpr bool k32 = BN == 32;
   constexpr int kWords = 4 * MT + (k32 ? 4 : 0);
   extern __shared__ __align__(16) unsigned char sh[];
@@ -111,6 +164,10 @@ __global__ void __launch_bounds__(288)
   unsigned* rs = sq + ws * sp;                        // [ws][S]
   unsigned* cs = rs + ws * S;                         // [S][S]
   unsigned* c2w = cs + S * S;                         // [nw]
+  // am: the argmin's key and table X[d]
+  unsigned long long* amk = reinterpret_cast<unsigned long long*>(
+      (reinterpret_cast<uintptr_t>(c2w + nw) + 7) & ~(uintptr_t)7);
+  float* xb = (float*)(amk + 1);                      // [S]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
   const int wb = W / BN;
@@ -153,6 +210,13 @@ __global__ void __launch_bounds__(288)
       }
     }
   }
+  if (am) {
+    if (tid == 0) *amk = ~0ULL;
+    for (int d = tid; d < S; d += blockDim.x) {
+      const int a = 4 * abs(d - sr);
+      xb[d] = a ? __int2float_rn(2 * (32 - __clz(a))) : 0.0f;
+    }
+  }
   unsigned c2 = 0;
   int clo = 0, chi = 0;
   for (int i = tid; i < BN * BN; i += blockDim.x) {
@@ -173,6 +237,8 @@ __global__ void __launch_bounds__(288)
   if (wide) {
     // beyond the byte split's range: the exact int32 loop, from device
     // memory
+    float best = __int_as_float(0x7f800000);   // am: +inf
+    int bi = S * S;
     for (int t = tid; t < S * S; t += blockDim.x) {
       const int dy = t / S, dx = t % S;
       unsigned acc = 0;
@@ -187,8 +253,13 @@ __global__ void __launch_bounds__(288)
           acc += d * d;
         }
       }
-      o[t] = __int2float_rn((int)acc);
+      const float v = __int2float_rn((int)acc);
+      o[t] = v;
+      if (am)
+        keep_min(best, bi, __fmaf_rn(lam[b], __fadd_rn(__fadd_rn(
+                     2.0f, xb[dx]), xb[dy]), v), t);
     }
+    if (am) argmin_store(best, bi, S, sr, amk, mv_out, b);
     return;
   }
 
@@ -279,6 +350,9 @@ __global__ void __launch_bounds__(288)
   // offsets
   unsigned c2all = 0;
   for (int k = 0; k < nw; ++k) c2all += c2w[k];
+  // am: this thread's first minimum
+  float best = __int_as_float(0x7f800000);   // +inf
+  int bi = S * S;
   for (int task = tid; task < S * kSeg; task += blockDim.x) {
     const int dx = task % S, dy0 = (task / S) * run;
     const int dy1 = min(dy0 + run, S);
@@ -286,51 +360,110 @@ __global__ void __launch_bounds__(288)
     unsigned w2 = 0;
 #pragma unroll
     for (int y = 0; y < BN; ++y) w2 += rs[(dy0 + y) * S + dx];
+    // am: the run's first minimum (dy increasing: a strict less)
+    float rb = __int_as_float(0x7f800000);
+    int rdy = dy0;
     for (int dy = dy0; dy < dy1; ++dy) {
       if (dy > dy0) w2 += rs[(dy + BN - 1) * S + dx] - rs[(dy - 1) * S + dx];
-      o[dy * S + dx] = __int2float_rn((int)(c2all - 2u * cs[dy * S + dx] +
-                                            w2));
+      const float v = __int2float_rn((int)(c2all - 2u * cs[dy * S + dx] +
+                                           w2));
+      o[dy * S + dx] = v;
+      if (am) {
+        const float c = __fmaf_rn(
+            lam[b], __fadd_rn(__fadd_rn(2.0f, xb[dx]), xb[dy]), v);
+        if (c < rb) {
+          rb = c;
+          rdy = dy;
+        }
+      }
     }
+    if (am) keep_min(best, bi, rb, rdy * S + dx);
   }
+  if (am) argmin_store(best, bi, S, sr, amk, mv_out, b);
 }
 
+// The kernels of bn 16 and 32.  Without a minimum of CTAs an SM, ptxas
+// gives the bn-16 instances 64-81 registers and holds the bn-32 ones at
+// 56, which the folded argmin exceeds at 3 and 5 tiles (a spill): the
+// bn-32 kernel asks for 3 CTAs of 288 threads (at most 72 registers), 2
+// at 1 tile (sr <= 7), which spills 8 bytes at 72.  A minimum on the
+// bn-16 kernel changes its allocation (of 1: 106-114 registers, 20 %
+// slower; of 3: 72, the fold 5 % slower).
+template <int MT>
+__global__ void __launch_bounds__(288)
+    me_ssd16_kernel(const int32_t* __restrict__ cur,
+                    const int32_t* __restrict__ ref, int H, int W, int sr,
+                    float* __restrict__ out, const float* __restrict__ lam,
+                    int32_t* __restrict__ mv_out) {
+  me_ssd_body<16, MT>(cur, ref, H, W, sr, out, lam, mv_out);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(288, MT == 1 ? 2 : 3)
+    me_ssd32_kernel(const int32_t* __restrict__ cur,
+                    const int32_t* __restrict__ ref, int H, int W, int sr,
+                    float* __restrict__ out, const float* __restrict__ lam,
+                    int32_t* __restrict__ mv_out) {
+  me_ssd_body<32, MT>(cur, ref, H, W, sr, out, lam, mv_out);
+}
+
+// the argmin (am) adds its key, 8-byte aligned, and its table of S floats
 template <int BN, int MT>
-size_t smem_bytes(int sr, int warps) {
+size_t smem_bytes(int sr, int warps, bool am) {
   const int S = 2 * sr + 1, ws = BN + 2 * sr;
   const int pitch = (16 * MT + BN + 4 + 15) & ~15;
   return (size_t)2 * ws * pitch + BN * BN +
-         (size_t)4 * (ws * (ws + 1) + ws * S + S * S + warps);
+         (size_t)4 * (ws * (ws + 1) + ws * S + S * S + warps) +
+         (am ? 16 + 4 * (size_t)S : 0);
 }
 
 template <int BN, int MT>
 int launch(const int32_t* cur, const int32_t* ref, int H, int W, int sr,
-           float* out, cudaStream_t stream) {
+           float* out, const float* lam, int32_t* mv_out,
+           cudaStream_t stream) {
   const int nb = (H / BN) * (W / BN);
   const int S = 2 * sr + 1;
   const int warps = (S + 7) / 8;
-  const size_t shmem = smem_bytes<BN, MT>(sr, warps);
+  const bool am = mv_out != nullptr;
+  const size_t shmem = smem_bytes<BN, MT>(sr, warps, am);
+  const auto kernel = BN == 16 ? me_ssd16_kernel<MT> : me_ssd32_kernel<MT>;
   if (shmem > 48 * 1024) {    // the largest windows (sr 32) take ~100 KB
     const cudaError_t e = cudaFuncSetAttribute(
-        me_ssd_kernel<BN, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (e != cudaSuccess) return (int)e;
   }
-  me_ssd_kernel<BN, MT><<<nb, 32 * warps, shmem, stream>>>(cur, ref, H, W,
-                                                           sr, out);
+  kernel<<<nb, 32 * warps, shmem, stream>>>(cur, ref, H, W, sr, out, lam,
+                                            mv_out);
   return (int)cudaGetLastError();
 }
 
 // the kernel for the 16-row tiles of dx that S = 2 sr + 1 needs
 template <int BN>
 int launch_tiles(const int32_t* cur, const int32_t* ref, int H, int W,
-                 int sr, float* out, cudaStream_t stream) {
+                 int sr, float* out, const float* lam, int32_t* mv_out,
+                 cudaStream_t stream) {
   switch ((2 * sr + 1 + 15) / 16) {
-    case 1: return launch<BN, 1>(cur, ref, H, W, sr, out, stream);
-    case 2: return launch<BN, 2>(cur, ref, H, W, sr, out, stream);
-    case 3: return launch<BN, 3>(cur, ref, H, W, sr, out, stream);
-    case 4: return launch<BN, 4>(cur, ref, H, W, sr, out, stream);
-    default: return launch<BN, 5>(cur, ref, H, W, sr, out, stream);
+    case 1: return launch<BN, 1>(cur, ref, H, W, sr, out, lam, mv_out,
+                                 stream);
+    case 2: return launch<BN, 2>(cur, ref, H, W, sr, out, lam, mv_out,
+                                 stream);
+    case 3: return launch<BN, 3>(cur, ref, H, W, sr, out, lam, mv_out,
+                                 stream);
+    case 4: return launch<BN, 4>(cur, ref, H, W, sr, out, lam, mv_out,
+                                 stream);
+    default: return launch<BN, 5>(cur, ref, H, W, sr, out, lam, mv_out,
+                                  stream);
   }
+}
+
+int launch_bn(const int32_t* cur, const int32_t* ref, int H, int W, int bn,
+              int sr, float* out, const float* lam, int32_t* mv_out,
+              cudaStream_t stream) {
+  if ((bn != 16 && bn != 32) || sr < 1 || sr > 32)
+    return (int)cudaErrorInvalidValue;
+  return bn == 16
+             ? launch_tiles<16>(cur, ref, H, W, sr, out, lam, mv_out, stream)
+             : launch_tiles<32>(cur, ref, H, W, sr, out, lam, mv_out, stream);
 }
 
 }  // namespace
@@ -338,8 +471,13 @@ int launch_tiles(const int32_t* cur, const int32_t* ref, int H, int W,
 extern "C" int me_ssd_grid(const int32_t* cur, const int32_t* ref, int H,
                            int W, int bn, int sr, float* out,
                            cudaStream_t stream) {
-  if ((bn != 16 && bn != 32) || sr < 1 || sr > 32)
-    return (int)cudaErrorInvalidValue;
-  return bn == 16 ? launch_tiles<16>(cur, ref, H, W, sr, out, stream)
-                  : launch_tiles<32>(cur, ref, H, W, sr, out, stream);
+  return launch_bn(cur, ref, H, W, bn, sr, out, nullptr, nullptr, stream);
+}
+
+extern "C" int me_ssd_grid_argmin(const int32_t* cur, const int32_t* ref,
+                                  int H, int W, int bn, int sr,
+                                  const float* lam, float* out,
+                                  int32_t* mv_out, cudaStream_t stream) {
+  if (lam == nullptr || mv_out == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_bn(cur, ref, H, W, bn, sr, out, lam, mv_out, stream);
 }

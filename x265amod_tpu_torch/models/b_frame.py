@@ -5,7 +5,7 @@
 The P frame's phases (`models/inter_frame.py`) with two lists, as the JAX
 `_encode` (:124) runs them:
 
-1. ME on both references (:156-172): K5, the argmin kernel, K6.
+1. ME on both references (:156-172): K5 with the argmin folded in, K6.
 2. The L0, L1 and bi trials (:175-191): K7 per list, K9 `mc_bi` for the
    bi-prediction (14-bit combine), K2 with inter rounding and no SBH, K3 at
    B states; the intra trial (:193-217) at B states.

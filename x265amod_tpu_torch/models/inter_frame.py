@@ -6,9 +6,10 @@ and the phases the flat B frame (`models/b_frame.py`) shares.
 One device step codes one P frame against one reference, CTU = CU = TU = 16,
 as the JAX `_encode` (:137) does:
 
-1. ME (:159-179): the integer SSD grid of every CTU over +-sr (K5
-   `me_ssd_grid`), the cost argmin (the argmin kernel `int_mv_argmin`, XLA's
-   FMA), the +-2 quarter-pel refinement when subme >= 1 (K6).
+1. ME (:159-179): the integer SSD grid of every CTU over +-sr and its
+   cost argmin (XLA's FMA) in one K5 launch (`me_ssd_grid_mv`, the argmin
+   folded into K5's epilogue), the +-2 quarter-pel refinement when subme
+   >= 1 (K6).
 2. The inter trial at the ME MV (:182-190): K7 `mc_luma_qpel`, K2 with inter
    rounding and no SBH, K3 `tu_bits` at P states.
 3. The intra trial on SOURCE references (:193-218): all 35 modes through K1
@@ -45,8 +46,8 @@ from ..ops.deblock import deblock_frame_planes
 from ..ops.decide_flat import KIND_OF_CHOICE_P, Schedule, decide_p
 from ..ops.estbits import intra_hdr_bits, tu_bits
 from ..ops.intra import predict
-from ..ops.me import (int_mv_argmin, mc_chroma_qpel, mc_luma_qpel,
-                      me_ssd_grid, subpel_refine)
+from ..ops.me import (mc_chroma_qpel, mc_luma_qpel, me_ssd_grid_mv,
+                      subpel_refine)
 from ..ops.metrics import frame_metrics
 from ..ops.pack import (levels_for_host, levels_from_host,
                         start_host_copy)
@@ -139,10 +140,9 @@ class FlatInterBase:
 
     def _motion(self, oy_flat, ref_y, lam):
         """ME against one reference (JAX :159-179): the SSD grid [n, S, S]
-        (K5) and the ME MV [n, 2] in quarter-pel (the argmin kernel, then
-        K6 when subme >= 1)."""
-        grid = me_ssd_grid(oy_flat, ref_y, self.sr, 16)
-        mvi = int_mv_argmin(grid, lam, self.sr)
+        and the ME MV [n, 2] in quarter-pel (K5 with the argmin folded in,
+        then K6 when subme >= 1)."""
+        grid, mvi = me_ssd_grid_mv(oy_flat, ref_y, self.sr, 16, lam)
         mv = subpel_refine(ref_y, oy_flat, mvi, lam, 16)[0] \
             if self.subme >= 1 else mvi * 4
         return grid, mv

@@ -4,11 +4,12 @@ port of the JAX package's `models/inter_tree.py:InterTreeEncoder`.
 Four phases per P frame, as in the JAX `_encode` (:171):
 
 1. Parallel ME and trials (:219-297), per reference: the dense SSD grid of
-   every 16x16 cell and every CTU32 over +-sr (kernel K5 `me_ssd_grid`), the
-   ME cost argmin, the +-2 qpel refinement (K6 `subpel_refine`), and an
-   inter trial at each size (K7 `mc_qpel`, K2 `residual_chain` with inter
-   rounding, K3 `tu_bits` at P init states); the SSD grids over the half-pel
-   plane (K8 `hpel_plane`) that price sub-pel merge candidates.  With
+   every 16x16 cell and every CTU32 over +-sr and the ME cost argmin
+   (kernel K5 `me_ssd_grid_mv`, the argmin in its epilogue), the +-2 qpel
+   refinement (K6 `subpel_refine`), and an inter trial at each size (K7
+   `mc_qpel`, K2 `residual_chain` with inter rounding, K3 `tu_bits` at P
+   init states); the SSD grids over the half-pel plane (K8 `hpel_plane`)
+   that price sub-pel merge candidates.  With
    several references, the best one per CU by trial cost with its ref_idx
    bins (K18 `pick_ref`, :274-290).  The intra trial of every cell on
    source references (`_intra_trial16`, :798: K1, K2, K3).
@@ -59,8 +60,8 @@ from ..ops.deblock import deblock_frame_planes
 from ..ops.decide_flat import B_ORDER, PRUNE_A, PRUNE_B, amvp_b
 from ..ops.decide_flat import scale_mv_vec as _scale_mv_vec
 from ..ops.estbits import intra_hdr_bits, tu_bits
-from ..ops.me import (check_window, hpel_plane, int_mv_argmin, mc_bi,
-                      mc_luma_qpel, mc_qpel_ref, mc_select, me_ssd_grid,
+from ..ops.me import (check_window, hpel_plane, mc_bi, mc_luma_qpel,
+                      mc_qpel_ref, mc_select, me_ssd_grid, me_ssd_grid_mv,
                       mvd_bits, pick_ref, subpel_refine)
 from ..ops.metrics import frame_metrics
 from ..ops.pack import (levels_for_host, levels_from_host,
@@ -319,17 +320,17 @@ class InterTreeEncoder:
 
     def _motion_search(self, y, ref_y, maps):
         """Integer ME (JAX `best_mv` :227 before the refinement): the SSD
-        grids at 16 and 32 over the reference (K5), their cost argmin, and
-        the grids over the half-pel plane (K8, K5) that price sub-pel
-        merge candidates: grids [g16, g16 half-pel, g32, g32 half-pel].
-        The argmin's cost is the FMA XLA forms (`int_mv_argmin`)."""
+        grids at 16 and 32 over the reference with their cost argmin (K5,
+        the argmin in its epilogue: `me_ssd_grid_mv`), and the grids over
+        the half-pel plane (K8, K5) that price sub-pel merge candidates:
+        grids [g16, g16 half-pel, g32, g32 half-pel].  The argmin's cost is
+        the FMA XLA forms (`int_mv_argmin_plain`)."""
         out = {}
         grids = []
         rh = hpel_plane(ref_y)
         for bn, lam in ((16, maps["lam16"]), (32, maps["lam32"])):
             cur = _blocks(y, bn).reshape(-1, bn, bn)
-            g = me_ssd_grid(cur, ref_y, self.sr, bn)
-            out[f"mvi{bn}"] = int_mv_argmin(g, lam, self.sr)
+            g, out[f"mvi{bn}"] = me_ssd_grid_mv(cur, ref_y, self.sr, bn, lam)
             grids += [g, me_ssd_grid(cur, rh, self.sr, bn)]
         out["grids"] = grids
         return out

@@ -294,7 +294,10 @@ def lowres_inter_cost(cur_lr, ref_lr, rng: int = LOWRES_ME_RANGE):
         raise ValueError("lowres_inter_cost: bad shapes or range")
     if cur_lr.dtype != torch.uint8 or ref_lr.dtype != torch.uint8:
         raise ValueError("lowres_inter_cost: uint8 planes")
-    cur, ref = cur_lr.contiguous(), ref_lr.contiguous()
+    # the kernel reads rows as 8- and 16-byte words: planes at an offset
+    # that is not 16-byte aligned are copied
+    cur, ref = (t if t.data_ptr() % 16 == 0 else t.clone()
+                for t in (cur_lr.contiguous(), ref_lr.contiguous()))
     cuda_lib.require_cuda(cur, ref)
     cost = torch.empty((h // 8, w // 8), dtype=torch.float32,
                        device=cur.device)

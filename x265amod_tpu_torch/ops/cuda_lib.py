@@ -15,7 +15,9 @@ the cells' flags, then the QP chain and the edges);
 from the trees', `LAUNCHES["residual_chain_rdoq"]` K2's launches with its
 RDOQ stage apart from those without, and `LAUNCHES["decide_flat_b"]` the B
 scan K25 of `csrc/decide_flat.cu` apart from its P scan K24
-(`LAUNCHES["decide_flat"]`).
+(`LAUNCHES["decide_flat"]`), and `LAUNCHES["me_ssd_argmin"]` K5's
+launches with the ME argmin folded into its epilogue apart from those
+without (`LAUNCHES["me_ssd"]`).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 # name -> extra nvcc flags.  tu_bits, subpel, sao_analyse, decide_p,
-# decide_b, pick_ref, mv_argmin, intra16_scan, decide_flat and the RDOQ
+# decide_b, pick_ref, intra16_scan, decide_flat and the RDOQ
 # stage of residual_chain (also in commit_intra, through chain_lanes.cuh)
 # form f32 costs in a fixed order that decides RD argmins, so the compiler
 # must not contract them into FMAs (each writes the FMAs XLA's order has
@@ -66,7 +68,6 @@ KERNELS = {
     "commit_intra": ["--fmad=false"],
     "deblock_maps": [],
     "frame_metrics": ["--fmad=false"],
-    "mv_argmin": ["--fmad=false"],
     "intra16_scan": ["--fmad=false"],
     "decide_flat": ["--fmad=false"],
 }
@@ -75,6 +76,7 @@ LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES["intra_pred_lowres"] = 0
 LAUNCHES["residual_chain_rdoq"] = 0
 LAUNCHES["decide_flat_b"] = 0
+LAUNCHES["me_ssd_argmin"] = 0
 
 _libs: dict = {}
 _lock = threading.Lock()

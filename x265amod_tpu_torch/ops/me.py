@@ -226,29 +226,6 @@ def int_mv_argmin_plain(grid, lam, sr: int):
     return torch.stack([flat % s - sr, flat // s - sr], 1).to(torch.int32)
 
 
-def int_mv_argmin(grid, lam, sr: int):
-    """See int_mv_argmin_plain; a CUDA tensor launches
-    `csrc/mv_argmin.cu` (the FMA as __fmaf_rn, the first minimum)."""
-    if grid.device.type == "cpu":
-        return int_mv_argmin_plain(grid, lam, sr)
-    g = grid.to(torch.float32).contiguous()
-    la = lam.to(torch.float32).reshape(-1).contiguous()
-    nb = g.shape[0]
-    s = 2 * sr + 1
-    if g.shape != (nb, s, s) or la.shape != (nb,):
-        raise ValueError("int_mv_argmin: bad shapes")
-    cuda_lib.require_cuda(g, la)
-    out = torch.empty((nb, 2), dtype=torch.int32, device=g.device)
-    if nb:
-        fn = cuda_lib.lib("mv_argmin").mv_argmin
-        fn.argtypes = [_VP, _VP, _I, _I, _VP, _VP]
-        fn.restype = _I
-        rc = fn(cuda_lib.ptr(g), cuda_lib.ptr(la), nb, sr, cuda_lib.ptr(out),
-                _VP(cuda_lib.stream_handle(g)))
-        cuda_lib.launched("mv_argmin", rc)
-    return out
-
-
 def subpel_pick(ssd, lam, cand):
     """The refinement's choice among its candidates (JAX `ops/me.py:
     subpel_refine` :444): ssd [nb, K] f32, lam [nb] f32, cand [nb, K, 2]
@@ -340,6 +317,24 @@ def me_ssd_grid(cur, ref, sr: int, bn: int = 16):
     kernel's exact int32 loop."""
     if ref.device.type == "cpu":
         return me_ssd_grid_plain(cur, ref, sr, bn)
+    return _me_ssd(cur, ref, sr, bn, None)[0]
+
+
+def me_ssd_grid_mv(cur, ref, sr: int, bn: int, lam):
+    """The SSD grid of `me_ssd_grid` and the integer MV of each block,
+    `int_mv_argmin_plain(grid, lam, sr)`: (grid [nb, S, S] f32, mv [nb, 2]
+    int32 (dx, dy)).  A CUDA tensor launches `csrc/me_ssd.cu`'s
+    `me_ssd_grid_argmin`, the argmin folded into K5's epilogue (one launch,
+    counted as `me_ssd_argmin`); a CPU tensor takes both plain versions."""
+    if ref.device.type == "cpu":
+        grid = me_ssd_grid_plain(cur, ref, sr, bn)
+        return grid, int_mv_argmin_plain(grid, lam, sr)
+    return _me_ssd(cur, ref, sr, bn, lam)
+
+
+def _me_ssd(cur, ref, sr, bn, lam):
+    """K5 on CUDA tensors: the grid, and with ``lam`` the folded argmin's
+    MVs (else None)."""
     r = _plane_arg(ref)
     c = cur.to(torch.int32).contiguous()
     cuda_lib.require_cuda(r, c)
@@ -349,12 +344,27 @@ def me_ssd_grid(cur, ref, sr: int, bn: int = 16):
         raise ValueError("me_ssd_grid: bad shapes")
     s = 2 * sr + 1
     out = torch.empty((nb, s, s), dtype=torch.float32, device=r.device)
+    stream = _VP(cuda_lib.stream_handle(r))
+    if lam is None:
+        if nb:
+            rc = _lib("me_ssd", "me_ssd_grid",
+                      [_VP] * 2 + [_I] * 4 + [_VP] * 2).me_ssd_grid(
+                cuda_lib.ptr(c), cuda_lib.ptr(r), h, w, bn, sr,
+                cuda_lib.ptr(out), stream)
+            cuda_lib.launched("me_ssd", rc)
+        return out, None
+    la = lam.to(torch.float32).reshape(-1).contiguous()
+    cuda_lib.require_cuda(r, la)
+    if la.shape != (nb,):
+        raise ValueError("me_ssd_grid_mv: lam must hold one value a block")
+    mv = torch.empty((nb, 2), dtype=torch.int32, device=r.device)
     if nb:
-        rc = _lib("me_ssd", "me_ssd_grid", [_VP] * 2 + [_I] * 4 + [_VP] * 2) \
-            .me_ssd_grid(cuda_lib.ptr(c), cuda_lib.ptr(r), h, w, bn, sr,
-                         cuda_lib.ptr(out), _VP(cuda_lib.stream_handle(r)))
-        cuda_lib.launched("me_ssd", rc)
-    return out
+        rc = _lib("me_ssd", "me_ssd_grid_argmin",
+                  [_VP] * 2 + [_I] * 4 + [_VP] * 4).me_ssd_grid_argmin(
+            cuda_lib.ptr(c), cuda_lib.ptr(r), h, w, bn, sr, cuda_lib.ptr(la),
+            cuda_lib.ptr(out), cuda_lib.ptr(mv), stream)
+        cuda_lib.launched("me_ssd_argmin", rc)
+    return out, mv
 
 
 def subpel_refine(ref, cur, mv_int, lam, n: int = 16):
