@@ -34,8 +34,11 @@ Phases (any failure exits non-zero):
      P- and B-slice init states and K4 on bS 1 edges;
      K21 (the loop filter's bS/QP maps, two launches a call) and K22
      (SSE/SSIM) at a config-1 batch, a config-2 P frame, a config-3 B
-     frame and a 1080p CTB16 frame, K21 also with L2 flushed and queued
-     behind a spin of the card; K7 at the flat 1080p frames' calls (luma
+     frame and a 1080p CTB16 frame, K21 also with L2 flushed, both also
+     queued behind a spin of the card, K22 also without SSIM and twice on
+     the same inputs (the same bits); K8 also at 1920x1088 with the
+     plane's extremes, queued like `F.conv2d` beside it; K4, K12, K14-K16
+     and K18 queued as well; K7 at the flat 1080p frames' calls (luma
      n 16, chroma n 8 and the select entry of a B frame's final MC, MVs at
      the window bound past all four edges, every phase pair), timed the
      same three ways;
@@ -656,7 +659,7 @@ def phase_kernels(f, h16, w16, iters, dev="cuda", bd=8):
         return rows
 
     # K4 deblock: F frames, luma + both chroma planes
-    k4 = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, err=0.0)
+    k4 = dict(ms=0.0, ms_device=0.0, plain_ms=0.0, bytes=0, ops=0, err=0.0)
     hh, ww = 16 * h16, 16 * w16
     split = torch.as_tensor(rng.integers(0, 2, (f, h16 // 2, w16 // 2)),
                             device=dev)
@@ -693,6 +696,8 @@ def phase_kernels(f, h16, w16, iters, dev="cuda", bd=8):
         reps = 1 if name == "luma" else 2
         k4["ms"] += reps * time_ms(lambda: fn(plane, bs_v, bs_h, qv, qh),
                                    iters)
+        k4["ms_device"] += reps * time_queued_ms(
+            lambda: fn(plane, bs_v, bs_h, qv, qh), iters)
         k4["plain_ms"] += reps * time_ms(
             lambda: plain(plane, bs_v, bs_h, qv, qh), 2)
         k4["bytes"] += reps * (2 * nbytes(plane) + nbytes(bs_v, bs_h, qv,
@@ -1105,6 +1110,34 @@ def phase_kernels_k7_1080p(iters, dev="cuda"):
     return k7
 
 
+def k8_times(ref, iters, key=""):
+    """K8's keys at one plane: back to back (``ms``), queued behind a spin
+    (``ms_device``), the plain version, `F.conv2d` of the 8x8 kernel (the
+    library call, timed both ways) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from x265amod_tpu_torch.ops import me
+    h, w = ref.shape
+    d = {f"ms{key}": time_ms(lambda: me.hpel_plane(ref), iters),
+         f"ms_device{key}": time_queued_ms(lambda: me.hpel_plane(ref),
+                                            iters),
+         f"plain_ms{key}": time_ms(lambda: me.hpel_plane_plain(ref), 2)}
+    kern = torch.as_tensor(np.outer(me.LUMA_FILTERS[2], me.LUMA_FILTERS[2])
+                           .astype(np.float32), device=ref.device)[None, None]
+    padded = F.pad(ref.float()[None, None], (3, 4, 3, 4), mode="replicate")
+    d[f"library_ms{key}"] = time_ms(lambda: F.conv2d(padded, kern), iters)
+    d[f"library_ms_device{key}"] = time_queued_ms(
+        lambda: F.conv2d(padded, kern), iters)
+    d[f"bound_ms{key}"], d[f"bound_by{key}"] = bound_ms(
+        2 * h * w * 4, 16 * (h + 7) * w + 16 * h * w)
+    if not key:
+        d["library_note"] = ("F.conv2d of the 8x8 (1/2,1/2) kernel over the "
+                             "replicate-padded plane in float32, without "
+                             "the rounding shift (library_ms_device*: "
+                             "queued, as ms_device*)")
+    return d
+
+
 def phase_kernels_p(iters, dev="cuda", w=1280, h=736, sr=8):
     """K5-K8 at config 2's per-frame shapes (1280x720 padded to 736 rows,
     sr 8): the ME grids at bn 16 (3680 cells) and 32 (920 CTUs) over the
@@ -1113,7 +1146,6 @@ def phase_kernels_p(iters, dev="cuda", w=1280, h=736, sr=8):
     plane; each against its plain version, with MVs at +-sr on the border
     blocks and flat regions."""
     import torch
-    import torch.nn.functional as F
     from x265amod_tpu_torch.ops import me
     dev = torch.device(dev)
     rng = np.random.default_rng(2)
@@ -1144,17 +1176,7 @@ def phase_kernels_p(iters, dev="cuda", w=1280, h=736, sr=8):
     d = dict(err=0.0)
     hp = me.hpel_plane(ref_t)
     d["err"] = check_equal("hpel_plane", hp, me.hpel_plane_plain(ref_t))
-    d["ms"] = time_ms(lambda: me.hpel_plane(ref_t), iters)
-    d["plain_ms"] = time_ms(lambda: me.hpel_plane_plain(ref_t), 2)
-    kern = torch.as_tensor(np.outer(me.LUMA_FILTERS[2], me.LUMA_FILTERS[2])
-                           .astype(np.float32), device=dev)[None, None]
-    padded = F.pad(ref_t.float()[None, None], (3, 4, 3, 4), mode="replicate")
-    d["library_ms"] = time_ms(lambda: F.conv2d(padded, kern), iters)
-    d["library_note"] = ("F.conv2d of the 8x8 (1/2,1/2) kernel over the "
-                         "replicate-padded plane in float32, without the "
-                         "rounding shift")
-    d["bound_ms"], d["bound_by"] = bound_ms(
-        2 * h * w * 4, 16 * (h + 7) * w + 16 * h * w)
+    d.update(k8_times(ref_t, iters))
     rows.append(("hpel", "x265amod_tpu_torch/csrc/hpel.cu",
                  "x265amod_tpu/models/inter_tree.py:51 _hpel_plane", d))
 
@@ -1500,8 +1522,15 @@ def phase_kernels_flat(iters, dev="cuda"):
                     want[:, :3].contiguous())
         kq["err"] = max(kq["err"], check_equal("frame_metrics ssim",
                                                got[:, 3], want[:, 3], 1e-6))
+        # the same bits again (a fixed reduction order), and without SSIM
+        check_exact("frame_metrics run to run", metrics.frame_metrics(
+            src, rec), got)
+        check_exact("frame_metrics without ssim", metrics.frame_metrics(
+            src, rec, False), metrics.frame_metrics_plain(src, rec, False))
         kq[f"ms{key}"] = time_ms(lambda: metrics.frame_metrics(src, rec),
                                  iters)
+        kq[f"ms_device{key}"] = time_queued_ms(
+            lambda: metrics.frame_metrics(src, rec), iters)
         kq[f"plain_ms{key}"] = time_ms(
             lambda: metrics.frame_metrics_plain(src, rec), iters)
         kq[f"bound_ms{key}"], kq[f"bound_by{key}"] = bound_ms(
@@ -1512,6 +1541,9 @@ def phase_kernels_flat(iters, dev="cuda"):
             "keys without suffix: a config-1 batch of 16 frames of 640x384; "
             "_p_frame 1280x736; _b_frame 1920x1088; _flat_1080p a CTB16 "
             "frame at 1920x1088"))
+    kq["deterministic"] = True
+    kq["shapes_note"] += ("; ms_device*: the calls enqueued behind a spin "
+                          "of the card, the kernel's own time")
     km["library_note"] = "none: no single PyTorch call derives the maps"
     kq["library_note"] = "none: no single PyTorch call computes SSIM"
     rows = [("deblock_maps", "x265amod_tpu_torch/csrc/deblock_maps.cu",
@@ -2074,6 +2106,7 @@ def phase_kernels_la(iters, dev="cuda", w=1920, h=1088):
                                              want[0]),
                        check_equal("lowres_aq offsets", got[1], want[1]))
     d["ms"] = time_ms(lambda: la.lowres_aq(y, cb, cr), iters)
+    d["ms_device"] = time_queued_ms(lambda: la.lowres_aq(y, cb, cr), iters)
     d["plain_ms"] = time_ms(lambda: la.lowres_aq_plain(y, cb, cr), 2)
     npix = h * w
     d["bound_ms"], d["bound_by"] = bound_ms(
@@ -2145,6 +2178,8 @@ def phase_kernels_la(iters, dev="cuda", w=1920, h=1088):
     d["deterministic"] = True
     d["ms"] = time_ms(lambda: la.cutree_propagate_step(prop, icost, pcost,
                                                        pmv), iters)
+    d["ms_device"] = time_queued_ms(lambda: la.cutree_propagate_step(
+        prop, icost, pcost, pmv), iters)
     d["plain_ms"] = time_ms(lambda: la.cutree_propagate_step_plain(
         prop, icost, pcost, pmv), 2)
     # the function's own work: each source's amount and four weighted adds
@@ -2269,6 +2304,10 @@ def phase_kernels_k1_k5_1080p(iters, dev="cuda", w=1920, h=1088, sr=16):
             raise AssertionError(f"half-pel plane: {int(hp[y, x])} at "
                                  f"{(y, x)}, expected {v}")
     k5["hpel_range"] = [int(hp.min()), int(hp.max())]
+    # K8 at 1920x1088 on the same plane (its extremes included)
+    k8 = dict(err=check_equal("hpel_plane 1080p", hp,
+                              me.hpel_plane_plain(ref)))
+    k8.update(k8_times(ref, iters, "_1080p"))
     for bn, plane, key in ((16, ref, "bn16_int"), (16, hp, "bn16_hpel"),
                            (32, ref, "bn32_int"), (32, hp, "bn32_hpel")):
         cb = cur.reshape(h // bn, bn, w // bn, bn).permute(0, 2, 1, 3) \
@@ -2290,7 +2329,7 @@ def phase_kernels_k1_k5_1080p(iters, dev="cuda", w=1920, h=1088, sr=16):
         k5[f"bound_ms_1080p_sr16_{key}"], k5[f"bound_by_1080p_sr16_{key}"] \
             = bound_tc_ms(io, ops[0], int8_ops=ops[1])
         k5[f"bound_ms_int32_1080p_sr16_{key}"] = bound_ms(io, ops[2])[0]
-    return {"intra_pred": k1, "me_ssd": k5}
+    return {"intra_pred": k1, "me_ssd": k5, "hpel": k8}
 
 
 def config3(w=1920, h=1080, aq=False, rdoq=0):
@@ -2603,6 +2642,8 @@ def phase_kernels_pack(iters, dev="cuda"):
         if name in ("config1_batch", "config3_b_frame"):
             d["ms_" + name] = time_ms(lambda: pack.pack_levels(lv, cap),
                                       iters)
+            d["ms_device_" + name] = time_queued_ms(
+                lambda: pack.pack_levels(lv, cap), iters)
             d["plain_ms_" + name] = time_ms(
                 lambda: pack.pack_levels_plain(lv, cap), 2)
             if name == "config3_b_frame":
@@ -2694,6 +2735,8 @@ def phase_kernels_resample(iters, dev="cuda"):
                 scaler.resample_plane_plain(p, dw, dh, m, unrounded=raw)))
     frame = (y, cb, cr)
     d["ms"] = time_ms(lambda: scaler.resample_frame(frame, 1280, 720), iters)
+    d["ms_device"] = time_queued_ms(
+        lambda: scaler.resample_frame(frame, 1280, 720), iters)
     d["plain_ms"] = time_ms(
         lambda: [scaler.resample_plane_plain(p, w_, h_) for p, w_, h_ in
                  ((y, 1280, 720), (cb, 640, 360), (cr, 640, 360))], 2)
@@ -2707,8 +2750,12 @@ def phase_kernels_resample(iters, dev="cuda"):
     d["library_ms"] = time_ms(
         lambda: [torch.matmul(torch.matmul(v, pf), hm.T)
                  for v, pf, hm in mats], iters)
+    d["library_ms_device"] = time_queued_ms(
+        lambda: [torch.matmul(torch.matmul(v, pf), hm.T)
+                 for v, pf, hm in mats], iters)
     d["library_note"] = ("torch.matmul(torch.matmul(V, P), H.T) per plane, "
-                         "f32 with TF32 off (dense operators)")
+                         "f32 with TF32 off (dense operators; "
+                         "library_ms_device queued, as ms_device)")
     taps, flops = 0, 0
     for p, w_, h_ in ((y, 1280, 720), (cb, 640, 360), (cr, 640, 360)):
         nv = scaler._band_np(p.shape[0], h_, "bicubic")[1].shape[1]
@@ -3323,7 +3370,7 @@ def phase_kernels_multiref(iters, frames, dev="cuda"):
                  "(lax.scan :544)", d))
 
     # K18 pick_ref at R = 3: the trials of the same frame at 16 and 32
-    d = dict(err=0.0, ms=0.0, plain_ms=0.0)
+    d = dict(err=0.0, ms=0.0, ms_device=0.0, plain_ms=0.0)
     per = []
     for r in range(MULTIREF):
         m = tree._motion_search(y, refs[0][r], maps)
@@ -3339,6 +3386,7 @@ def phase_kernels_multiref(iters, frames, dev="cuda"):
             d["err"] = max(d["err"], check_equal(f"pick_ref bn={bn} out{i}",
                                                  g, w_))
         d["ms"] += time_ms(lambda: me.pick_ref(*args), iters)
+        d["ms_device"] += time_queued_ms(lambda: me.pick_ref(*args), iters)
         d["plain_ms"] += time_ms(lambda: me.pick_ref_plain(*args), 2)
         n = lam.shape[0]
         nbytes_ += nbytes(*args) + n * 20
@@ -3971,6 +4019,12 @@ def main():
         by_name[name].update(ext)
         log(f"phase 2: {name} at 1920x1088 " + json.dumps(ext)
             + f" [{card}]")
+    by_name["hpel"]["shapes_note"] = (
+        "ms: config 2's reference (1280x736); _1080p: a 1920x1088 plane "
+        "holding the patches of the half-pel extremes (-263, 518); "
+        "ms_device* and library_ms_device*: the calls enqueued behind a "
+        "spin of the card, the kernel's own time; launches: one a "
+        "reference picture while the DPB keeps it")
     by_name["intra_pred"]["shapes_note"] = (
         "also checked at one B frame's shapes (1920x1088, sr 16); "
         "_satd35 / _predict: the row's two entry points apart; "
@@ -4288,7 +4342,8 @@ def main():
             ("ms_", "plain_ms_", "bound_ms_", "bound_by_", "diagonals",
              "intra_cells_", "dsf", "cu32_share", "chain",
              "launches_per_call", "tus_"))
-            or k.startswith(("blocks", "ms_per_launch", "split_blocks"))
+            or k.startswith(("blocks", "ms_per_launch", "split_blocks",
+                             "library_ms_"))
             or k in ("ties", "level_bound_reached", "rows", "steps",
                      "ties_checked", "choice_histogram", "hpel_range")}
         kernels.append(dict(

@@ -15,7 +15,8 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 profile_port.py [--configs 1,2,...,14] [--batches 2]
         [--p-frames 4] [--iters 20] [--root DIR]
-        [--kernels k1k5,k24,k3,k23,k2k20,k19k25,k6k17,k7k21,k9k10,k13am]
+        [--kernels k1k5,k24,k3,k23,k2k20,k19k25,k6k17,k7k21,k9k10,k13am,
+                   k22k8]
         [--fold-tail none|launch|read]
 
 and, anywhere, to compare runs of two trees (one output file per run):
@@ -29,8 +30,9 @@ Prints JSON lines:
     assembly),
     averaged over --batches batches;
   - "profile": torch.profiler over one config 1 encode_pipelined call of
-    32 frames: wall time, summed device kernel time, the device busy share
-    (kernel time / wall) and the kernels with the most device time;
+    32 frames (two 16-frame batches): wall time, summed device kernel
+    time, the device busy share (kernel time / wall) and the 80 kernels
+    with the most device time, each with its calls;
   - "p_stages": the same breakdown of a config 2 P frame (upload, ME,
     sub-pel, trials, pick_ref (K18, with several references), intra trial,
     decide scan (K17), final MC and residuals, commit scan (K20), loop
@@ -71,6 +73,8 @@ Prints JSON lines:
   - "p_stages_ref3": the "p_stages" breakdown of config 2 at --ref 3, over
     the P frames 3 to --p-frames + 2 (the two warm-up P frames are the
     ones coded against a list filled cyclically from fewer pictures);
+    "p_profile_ref3": torch.profiler over the same P frames of a new
+    encoder through encode_push;
   - "ctb16_stages" and "lossless_stages": the flat CTB16 all-intra path
     (chip_smoke phases 19 and 20: 1920x1080, the JAX defaults at keyint 1,
     QP 32; and lossless) per frame through encode_pipelined after 2
@@ -164,12 +168,20 @@ Prints JSON lines:
     (the flat 1080p frame's grid, 8160 blocks, sr 16) and
     "k5_argmin_config2" (config 2's two grids, 1280x736, sr 8, bn 16 and
     32): K5 with the argmin in its epilogue (`me_ssd_grid_mv`), or in a
-    tree without it, K5 then its argmin kernel.
+    tree without it, K5 then its argmin kernel.  K22 and K8 ("k22k8",
+    lists of KT_REPS timings, each also "_l2_cold" and "_device"):
+    "k22_config1_batch", "k22_p_frame", "k22_b_frame" and
+    "k22_flat_1080p" (chip_smoke phase 2's four shapes: 16 frames of
+    640x384, 1280x736, 1920x1088 twice, SSIM on), "k8_config2_720p" and
+    "k8_1080p" (K8 on the bench clip's luma at 1280x736 and 1920x1088)
+    and "conv2d_k8_config2_720p" and "conv2d_k8_1080p" (`F.conv2d` of the
+    8x8 kernel over the same planes, replicate-padded, f32: the library
+    call K8's row compares with).
     With --root DIR the port package is imported from DIR (an unpacked
     earlier tree), so that two designs are timed by one script in one
     call; --kernels names the groups timed ("k1k5", "k24", "k3", "k23",
-    "k2k20", "k19k25", "k6k17", "k7k21", "k9k10", "k13am"; all by
-    default);
+    "k2k20", "k19k25", "k6k17", "k7k21", "k9k10", "k13am", "k22k8"; all
+    by default);
   - "e2e_fps": chip_smoke phases 19, 20 and 22 timed as those phases time
     them (a new Encoder, their warm-up frames, then one encode_pipelined
     call over the rest, host wall clock): CTB16 all-intra (16 frames),
@@ -267,8 +279,12 @@ def p_stage_breakdown(enc, frames, warm=P_WARM):
     (nearest first, filled cyclically while fewer exist); frames[0] is
     coded as the I frame that seeds the list, and the first ``warm`` P
     frames run every stage once before the clock counts (first-call
-    set-up: lazy module loads, the allocator's first blocks)."""
+    set-up: lazy module loads, the allocator's first blocks).  Each
+    reference's half-pel plane is made once, as the encoder's DPB keeps it
+    (`RefPicture`), where the tree has that cache."""
     import torch
+    from x265amod_tpu_torch.models import inter_tree
+    picture = getattr(inter_tree, "RefPicture", None)
     enc.encode_push(*frames[0])
     recons = [next(iter(enc._dpb.values()))]
     nr = enc.num_ref_p
@@ -297,7 +313,9 @@ def p_stage_breakdown(enc, frames, warm=P_WARM):
         refs, tables = fe._ref_list([recons[k] for k in pick],
                                     [poc - 1 - k for k in pick], poc)
         t = mark("upload", t)
-        per = [fe._motion_search(y, refs[0][r], maps) for r in range(nr)]
+        per = [fe._motion_search(y, refs[0][r], maps, recons[pick[r]])
+               if picture else fe._motion_search(y, refs[0][r], maps)
+               for r in range(nr)]
         t = mark("me", t)
         for r, m in enumerate(per):
             m.update(fe._subpel(y, refs[0][r], maps, m))
@@ -345,7 +363,8 @@ def p_stage_breakdown(enc, frames, warm=P_WARM):
         t = mark("d2h", t)
         enc._cabac_inter_tree(res, qp)
         mark("cabac", t)
-        recons = [handle["recon_dev"]] + recons[:nr - 1]
+        recons = [picture(handle["recon_dev"]) if picture else
+                  handle["recon_dev"]] + recons[:nr - 1]
     acc["total"] = sum(acc.values())
     return acc
 
@@ -1195,9 +1214,53 @@ def k13_argmin_times(iters, dev):
     return out
 
 
+def k22_k8_times(iters, dev):
+    """K22 and K8 alone (see the docstring), each KT_REPS times: back to
+    back, with L2 flushed before each call and queued behind a spin of the
+    card (`_device`); `F.conv2d` of K8's 8x8 kernel the same three ways."""
+    import torch
+    import torch.nn.functional as F
+    from chip_smoke import K21_CASES
+    from x265amod_tpu_torch.ops import me, metrics
+    out = {}
+
+    def reps(key, fn):
+        out[key] = [time_ms(fn, iters) for _ in range(KT_REPS)]
+        out[key + "_l2_cold"] = [time_cold_ms(fn, iters)
+                                 for _ in range(KT_REPS)]
+        out[key + "_device"] = [time_queued_ms(fn, iters)
+                                for _ in range(KT_REPS)]
+
+    # K22 at chip_smoke phase 2's four shapes, its planes made the same way
+    rng = np.random.default_rng(21)
+    for key, f, h, w, _ in K21_CASES:
+        src = tuple(torch.as_tensor(rng.integers(0, 256, s).astype(np.int32),
+                                    device=dev)
+                    for s in ((f, h, w), (f, h // 2, w // 2),
+                              (f, h // 2, w // 2)))
+        rec = tuple(torch.clamp(t + torch.as_tensor(rng.integers(
+            -6, 7, t.shape).astype(np.int32), device=dev), 0, 255)
+            for t in src)
+        reps(f"k22{key or '_config1_batch'}",
+             lambda: metrics.frame_metrics(src, rec))
+    # K8 at config 2's reference and at 1080p, on the bench clip
+    kern = torch.as_tensor(np.outer(me.LUMA_FILTERS[2], me.LUMA_FILTERS[2])
+                           .astype(np.float32), device=dev)[None, None]
+    for key, w, h, seed in (("config2_720p", 1280, 736, 2),
+                            ("1080p", 1920, 1088, 4)):
+        ref = torch.as_tensor(synth_frames(w, h, 1, seed=seed)[0][0],
+                              device=dev).to(torch.int32)
+        reps(f"k8_{key}", lambda: me.hpel_plane(ref))
+        padded = F.pad(ref.float()[None, None], (3, 4, 3, 4),
+                       mode="replicate")
+        reps(f"conv2d_k8_{key}", lambda: F.conv2d(padded, kern))
+    torch.cuda.empty_cache()
+    return out
+
+
 # the kernel groups of "13", each timed by its own part of kernel_times
 KERNEL_GROUPS = ("k1k5", "k24", "k3", "k23", "k2k20", "k19k25", "k6k17",
-                 "k7k21", "k9k10", "k13am")
+                 "k7k21", "k9k10", "k13am", "k22k8")
 
 
 def kernel_times(iters, groups=KERNEL_GROUPS):
@@ -1221,6 +1284,8 @@ def kernel_times(iters, groups=KERNEL_GROUPS):
         out.update(k9_k10_times(iters, dev))
     if "k13am" in groups:
         out.update(k13_argmin_times(iters, dev))
+    if "k22k8" in groups:
+        out.update(k22_k8_times(iters, dev))
 
     def planes(w, h, n, seed):
         fr = synth_frames(w, h, n, seed=seed)
@@ -1405,8 +1470,9 @@ def device_profile(run, n_frames, top=12):
 
 # the output lines --summarize reads: their numbers (ms or shares) are
 # better lower, e2e_fps's higher
-SUMMARIZED = ("kernel_times", "e2e_fps", "p_stages", "p_profile",
-              "b_stages", "b_profile", "flat_b_stages", "flat_b_profile")
+SUMMARIZED = ("kernel_times", "e2e_fps", "profile", "p_stages", "p_profile",
+              "p_profile_ref3", "b_stages", "b_profile", "flat_b_stages",
+              "flat_b_profile")
 
 
 def summarize(paths, parent_root):
@@ -1492,8 +1558,9 @@ def main():
             pass
         print(json.dumps({"stages": stage_breakdown(enc, frames,
                                                     args.batches)}))
-        print(json.dumps({"profile": device_profile(
-            lambda: [None for _ in enc.encode_pipelined(frames[:32])], 32)}))
+        print(json.dumps({"profile": dict(device_profile(
+            lambda: [None for _ in enc.encode_pipelined(frames[:32])], 32,
+            top=80), root=root)}))
     if 2 in configs:
         pframes = synth_frames(1280, 720, 2 * args.p_frames + 2, seed=2)
         penc = Encoder(config2(), device="cuda")
@@ -1546,6 +1613,13 @@ def main():
                                seed=2)
         print(json.dumps({"p_stages_ref3": p_stage_breakdown(
             Encoder(config2_ref(3), device="cuda"), pframes)}))
+        renc = Encoder(config2_ref(3), device="cuda")
+        for f in pframes[:P_WARM + 1]:
+            renc.encode_push(*f)
+        rest = pframes[P_WARM + 1:]
+        print(json.dumps({"p_profile_ref3": dict(device_profile(
+            lambda: [renc.encode_push(*f) for f in rest], len(rest),
+            top=80), root=root)}))
     if 10 in configs:
         cframes = synth_frames(1920, 1080, 10, seed=19)
         print(json.dumps({"ctb16_stages": ctb16_stages(cframes)}))

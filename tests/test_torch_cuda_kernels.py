@@ -1827,3 +1827,85 @@ def test_deblock_maps_two_launches(cuda_dev, f, h16, w16, mode):
         got = deblock.deblock_maps(tuple(shifted), 30, qp_sig, split, inter)
         for g, wt in zip(got, want):
             assert torch.equal(g, wt.to(torch.int32)), pattern
+
+
+@pytest.mark.parametrize("ssim", [True, False])
+@pytest.mark.parametrize("key", ["", "_p_frame", "_b_frame", "_flat_1080p"])
+def test_frame_metrics_at_the_path_shapes(cuda_dev, key, ssim):
+    """K22 against `frame_metrics_plain` at the four shapes of
+    `chip_smoke.py`'s K22 row (a config-1 batch of 16 frames of 640x384,
+    1280x736, 1920x1088 twice) on random, identical and 0/255 checkerboard
+    planes (10-bit random without SSIM): SSE exact, SSIM within 1e-6, and
+    a second call on the same inputs the same bits."""
+    from chip_smoke import K21_CASES
+    from test_torch_kernel_models import k22_frames
+    from x265amod_tpu_torch.ops import metrics
+    f, h, w = next((f, h, w) for k, f, h, w, _ in K21_CASES if k == key)
+    for kind in (("random", "identical", "checker") if ssim
+                 else ("ten_bit",)):
+        src, rec, _ = k22_frames(kind, f, h, w, seed=h + f)
+        src, rec = ([torch.as_tensor(p, device=cuda_dev) for p in t]
+                    for t in (src, rec))
+        got = metrics.frame_metrics(src, rec, ssim)
+        want = metrics.frame_metrics_plain(src, rec, ssim)
+        assert torch.equal(got[:, :3], want[:, :3]), kind
+        assert (got[:, 3] - want[:, 3]).abs().max().item() <= 1e-6, kind
+        assert torch.equal(metrics.frame_metrics(src, rec, ssim), got), kind
+
+
+@pytest.mark.parametrize("case", ["1280x736", "1920x1088", "small"])
+def test_hpel_plane_tiles(cuda_dev, case):
+    """K8 against `hpel_plane_plain`, bit for bit: the bench clip's luma at
+    1280x736 and 1920x1088 (every tile inside and on the borders, the
+    16-byte path), and the planes of `k8_planes` (sides that are no
+    multiple of the tile or of 4, planes smaller than a tile, 0/255
+    checkerboards and steps, the plane's extremes); also from a plane
+    that does not start on 16 bytes (the clamped path)."""
+    from chip_smoke import synth_frames
+    from test_torch_kernel_models import k8_planes
+    from x265amod_tpu_torch.ops import me
+    if case == "small":
+        planes = [p for _, p in k8_planes()]
+    else:
+        w, h = map(int, case.split("x"))
+        planes = [synth_frames(w, h, 1, seed=3)[0][0]]
+    for p in planes:
+        ref = torch.as_tensor(p, device=cuda_dev).to(torch.int32)
+        assert torch.equal(me.hpel_plane(ref), me.hpel_plane_plain(ref))
+        flat = torch.empty(ref.numel() + 1, dtype=torch.int32,
+                           device=cuda_dev)
+        flat[1:] = ref.reshape(-1)
+        assert torch.equal(me.hpel_plane(flat[1:].view(ref.shape)),
+                           me.hpel_plane_plain(ref))
+
+
+@pytest.mark.parametrize("gop", ["p_ref3", "mini_gop"])
+def test_hpel_plane_once_a_reference_picture_on_the_card(cuda_dev, gop):
+    """K8's launches on the card: 4 for four P frames of config 2 at
+    `--ref 3` (320x192) and 3 for config 3's IDR and first mini-GOP (one a
+    reference picture: I0, P4, B2), against 12 and 7 when each motion
+    search makes its own plane; the streams equal."""
+    from chip_smoke import config2_ref, config3, synth_frames
+    from x265amod_tpu_torch.models import inter_tree
+    from x265amod_tpu_torch.models.encoder import Encoder
+    from x265amod_tpu_torch.ops import cuda_lib
+    param, n, want = ((config2_ref(3, 320, 192), 5, (4, 12)) if gop == "p_ref3"
+                      else (config3(320, 192), 5, (3, 7)))
+    frames = synth_frames(320, 192, n, seed=5)
+    got, streams = [], []
+    saved = inter_tree.RefPicture.hpel_of
+    for cache in (True, False):
+        if not cache:
+            inter_tree.RefPicture.hpel_of = \
+                lambda self, ref_y: inter_tree.hpel_plane(ref_y)
+        try:
+            enc = Encoder(param, device="cuda")
+            cuda_lib.reset_launches()
+            streams.append([o.nals for f in frames
+                            for o in enc.encode_push(*f)]
+                           + [o.nals for o in enc.flush()])
+            got.append(cuda_lib.LAUNCHES["hpel"])
+        finally:
+            inter_tree.RefPicture.hpel_of = saved
+    assert tuple(got) == want
+    assert streams[0] == streams[1]

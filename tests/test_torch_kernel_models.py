@@ -445,3 +445,73 @@ def test_k3_lane_model():
                 got = k3_model(lv, n, qp, table)
                 assert np.array_equal(got.view(np.uint32),
                                       want.view(np.uint32)), (n, kind, st)
+
+
+# ---- inputs of K22 and K8 (their models: `tests/test_torch_ops.py::
+# k22_model`, `tests/test_torch_me.py::k8_model`; the card:
+# `tests/test_torch_cuda_kernels.py`) ----------------------------------------
+
+# K22's shapes: a 640x384 pair of a config-1 batch, config 2's 1280x736 and
+# a 1080p frame (f, h, w)
+K22_SHAPES = ((2, 384, 640), (1, 736, 1280), (1, 1088, 1920))
+K22_KINDS = ("random", "identical", "checker", "ten_bit")
+
+
+def k22_frames(kind, f, h, w, seed=0):
+    """(src, rec, ssim): each of src and rec (y [f, h, w], cb, cr [f, h/2,
+    w/2]) int32.  "random": rec = src + noise in [-6, 6], clipped;
+    "identical": rec = src (SSE 0, SSIM 1); "checker": 0/255
+    checkerboards, rec another phase pattern and, in a second frame, the
+    inverse (the extreme moments and covariance); "ten_bit": 10-bit
+    samples, SSIM off (Main10)."""
+    rng = np.random.default_rng(seed)
+    hi = 1024 if kind == "ten_bit" else 256
+    shapes = ((f, h, w), (f, h // 2, w // 2), (f, h // 2, w // 2))
+    if kind == "checker":
+        src, rec = [], []
+        for s in shapes:
+            yy, xx = np.indices(s[1:])
+            a = ((xx + yy) & 1) * 255
+            b = ((xx // 2 + yy) & 1) * 255
+            src.append(np.broadcast_to(a, s).astype(np.int32))
+            r = np.broadcast_to(b, s).copy()
+            r[1::2] = 255 - a
+            rec.append(r.astype(np.int32))
+        return tuple(src), tuple(rec), True
+    src = tuple(rng.integers(0, hi, s).astype(np.int32) for s in shapes)
+    if kind == "identical":
+        return src, tuple(p.copy() for p in src), True
+    rec = tuple(np.clip(p + rng.integers(-6, 7, p.shape), 0, hi - 1)
+                .astype(np.int32) for p in src)
+    return src, rec, kind != "ten_bit"
+
+
+def k8_planes():
+    """(name, int32 plane) inputs of K8's 64 x 32 tiles: tiles on every
+    border and inside (136 x 200, W a multiple of 4: the 16-byte path),
+    sides that are no multiple of the tile or of 4 (131 x 197), planes
+    smaller than one tile, 0/255 checkerboards and steps (the extreme
+    horizontal values: rows of the taps' signs reach 88 x 255 and -24 x
+    255), and the two patches whose half-pel values are the plane's
+    extremes (518 and -263)."""
+    rng = np.random.default_rng(8)
+    out = [(f"random_{h}x{w}", rng.integers(0, 256, (h, w)))
+           for h, w in ((136, 200), (131, 197), (64, 96), (1, 1), (5, 7),
+                        (20, 30), (32, 64))]
+    yy, xx = np.indices((96, 192))
+    out.append(("checker_96x192", ((xx + yy) & 1) * 255))
+    yy, xx = np.indices((100, 260))
+    out.append(("steps_100x260", ((xx >= 130) ^ (yy >= 50)) * 255))
+    t = np.outer(me.LUMA_FILTERS[2], me.LUMA_FILTERS[2])
+    ext = np.zeros((72, 136), np.int64)
+    ext[13:21, 109:117] = (t > 0) * 255        # 518 at (16, 112)
+    ext[45:53, 13:21] = (t < 0) * 255          # -263 at (48, 16)
+    out.append(("extremes_72x136", ext))
+    # rows of the 1-D taps' sign pattern: the horizontal pass's extremes,
+    # 88 x 255 and -24 x 255
+    taps = me.LUMA_FILTERS[2]
+    rows = np.zeros((40, 80), np.int64)
+    rows[:20] = np.tile((taps > 0) * 255, 10)
+    rows[20:] = np.tile((taps < 0) * 255, 10)
+    out.append(("taps_40x80", rows))
+    return [(name, p.astype(np.int32)) for name, p in out]

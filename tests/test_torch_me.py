@@ -5,7 +5,8 @@ states and the inter bS maps.  The same numpy inputs, made from a seed, go
 through each JAX function and the port's plain PyTorch version (the version
 a CPU tensor takes).  Exact unless a test states its tolerance and why.
 `k6_model` holds the card's decomposition of K6 (`csrc/subpel.cu`) to the
-plain refinement, in plain numpy and PyTorch."""
+plain refinement and `k8_model` K8's tiles (`csrc/hpel.cu`) to the plain
+half-pel plane, in plain numpy and PyTorch."""
 
 import numpy as np
 import pytest
@@ -799,3 +800,78 @@ def test_argmin_model_equals_the_plain_argmin(sr):
         np.testing.assert_array_equal(got, want)
     assert (want[2::6][lam[2::6] > 0] == 0).all()
     assert (want[lam == 0] == -sr).all()
+
+
+# ---- K8 (`csrc/hpel.cu`): 64 x 32 tiles, the window staged once, the
+# horizontal pass once a staged row, the vertical pass a thread a 4 x 4
+# block ---------------------------------------------------------------------
+
+K8_TW, K8_TH = 64, 32                  # output tile
+K8_SW, K8_SH = K8_TW + 8, K8_TH + 7    # staged columns x0-4.., rows y0-3..
+# the horizontal values of an 8-bit plane: -24 x 255 .. 88 x 255
+K8_H_RANGE = (-6120, 22440)
+
+
+def _tap8(a):
+    """The symmetric (1/2) taps over the last axis of ``a`` [..., 8]."""
+    return (40 * (a[..., 3] + a[..., 4]) - 11 * (a[..., 2] + a[..., 5])
+            + 4 * (a[..., 1] + a[..., 6]) - (a[..., 0] + a[..., 7]))
+
+
+def k8_model(ref):
+    """K8 tile by tile as the kernel forms it: each CTA stages rows y0-3..
+    y0+35 (clamped) and columns x0-4..x0+67, unclamped in 16-byte pieces
+    where the window lies inside the plane's columns (W a multiple of 4),
+    else clamped one sample at a time; the horizontal pass a thread 4
+    outputs from three aligned 4-sample pieces (staged columns c+1..c+8
+    for output c); the vertical pass a thread a 4 x 4 block from the 11
+    filtered rows under it; writes masked to the plane.  Returns the plane
+    and the horizontal values' range over the tiles."""
+    h, w = ref.shape
+    ref = ref.astype(np.int64)
+    out = np.zeros((h, w), np.int64)
+    writes = np.zeros((h, w), np.int64)
+    lo, hi = 0, 0
+    vec_ok = w % 4 == 0
+    for y0 in range(0, h, K8_TH):
+        rows = np.clip(y0 - 3 + np.arange(K8_SH), 0, h - 1)
+        for x0 in range(0, w, K8_TW):
+            cols = x0 - 4 + np.arange(K8_SW)
+            if vec_ok and x0 >= 4 and x0 + K8_TW + 4 <= w:
+                assert (x0 - 4) % 4 == 0 and 0 <= cols.min() \
+                    and cols.max() < w
+            else:
+                cols = np.clip(cols, 0, w - 1)
+            s_in = ref[rows][:, cols]                          # [39, 72]
+            g = 4 * np.arange(K8_TW // 4)
+            piece = s_in[:, g[:, None] + np.arange(12)]         # [39, 16, 12]
+            hh = np.stack([_tap8(piece[..., j + 1:j + 9]) for j in range(4)],
+                          -1).reshape(K8_SH, K8_TW)
+            lo, hi = min(lo, int(hh.min())), max(hi, int(hh.max()))
+            v = hh[4 * np.arange(K8_TH // 4)[:, None] + np.arange(11)]
+            o = np.stack([_tap8(np.moveaxis(v[:, j:j + 8], 1, -1))
+                          for j in range(4)], 1).reshape(K8_TH, K8_TW)
+            o = (o + 2048) >> 12
+            ys, xs = y0 + np.arange(K8_TH), x0 + np.arange(K8_TW)
+            my, mx = ys < h, xs < w
+            out[np.ix_(ys[my], xs[mx])] = o[my][:, mx]
+            writes[np.ix_(ys[my], xs[mx])] += 1
+    assert (writes == 1).all()
+    return out.astype(np.int32), (lo, hi)
+
+
+def test_k8_model_equals_the_plain_plane():
+    """`k8_model` equals `hpel_plane_plain` on `k8_planes`: tiles on every
+    border and inside, sides that are no multiple of the tile or of 4,
+    planes smaller than one tile, 0/255 checkerboards and steps, the
+    patches of the plane's extremes (518, -263) and rows that reach the
+    horizontal pass's extremes; those values stay in K8_H_RANGE, which the
+    taps' sign rows reach."""
+    from test_torch_kernel_models import k8_planes
+    lo, hi = 0, 0
+    for name, ref in k8_planes():
+        got, (a, b) = k8_model(ref)
+        np.testing.assert_array_equal(
+            got, tme.hpel_plane_plain(T(ref)).numpy(), err_msg=name)
+        lo, hi = min(lo, a), max(hi, b)
+    assert (lo, hi) == K8_H_RANGE

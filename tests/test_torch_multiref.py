@@ -22,7 +22,10 @@ JAX package on the CPU:
   JAX, above 25 %; the slice headers parse back to the active count and
   the inline RPS of the last R anchors;
 - bS on reference indices (ROADMAP queue 3 o): two inter cells on indices
-  that name the same picture get bS 1, in the port as in JAX.
+  that name the same picture get bS 1, in the port as in JAX;
+- the half-pel plane once a reference picture (the DPB's `RefPicture`),
+  on the port alone: K8's calls counted, the stream equal to the run
+  without the cache, no plane outliving its DPB entry.
 
 One module fixture runs the JAX `Encoder` once per R on one JAX intra tree
 and one JAX P tree per R (about 60 s of JAX compiles), and records every
@@ -373,3 +376,62 @@ def test_bs_compares_reference_indices_not_pictures():
         torch.as_tensor(ref0)[None])
     assert (jv == 1).all()
     np.testing.assert_array_equal(tv[0].numpy(), jv)
+
+
+# ---- the half-pel plane, once a reference picture ---------------------------
+
+def _hpel_run(param, frames, cache=True):
+    """The port's stream of ``frames`` under ``param`` on the CPU, with K8's
+    calls counted (the tree's `hpel_plane` wrapped): their number, the NAL
+    units, and after each push the planes still alive that no DPB entry
+    holds (freed by reference counts, no garbage collection).  With
+    ``cache`` False every motion search makes its own plane
+    (`RefPicture.hpel_of` bypassed)."""
+    import weakref
+
+    from x265amod_tpu_torch.models import inter_tree
+    made = []
+    real = inter_tree.hpel_plane
+
+    def counted(ref):
+        out = real(ref)
+        made.append(weakref.ref(out))
+        return out
+    saved = inter_tree.hpel_plane, inter_tree.RefPicture.hpel_of
+    inter_tree.hpel_plane = counted
+    if not cache:
+        inter_tree.RefPicture.hpel_of = lambda self, ref_y: counted(ref_y)
+    try:
+        enc = Encoder(param, device="cpu")
+        nals, stray = [], []
+        for f in frames:
+            nals += [o.nals for o in enc.encode_push(*f)]
+            kept = {id(p.hpel) for p in enc._dpb.values()}
+            stray += [r for r in made if r() is not None
+                      and id(r()) not in kept]
+        nals += [o.nals for o in enc.flush()]
+    finally:
+        inter_tree.hpel_plane, inter_tree.RefPicture.hpel_of = saved
+    return len(made), nals, stray
+
+
+@pytest.mark.parametrize("gop", ["p_ref3", "mini_gop"])
+def test_hpel_plane_once_a_reference_picture(gop):
+    """K8 runs once a reference picture while the DPB keeps it, at 64x64:
+    three P frames at `--ref 3` (the list filled cyclically from one
+    picture, then two, then three) make 3 planes, not 9; an IDR and a
+    mini-GOP (P + 3 B, the pyramid's middle B referenced) make 3 (I0, P4,
+    B2), not 7; the stream equals the same run with the cache off, and no
+    plane outlives its picture's DPB entry."""
+    if gop == "p_ref3":
+        param = param_from_dict(dataclasses.asdict(_param(3, 64, 64)))
+        frames, want = _flicker_frames(64, 64, 4), (3, 9)
+    else:
+        param = param_from_dict(dict(dataclasses.asdict(_param(1, 64, 64)),
+                                     bframes=3, sao=True))
+        frames, want = _flicker_frames(64, 64, 5), (3, 7)
+    n, nals, stray = _hpel_run(param, frames)
+    n_off, nals_off, _ = _hpel_run(param, frames, cache=False)
+    assert (n, n_off) == want
+    assert nals == nals_off
+    assert not stray

@@ -1,7 +1,9 @@
 """Op parity of the PyTorch port (x265amod_tpu_torch) against the JAX package
 on the CPU: the same numpy inputs, made from a seed, go through each JAX
 device function and through the port's plain PyTorch version (the version a
-CPU tensor takes).  Exact unless a test states its tolerance and why."""
+CPU tensor takes).  Exact unless a test states its tolerance and why.
+`k22_model` holds K22's lanes and reduction (`csrc/frame_metrics.cu`) to
+the plain metrics, in plain numpy and PyTorch."""
 
 import numpy as np
 import pytest
@@ -377,3 +379,150 @@ def test_frame_metrics_parity():
         js = float(jmet.ssim_plane(jnp.asarray(src[0][i]),
                                    jnp.asarray(rec[0][i])))
         assert abs(got[i, 3] - js) <= 1e-6
+
+
+# ---- K22 (`csrc/frame_metrics.cu`): a warp a band of 8 rows x a strip of
+# 64 columns, four warps a CTA, exact integer sums in any order -----------
+
+K22_WARPS, K22_STRIP = 4, 64
+K22_SCALE = 2.0 ** 40           # a window's SSIM in fixed point
+_LANE = np.arange(32)
+
+
+def _xor_tree(v):
+    """A warp's xor-shuffle sum over its lanes (the last axis): v += v[l ^
+    o] for o = 16, 8, 4, 2, 1, as `warp_sum` adds (every lane ends with
+    the same value; lane 0's is returned)."""
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., _LANE ^ o]
+    return v[..., 0]
+
+
+def _window_ssim32(sx, sy, sxx, syy, sxy):
+    """`window_ssim` in float32, one rounding an operation, no FMA, in the
+    kernel's order."""
+    f = np.float32
+    c1, c2, n = f(6.5025), f(58.5225), f(64)
+    mx, my = f(sx) / n, f(sy) / n       # exact, as the kernel's x (1/64)
+    vx = f(sxx) / n - mx * mx
+    vy = f(syy) / n - my * my
+    cov = f(sxy) / n - mx * my
+    num = (f(2) * mx * my + c1) * (f(2) * cov + c2)
+    den = (mx * mx + my * my + c1) * (vx + vy + c2)
+    return num / den
+
+
+def _k22_lanes(src, rec, fi, ssim):
+    """Frame ``fi``'s warps as the kernel runs them: per CTA and warp its
+    SSEs and SSIM (the xor tree over its windows' f32 values in fixed
+    point, x 2^40 rounded to nearest even), int64, and the windows' SSIM
+    [H/8, W/8] f32."""
+    sy, scb, scr = (p[fi] for p in src)
+    ry, rcb, rcr = (p[fi] for p in rec)
+    h, w = sy.shape
+    strips = -(-w // K22_STRIP)
+    units = (h // 8) * strips
+    ctas = -(-units // K22_WARPS)
+    u = np.arange(ctas * K22_WARPS)
+    band, strip = u // strips, u % strips
+    valid = (u < units)[:, None]
+    # luma: lane (rp, g) reads columns 4g..4g+3 of rows rp + 2 it
+    g, rp = _LANE & 15, _LANE >> 4
+    col = strip[:, None] * K22_STRIP + 4 * g
+    on = valid & (col < w)
+    rows = band[:, None, None] * 8 + rp[None, :, None] + 2 * np.arange(4)
+    r_ = np.where(on[..., None], rows, 0)[..., None]
+    c_ = np.where(on, col, 0)[..., None, None] + np.arange(4)
+    a = np.where(on[..., None, None], sy[r_, c_], 0).astype(np.int64)
+    b = np.where(on[..., None, None], ry[r_, c_], 0).astype(np.int64)
+    lane_sse = ((a - b) ** 2).sum((2, 3))
+    assert lane_sse.max() < 2 ** 31             # the lane's int32
+    ss = np.zeros(lane_sse.shape, np.int64)
+    win = np.full((h // 8, w // 8), np.nan, np.float32)
+    if ssim:
+        mom = [a.sum((2, 3)), b.sum((2, 3)), (a * a).sum((2, 3)),
+               (b * b).sum((2, 3)), (a * b).sum((2, 3))]
+        for k in range(5):                      # shfl_xor 1, then 16
+            mom[k] = mom[k] + mom[k][:, _LANE ^ 1]
+            mom[k] = mom[k] + mom[k][:, _LANE ^ 16]
+            assert mom[k].max() < 2 ** 31
+        s32 = _window_ssim32(*(m.astype(np.int32) for m in mom))
+        own = on & ((_LANE & 17) == 0)
+        fx = np.rint((s32 * np.float32(K22_SCALE)).astype(np.float64))
+        ss = np.where(own, fx, 0).astype(np.int64)
+        uu, ll = np.nonzero(own)
+        win[band[uu], strip[uu] * 8 + g[ll] // 2] = s32[uu, ll]
+        assert not np.isnan(win).any()          # each window once
+    # chroma: lane l reads row l / 8 of the band's 4, columns 4 (l % 8)
+    ccol = strip[:, None] * (K22_STRIP // 2) + 4 * (_LANE & 7)
+    con = valid & (ccol < w // 2)
+    crow = np.where(con, band[:, None] * 4 + (_LANE >> 3), 0)[..., None]
+    cc = np.where(con, ccol, 0)[..., None] + np.arange(4)
+    lane_c = [np.where(con[..., None], (p[crow, cc].astype(np.int64)
+                                        - q[crow, cc]) ** 2, 0).sum(-1)
+              for p, q in ((scb, rcb), (scr, rcr))]
+    warps = np.stack([_xor_tree(lane_sse), _xor_tree(lane_c[0]),
+                      _xor_tree(lane_c[1])], -1).reshape(ctas, K22_WARPS, 3)
+    wss = _xor_tree(ss).reshape(ctas, K22_WARPS)
+    return warps, wss, win
+
+
+def k22_model(src, rec, ssim, orders):
+    """K22 on numpy planes as the kernel forms it: `_k22_lanes`, each CTA's
+    4 warps added, then the CTAs' atomic adds to the frame's four 64-bit
+    accumulators in an order of ``orders`` (each a permutation of the CTAs
+    a frame), the one whose count reaches the frame's CTAs taking the
+    sums: SSIM = sum / 2^40 / windows in f64, then f32.  Returns out [F,
+    4] f32 for each order and the windows' SSIM [F, H/8, W/8]."""
+    f, h, w = src[0].shape
+    lanes = [_k22_lanes(src, rec, fi, ssim) for fi in range(f)]
+    outs = []
+    for order in orders:
+        out = np.zeros((f, 4), np.float32)
+        for fi, (warps, wss, _) in enumerate(lanes):
+            cta = np.concatenate([warps, wss[..., None]], -1).sum(1)
+            acc, counter = np.zeros(4, np.int64), 0
+            for c in order[fi]:
+                acc += cta[c]
+                counter += 1
+            assert counter == cta.shape[0]
+            out[fi, :3] = acc[:3].astype(np.float32)
+            out[fi, 3] = np.float32(np.float64(acc[3]) / K22_SCALE
+                                    / ((h // 8) * (w // 8))) if ssim else 0
+        outs.append(out)
+    return outs, np.stack([win for _, _, win in lanes])
+
+
+@pytest.mark.parametrize("kind", ["random", "identical", "checker",
+                                  "ten_bit"])
+def test_k22_model_equals_the_plain_metrics(kind):
+    """`k22_model` against `frame_metrics_plain` at 640x384 x 2 frames,
+    1280x736 and 1920x1088 (`K22_SHAPES`; the strips' masked tail at
+    1280 and 640 is none, at the 96-column frame of the card tests one),
+    on random content, identical planes (SSE 0, SSIM 1), 0/255
+    checkerboards and 10-bit samples without SSIM: SSEs equal, each
+    window's SSIM equal to the plain version's bit for bit, the frame's
+    within 1e-6 and the same bits under four CTA completion orders."""
+    from test_torch_kernel_models import K22_SHAPES, k22_frames
+    for f, h, w in K22_SHAPES + ((1, 64, 96),):
+        src, rec, ssim = k22_frames(kind, f, h, w, seed=h + f)
+        want = tmet.frame_metrics_plain(tuple(T(p) for p in src),
+                                        tuple(T(p) for p in rec),
+                                        ssim).numpy()
+        rng = np.random.default_rng(w)
+        ctas = -(-(h // 8) * -(-w // K22_STRIP) // K22_WARPS)
+        orders = [[np.arange(ctas)] * f, [np.arange(ctas)[::-1]] * f] + [
+            [rng.permutation(ctas) for _ in range(f)] for _ in range(2)]
+        outs, win = k22_model(src, rec, ssim, orders)
+        got = outs[0]
+        for o in outs[1:]:
+            assert o.tobytes() == got.tobytes()
+        np.testing.assert_array_equal(got[:, :3], want[:, :3])
+        if ssim:
+            pw = tmet.ssim_windows(T(src[0]), T(rec[0])).numpy()
+            assert win.tobytes() == pw.tobytes(), (f, h, w)
+            assert np.abs(got[:, 3] - want[:, 3]).max() <= 1e-6
+        else:
+            assert (got[:, 3] == 0).all()
+        if kind == "identical":
+            assert (got[:, :3] == 0).all() and (got[:, 3] == 1).all()

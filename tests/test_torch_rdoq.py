@@ -22,6 +22,8 @@ RDOQ stage of kernel K2) against the JAX package on the CPU:
 The module runs at the lowest CPU priority (`test_torch_slice.yield_cpu`).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -53,6 +55,19 @@ NF = 5
 
 _jax_rdoq = jax.jit(jrdoq.rdoq_adjust, static_argnames=("c_idx", "st",
                                                         "cg_pass"))
+
+
+@functools.partial(jax.jit, static_argnames=("intra", "c_idx", "st"))
+def _jax_rdoq_chain(orig, pred, qp, lam, intra, c_idx, st):
+    """The JAX residual chain with RDOQ and SBH under jit, as the trees run
+    it (one compile a configuration instead of one for each eager
+    operation): (levels, recon)."""
+    co = j_fwd(orig[:, None] - pred)
+    q4 = qp[:, None, None, None]
+    jl = j_quant(co, q4, intra=intra)
+    jl = jrdoq.rdoq_adjust(co, jl, qp[:, None], lam[:, None], c_idx, st)
+    jl = j_sbh(jl)
+    return jl, jnp.clip(pred + j_inv(j_deq(jl, q4)), 0, 255)
 
 
 def T(a):
@@ -160,19 +175,23 @@ def test_coefficient_near_ties_match_jax(n, st, c_idx):
     log2n = n.bit_length() - 1
     step = rdoq.pixel_step_sse(n).astype(np.float64)
     rtab = torch.as_tensor(rdoq.rate_consts(st, c_idx))
-    cases = []
+    draws = []
     for i in range(6000):
         qp = int(rng.integers(0, 52))
         a = int(rng.integers(1, 40)) if i % 10 else int(rng.integers(8196,
                                                                      8199))
         qb, sc = 14 + qp // 6 + 7 - log2n, QS[qp % 6]
         c = int((a - 1 + rng.random()) * 2 ** qb / sc)
-        if not 0 < c < 2 ** 24:
-            continue
+        if 0 < c < 2 ** 24:
+            draws.append((qp, a, c, qb, sc))
+    # the rates of a and a - 1 of every draw, in one call
+    qa = torch.tensor([[d[0], d[0]] for d in draws])
+    la = torch.tensor([[d[1], d[1] - 1] for d in draws])
+    rates = rdoq.level_rate(la, qa, rtab).double().numpy()
+    cases = []
+    for (qp, a, c, qb, sc), r in zip(draws, rates):
         q = float(np.float32(np.float32(c) * np.float32(sc))
                   / np.float32(2.0 ** qb))
-        r = rdoq.level_rate(torch.tensor([a, a - 1]), torch.tensor([qp, qp]),
-                            rtab).double().numpy()
         if r[0] == r[1]:
             continue
         lam0 = step[qp] * ((q - a + 1) ** 2 - (q - a) ** 2) / (r[0] - r[1])
@@ -278,13 +297,8 @@ def test_residual_chain_with_rdoq_matches_jax_chain(n, intra):
         lv, rec, ssd = residual_chain_plain(T(orig), T(pred), T(qp), True,
                                             intra=intra, rdoq=True,
                                             lam=T(lam), st=st, c_idx=c_idx)
-        co = j_fwd(jnp.asarray(orig[:, None] - pred))
-        q4 = jnp.asarray(qp)[:, None, None, None]
-        jl = j_quant(co, q4, intra=intra)
-        jl = jrdoq.rdoq_adjust(co, jl, jnp.asarray(qp)[:, None],
-                               jnp.asarray(lam)[:, None], c_idx, st)
-        jl = j_sbh(jl)
-        jr = jnp.clip(jnp.asarray(pred) + j_inv(j_deq(jl, q4)), 0, 255)
+        jl, jr = _jax_rdoq_chain(orig, pred, qp, lam, intra=intra,
+                                 c_idx=c_idx, st=st)
         np.testing.assert_array_equal(lv.numpy(), np.asarray(jl))
         np.testing.assert_array_equal(rec.numpy(), np.asarray(jr))
         np.testing.assert_array_equal(

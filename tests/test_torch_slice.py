@@ -61,6 +61,21 @@ def build_jax_native_once():
 build_jax_native_once()
 
 
+def build_port_native_once():
+    """Build the port's native CABAC library (`x265amod_tpu_torch.native`)
+    while the processes of a parallel test run collect the tests, as
+    `build_jax_native_once` does the JAX package's: its build at first use
+    holds a lock (`utils.build.build_library`), so the first process builds
+    it and the others wait and load it; no test pays for the build.  A
+    build that fails is left to the tests that need the library."""
+    from x265amod_tpu_torch.native import get_cabac_lib
+    with contextlib.suppress(RuntimeError, OSError):
+        get_cabac_lib()
+
+
+build_port_native_once()
+
+
 @contextlib.contextmanager
 def lowest_cpu_priority():
     """Run the block with every thread of this process at nice 19 (threads

@@ -70,7 +70,7 @@ from ..ops.sao import sao_pack
 from ..utils.params import Param, check_params
 from .b_frame import BFrameEncoder
 from .inter_frame import MAX_MERGE, InterFrameEncoder
-from .inter_tree import BTreeEncoder, InterTreeEncoder
+from .inter_tree import BTreeEncoder, InterTreeEncoder, RefPicture
 from .intra_frame import IntraFrameEncoder
 from .intra_tree import IntraTreeEncoder, qp32_of
 from .lookahead import Lookahead
@@ -239,7 +239,8 @@ class Encoder:
         # GOP scheduler state (JAX `Encoder.__init__` :246-251): display
         # counter, current CVS start, previous anchor, the mini-GOP buffer
         # [(yp, cbp, crp, poc)] in display order, decoded picture buffer
-        # (poc -> device recon planes)
+        # (poc -> `RefPicture`: device recon planes and, once made, the
+        # half-pel plane)
         self._last_idr = 0
         self._prev_anchor = None
         self._gop_buf: list = []
@@ -593,7 +594,9 @@ class Encoder:
             e["qp_map"] = np.repeat(np.repeat(qp32_of(qp16), 2, 0), 2, 1) \
                 if self.use_tree else qp16
         if self.inter_enabled and e["is_ref"]:
-            self._dpb[poc] = handle["recon_dev"]
+            # the entry keeps the picture's half-pel plane once a tree's
+            # motion search has made it, and drops it with the picture
+            self._dpb[poc] = RefPicture(handle["recon_dev"])
         if self.inter_enabled and e["last_in_gop"]:
             keep = {e["anchor_poc"]} | set(
                 self._anchor_hist[-self.num_ref_p:])

@@ -8,8 +8,9 @@ Four phases per P frame, as in the JAX `_encode` (:171):
    (kernel K5 `me_ssd_grid_mv`, the argmin in its epilogue), the +-2 qpel
    refinement (K6 `subpel_refine`), and an inter trial at each size (K7
    `mc_qpel`, K2 `residual_chain` with inter rounding, K3 `tu_bits` at P
-   init states); the SSD grids over the half-pel plane (K8 `hpel_plane`)
-   that price sub-pel merge candidates.  With
+   init states); the SSD grids over the half-pel plane (K8 `hpel_plane`,
+   one launch a reference picture: the encoder's DPB keeps each plane in
+   its `RefPicture`) that price sub-pel merge candidates.  With
    several references, the best one per CU by trial cost with its ref_idx
    bins (K18 `pick_ref`, :274-290).  The intra trial of every cell on
    source references (`_intra_trial16`, :798: K1, K2, K3).
@@ -140,6 +141,34 @@ def _unblocks(blocks):
 
 def _bc(flag, n):
     return flag[:, None].expand(-1, n)
+
+
+class RefPicture(tuple):
+    """A reference picture as the encoder's DPB keeps it: its device planes
+    (y, cb, cr), with its half-pel luma plane (K8), made by the first
+    motion search that reads the picture and kept while the DPB keeps it,
+    so a picture costs one K8 launch however many frames and list entries
+    reference it.  Every reader's kernels are enqueued on the same stream
+    after the launch that writes the plane, so none reads it early."""
+
+    def __new__(cls, planes):
+        pic = super().__new__(cls, planes)
+        pic.hpel = None
+        return pic
+
+    def hpel_of(self, ref_y):
+        """The picture's half-pel plane; ``ref_y`` is its luma as the trees
+        hold it (int32 [H, W]), read only at the first call."""
+        if self.hpel is None:
+            self.hpel = hpel_plane(ref_y)
+        return self.hpel
+
+
+def _pictures(ref_dev):
+    """Per entry of a reference list (a list of plane tuples, or one tuple),
+    its `RefPicture` or None."""
+    refs = ref_dev if isinstance(ref_dev, list) else [ref_dev]
+    return [r if isinstance(r, RefPicture) else None for r in refs]
 
 
 class InterTreeEncoder:
@@ -276,15 +305,18 @@ class InterTreeEncoder:
         best, j = eval_luma(oy_flat, refs, 16, qp16, lam16, mb, st=self.ST)
         return j, best
 
-    def _phase1(self, y, refs_y, maps, tables):
+    def _phase1(self, y, refs_y, maps, tables, pics=None):
         """Stage-1 outputs in raster order (JAX :219-296): per reference the
         ME MVs, sub-pel refinement and trials; with R > 1 references the
         best one per CU (K18 `pick_ref`, :274-290); the intra trial; and the
         SSD grids of every reference stacked as JAX flattens them (see
-        `_stack_grids`).  refs_y [R, H, W]; tables (dsf, refbits)."""
+        `_stack_grids`).  refs_y [R, H, W]; tables (dsf, refbits); pics:
+        per reference its `RefPicture` (which keeps its half-pel plane) or
+        None."""
         per = []
         for r in range(refs_y.shape[0]):
-            m = self._motion_search(y, refs_y[r], maps)
+            m = self._motion_search(y, refs_y[r], maps,
+                                    pics[r] if pics else None)
             m.update(self._subpel(y, refs_y[r], maps, m))
             per.append(m)
         st1 = dict(grid=self._stack_grids(per))
@@ -318,16 +350,18 @@ class InterTreeEncoder:
         candidate on reference r reads row base + (sub R + r) n + idx."""
         return torch.cat([p["grids"][k] for k in range(4) for p in per], 0)
 
-    def _motion_search(self, y, ref_y, maps):
+    def _motion_search(self, y, ref_y, maps, pic=None):
         """Integer ME (JAX `best_mv` :227 before the refinement): the SSD
         grids at 16 and 32 over the reference with their cost argmin (K5,
         the argmin in its epilogue: `me_ssd_grid_mv`), and the grids over
         the half-pel plane (K8, K5) that price sub-pel merge candidates:
         grids [g16, g16 half-pel, g32, g32 half-pel].  The argmin's cost is
-        the FMA XLA forms (`int_mv_argmin_plain`)."""
+        the FMA XLA forms (`int_mv_argmin_plain`).  The half-pel plane is
+        the reference picture's own (`RefPicture.hpel_of`, one K8 launch a
+        picture) where ``pic`` is given, else made here."""
         out = {}
         grids = []
-        rh = hpel_plane(ref_y)
+        rh = hpel_plane(ref_y) if pic is None else pic.hpel_of(ref_y)
         for bn, lam in ((16, maps["lam16"]), (32, maps["lam32"])):
             cur = _blocks(y, bn).reshape(-1, bn, bn)
             g, out[f"mvi{bn}"] = me_ssd_grid_mv(cur, ref_y, self.sr, bn, lam)
@@ -947,17 +981,19 @@ class InterTreeEncoder:
     # ---- one P frame ---------------------------------------------------------
 
     def _step(self, y, cb, cr, refs, qp: int, tables, forced=None,
-              want_recon=False, want_costs=False, qp_offsets=None):
+              want_recon=False, want_costs=False, qp_offsets=None,
+              pics=None):
         """The four phases, loop filter and metrics for one frame on the
         device against the L0 list ``refs`` (stacked [R, H, W] luma, cb,
         cr) with its tables (dsf, refbits), with the per-16-cell QP offsets
-        [h16, w16] of AQ and CU-tree when given.  Returns a dict of device
+        [h16, w16] of AQ and CU-tree when given; ``pics``: the list's
+        `RefPicture`s (see `_phase1`).  Returns a dict of device
         tensors."""
         maps = self._maps(qp, qp_offsets)
         y, cb, cr = (t.to(torch.int32) for t in (y, cb, cr))
         h16, w16 = self.h16, self.w16
         if forced is None:
-            st1 = self._phase1(y, refs[0], maps, tables)
+            st1 = self._phase1(y, refs[0], maps, tables, pics)
             dec = self._decide(st1, maps, tables, want_costs=want_costs)
             imode = st1["imode16"]
         else:
@@ -1038,7 +1074,8 @@ class InterTreeEncoder:
         out, rec = self._step(self._upload(y), self._upload(cb),
                               self._upload(cr), refs, qp, tables,
                               want_recon=want_recon, want_costs=want_costs,
-                              qp_offsets=qp_offsets)
+                              qp_offsets=qp_offsets,
+                              pics=_pictures(ref_dev))
         return self._to_host(out, rec)
 
     def encode_async_load(self, y, cb, cr, ref_dev, qp: int, split, kinds,
@@ -1144,25 +1181,25 @@ class BTreeEncoder(InterTreeEncoder):
 
     # ---- phase 1 -------------------------------------------------------------
 
-    def _phase1_b(self, y, refs, maps, excess):
+    def _phase1_b(self, y, refs, maps, excess, pics=None):
         """ME on both lists, the trials and the intra trial.  Returns
         raster-order tensors: mv{l}_{bn} [nb, 2], d{bn} and rb{bn} [nb, 3]
         (L0, L1, bi), grid{l} (the stacked SSD grids of list l), di16 and
-        imode16."""
-        st = self._motion_b(y, refs, maps)
+        imode16; pics: each list's `RefPicture` or None."""
+        st = self._motion_b(y, refs, maps, pics)
         st.update(self._trials_b(y, refs, maps, st, excess))
         st["di16"], st["imode16"] = self._intra_trial16(
             _blocks(y, 16), _blocks(y, 16).reshape(-1, 16, 16),
             maps["qp16"], maps["lam16"])
         return st
 
-    def _motion_b(self, y, refs, maps):
+    def _motion_b(self, y, refs, maps, pics=None):
         """ME on both lists (JAX :1233-1260): the P tree's integer search,
         refinement and half-pel grids per reference (K5, K6, K8), keyed
         mv{l}_{bn} and grid{l}."""
         st = {}
         for li, ref in enumerate(refs):
-            m = self._motion_search(y, ref, maps)
+            m = self._motion_search(y, ref, maps, pics[li] if pics else None)
             m.update(self._subpel(y, ref, maps, m))
             st.update({f"mv{li}_16": m["mv16"], f"mv{li}_32": m["mv32"],
                        f"grid{li}": self._stack_grids([m])})
@@ -1496,7 +1533,8 @@ class BTreeEncoder(InterTreeEncoder):
     # ---- one B frame -------------------------------------------------------------
 
     def _step_b(self, y, cb, cr, refs0, refs1, qp: int, dsf, forced=None,
-                want_recon=False, want_costs=False, qp_offsets=None):
+                want_recon=False, want_costs=False, qp_offsets=None,
+                pics=None):
         maps = self._maps(qp, qp_offsets)
         y, cb, cr = (t.to(torch.int32) for t in (y, cb, cr))
         refs0 = tuple(t.to(torch.int32) for t in refs0)
@@ -1504,7 +1542,8 @@ class BTreeEncoder(InterTreeEncoder):
         h16, w16 = self.h16, self.w16
         excess = []             # K9's window checks, read in collect
         if forced is None:
-            st1 = self._phase1_b(y, (refs0[0], refs1[0]), maps, excess)
+            st1 = self._phase1_b(y, (refs0[0], refs1[0]), maps, excess,
+                                 pics)
             dec = self._decide_b(st1, maps, dsf, want_costs=want_costs)
             imode = st1["imode16"]
         else:
@@ -1560,7 +1599,8 @@ class BTreeEncoder(InterTreeEncoder):
         out, rec = self._step_b(
             self._upload(y), self._upload(cb), self._upload(cr), ref0_dev,
             ref1_dev, qp, (dsf0, dsf1), want_recon=want_recon,
-            want_costs=want_costs, qp_offsets=qp_offsets)
+            want_costs=want_costs, qp_offsets=qp_offsets,
+            pics=_pictures([ref0_dev, ref1_dev]))
         return self._to_host(out, rec)
 
     def encode_async_load(self, y, cb, cr, ref0_dev, ref1_dev, qp: int,

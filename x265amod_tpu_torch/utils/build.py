@@ -2,12 +2,15 @@
 
 Outputs go to `build/x265amod_tpu_torch/` beside the package (the repo's
 `.gitignore` lists `build/`).  A build writes a temporary file and renames
-it into place, so concurrent processes never load a half-written library.
+it into place, so concurrent processes never load a half-written library,
+and holds a lock on the library's name meanwhile, so the processes that
+need it at once build it once: the others wait and find it up to date.
 A failed build raises: the port has no fallback for a missing library.
 """
 
 from __future__ import annotations
 
+import fcntl
 import os
 import subprocess
 
@@ -24,15 +27,18 @@ def build_library(sources: list[str], name: str, cmd: list[str],
     Returns (path, compiler output)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, name)
-    if os.path.exists(out) and all(
-            os.path.getmtime(out) >= os.path.getmtime(s)
-            for s in list(sources) + list(deps)):
-        return out, ""
-    tmp = f"{out}.tmp{os.getpid()}"
-    proc = subprocess.run(cmd + ["-o", tmp] + sources, capture_output=True,
-                          text=True, timeout=timeout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"build of {name} failed:\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    with open(f"{out}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(out) and all(
+                os.path.getmtime(out) >= os.path.getmtime(s)
+                for s in list(sources) + list(deps)):
+            return out, ""
+        tmp = f"{out}.tmp{os.getpid()}"
+        proc = subprocess.run(cmd + ["-o", tmp] + sources,
+                              capture_output=True, text=True,
+                              timeout=timeout)
+        if proc.returncode != 0:
+            raise RuntimeError(f"build of {name} failed:\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+        return out, proc.stdout + proc.stderr
